@@ -1,0 +1,320 @@
+"""The four schedules of the scan engine, and the plain version of every kernel.
+
+The PyTorch counterpart of the reference's ``kernels/scan_engine/
+schedules.py``. Prefix-scan performance is decided by how the
+sub-procedures are ORGANIZED, not by the operator, so each schedule is
+written once over a ``KernelSpec`` and a ``Rows`` layout:
+
+  carry      single-pass accumulate: one block per row walks the row's
+             chunks, the running total in a register. read n + write n.
+  decoupled  reduce-then-scan: a parallel totals pass, a sequential
+             exclusive chain over the chunk totals, a parallel apply pass
+             that rescans each chunk and adds its offset. read 2n +
+             write n — the price of spreading ONE row over the card.
+  fused      decoupled in one launch. Not ported yet (ROADMAP): it runs
+             decoupled, as the reference does off-TPU.
+  tree       carry's row walk with the work-efficient Blelloch sweep as
+             the in-tile network (the paper's §3.3). read n + write n.
+
+A schedule launches the CUDA kernels of ``cuda.py`` (sum only) when its
+operand lies on a CUDA device, and runs the plain PyTorch versions below
+when it lies on the CPU. There is no fallback between the two: a CUDA
+tensor goes through a kernel or raises.
+
+The plain versions keep the reference's association order exactly, so
+they are bitwise equal to the reference and to the kernels, floats
+included: carry, decoupled and fused share one in-tile network and one
+left-to-right chain, so they are bitwise equal to each other on any
+data; tree associates differently inside a tile and agrees with them
+bitwise on exact data and to rounding error otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.scan import policy
+from repro_torch.core.scan.assoc import SUM_KERNEL, KernelSpec
+from repro_torch.kernels.scan_engine import cuda
+from repro_torch.obs import trace
+
+LANES = 128
+
+SCHEDULES = ("carry", "decoupled", "fused", "tree")
+RESOLVABLE = SCHEDULES + ("auto",)
+
+
+def resolve_schedule(schedule: str, batch: int, n: int, block_elems: int,
+                     cores: int = policy.NUM_CORES) -> str:
+    """'auto' -> the policy's four-way rule; else validate.
+
+    ``block_elems`` is the chunk length the kernel will actually tile the
+    scanned axis with; ``cores`` the SMs (or CPU cores) a launch spreads
+    over.
+    """
+    if schedule not in RESOLVABLE:
+        raise ValueError(
+            f"unknown schedule {schedule!r}; one of {RESOLVABLE}")
+    if schedule == "auto":
+        return policy.choose_schedule(batch, n, cores,
+                                      block_elems=block_elems)
+    return schedule
+
+
+# ---------------------------------------------------------------------------
+# Plain in-tile networks (over the last axis; leading axes are independent)
+# ---------------------------------------------------------------------------
+
+
+def _shift(x, k, fill):
+    """Shift ``x`` right by ``k`` along the last axis, filling with
+    the identity."""
+    head = torch.full(x.shape[:-1] + (k,), fill, dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([head, x[..., :x.shape[-1] - k]], dim=-1)
+
+
+def shift_one(spec: KernelSpec, leaves):
+    """Exclusive shift: one step right, identity-filled (all leaves)."""
+    return tuple(_shift(x, 1, f) for x, f in zip(leaves, spec.fills))
+
+
+def log_scan(spec: KernelSpec, leaves):
+    """Hillis–Steele log-step inclusive scan of monoid leaves (§3.1)."""
+    n = leaves[0].shape[-1]
+    k = 1
+    while k < n:
+        shifted = tuple(_shift(x, k, f) for x, f in zip(leaves, spec.fills))
+        leaves = spec.combine(shifted, leaves)
+        k *= 2
+    return leaves
+
+
+def tile_scan(spec: KernelSpec, leaves):
+    """In-tile inclusive scan; two-level split on lane-divisible tiles.
+
+    When the tile is a multiple of 128 longer than 128: scan within each
+    128-lane segment, exclusive-scan the segment totals, broadcast-combine
+    ("scan the vector in register, broadcast the last element").
+    """
+    n = leaves[0].shape[-1]
+    if n > LANES and n % LANES == 0:
+        r = n // LANES
+        ts = tuple(x.reshape(x.shape[:-1] + (r, LANES)) for x in leaves)
+        ts = log_scan(spec, ts)
+        tot = tuple(t[..., LANES - 1] for t in ts)      # per-segment totals
+        off = shift_one(spec, log_scan(spec, tot))      # exclusive
+        ts = spec.combine(tuple(o[..., None] for o in off), ts)
+        return tuple(t.reshape(x.shape) for t, x in zip(ts, leaves))
+    return log_scan(spec, leaves)
+
+
+def _blelloch(spec: KernelSpec, leaves):
+    """Recursive pairwise Blelloch sweep; power-of-two length required.
+
+    Up-sweep: ``combine(evens, odds)`` (left argument earlier), recursing
+    on the half-length pair totals. Down-sweep: each even slot takes its
+    parent's exclusive prefix and each odd slot ``combine(parent,
+    old_left)``. Returns ``(exclusive_scan, root_total)``, the total with
+    a size-1 last axis.
+    """
+    m = leaves[0].shape[-1]
+    if m == 1:
+        ident = tuple(torch.full_like(x, f) for x, f in zip(leaves, spec.fills))
+        return ident, leaves
+    evens = tuple(x[..., 0::2] for x in leaves)
+    odds = tuple(x[..., 1::2] for x in leaves)
+    parent_excl, total = _blelloch(spec, spec.combine(evens, odds))
+    right = spec.combine(parent_excl, evens)   # combine(parent, old_left)
+    excl = tuple(torch.stack([l, r], dim=-1).reshape(l.shape[:-1] + (m,))
+                 for l, r in zip(parent_excl, right))
+    return excl, total
+
+
+def tree_scan(spec: KernelSpec, leaves):
+    """Work-efficient in-tile EXCLUSIVE scan (§3.3 balanced tree).
+
+    Pads to a power of two with the identity, runs the Blelloch sweep,
+    and returns ``(exclusive_scan, total)``.
+    """
+    n = leaves[0].shape[-1]
+    m = 1
+    while m < n:
+        m *= 2
+    if m != n:
+        leaves = tuple(
+            torch.cat([x, torch.full(x.shape[:-1] + (m - n,), f,
+                                     dtype=x.dtype, device=x.device)], dim=-1)
+            for x, f in zip(leaves, spec.fills))
+    excl, total = _blelloch(spec, leaves)
+    return tuple(x[..., :n] for x in excl), total
+
+
+def exclusive_chain(spec: KernelSpec, totals):
+    """Sequential exclusive scan of (rows, chunks) chunk totals along the
+    chunk axis — the plain version of the ``chain`` kernel.
+
+    Left to right from the identity, applying ``combine`` in exactly the
+    carry schedule's order: what makes decoupled bit-identical to carry.
+    """
+    carry = tuple(torch.full_like(t[:, 0], f)
+                  for t, f in zip(totals, spec.fills))
+    offs = []
+    for j in range(totals[0].shape[1]):
+        offs.append(carry)
+        carry = spec.combine(carry, tuple(t[:, j] for t in totals))
+    if not offs:
+        return tuple(torch.empty_like(t) for t in totals)
+    return tuple(torch.stack([o[i] for o in offs], dim=1)
+                 for i in range(len(totals)))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels
+# ---------------------------------------------------------------------------
+
+
+def _tiles(spec, operands, layout):
+    """Operands as (rows, chunks, bn) tiles in the accumulation dtypes."""
+    dts = spec.elem_dtypes(tuple(o.dtype for o in operands))
+    shape = (layout.rows, layout.num_seq_blocks, layout.bn)
+    return tuple(o.reshape(shape).to(dt) for o, dt in zip(operands, dts))
+
+
+def _emit(spec, operands, layout, combined):
+    dts = spec.out_dtypes(tuple(o.dtype for o in operands))
+    return tuple(combined[i].reshape(layout.shape).to(dt)
+                 for i, dt in zip(spec.out_leaves, dts))
+
+
+def _select(spec, scanned, exclusive):
+    return shift_one(spec, scanned) if exclusive else scanned
+
+
+def _offset(spec, offsets, sel):
+    """combine(offset, sel) with the offset as the EARLIER operand."""
+    return spec.combine(tuple(o[..., None] for o in offsets), sel)
+
+
+def totals_plain(operands, spec, layout):
+    """Plain ``totals``: the last element of each tile's network."""
+    scanned = tile_scan(spec, _tiles(spec, operands, layout))
+    return tuple(s[..., -1] for s in scanned)
+
+
+def apply_plain(operands, offsets, spec, layout, exclusive=False):
+    """Plain ``apply``: rescan each tile and combine its chunk offset."""
+    scanned = tile_scan(spec, _tiles(spec, operands, layout))
+    sel = _select(spec, scanned, exclusive)
+    return _emit(spec, operands, layout, _offset(spec, offsets, sel))
+
+
+def carry_plain(operands, spec, layout, exclusive=False):
+    """Plain ``carry``: each tile's network, combined with the running
+    carry of the tiles before it (carry = carry ⊕ last, from the
+    identity, left to right)."""
+    scanned = tile_scan(spec, _tiles(spec, operands, layout))
+    carries = exclusive_chain(spec, tuple(s[..., -1] for s in scanned))
+    sel = _select(spec, scanned, exclusive)
+    return _emit(spec, operands, layout, _offset(spec, carries, sel))
+
+
+def tree_plain(operands, spec, layout, exclusive=False):
+    """Plain ``tree``: the Blelloch network per tile; the carry advances
+    by each tile's root."""
+    elems = _tiles(spec, operands, layout)
+    excl, total = tree_scan(spec, elems)
+    sel = excl if exclusive else spec.combine(excl, elems)
+    carries = exclusive_chain(spec, tuple(t[..., 0] for t in total))
+    return _emit(spec, operands, layout, _offset(spec, carries, sel))
+
+
+# ---------------------------------------------------------------------------
+# Schedules
+# ---------------------------------------------------------------------------
+
+
+def _cuda_operand(operands, spec):
+    """The operand when it lies on CUDA (sum only), else None."""
+    if not any(o.is_cuda for o in operands):
+        return None
+    if spec is not SUM_KERNEL:
+        raise NotImplementedError(
+            f"no CUDA kernel for the {spec.name!r} spec yet (ROADMAP "
+            "Queue 2)")
+    (x,) = operands
+    return x
+
+
+def scan_carry(operands, spec, layout, *, exclusive=False):
+    x = _cuda_operand(operands, spec)
+    if x is not None:
+        return (cuda.carry(x, layout, exclusive),)
+    return carry_plain(operands, spec, layout, exclusive)
+
+
+def scan_decoupled(operands, spec, layout, *, exclusive=False):
+    x = _cuda_operand(operands, spec)
+    if x is not None:
+        offsets = cuda.chain(cuda.totals(x, layout))
+        return (cuda.apply(x, offsets, layout, exclusive),)
+    offsets = exclusive_chain(spec, totals_plain(operands, spec, layout))
+    return apply_plain(operands, offsets, spec, layout, exclusive)
+
+
+def scan_fused(operands, spec, layout, *, exclusive=False):
+    """Single-launch decoupled. The port has no native single-launch
+    kernel yet (its Hopper form is a decoupled look-back scan, ROADMAP
+    Queue 2), so every request runs the bit-identical two-launch form."""
+    return scan_decoupled(operands, spec, layout, exclusive=exclusive)
+
+
+def scan_tree(operands, spec, layout, *, exclusive=False):
+    x = _cuda_operand(operands, spec)
+    if x is not None:
+        return (cuda.tree(x, layout, exclusive),)
+    return tree_plain(operands, spec, layout, exclusive)
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+def _launch_event(operands, spec: KernelSpec, layout, schedule: str) -> None:
+    """Record a ``kernel.launch`` trace event with the reference's fields:
+    monoid, schedule, grid, one tile's bytes (``vmem_block_bytes_est``,
+    the shared-memory working set here) and the schedule's device-memory
+    traffic (read/write bytes). Costs one attribute check when tracing is
+    disabled."""
+    if not trace.enabled():
+        return
+    in_bytes = sum(o.numel() * o.element_size() for o in operands)
+    tile_bytes = sum(layout.bb * layout.bn * o.element_size()
+                     for o in operands)
+    out_dts = spec.out_dtypes(tuple(o.dtype for o in operands))
+    out_bytes = sum(layout.rows * layout.n * dt.itemsize for dt in out_dts)
+    # decoupled's totals pass re-reads the data; fused runs decoupled here.
+    reads = 2 * in_bytes if schedule in ("decoupled", "fused") else in_bytes
+    trace.instant(
+        "kernel.launch", monoid=spec.name, schedule=schedule, fold=False,
+        grid=list(layout.grid), vmem_block_bytes_est=tile_bytes,
+        hbm_read_bytes_est=reads, hbm_write_bytes_est=out_bytes)
+
+
+def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
+         exclusive: bool = False):
+    """Run ``spec``'s monoid scan over ``operands`` under one schedule.
+
+    Returns a tuple of output tensors (the sum registration emits one).
+    """
+    if schedule not in SCHEDULES:
+        raise ValueError(
+            f"unknown schedule {schedule!r}; one of {SCHEDULES}")
+    if exclusive and not spec.supports_exclusive:
+        raise ValueError(
+            f"monoid {spec.name!r} does not support exclusive mode")
+    _launch_event(operands, spec, layout, schedule)
+    fn = {"carry": scan_carry, "decoupled": scan_decoupled,
+          "fused": scan_fused, "tree": scan_tree}[schedule]
+    return fn(tuple(operands), spec, layout, exclusive=exclusive)
