@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prefix-sum main path on one CUDA card.
+"""Drive the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,26 +9,44 @@ first failure and prints no result):
   1. environment and build: the card's name and power limit, torch/CUDA/
      nvcc versions, and the build of ``src/repro_torch/csrc/scan_sum.cu``
      with ``nvcc`` for ``sm_90a`` (its seconds and ptxas report);
-  2. every kernel against its plain PyTorch version on the card, bitwise:
-     the four schedules x {inclusive, exclusive} x {f32, bf16, int32} on
-     (3, 517), (64, 2^18) and (1, 2^24) with block_n 512, 2048, 8192 and
-     16384 (the largest tile the kernels take);
-  3. the main path through ``repro_torch.core.scan.cumsum`` at a column
-     store's size — (a) one column of 2^28 float32 (auto: kernel, fused,
-     which runs decoupled), (b) a (8192, 32768) float32 batch through
-     algorithm="kernel" (schedule auto: carry), (c) the batch with
-     schedule="tree", block_n=8192 — and its
-     backward at (1, 2^24); the kernel launch counters are zeroed before
-     and read after, and every kernel of the path must have launched.
-     Then the outputs are checked: carry == decoupled == fused bitwise on
-     (a), tree and the batch within a stated tolerance of a float64
-     ``torch.cumsum``, a 2^28 int32 column exact under all four
-     schedules, and the gradient bitwise equal to the plain
+  2. every sum kernel against its plain PyTorch version on the card,
+     bitwise: the four schedules x {inclusive, exclusive} x {f32, bf16,
+     int32} on (3, 517), (64, 2^18) and (1, 2^24) with block_n 512, 2048,
+     8192 and 16384 (the largest tile the kernels take); then the same
+     sweep for the segmented-sum kernels (f32/bf16/int32 values, int32
+     flags with negative and non-unit values) and the mask kernels,
+     outputs and running chunk totals, with carry == decoupled == fused
+     checked bitwise across schedules, and messy flags (negative,
+     fractional, leading) through ``segmented_cumsum``;
+  3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
+     a column store's size — (a) one column of 2^28 float32 (auto: kernel,
+     fused, which runs decoupled), (b) a (8192, 32768) float32 batch
+     through algorithm="kernel" (schedule auto: carry), (c) the batch with
+     schedule="tree", block_n=8192 — and its backward at (1, 2^24); the
+     launch counters are zeroed before and read after, and every sum
+     kernel must have launched. Then the outputs are checked: carry ==
+     decoupled == fused bitwise on (a), tree and the batch within a stated
+     tolerance of a float64 ``torch.cumsum``, a 2^28 int32 column exact
+     under all four schedules, and the gradient bitwise equal to the plain
      flip(cumsum(flip(g)));
-  4. times (CUDA events, median after warm-up) of each schedule on (a)
-     and (b), and of each kernel at its main-path shape, beside the
-     device-memory bound and ``torch.cumsum`` (a yardstick only: the port
-     never calls it).
+  4. the relational main path at column-store scale: TPC-H v3.0.1 at
+     SF 10 generated on the card from ``--seed`` (§4.2.3: 15,000,000
+     ORDERS, 1-7 LINEITEM rows each), then Q6 (``filter_compact`` +
+     sum), Q1 (``filter_compact`` + ``group_by`` sum/mean/count of four
+     value columns on returnflag x linestatus), a Q3-shaped ``hash_join``
+     (radix-sorted build side), and per-row-group (2^18 rows) mask
+     compaction and a per-order running window sum (``mask_compact``,
+     ``segmented_cumsum``: carry, and tree at block_n 8192), all under
+     the policy's own choices; the launch counters are zeroed before and
+     read after, and every segmented-sum and mask kernel must have
+     launched. Every result is checked against a float64/int64 PyTorch
+     computation on the card: counts, group counts and join pairs exact,
+     float sums within 1e-4 relative;
+  5. times (CUDA events, median after warm-up) of each sum schedule on
+     (a) and (b), and of every kernel at its main-path shape, beside the
+     device-memory bound, its plain version and, where one exists, the
+     one-call PyTorch function (a yardstick only: the port never calls
+     it).
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -46,6 +64,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+CU_SOURCE = "src/repro_torch/csrc/scan_sum.cu"
 
 # Device-memory rate (bytes/s) and float32 non-tensor-core peak (ops/s)
 # of the H100 variants, from NVIDIA's data sheets.
@@ -53,6 +72,7 @@ MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
 F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 
 SCHEDULES = ("carry", "decoupled", "fused", "tree")
+KERNELS = ("carry", "totals", "chain", "apply", "tree")
 USES = {"carry": ("carry",), "decoupled": ("totals", "chain", "apply"),
         "fused": ("totals", "chain", "apply"), "tree": ("tree",)}
 REPLACES = {
@@ -66,6 +86,19 @@ REPLACES = {
 # largest prefix magnitude: rounding walks ~sqrt(n) half-ulps along the
 # carry chain, ~1e-5 of the range at these sizes; 1e-4 leaves a 10x margin.
 REL_TOL = 1e-4
+
+# TPC-H v3.0.1 at SF 10 (§4.2.3), dates as days since 1992-01-01.
+SF = 10
+N_ORDERS = 1_500_000 * SF
+ORDERDATE_MAX = 2405          # ENDDATE (1998-12-31) - 151 days
+CURRENTDATE = 1263            # 1995-06-17
+Q6_FROM, Q6_TO = 731, 1096    # [1994-01-01, 1995-01-01)
+Q1_SHIP_MAX = 2436            # 1998-12-01 - 90 days = 1998-09-02
+Q3_DATE = 1169                # 1995-03-15
+ROW_GROUP = 1 << 18           # rows of one column-store row group
+# Float sums of the relational phase against float64: float32 rounding
+# along a chain of ~10^4 chunk totals stays near 1e-6 relative.
+REL_SUM_TOL = 1e-4
 
 
 class SmokeFailure(AssertionError):
@@ -98,21 +131,32 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
+    from repro_torch import relational as rel
     from repro_torch.core.scan import api, policy
+    from repro_torch.kernels.compact import ops as kc_ops
     from repro_torch.kernels.scan_engine import Rows, cuda, monoids, schedules
+    from repro_torch.kernels.segscan import ops as seg_ops
+    from repro_torch.obs import trace
+    from repro_torch.relational import compact as rel_compact
+    from repro_torch.relational import groupby as rel_groupby
+    from repro_torch.relational.partition import apply_plan
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     bw, f32_peak = rate(MEM_RATE, name), rate(F32_RATE, name)
-    SUM = monoids.SUM
+    SUM, SEGSUM = monoids.SUM, monoids.SEGMENTED_SUM
 
     def sync():
         torch.cuda.synchronize(dev)
 
     def normals(shape, dtype=torch.float32):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def randint(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen,
+                             dtype=dtype)
 
     def bits(t):
         return t.view({4: torch.int32, 2: torch.int16,
@@ -121,6 +165,16 @@ def main() -> int:
     def same_bits(a, b):
         return a.shape == b.shape and a.dtype == b.dtype and \
             torch.equal(bits(a), bits(b))
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for item in x for t in flat(item)]
+
+    def all_same_bits(xs, ys):
+        xs, ys = flat(xs), flat(ys)
+        return len(xs) == len(ys) and all(same_bits(a, b)
+                                          for a, b in zip(xs, ys))
 
     def time_ms(fn, reps, warmup=1):
         for _ in range(warmup):
@@ -137,19 +191,30 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def bound_ms(nbytes, adds):
-        t_bytes, t_ops = nbytes / bw * 1e3, adds / f32_peak * 1e3
+    def wall_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def bound_ms(nbytes, ops):
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
+
+    def rel_err(got, want):
+        got, want = got.double(), want.double()
+        return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
 
     # -- 1. environment and build ------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-          f"cuda {torch.version.cuda}  SMs "
-          f"{torch.cuda.get_device_properties(dev).multi_processor_count}")
+          f"cuda {torch.version.cuda}  SMs {sms}")
     nvcc = subprocess.run([cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
@@ -157,32 +222,35 @@ def main() -> int:
     cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{os.path.relpath(cuda.SOURCE, ROOT)}")
-    for line in cuda.build_log.splitlines():
-        if "Used" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    log = cuda.build_log.splitlines()
+    regs = [int(line.split("Used")[1].split("registers")[0])
+            for line in log if "Used" in line and "registers" in line]
+    spills = sum("spill stores" in line and not (
+        "0 bytes spill stores" in line and "0 bytes spill loads" in line)
+        for line in log)
+    if regs:
+        print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spills} with spills")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
-    plain = {"carry": schedules.carry_plain, "tree": schedules.tree_plain}
-
-    def plain_decoupled(ops_, spec, lay, exclusive):
-        offs = schedules.exclusive_chain(
-            spec, schedules.totals_plain(ops_, spec, lay))
-        return schedules.apply_plain(ops_, offs, spec, lay, exclusive)
-
-    plain["decoupled"] = plain["fused"] = plain_decoupled
     kernel = {"carry": schedules.scan_carry,
               "decoupled": schedules.scan_decoupled,
               "fused": schedules.scan_fused, "tree": schedules.scan_tree}
+    plain = schedules.PLAIN
+    grid = ((3, 517), (64, 1 << 18), (1, 1 << 24))
+
+    def blocks(n):
+        # the blocks the wrappers tile with: min(block_n, round_up(n, 128))
+        return sorted({min(b, -(-n // 128) * 128)
+                       for b in (512, 2048, 8192, 16384)})
+
     n_checks = 0
-    for rows, n in ((3, 517), (64, 1 << 18), (1, 1 << 24)):
-        # the blocks ops.cumsum tiles with: min(block_n, round_up(n, 128))
-        for bn in sorted({min(b, -(-n // 128) * 128)
-                          for b in (512, 2048, 8192, 16384)}):
+    for rows, n in grid:
+        for bn in blocks(n):
             pad = (-n) % bn
             for dtype in (torch.float32, torch.bfloat16, torch.int32):
                 if dtype == torch.int32:
-                    x = torch.randint(-9, 9, (rows, n), device=dev,
-                                      generator=gen, dtype=dtype)
+                    x = randint(-9, 9, (rows, n), dtype)
                 else:
                     x = normals((rows, n), dtype)
                 x = F.pad(x, (0, pad)).contiguous()
@@ -201,18 +269,75 @@ def main() -> int:
                               f"kernel != plain: {s} excl={exclusive} "
                               f"{dtype} ({rows}, {n}) bn={bn}")
                         n_checks += 1
-            print(f"kernel == plain bitwise: ({rows}, {n}) bn={bn} "
+            print(f"sum kernel == plain bitwise: ({rows}, {n}) bn={bn} "
                   f"x 3 dtypes x 4 schedules x 2 modes")
-    print(f"phase 2: {n_checks} kernel-vs-plain checks, all bitwise equal")
+    print(f"phase 2 (sum): {n_checks} kernel-vs-plain checks, all bitwise "
+          "equal")
 
-    # -- 3. the main path, with launch counts ------------------------------
+    def spec_sweep(spec, operands, lay, what):
+        """Each schedule's kernel vs its plain version (outputs and running
+        totals), and carry == decoupled == fused; returns the checks."""
+        results = {}
+        for s in SCHEDULES:
+            cuda.reset_launches()
+            outs, tot = kernel[s](operands, spec, lay, return_totals=True)
+            sync()
+            want = tuple(cuda.kernel_name(spec.name, k) for k in USES[s])
+            check([k for k in want if cuda.LAUNCHES[k]] == list(want),
+                  f"{spec.name} {s} launched {cuda.LAUNCHES}")
+            w_outs, w_tot = plain[s](operands, spec, lay,
+                                     return_totals=True)
+            check(all_same_bits(outs, w_outs) and all_same_bits(tot, w_tot),
+                  f"{spec.name} kernel != plain: {s} {what}")
+            results[s] = outs + tot
+        for s in ("decoupled", "fused"):
+            check(all_same_bits(results[s], results["carry"]),
+                  f"{spec.name} {s} != carry bitwise: {what}")
+        return len(SCHEDULES)
+
+    n_seg = n_mask = 0
+    for rows, n in grid:
+        for bn in blocks(n):
+            pad = (-n) % bn
+            lay = Rows(rows, n + pad, 1, bn)
+            # engine-level flags: nonzero values other than 1 (negative,
+            # 2) must act as boundaries too
+            fl = randint(0, 100, (rows, n))
+            fl = torch.where(fl == 0, -3, torch.where(fl == 1, 2, 0))
+            fl = F.pad(fl.to(torch.int32), (0, pad)).contiguous()
+            for dtype in (torch.float32, torch.bfloat16, torch.int32):
+                if dtype == torch.int32:
+                    x = randint(-9, 9, (rows, n), dtype)
+                else:
+                    x = normals((rows, n), dtype)
+                x = F.pad(x, (0, pad)).contiguous()
+                n_seg += spec_sweep(SEGSUM, (x, fl), lay,
+                                    f"{dtype} ({rows}, {n}) bn={bn}")
+            m = F.pad((randint(0, 2, (rows, n))), (0, pad)).contiguous()
+            n_mask += spec_sweep(monoids.mask(n + pad), (m,), lay,
+                                 f"({rows}, {n}) bn={bn}")
+            print(f"segsum (3 dtypes) and mask kernels == plain bitwise, "
+                  f"carry == decoupled == fused: ({rows}, {n}) bn={bn}")
+    v8 = torch.ones(8, device=dev)
+    for flags in ([0, 0, 0.5, 0, 0.5, 0, 0, 0], [0, 0, -1, 0, -3, 0, 0, 0],
+                  [-2, 0, 0, 0.25, 0, 0, 0, 7]):
+        ft = torch.tensor(flags, device=dev)
+        for s in SCHEDULES:
+            got = seg_ops.segmented_cumsum(v8, ft, schedule=s)
+            want = seg_ops.segmented_cumsum(v8.cpu(), ft.cpu(), schedule=s)
+            check(torch.equal(got.cpu(), want),
+                  f"messy flags {flags} under {s}: {got.tolist()}")
+    print(f"phase 2 (segsum, mask): {n_seg} + {n_mask} schedule runs, "
+          "outputs and running totals bitwise equal to the plain versions; "
+          "messy flags (negative, fractional, leading) equal to the CPU")
+
+    # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
     xa = normals((na,))
     xb = normals((8192, 32768))
     ng = 1 << 24
     xg = normals((1, ng)).requires_grad_()
     g = normals((1, ng))
-    sms = policy.cores_of(xa)
     sched_g = schedules.resolve_schedule("auto", 1, ng, 2048, sms)
     choice_a = policy.choose(na, 4, batch=1, cores=sms)
     choice_b = policy.choose(32768, 4, batch=8192, cores=sms)
@@ -237,9 +362,10 @@ def main() -> int:
     fwd = dict(cuda.LAUNCHES)
     (dx,) = torch.autograd.grad(yg, xg, g)
     sync()
-    launches = dict(cuda.LAUNCHES)
-    print(f"main-path launches: {launches} (before the backward: {fwd})")
-    for k in launches:
+    launches = {k: cuda.LAUNCHES[k] for k in KERNELS}
+    print(f"sum main-path launches: {launches} (before the backward: "
+          f"{ {k: fwd[k] for k in KERNELS} })")
+    for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
     for k in USES[sched_g]:
         check(launches[k] > fwd[k], f"backward did not launch {k}")
@@ -269,8 +395,7 @@ def main() -> int:
           f"(tolerance {REL_TOL} x max|prefix|): fused {err_a:.4g}, "
           f"tree {err_t:.4g}; (b) carry {err_b:.4g}; (c) tree {err_c:.4g}")
 
-    xi = torch.randint(-4, 5, (na,), device=dev, generator=gen,
-                       dtype=torch.int32)
+    xi = randint(-4, 5, (na,))
     ref_i = torch.cumsum(xi.long(), 0)
     for s in SCHEDULES:
         yi = api.cumsum(xi, algorithm="kernel", schedule=s)
@@ -287,7 +412,231 @@ def main() -> int:
           "flip(cumsum(flip(g))) bitwise")
     del xg, g, dx, want, yg
 
-    # -- 4. times ----------------------------------------------------------
+    # -- 4. the relational main path: TPC-H SF 10 on the card --------------
+    t0 = time.perf_counter()
+    o_idx = torch.arange(1, N_ORDERS + 1, device=dev, dtype=torch.int64)
+    o_orderkey = ((o_idx >> 3) << 5) + (o_idx & 7)    # dbgen's sparse keys
+    o_orderkey = o_orderkey.to(torch.int32)
+    o_orderdate = randint(0, ORDERDATE_MAX + 1, (N_ORDERS,))
+    lines = randint(1, 8, (N_ORDERS,), torch.int64)
+    order_of = torch.repeat_interleave(
+        torch.arange(N_ORDERS, device=dev), lines)
+    T = order_of.numel()
+    l_orderkey = o_orderkey[order_of]
+    l_quantity = randint(1, 51, (T,))
+    partkey = randint(1, SF * 200_000 + 1, (T,), torch.int64)
+    retail_cents = (90_000 + (partkey // 10) % 20_001
+                    + 100 * (partkey % 1000))
+    l_extendedprice = (l_quantity.double() * retail_cents.double()
+                       / 100).float()
+    disc_cents = randint(0, 11, (T,))
+    l_discount = disc_cents.float() / 100
+    l_tax = randint(0, 9, (T,)).float() / 100
+    l_shipdate = o_orderdate[order_of] + randint(1, 122, (T,))
+    receipt = l_shipdate + randint(1, 31, (T,))
+    # A = 0, N = 1, R = 2; F = 0, O = 1
+    l_returnflag = torch.where(receipt <= CURRENTDATE,
+                               2 * randint(0, 2, (T,)), 1)
+    l_linestatus = (l_shipdate > CURRENTDATE).to(torch.int32)
+    del partkey, retail_cents, receipt, lines
+    sync()
+    print(f"TPC-H SF {SF} on the card (seed {args.seed}): {N_ORDERS} orders,"
+          f" {T} lineitems, generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    route_mask = (rel_compact._resolve("auto", l_quantity),
+                  schedules.resolve_schedule("auto", 1, T, 2048, sms))
+    trace.enable()
+    trace.get().clear()
+    sync()
+    cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # Q6: revenue of one year's mid-discount, small-quantity lines
+    q6_mask = ((l_shipdate >= Q6_FROM) & (l_shipdate < Q6_TO)
+               & (disc_cents >= 5) & (disc_cents <= 7) & (l_quantity < 24))
+    rev = l_extendedprice * l_discount
+    (q6_rows, q6_count), ms_q6 = wall_ms(
+        lambda: rel.filter_compact(rev, q6_mask))
+    q6_rev = q6_rows[:int(q6_count)].sum()
+
+    # Q1: pricing summary after the shipdate filter
+    q1_mask = l_shipdate <= Q1_SHIP_MAX
+    disc_price = l_extendedprice * (1 - l_discount)
+    q1_vals = torch.stack([l_quantity.float(), l_extendedprice, disc_price,
+                           disc_price * (1 + l_tax)], dim=1)
+    q1_ids_all = (l_returnflag * 2 + l_linestatus).to(torch.int32)
+    ((v1, q1_count), (ids1, _)), ms_q1f = wall_ms(lambda: (
+        rel.filter_compact(q1_vals, q1_mask),
+        rel.filter_compact(q1_ids_all, q1_mask)))
+    T1 = int(q1_count)
+    v1, ids1 = v1[:T1], ids1[:T1]
+    q1_sum, ms_q1s = wall_ms(lambda: rel.group_by(ids1, v1, 6, "sum"))
+    q1_mean, ms_q1m = wall_ms(lambda: rel.group_by(ids1, v1, 6, "mean"))
+    q1_cnt, ms_q1c = wall_ms(lambda: rel.group_by(ids1, v1, 6, "count"))
+    route_seg = (rel_groupby._seg_algorithm("auto", "sum", T1, 4, True),
+                 schedules.resolve_schedule("auto", 4, T1, 2048, sms))
+
+    # Q3-shaped join: lines shipped after the date with orders placed
+    # before it (build side: the orders, radix-sorted)
+    probe = l_orderkey[l_shipdate > Q3_DATE]
+    build = o_orderkey[o_orderdate < Q3_DATE]
+    (join, ms_join) = wall_ms(lambda: rel.hash_join(probe, build,
+                                                    max_matches=None))
+    join_peak = torch.cuda.max_memory_allocated(dev)
+
+    # per-row-group compaction and a per-order running window sum
+    R = T // ROW_GROUP
+    pred_rows = q6_mask[:R * ROW_GROUP].view(R, ROW_GROUP)
+    (rg_dest, rg_cnt), ms_rgc = wall_ms(lambda: kc_ops.mask_compact(
+        pred_rows))
+    (rg_dest_t, rg_cnt_t), ms_rgt = wall_ms(lambda: kc_ops.mask_compact(
+        pred_rows, block_n=8192))
+    price_rows = l_extendedprice[:R * ROW_GROUP].view(R, ROW_GROUP)
+    keys_rows = l_orderkey[:R * ROW_GROUP].view(R, ROW_GROUP)
+    win_flags = torch.ones_like(keys_rows)
+    win_flags[:, 1:] = (keys_rows[:, 1:] != keys_rows[:, :-1]).to(
+        torch.int32)
+    win, ms_win = wall_ms(lambda: seg_ops.segmented_cumsum(price_rows,
+                                                           win_flags))
+    win_t, ms_wint = wall_ms(lambda: seg_ops.segmented_cumsum(
+        price_rows, win_flags, block_n=8192))
+    sync()
+    rel_launches = dict(cuda.LAUNCHES)
+    events = [e for e in trace.get().events() if e["name"] == "kernel.launch"]
+    by_monoid = {}
+    for e in events:
+        key = (e["args"]["monoid"], e["args"]["schedule"])
+        by_monoid[key] = by_monoid.get(key, 0) + 1
+    trace.disable()
+    route_rg = (schedules.resolve_schedule("auto", R, ROW_GROUP, 2048, sms),
+                schedules.resolve_schedule("auto", R, ROW_GROUP, 8192, sms))
+    route_sort = schedules.resolve_schedule("auto", 256, build.numel(), 2048,
+                                            sms)
+    print(f"relational launches: "
+          f"{ {k: v for k, v in rel_launches.items() if v} }")
+    print("kernel.launch events (monoid, schedule): "
+          + ", ".join(f"{k[0]}/{k[1]} x{v}" for k, v in
+                      sorted(by_monoid.items())))
+    for spec_name in ("segsum", "mask"):
+        for k in KERNELS:
+            kn = cuda.kernel_name(spec_name, k)
+            check(rel_launches[kn] > 0,
+                  f"kernel {kn} never launched on the relational path")
+        check(any(m == spec_name for m, _ in by_monoid),
+              f"no kernel.launch event with monoid={spec_name}")
+    print(f"route Q6 filter_compact: {route_mask[0]} / {route_mask[1]} "
+          f"(T = {T}); {ms_q6:.1f} ms")
+    print(f"route Q1 filter_compact x2: {route_mask[0]} / fused; "
+          f"{ms_q1f:.1f} ms; group_by sum/mean: {route_seg[0]} / "
+          f"{route_seg[1]} (T = {T1}, 4 columns); sum {ms_q1s:.1f} ms, "
+          f"mean {ms_q1m:.1f} ms, count (partition only) {ms_q1c:.1f} ms")
+    print(f"route Q3 hash_join: radix_sort of {build.numel()} build keys "
+          f"(4 passes of 256 buckets; their one-hot scans {route_sort}), "
+          f"probe of {probe.numel()} rows (offsets: kernel cumsum); "
+          f"{ms_join:.1f} ms; peak memory of the phase "
+          f"{join_peak / 2**30:.2f} GiB (the join at SF {SF}, not cut)")
+    print(f"route row groups ({R} x {ROW_GROUP}): mask_compact "
+          f"{route_rg[0]} {ms_rgc:.1f} ms, block_n 8192 {route_rg[1]} "
+          f"{ms_rgt:.1f} ms; segmented_cumsum {route_rg[0]} "
+          f"{ms_win:.1f} ms, block_n 8192 {route_rg[1]} {ms_wint:.1f} ms")
+    check(route_mask == ("kernel", "fused") and route_seg == ("kernel",
+                                                              "fused")
+          and route_rg == ("carry", "tree"), "unexpected routes")
+
+    # checks against float64/int64 on the card
+    want_q6 = int(q6_mask.sum())
+    check(int(q6_count) == want_q6, f"Q6 count {int(q6_count)} != {want_q6}")
+    check(torch.equal(q6_rows[:want_q6], rev[q6_mask]),
+          "Q6 compacted rows != rev[mask]")
+    want_rev = (l_extendedprice.double() * l_discount.double())[q6_mask].sum()
+    err_q6 = abs(q6_rev.item() - want_rev.item()) / abs(want_rev.item())
+    check(err_q6 <= REL_SUM_TOL, f"Q6 revenue rel err {err_q6}")
+    check(T1 == int(q1_mask.sum()), "Q1 filter count")
+    want_cnt = torch.bincount(q1_ids_all[q1_mask].long(), minlength=6)
+    check(torch.equal(q1_cnt.long(), want_cnt), "Q1 group counts")
+    want_sum = torch.zeros((6, 4), dtype=torch.float64, device=dev)
+    want_sum.index_add_(0, q1_ids_all[q1_mask].long(),
+                        q1_vals[q1_mask].double())
+    err_q1 = rel_err(q1_sum, want_sum)
+    want_mean = want_sum / want_cnt.clamp_min(1)[:, None].double()
+    err_q1m = rel_err(q1_mean, want_mean)
+    check(err_q1 <= REL_SUM_TOL and err_q1m <= REL_SUM_TOL,
+          f"Q1 rel err sum {err_q1} mean {err_q1m}")
+    sorted_b, perm_b = torch.sort(build)
+    pos = torch.searchsorted(sorted_b, probe).clamp_max(build.numel() - 1)
+    hit = sorted_b[pos] == probe
+    want_l = torch.nonzero(hit).flatten()
+    want_r = perm_b[pos[hit]]
+    c = int(join.count)
+    check(c == want_l.numel() and join.left_index.numel() == c,
+          f"join count {c} != {want_l.numel()}")
+    check(torch.equal(join.left_index.long(), want_l)
+          and torch.equal(join.right_index.long(), want_r),
+          "join pairs != the torch.sort/searchsorted join")
+    rg_want = torch.cumsum(pred_rows.long(), 1) - pred_rows.long()
+    rg_want = torch.where(pred_rows, rg_want, ROW_GROUP)
+    check(torch.equal(rg_dest.long(), rg_want) and torch.equal(
+        rg_cnt.long(), pred_rows.sum(1)), "row-group compaction")
+    check(torch.equal(rg_dest_t, rg_dest) and torch.equal(rg_cnt_t, rg_cnt),
+          "row-group compaction: tree != carry")
+    c64 = torch.cumsum(price_rows.double(), 1)
+    seg = torch.cumsum(win_flags.flatten().long(), 0) - 1
+    starts = torch.nonzero(win_flags.flatten()).flatten()
+    base = (c64.flatten() - price_rows.flatten().double())[starts]
+    win_want = c64.flatten() - base[seg]
+    err_win = max(rel_err(win.flatten(), win_want),
+                  rel_err(win_t.flatten(), win_want))
+    check(err_win <= REL_SUM_TOL, f"window sum rel err {err_win}")
+    del c64, seg, base, win_want
+    print(f"Q6: {want_q6} rows, revenue {q6_rev.item():.6e} (float64 "
+          f"{want_rev.item():.6e}, rel err {err_q6:.3g}); Q1: {T1} rows, "
+          f"group counts exact {want_cnt.tolist()}, sums rel err "
+          f"{err_q1:.3g}, means {err_q1m:.3g}; join: {c} pairs == "
+          f"torch.sort/searchsorted join; row groups: compaction exact "
+          f"(carry == tree), window sums rel err {err_win:.3g} "
+          f"(tolerance {REL_SUM_TOL})")
+
+    # where each operator's device time goes (one profiled call each)
+    from torch.profiler import ProfilerActivity, profile
+
+    def short(kname):
+        for k in ("carry_kernel", "totals_kernel", "chain_kernel",
+                  "apply_kernel", "tree_kernel"):
+            if k in kname:
+                spec = ("segsum" if "SegSum" in kname else "mask"
+                        if "Mask" in kname else "sum")
+                return f"{spec}.{k[:-7]}"
+        return kname[:40]
+
+    for label, fn in (
+            ("Q6 filter_compact", lambda: rel.filter_compact(rev, q6_mask)),
+            ("Q1 group_by sum", lambda: rel.group_by(ids1, v1, 6, "sum")),
+            ("Q3 hash_join", lambda: rel.hash_join(probe, build,
+                                                   max_matches=None))):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = wall_ms(fn)
+        kern = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue  # host-side ops: their device time is their kernels'
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            kern[short(ev.key)] = kern.get(short(ev.key), 0) + dev_us
+        busy = sum(kern.values()) / 1e3
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+        if busy > 0:
+            print(f"profile {label}: wall {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}); top: "
+                  + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top))
+        else:
+            print(f"profile {label}: wall {wall:.1f} ms, device time not "
+                  "measured (the profiler recorded none)")
+
+    # -- 5. times ----------------------------------------------------------
     nb = xb.numel()
     lib_a = time_ms(lambda: torch.cumsum(xa, 0), 5)
     lib_b = time_ms(lambda: torch.cumsum(xb, 1), 5)
@@ -305,55 +654,143 @@ def main() -> int:
     print(f"time (b) 8192x32768 auto -> {choice_b.algorithm}: {ms:9.3f} ms "
           "(the reference's per-row size rule)")
 
-    # per kernel, at the shape the main path gave it
-    lay_a = Rows(1, na, 1, 2048)
-    xa2 = xa.view(1, na)
-    lay_b = Rows(8192, 32768, 8, 2048)
-    lay_c = Rows(8192, 32768, 8, 8192)
-    tot = cuda.totals(xa2, lay_a)
-    offs = cuda.chain(tot)
-    n_chunks = tot.numel()
     rows = []
 
-    def kernel_row(kname, run, run_plain, nbytes, adds, reps, library):
-        got = run()
-        want = run_plain()
+    def kernel_row(kname, run, run_plain, nbytes, ops, reps, library,
+                   shape, launched):
+        got, want = flat(run()), flat(run_plain())
         sync()
-        check(same_bits(got, want), f"{kname}: kernel != plain at the "
+        check(all_same_bits(got, want), f"{kname}: kernel != plain at the "
               "main-path shape")
-        err = (got.double() - want.double()).abs().max().item()
+        err = max((a.double() - b.double()).abs().max().item()
+                  for a, b in zip(got, want))
         del got, want
         ms = time_ms(run, reps)
         plain_ms = time_ms(run_plain, 1, warmup=0)
         lib_ms = None if library is None else time_ms(library, reps)
-        b_ms, b_by = bound_ms(nbytes, adds)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        base = kname.split("_")[-1]
         rows.append({
-            "name": kname, "route": "cuda",
-            "source": "src/repro_torch/csrc/scan_sum.cu",
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": CU_SOURCE,
+            "replaces": REPLACES[base], "launches": launched[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        print(f"kernel {kname:6s}: {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})  library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+        print(f"kernel {kname:14s} {shape:24s}: {ms:9.3f} ms  plain "
+              f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by})  library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
 
-    kernel_row("carry", lambda: cuda.carry(xb, lay_b, False),
-               lambda: schedules.carry_plain((xb,), SUM, lay_b)[0],
-               8 * nb, nb, 5, lambda: torch.cumsum(xb, 1))
-    kernel_row("totals", lambda: cuda.totals(xa2, lay_a),
-               lambda: schedules.totals_plain((xa2,), SUM, lay_a)[0],
+    # sum kernels at the prefix-sum main path's shapes
+    lay_a = Rows(1, na, 1, 2048)
+    xa2 = xa.view(1, na)
+    lay_b = Rows(8192, 32768, 8, 2048)
+    lay_c = Rows(8192, 32768, 8, 8192)
+    (tot,) = cuda.totals(SUM, (xa2,), lay_a)
+    (offs,), _ = cuda.chain(SUM, (tot,))
+    n_chunks = tot.numel()
+    kernel_row("carry", lambda: cuda.carry(SUM, (xb,), lay_b)[0],
+               lambda: schedules.carry_plain((xb,), SUM, lay_b),
+               8 * nb, nb, 5, lambda: torch.cumsum(xb, 1),
+               "(8192, 32768) bn 2048", launches)
+    kernel_row("totals", lambda: cuda.totals(SUM, (xa2,), lay_a),
+               lambda: schedules.totals_plain((xa2,), SUM, lay_a),
                4 * na + 4 * n_chunks, na, 5,
-               lambda: xa2.view(1, n_chunks, 2048).sum(-1))
-    kernel_row("chain", lambda: cuda.chain(tot),
-               lambda: schedules.exclusive_chain(SUM, (tot,))[0],
-               8 * n_chunks, n_chunks, 5, None)
-    kernel_row("apply", lambda: cuda.apply(xa2, offs, lay_a, False),
-               lambda: schedules.apply_plain((xa2,), (offs,), SUM,
-                                             lay_a)[0],
-               8 * na + 4 * n_chunks, na, 5, None)
-    kernel_row("tree", lambda: cuda.tree(xb, lay_c, False),
-               lambda: schedules.tree_plain((xb,), SUM, lay_c)[0],
-               8 * nb, nb, 5, lambda: torch.cumsum(xb, 1))
+               lambda: xa2.view(1, n_chunks, 2048).sum(-1),
+               "(1, 2^28) bn 2048", launches)
+    kernel_row("chain", lambda: cuda.chain(SUM, (tot,))[0],
+               lambda: schedules.exclusive_chain(SUM, (tot,)),
+               8 * n_chunks, n_chunks, 5, lambda: torch.cumsum(tot, 1),
+               f"(1, {n_chunks}) totals", launches)
+    kernel_row("apply", lambda: cuda.apply(SUM, (xa2,), (offs,), lay_a),
+               lambda: schedules.apply_plain((xa2,), (offs,), SUM, lay_a),
+               8 * na + 4 * n_chunks, na, 5, None,
+               "(1, 2^28) bn 2048", launches)
+    kernel_row("tree", lambda: cuda.tree(SUM, (xb,), lay_c)[0],
+               lambda: schedules.tree_plain((xb,), SUM, lay_c),
+               8 * nb, nb, 5, lambda: torch.cumsum(xb, 1),
+               "(8192, 32768) bn 8192", launches)
+    del xa, xb, xa2, tot, offs
+
+    # mask kernels: decoupled at Q6's column, carry/tree at the row groups
+    pad = (-T) % 2048
+    m6 = F.pad((q6_mask != 0).to(torch.int32), (0, pad)).view(1, T + pad)
+    lay6 = Rows(1, T + pad, 1, 2048)
+    mspec = monoids.mask(T + pad)
+    (mt,) = cuda.totals(mspec, (m6,), lay6)
+    (mo,), _ = cuda.chain(mspec, (mt,), True)
+    c6 = mt.numel()
+    kernel_row("mask_totals", lambda: cuda.totals(mspec, (m6,), lay6),
+               lambda: schedules.totals_plain((m6,), mspec, lay6),
+               4 * (T + pad) + 4 * c6, T + pad, 5,
+               lambda: m6.view(1, c6, 2048).sum(-1, dtype=torch.int32),
+               f"(1, {T + pad}) bn 2048", rel_launches)
+    kernel_row("mask_chain", lambda: cuda.chain(mspec, (mt,), True),
+               lambda: (schedules.exclusive_chain(mspec, (mt,)),
+                        (schedules.exclusive_chain(mspec, (mt,))[0] + mt,)),
+               12 * c6, c6, 5, lambda: torch.cumsum(mt, 1),
+               f"(1, {c6}) totals", rel_launches)
+    kernel_row("mask_apply",
+               lambda: cuda.apply(mspec, (m6,), (mo,), lay6),
+               lambda: schedules.apply_plain((m6,), (mo,), mspec, lay6),
+               8 * (T + pad) + 4 * c6, T + pad, 5, None,
+               f"(1, {T + pad}) bn 2048", rel_launches)
+    rg = pred_rows.to(torch.int32).contiguous()
+    nrg = rg.numel()
+    rspec = monoids.mask(ROW_GROUP)
+    for kname, fn, plain_fn, bn in (
+            ("mask_carry", cuda.carry, schedules.carry_plain, 2048),
+            ("mask_tree", cuda.tree, schedules.tree_plain, 8192)):
+        lay = Rows(R, ROW_GROUP, 1, bn)
+        kernel_row(kname,
+                   lambda: fn(rspec, (rg,), lay, return_totals=True),
+                   lambda: plain_fn((rg,), rspec, lay, return_totals=True),
+                   8 * nrg + 4 * R * (ROW_GROUP // bn), nrg, 5, None,
+                   f"({R}, {ROW_GROUP}) bn {bn}", rel_launches)
+    del m6, mt, mo, rg
+    print(f"mask decoupled at ({T + pad},): bound "
+          f"{12 * (T + pad) / bw * 1e3:.4f} ms (12 B per element)")
+
+    # segmented-sum kernels: decoupled at Q1's group_by, carry/tree at
+    # the row-group window
+    plan = rel.partition_plan(ids1, 6)
+    (sv,) = apply_plan(plan, v1)
+    sflags = torch.zeros((T1 + 1,), dtype=torch.int32, device=dev)
+    sflags[plan.offsets.long()] = 1
+    pad = (-T1) % 2048
+    sv = F.pad(sv.t(), (0, pad)).contiguous()
+    sflags = F.pad(sflags[:T1].expand(4, T1), (0, pad)).contiguous()
+    lay1 = Rows(4, T1 + pad, 4, 2048)
+    (st_v, st_f) = cuda.totals(SEGSUM, (sv, sflags), lay1)
+    (so_v, so_f), _ = cuda.chain(SEGSUM, (st_v, st_f))
+    c1 = st_v.numel()
+    n1 = sv.numel()
+    kernel_row("segsum_totals",
+               lambda: cuda.totals(SEGSUM, (sv, sflags), lay1),
+               lambda: schedules.totals_plain((sv, sflags), SEGSUM, lay1),
+               8 * n1 + 8 * c1, n1, 5, None,
+               f"(4, {T1 + pad}) bn 2048", rel_launches)
+    kernel_row("segsum_chain",
+               lambda: cuda.chain(SEGSUM, (st_v, st_f))[0],
+               lambda: schedules.exclusive_chain(SEGSUM, (st_v, st_f)),
+               16 * c1, c1, 5, None, f"(4, {c1 // 4}) totals",
+               rel_launches)
+    kernel_row("segsum_apply",
+               lambda: cuda.apply(SEGSUM, (sv, sflags), (so_v, so_f), lay1),
+               lambda: schedules.apply_plain((sv, sflags), (so_v, so_f),
+                                             SEGSUM, lay1),
+               12 * n1 + 8 * c1, n1, 5, None,
+               f"(4, {T1 + pad}) bn 2048", rel_launches)
+    del sv, sflags, st_v, st_f, so_v, so_f
+    print(f"segsum decoupled at (4, {T1 + pad}): bound "
+          f"{20 * n1 / bw * 1e3:.4f} ms (20 B per element)")
+    wf = win_flags.contiguous()
+    for kname, fn, plain_fn, bn in (
+            ("segsum_carry", cuda.carry, schedules.carry_plain, 2048),
+            ("segsum_tree", cuda.tree, schedules.tree_plain, 8192)):
+        lay = Rows(R, ROW_GROUP, 1, bn)
+        kernel_row(kname, lambda: fn(SEGSUM, (price_rows, wf), lay)[0],
+                   lambda: plain_fn((price_rows, wf), SEGSUM, lay),
+                   12 * nrg, nrg, 5, None, f"({R}, {ROW_GROUP}) bn {bn}",
+                   rel_launches)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ Algorithm map (paper section → module):
   §2.2 cache partition  → blocked.scan_blocked, kernels/scan_blocked (CUDA)
   §5   recommendations  → policy.choose
 
-The vertical and tree SIMD oracles, segmented scans and the distributed
+Segmented scans and the partitioning offsets (the paper's §1 use case)
+→ segmented. The vertical and tree SIMD oracles and the distributed
 forms of the reference come with later slices (ROADMAP).
 """
 
@@ -17,10 +18,16 @@ from repro_torch.core.scan.blocked import (partition_sizes, scan_blocked,
                                            scan_two_pass)
 from repro_torch.core.scan.horizontal import scan_horizontal
 from repro_torch.core.scan.policy import Choice, choose
-from repro_torch.core.scan.reference import cumsum_ref, scan_ref
+from repro_torch.core.scan.reference import (cumsum_ref, scan_ref,
+                                             segmented_scan_ref)
+from repro_torch.core.scan.segmented import (DispatchPlan, dispatch_offsets,
+                                             packed_segment_ids,
+                                             segmented_scan)
 
 __all__ = [
-    "AFFINE", "MAX", "MIN", "PROD", "SUM", "Monoid", "Choice", "assoc",
-    "choose", "cumsum", "cumsum_ref", "partition_sizes", "scan",
-    "scan_blocked", "scan_horizontal", "scan_ref", "scan_two_pass",
+    "AFFINE", "MAX", "MIN", "PROD", "SUM", "Monoid", "Choice", "DispatchPlan",
+    "assoc", "choose", "cumsum", "cumsum_ref", "dispatch_offsets",
+    "packed_segment_ids", "partition_sizes", "scan", "scan_blocked",
+    "scan_horizontal", "scan_ref", "scan_two_pass", "segmented_scan",
+    "segmented_scan_ref",
 ]

@@ -13,8 +13,9 @@ associative over them.
 Monoids that also run inside kernels carry a :class:`KernelSpec` (flat
 tensor leaves, identity fill constants, in-kernel combine) — the
 interface the scan engine (``repro_torch.kernels.scan_engine``) writes
-each schedule against, once. This slice registers the sum spec; the
-segmented, mask, affine and softmax specs come with later slices.
+each schedule against, once. Registered here: sum, segmented sum and the
+compact-mask spec; the affine and softmax specs are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -60,8 +61,14 @@ class KernelSpec:
       elem_dtypes: operand dtypes -> accumulation dtype per element leaf.
       out_dtypes: operand dtypes -> dtype per emitted output.
       out_leaves: which combined leaves are emitted (default: leaf 0).
+      emit: optional ``emit(elems, combined) -> outputs`` override — the
+        in-kernel select emitter (compaction's fused predicate select).
+        ``elems`` are the raw tile elements in the accumulation dtype,
+        ``combined`` the carry-adjusted inclusive scan.
       supports_exclusive: whether the engine may shift-and-fill for
         ``exclusive=True``.
+      sentinel: the value ``emit`` writes for a dropped lane (the mask
+        spec), handed to its CUDA kernel; None for the other specs.
     """
 
     name: str
@@ -70,7 +77,9 @@ class KernelSpec:
     elem_dtypes: Callable[[tuple], tuple]
     out_dtypes: Callable[[tuple], tuple]
     out_leaves: tuple = (0,)
+    emit: "Callable[[tuple, tuple], tuple] | None" = None
     supports_exclusive: bool = True
+    sentinel: "int | None" = None
 
     @property
     def n_leaves(self) -> int:
@@ -162,6 +171,51 @@ SUM_KERNEL = KernelSpec(
 )
 
 
+def _segmented_sum_kcombine(left, right):
+    v1, f1 = left
+    v2, f2 = right
+    # A flag anywhere on the right KILLS the incoming value (Blelloch's
+    # segmented lift). Flags accumulate as a boolean OR of ``!= 0`` — NOT
+    # a max, which a negative nonzero flag would silently escape.
+    seen = torch.logical_or(f1 != 0, f2 != 0)
+    return (torch.where(f2 != 0, v2, v1 + v2), seen.to(f1.dtype))
+
+
+SEGMENTED_SUM_KERNEL = KernelSpec(
+    name="segsum",
+    fills=(0, 0),
+    combine=_segmented_sum_kcombine,
+    elem_dtypes=lambda dts: (accum_dtype(dts[0]), torch.int32),
+    out_dtypes=lambda dts: (dts[0],),
+)
+
+
+def mask_kernel_spec(sentinel: int) -> KernelSpec:
+    """Compact-mask monoid: a 0/1 keep-mask cumsum with the predicate
+    select FUSED into the writeback — surviving lanes emit their exclusive
+    rank (global scatter destination once the chunk offset is combined),
+    dropped lanes emit ``sentinel``. The monoid itself is integer SUM; the
+    select emitter is what makes it stream compaction (paper §1).
+    """
+
+    def emit(elems, combined):
+        m = elems[0]
+        # combined is the carry-adjusted INCLUSIVE mask scan; minus the
+        # element itself gives the exclusive rank (exact: integers).
+        return (torch.where(m != 0, combined[0] - m, sentinel),)
+
+    return KernelSpec(
+        name="mask",
+        fills=(0,),
+        combine=_sum_kcombine,
+        elem_dtypes=lambda dts: (torch.int32,),
+        out_dtypes=lambda dts: (torch.int32,),
+        emit=emit,
+        supports_exclusive=False,
+        sentinel=int(sentinel),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Standard monoids
 # ---------------------------------------------------------------------------
@@ -224,6 +278,8 @@ REGISTRY: dict[str, Monoid] = {m.name: m for m in (SUM, PROD, MAX, MIN, AFFINE)}
 
 
 def get(op: "str | Monoid") -> Monoid:
+    """A registered monoid by name, or ``op`` itself when it is a Monoid
+    (how the segmented lifts of ``segmented()`` reach the scans)."""
     if isinstance(op, Monoid):
         return op
     try:
@@ -231,3 +287,40 @@ def get(op: "str | Monoid") -> Monoid:
     except KeyError:
         raise ValueError(
             f"unknown monoid {op!r}; known: {sorted(REGISTRY)}") from None
+
+
+def segmented(base: Monoid) -> Monoid:
+    """Lift ``base`` into its segmented variant.
+
+    Elements are ``(flag, value)`` where ``flag != 0`` marks the start of
+    a new segment. The scan of the lifted monoid restarts at every flag —
+    the standard construction (Blelloch 1990), used for MoE per-expert
+    ranking and for packed-sequence boundaries.
+    """
+
+    def combine(left, right):
+        f1, v1 = left
+        f2, v2 = right
+        both = base.combine(v1, v2)
+        keep_right = tree_map(
+            lambda b, r: torch.where(_bcast(f2, r), r, b), both, v2)
+        # OR of ``!= 0``, not max: any nonzero flag (negative included)
+        # must keep marking the segment start through later combines.
+        seen = torch.logical_or(f1 != 0, f2 != 0).to(f1.dtype)
+        return (seen, keep_right)
+
+    def identity_like(x):
+        f, v = x
+        return (torch.zeros_like(f), base.identity_like(v))
+
+    kspec = SEGMENTED_SUM_KERNEL if base.name == "sum" else None
+    return Monoid(f"segmented_{base.name}", combine, identity_like,
+                  kernel_spec=kspec)
+
+
+def _bcast(flag, val):
+    """Broadcast a flag tensor against a value tensor from the left."""
+    extra = val.ndim - flag.ndim
+    if extra > 0:
+        flag = flag.reshape(flag.shape + (1,) * extra)
+    return flag != 0

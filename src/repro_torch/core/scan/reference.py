@@ -57,3 +57,15 @@ def cumsum_ref(x: torch.Tensor, axis: int = -1,
     acc = assoc.accum_dtype(x.dtype)
     out = scan_ref(x.to(acc), "sum", axis=axis, exclusive=exclusive)
     return out.to(x.dtype)
+
+
+def segmented_scan_ref(
+    values: Pytree,
+    flags: torch.Tensor,
+    op: "str | assoc.Monoid" = "sum",
+    axis: int = -1,
+) -> Pytree:
+    """Segmented inclusive scan: restart at every nonzero flag."""
+    monoid = assoc.segmented(assoc.get(op))
+    _, out = scan_ref((flags, values), monoid, axis=axis)
+    return out

@@ -1,4 +1,4 @@
-"""Build, bind and launch the sum-scan CUDA kernels (``csrc/scan_sum.cu``).
+"""Build, bind and launch the sum-family scan kernels (``csrc/scan_sum.cu``).
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` at the repository root — a shared library with a plain C
@@ -6,7 +6,11 @@ interface, loaded with ``ctypes`` — and cached there under a hash of the
 source and flags. A missing ``nvcc`` or a failed build raises with the
 compiler's output.
 
-Each wrapper below takes CUDA tensors only: it checks device, dtype, 2-D
+One set of kernels (carry, totals, chain, apply, tree) is written once
+over a spec and instantiated for the three specs with a CUDA kernel: the
+sum, the segmented sum (values and int32 flags) and the compact mask
+(int32 mask, int32 destinations). Each wrapper below takes the spec and
+its operands as the engine passes them, checks device, dtype, 2-D
 contiguity and the ``Rows`` geometry, raises on anything the kernel does
 not take, allocates the outputs with ``torch.empty``, launches on
 PyTorch's current stream, raises if the launch returns an error, and
@@ -25,23 +29,33 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.scan.assoc import accum_dtype
-
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "scan_sum.cu"
 BUILD_DIR = _PKG.parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches since the last ``reset_launches()``, by kernel.
-LAUNCHES = {"carry": 0, "totals": 0, "chain": 0, "apply": 0, "tree": 0}
+# Spec codes of the C interface, by KernelSpec name.
+SPEC_CODES = {"sum": 0, "segsum": 1, "mask": 2}
+KERNELS = ("carry", "totals", "chain", "apply", "tree")
 
-# dtype codes of the C interface (see the dispatch in scan_sum.cu).
+
+def kernel_name(spec_name: str, kernel: str) -> str:
+    """The launch counter's key: ``carry`` for the sum, ``segsum_carry``
+    and ``mask_carry`` for the others."""
+    return kernel if spec_name == "sum" else f"{spec_name}_{kernel}"
+
+
+# Kernel launches since the last ``reset_launches()``, by kernel.
+LAUNCHES = {kernel_name(s, k): 0 for s in SPEC_CODES for k in KERNELS}
+
+# dtype codes of the values (see the dispatch in scan_sum.cu).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int32: 3, torch.int16: 4, torch.int8: 5}
 
-# Longest tile: the tree kernel's (pow2 + copy) buffers of 16384 4-byte
-# words take 128 KB of the 227 KB a block may use.
+# Longest tile: the network's two buffers of 16384 (value, flag) pairs
+# take 160 KB, the tree's of 16384 float32 words 128 KB, of the 227 KB a
+# block may use.
 MAX_BLOCK_N = 16384
 
 _lib = None
@@ -90,30 +104,42 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     signatures = {
-        "scan_sum_carry": (p, p, ll, ll, i, i, i, p),
-        "scan_sum_totals": (p, p, ll, ll, i, i, p),
-        "scan_sum_chain": (p, p, ll, ll, i, p),
-        "scan_sum_apply": (p, p, p, ll, ll, i, i, i, p),
-        "scan_sum_tree": (p, p, ll, ll, i, i, i, p),
+        "scan_carry": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
+        "scan_totals": (i, i, p, p, p, p, ll, ll, i, p),
+        "scan_chain": (i, i, p, p, p, p, p, p, ll, ll, p),
+        "scan_apply": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
+        "scan_tree": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.scan_sum_error_string.argtypes = (ctypes.c_int,)
-    lib.scan_sum_error_string.restype = ctypes.c_char_p
+    lib.scan_error_string.argtypes = (ctypes.c_int,)
+    lib.scan_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
 
-def _check(x: torch.Tensor, layout) -> None:
-    if not x.is_cuda:
+def _on_cuda(t: torch.Tensor) -> None:
+    if not t.is_cuda:
         raise ValueError(
-            f"the CUDA scan kernels take CUDA tensors, got {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(
-            f"no CUDA scan kernel for {x.dtype}; supported: "
-            f"{sorted(str(d) for d in DTYPE_CODES)}")
+            f"the CUDA scan kernels take CUDA tensors, got {t.device}")
+
+
+def _operands(spec, operands, layout):
+    """(spec code, values, flags or None) after the checks."""
+    if spec.name not in SPEC_CODES:
+        raise NotImplementedError(
+            f"no CUDA kernel for the {spec.name!r} spec yet (ROADMAP "
+            "Queue 2)")
+    x = operands[0]
+    _on_cuda(x)
+    if x.dtype not in DTYPE_CODES or (spec.name == "mask"
+                                      and x.dtype != torch.int32):
+        takes = (["torch.int32"] if spec.name == "mask"
+                 else sorted(str(d) for d in DTYPE_CODES))
+        raise TypeError(f"no CUDA scan kernel for {x.dtype} ({spec.name} "
+                        f"spec); supported: {takes}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("the CUDA scan kernels take contiguous 2-D tensors, "
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
@@ -126,84 +152,147 @@ def _check(x: torch.Tensor, layout) -> None:
     if layout.rows * layout.num_seq_blocks >= 2 ** 31:
         raise ValueError(f"{layout.rows} x {layout.num_seq_blocks} tiles "
                          "exceed one launch grid")
+    flags = None
+    if spec.name == "segsum":
+        flags = operands[1]
+        if (flags.device != x.device or flags.dtype != torch.int32
+                or flags.shape != x.shape or not flags.is_contiguous()):
+            raise ValueError(
+                f"segmented flags must be contiguous int32 of shape "
+                f"{tuple(x.shape)} on {x.device}, got {flags.dtype} "
+                f"{tuple(flags.shape)} on {flags.device}")
+    return SPEC_CODES[spec.name], x, flags
 
 
-def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+def _leaf_dtypes(spec, x):
+    """Accumulation dtype of each element leaf (the chain's dtypes); the
+    segmented flags are int32."""
+    return spec.elem_dtypes((x.dtype, torch.int32))
+
+
+def _new_leaves(spec, x, shape):
+    return tuple(torch.empty(shape, dtype=dt, device=x.device)
+                 for dt in _leaf_dtypes(spec, x))
+
+
+def _ptrs(leaves):
+    """(leaf 0, leaf 1) data pointers; None (NULL) where absent."""
+    if leaves is None:
+        return None, None
+    return (leaves[0].data_ptr(),
+            leaves[1].data_ptr() if len(leaves) > 1 else None)
+
+
+def _launch(spec, kernel: str, fn, device, *args) -> None:
+    name = kernel_name(spec.name, kernel)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        msg = build().scan_sum_error_string(err).decode()
-        raise RuntimeError(f"scan_sum_{name} launch failed: {msg} ({err})")
+        msg = build().scan_error_string(err).decode()
+        raise RuntimeError(f"scan kernel {name} launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
 
 
-def carry(x: torch.Tensor, layout, exclusive: bool) -> torch.Tensor:
-    """Carry schedule: one block per row, running total in a register."""
-    _check(x, layout)
-    out = torch.empty_like(x)
+def _out(spec, x, layout):
+    dt = spec.out_dtypes((x.dtype, torch.int32))[0]
+    return torch.empty(layout.shape, dtype=dt, device=x.device)
+
+
+def carry(spec, operands, layout, exclusive=False, return_totals=False):
+    """Carry schedule: one block per row, the running carry in registers.
+    Returns ``(outputs, running totals or None)``."""
+    code, x, flags = _operands(spec, operands, layout)
+    out = _out(spec, x, layout)
+    running = (_new_leaves(spec, x, layout.chain_shape)
+               if return_totals else None)
     if x.numel():
-        _launch("carry", build().scan_sum_carry, x, x.data_ptr(),
-                out.data_ptr(), layout.rows, layout.n, layout.bn,
-                int(exclusive), DTYPE_CODES[x.dtype])
-    return out
+        _launch(spec, "carry", build().scan_carry, x.device, code,
+                DTYPE_CODES[x.dtype], x.data_ptr(),
+                None if flags is None else flags.data_ptr(), out.data_ptr(),
+                *_ptrs(running), layout.rows, layout.n, layout.bn,
+                int(exclusive), spec.sentinel or 0)
+    return (out,), running
 
 
-def totals(x: torch.Tensor, layout) -> torch.Tensor:
-    """Per-chunk totals (rows, chunks) in the accumulation dtype."""
-    _check(x, layout)
-    out = torch.empty(layout.chain_shape, dtype=accum_dtype(x.dtype),
-                      device=x.device)
+def totals(spec, operands, layout):
+    """Per-chunk totals (rows, chunks), one tensor per element leaf in
+    its accumulation dtype."""
+    code, x, flags = _operands(spec, operands, layout)
+    tot = _new_leaves(spec, x, layout.chain_shape)
     if x.numel():
-        _launch("totals", build().scan_sum_totals, x, x.data_ptr(),
-                out.data_ptr(), layout.rows, layout.n, layout.bn,
-                DTYPE_CODES[x.dtype])
-    return out
+        _launch(spec, "totals", build().scan_totals, x.device, code,
+                DTYPE_CODES[x.dtype], x.data_ptr(),
+                None if flags is None else flags.data_ptr(), *_ptrs(tot),
+                layout.rows, layout.n, layout.bn)
+    return tot
 
 
-def chain(totals: torch.Tensor) -> torch.Tensor:
-    """Sequential exclusive chain over (rows, chunks) float32/int32
-    totals, left to right from 0."""
-    if not totals.is_cuda:
+def chain(spec, totals, return_running=False):
+    """Sequential exclusive chain over (rows, chunks) totals, left to right
+    from the identity. Returns ``(offsets, running totals or None)``; the
+    running totals are offset ⊕ total, the carry after each chunk."""
+    if spec.name not in SPEC_CODES:
+        raise NotImplementedError(
+            f"no CUDA kernel for the {spec.name!r} spec yet")
+    n_leaves = 2 if spec.name == "segsum" else 1
+    if len(totals) != n_leaves:
+        raise ValueError(f"{spec.name} chain takes {n_leaves} leaves")
+    t0 = totals[0]
+    _on_cuda(t0)
+    want = (t0.dtype,) + ((torch.int32,) if n_leaves == 2 else ())
+    if t0.dtype not in (torch.float32, torch.int32) or (
+            spec.name == "mask" and t0.dtype != torch.int32):
+        raise TypeError(f"chain takes float32/int32 totals, got {t0.dtype}")
+    for t, dt in zip(totals, want):
+        if (t.device != t0.device or t.dtype != dt or t.dim() != 2
+                or t.shape != t0.shape or not t.is_contiguous()):
+            raise ValueError(
+                f"chain takes contiguous 2-D totals of one shape with "
+                f"dtypes {want}")
+    offsets = tuple(torch.empty_like(t) for t in totals)
+    running = (tuple(torch.empty_like(t) for t in totals)
+               if return_running else None)
+    if t0.numel():
+        _launch(spec, "chain", build().scan_chain, t0.device,
+                SPEC_CODES[spec.name], DTYPE_CODES[t0.dtype], *_ptrs(totals),
+                *_ptrs(offsets), *_ptrs(running), t0.shape[0], t0.shape[1])
+    return offsets, running
+
+
+def apply(spec, operands, offsets, layout, exclusive=False):
+    """Rescan every (row, chunk) tile and combine its chunk offset;
+    returns the outputs."""
+    code, x, flags = _operands(spec, operands, layout)
+    want = _leaf_dtypes(spec, x)
+    if len(offsets) != len(want) or any(
+            tuple(o.shape) != layout.chain_shape or o.dtype != dt
+            or o.device != x.device or not o.is_contiguous()
+            for o, dt in zip(offsets, want)):
         raise ValueError(
-            f"the CUDA scan kernels take CUDA tensors, got {totals.device}")
-    if totals.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"chain takes float32/int32 totals, got "
-                        f"{totals.dtype}")
-    if totals.dim() != 2 or not totals.is_contiguous():
-        raise ValueError("chain takes contiguous 2-D totals")
-    out = torch.empty_like(totals)
-    if totals.numel():
-        _launch("chain", build().scan_sum_chain, totals, totals.data_ptr(),
-                out.data_ptr(), totals.shape[0], totals.shape[1],
-                int(totals.dtype == torch.int32))
-    return out
-
-
-def apply(x: torch.Tensor, offsets: torch.Tensor, layout,
-          exclusive: bool) -> torch.Tensor:
-    """Rescan every (row, chunk) tile and add its chunk offset."""
-    _check(x, layout)
-    if (tuple(offsets.shape) != layout.chain_shape
-            or offsets.dtype != accum_dtype(x.dtype)
-            or offsets.device != x.device or not offsets.is_contiguous()):
-        raise ValueError(
-            f"offsets {tuple(offsets.shape)} {offsets.dtype} on "
-            f"{offsets.device} do not match the chain "
-            f"{layout.chain_shape} {accum_dtype(x.dtype)} on {x.device}")
-    out = torch.empty_like(x)
+            f"offsets {[(tuple(o.shape), o.dtype, str(o.device)) for o in offsets]}"
+            f" do not match the chain {layout.chain_shape} {want} on "
+            f"{x.device}")
+    out = _out(spec, x, layout)
     if x.numel():
-        _launch("apply", build().scan_sum_apply, x, x.data_ptr(),
-                offsets.data_ptr(), out.data_ptr(), layout.rows, layout.n,
-                layout.bn, int(exclusive), DTYPE_CODES[x.dtype])
-    return out
-
-
-def tree(x: torch.Tensor, layout, exclusive: bool) -> torch.Tensor:
-    """Tree schedule: carry's row walk, Blelloch sweep inside each tile."""
-    _check(x, layout)
-    out = torch.empty_like(x)
-    if x.numel():
-        _launch("tree", build().scan_sum_tree, x, x.data_ptr(),
+        _launch(spec, "apply", build().scan_apply, x.device, code,
+                DTYPE_CODES[x.dtype], x.data_ptr(),
+                None if flags is None else flags.data_ptr(), *_ptrs(offsets),
                 out.data_ptr(), layout.rows, layout.n, layout.bn,
-                int(exclusive), DTYPE_CODES[x.dtype])
-    return out
+                int(exclusive), spec.sentinel or 0)
+    return (out,)
+
+
+def tree(spec, operands, layout, exclusive=False, return_totals=False):
+    """Tree schedule: carry's row walk, Blelloch sweep inside each tile.
+    Returns ``(outputs, running totals or None)``."""
+    code, x, flags = _operands(spec, operands, layout)
+    out = _out(spec, x, layout)
+    running = (_new_leaves(spec, x, layout.chain_shape)
+               if return_totals else None)
+    if x.numel():
+        _launch(spec, "tree", build().scan_tree, x.device, code,
+                DTYPE_CODES[x.dtype], x.data_ptr(),
+                None if flags is None else flags.data_ptr(), out.data_ptr(),
+                *_ptrs(running), layout.rows, layout.n, layout.bn,
+                int(exclusive), spec.sentinel or 0)
+    return (out,), running

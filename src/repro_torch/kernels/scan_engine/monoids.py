@@ -2,7 +2,7 @@
 
 Each kernel family is one of these entries; the kernel specs live next to
 their library monoids in ``repro_torch.core.scan.assoc``. This slice
-registers the sum.
+registers the sum, the segmented sum and the compact mask.
 """
 
 from __future__ import annotations
@@ -10,3 +10,13 @@ from __future__ import annotations
 from repro_torch.core.scan import assoc
 
 SUM = assoc.SUM_KERNEL
+SEGMENTED_SUM = assoc.SEGMENTED_SUM_KERNEL
+
+
+def mask(sentinel: int) -> assoc.KernelSpec:
+    """Compact-mask spec: integer mask scan + fused predicate select.
+
+    ``sentinel`` is the destination emitted for dropped lanes (the padded
+    row length, so a size-(n+1) scatter buffer parks them harmlessly).
+    """
+    return assoc.mask_kernel_spec(sentinel)

@@ -16,10 +16,10 @@ written once over a ``KernelSpec`` and a ``Rows`` layout:
   tree       carry's row walk with the work-efficient Blelloch sweep as
              the in-tile network (the paper's §3.3). read n + write n.
 
-A schedule launches the CUDA kernels of ``cuda.py`` (sum only) when its
-operand lies on a CUDA device, and runs the plain PyTorch versions below
-when it lies on the CPU. There is no fallback between the two: a CUDA
-tensor goes through a kernel or raises.
+A schedule launches the CUDA kernels of ``cuda.py`` (the sum, segmented
+sum and mask specs) when its operands lie on a CUDA device, and runs the
+plain PyTorch versions below when they lie on the CPU. There is no
+fallback between the two: a CUDA tensor goes through a kernel or raises.
 
 The plain versions keep the reference's association order exactly, so
 they are bitwise equal to the reference and to the kernels, floats
@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.scan import policy
-from repro_torch.core.scan.assoc import SUM_KERNEL, KernelSpec
+from repro_torch.core.scan.assoc import KernelSpec
 from repro_torch.kernels.scan_engine import cuda
 from repro_torch.obs import trace
 
@@ -181,10 +181,15 @@ def _tiles(spec, operands, layout):
     return tuple(o.reshape(shape).to(dt) for o, dt in zip(operands, dts))
 
 
-def _emit(spec, operands, layout, combined):
+def _emit(spec, operands, layout, elems, combined):
+    """The outputs: ``spec.emit`` (the mask's fused select) or the
+    emitted leaves, cast to the output dtypes."""
     dts = spec.out_dtypes(tuple(o.dtype for o in operands))
-    return tuple(combined[i].reshape(layout.shape).to(dt)
-                 for i, dt in zip(spec.out_leaves, dts))
+    if spec.emit is not None:
+        outs = spec.emit(elems, combined)
+    else:
+        outs = tuple(combined[i] for i in spec.out_leaves)
+    return tuple(o.reshape(layout.shape).to(dt) for o, dt in zip(outs, dts))
 
 
 def _select(spec, scanned, exclusive):
@@ -196,6 +201,10 @@ def _offset(spec, offsets, sel):
     return spec.combine(tuple(o[..., None] for o in offsets), sel)
 
 
+def _with_totals(outs, running, return_totals):
+    return (outs, running) if return_totals else outs
+
+
 def totals_plain(operands, spec, layout):
     """Plain ``totals``: the last element of each tile's network."""
     scanned = tile_scan(spec, _tiles(spec, operands, layout))
@@ -204,29 +213,49 @@ def totals_plain(operands, spec, layout):
 
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
-    scanned = tile_scan(spec, _tiles(spec, operands, layout))
-    sel = _select(spec, scanned, exclusive)
-    return _emit(spec, operands, layout, _offset(spec, offsets, sel))
+    elems = _tiles(spec, operands, layout)
+    sel = _select(spec, tile_scan(spec, elems), exclusive)
+    return _emit(spec, operands, layout, elems, _offset(spec, offsets, sel))
 
 
-def carry_plain(operands, spec, layout, exclusive=False):
+def decoupled_plain(operands, spec, layout, exclusive=False,
+                    return_totals=False):
+    """Plain decoupled: totals, the exclusive chain, apply. The running
+    chunk totals are ``offsets ⊕ totals`` — carry's per-chunk carries."""
+    totals = totals_plain(operands, spec, layout)
+    offsets = exclusive_chain(spec, totals)
+    outs = apply_plain(operands, offsets, spec, layout, exclusive)
+    return _with_totals(outs, spec.combine(offsets, totals), return_totals)
+
+
+def carry_plain(operands, spec, layout, exclusive=False, return_totals=False):
     """Plain ``carry``: each tile's network, combined with the running
     carry of the tiles before it (carry = carry ⊕ last, from the
-    identity, left to right)."""
-    scanned = tile_scan(spec, _tiles(spec, operands, layout))
-    carries = exclusive_chain(spec, tuple(s[..., -1] for s in scanned))
+    identity, left to right). ``return_totals`` adds the running chunk
+    totals (the carry after each chunk) per element leaf."""
+    elems = _tiles(spec, operands, layout)
+    scanned = tile_scan(spec, elems)
+    lasts = tuple(s[..., -1] for s in scanned)
+    carries = exclusive_chain(spec, lasts)
     sel = _select(spec, scanned, exclusive)
-    return _emit(spec, operands, layout, _offset(spec, carries, sel))
+    outs = _emit(spec, operands, layout, elems, _offset(spec, carries, sel))
+    return _with_totals(outs, spec.combine(carries, lasts), return_totals)
 
 
-def tree_plain(operands, spec, layout, exclusive=False):
+def tree_plain(operands, spec, layout, exclusive=False, return_totals=False):
     """Plain ``tree``: the Blelloch network per tile; the carry advances
     by each tile's root."""
     elems = _tiles(spec, operands, layout)
     excl, total = tree_scan(spec, elems)
     sel = excl if exclusive else spec.combine(excl, elems)
-    carries = exclusive_chain(spec, tuple(t[..., 0] for t in total))
-    return _emit(spec, operands, layout, _offset(spec, carries, sel))
+    roots = tuple(t[..., 0] for t in total)
+    carries = exclusive_chain(spec, roots)
+    outs = _emit(spec, operands, layout, elems, _offset(spec, carries, sel))
+    return _with_totals(outs, spec.combine(carries, roots), return_totals)
+
+
+PLAIN = {"carry": carry_plain, "decoupled": decoupled_plain,
+         "fused": decoupled_plain, "tree": tree_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -234,46 +263,45 @@ def tree_plain(operands, spec, layout, exclusive=False):
 # ---------------------------------------------------------------------------
 
 
-def _cuda_operand(operands, spec):
-    """The operand when it lies on CUDA (sum only), else None."""
-    if not any(o.is_cuda for o in operands):
-        return None
-    if spec is not SUM_KERNEL:
-        raise NotImplementedError(
-            f"no CUDA kernel for the {spec.name!r} spec yet (ROADMAP "
-            "Queue 2)")
-    (x,) = operands
-    return x
+def _on_cuda(operands) -> bool:
+    return any(o.is_cuda for o in operands)
 
 
-def scan_carry(operands, spec, layout, *, exclusive=False):
-    x = _cuda_operand(operands, spec)
-    if x is not None:
-        return (cuda.carry(x, layout, exclusive),)
-    return carry_plain(operands, spec, layout, exclusive)
+def scan_carry(operands, spec, layout, *, exclusive=False,
+               return_totals=False):
+    if _on_cuda(operands):
+        outs, running = cuda.carry(spec, operands, layout, exclusive,
+                                   return_totals)
+        return _with_totals(outs, running, return_totals)
+    return carry_plain(operands, spec, layout, exclusive, return_totals)
 
 
-def scan_decoupled(operands, spec, layout, *, exclusive=False):
-    x = _cuda_operand(operands, spec)
-    if x is not None:
-        offsets = cuda.chain(cuda.totals(x, layout))
-        return (cuda.apply(x, offsets, layout, exclusive),)
-    offsets = exclusive_chain(spec, totals_plain(operands, spec, layout))
-    return apply_plain(operands, offsets, spec, layout, exclusive)
+def scan_decoupled(operands, spec, layout, *, exclusive=False,
+                   return_totals=False):
+    if _on_cuda(operands):
+        offsets, running = cuda.chain(spec, cuda.totals(spec, operands, layout),
+                                      return_totals)
+        outs = cuda.apply(spec, operands, offsets, layout, exclusive)
+        return _with_totals(outs, running, return_totals)
+    return decoupled_plain(operands, spec, layout, exclusive, return_totals)
 
 
-def scan_fused(operands, spec, layout, *, exclusive=False):
+def scan_fused(operands, spec, layout, *, exclusive=False,
+               return_totals=False):
     """Single-launch decoupled. The port has no native single-launch
     kernel yet (its Hopper form is a decoupled look-back scan, ROADMAP
     Queue 2), so every request runs the bit-identical two-launch form."""
-    return scan_decoupled(operands, spec, layout, exclusive=exclusive)
+    return scan_decoupled(operands, spec, layout, exclusive=exclusive,
+                          return_totals=return_totals)
 
 
-def scan_tree(operands, spec, layout, *, exclusive=False):
-    x = _cuda_operand(operands, spec)
-    if x is not None:
-        return (cuda.tree(x, layout, exclusive),)
-    return tree_plain(operands, spec, layout, exclusive)
+def scan_tree(operands, spec, layout, *, exclusive=False,
+              return_totals=False):
+    if _on_cuda(operands):
+        outs, running = cuda.tree(spec, operands, layout, exclusive,
+                                  return_totals)
+        return _with_totals(outs, running, return_totals)
+    return tree_plain(operands, spec, layout, exclusive, return_totals)
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +331,15 @@ def _launch_event(operands, spec: KernelSpec, layout, schedule: str) -> None:
 
 
 def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
-         exclusive: bool = False):
+         exclusive: bool = False, return_totals: bool = False):
     """Run ``spec``'s monoid scan over ``operands`` under one schedule.
 
-    Returns a tuple of output tensors (the sum registration emits one).
+    Returns a tuple of output tensors (every registration here emits
+    one). ``return_totals=True`` additionally returns the running
+    chunk-totals chain (one ``layout.chain_shape`` tensor per element
+    leaf, combined through chunk ``j``), bitwise equal under every
+    schedule, so callers derive row aggregates in O(rows · chunks)
+    instead of re-reducing the data.
     """
     if schedule not in SCHEDULES:
         raise ValueError(
@@ -317,4 +350,5 @@ def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
     _launch_event(operands, spec, layout, schedule)
     fn = {"carry": scan_carry, "decoupled": scan_decoupled,
           "fused": scan_fused, "tree": scan_tree}[schedule]
-    return fn(tuple(operands), spec, layout, exclusive=exclusive)
+    return fn(tuple(operands), spec, layout, exclusive=exclusive,
+              return_totals=return_totals)

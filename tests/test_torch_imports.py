@@ -7,10 +7,31 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(
     r"^\s*(import jax|from jax|import repro\b|from repro[. ])", re.M)
+
+
+# The modules of the relational path (segmented and mask-compact scans,
+# the relational operators): each must be found by the import sweep below
+# and be free of JAX and the reference on its own.
+RELATIONAL_MODULES = (
+    "repro_torch.core.scan.segmented",
+    "repro_torch.kernels.compact",
+    "repro_torch.kernels.compact.ops",
+    "repro_torch.kernels.segscan",
+    "repro_torch.kernels.segscan.ops",
+    "repro_torch.kernels.segscan.ref",
+    "repro_torch.relational",
+    "repro_torch.relational.compact",
+    "repro_torch.relational.groupby",
+    "repro_torch.relational.join",
+    "repro_torch.relational.partition",
+    "repro_torch.relational.sort",
+)
 
 
 def _modules():
@@ -30,6 +51,7 @@ def test_static_scan_finds_no_jax_or_reference_import():
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.kernels.scan_engine.schedules" in mods
+    assert set(RELATIONAL_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -43,3 +65,13 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", RELATIONAL_MODULES)
+def test_relational_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    assert FORBIDDEN.findall(path.read_text()) == []
