@@ -10,25 +10,34 @@ first failure and prints no result):
      nvcc versions, and the build of ``src/repro_torch/csrc/scan_sum.cu``
      with ``nvcc`` for ``sm_90a`` (its seconds and ptxas report);
   2. every sum kernel against its plain PyTorch version on the card,
-     bitwise: the four schedules x {inclusive, exclusive} x {f32, bf16,
-     int32} on (3, 517), (64, 2^18) and (1, 2^24) with block_n 512, 2048,
-     8192 and 16384 (the largest tile the kernels take); then the same
-     sweep for the segmented-sum kernels (f32/bf16/int32 values, int32
-     flags with negative and non-unit values) and the mask kernels,
-     outputs and running chunk totals, with carry == decoupled == fused
-     checked bitwise across schedules, and messy flags (negative,
-     fractional, leading) through ``segmented_cumsum``;
+     bitwise: the four schedules (fused: the one-launch look-back kernel)
+     x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
+     and (1, 2^24) with block_n 512, 2048, 8192 and 16384 (the largest
+     tile the kernels take), with carry == decoupled == fused bitwise;
+     then the same sweep for the segmented-sum kernels (f32/bf16/int32
+     values, int32 flags with negative and non-unit values) and the mask
+     kernels, outputs and running chunk totals (fused with running totals
+     runs decoupled, as in the reference) and the fused kernel without
+     them; messy flags (negative, fractional, leading) through
+     ``segmented_cumsum``; and the affine kernels on Channels (f32, bf16,
+     f16; 1- to 32-channel strips; time tiles 64 to 8192), every schedule,
+     inclusive and exclusive, outputs and running totals;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
-     fused, which runs decoupled), (b) a (8192, 32768) float32 batch
-     through algorithm="kernel" (schedule auto: carry), (c) the batch with
-     schedule="tree", block_n=8192 — and its backward at (1, 2^24); the
-     launch counters are zeroed before and read after, and every sum
-     kernel must have launched. Then the outputs are checked: carry ==
-     decoupled == fused bitwise on (a), tree and the batch within a stated
-     tolerance of a float64 ``torch.cumsum``, a 2^28 int32 column exact
-     under all four schedules, and the gradient bitwise equal to the plain
-     flip(cumsum(flip(g)));
+     fused: ONE launch of the fused kernel, shown by the launch counters
+     and the one ``kernel.launch`` event), and under schedule="fused" and
+     "decoupled", (b) a (8192, 32768) float32 batch through
+     algorithm="kernel" (schedule auto: carry) and with schedule="fused",
+     (c) the batch with schedule="tree", block_n=8192 — and its backward
+     at (1, 2^24); the launch counters are zeroed before and read after,
+     and every sum kernel must have launched. Then the outputs are
+     checked: fused == decoupled == carry == ``fused_plain`` bitwise on
+     (a), also exclusive at block_n 16384, and on five repeated fused
+     runs of (a) (a race in the look-back would show as other bits);
+     fused == carry == ``fused_plain`` on (b); tree and the batch within a
+     stated tolerance of a float64 ``torch.cumsum``, a 2^28 int32 column
+     exact under all four schedules, and the gradient bitwise equal to the
+     plain flip(cumsum(flip(g)));
   4. the relational main path at column-store scale: TPC-H v3.0.1 at
      SF 10 generated on the card from ``--seed`` (§4.2.3: 15,000,000
      ORDERS, 1-7 LINEITEM rows each), then Q6 (``filter_compact`` +
@@ -36,17 +45,34 @@ first failure and prints no result):
      value columns on returnflag x linestatus), a Q3-shaped ``hash_join``
      (radix-sorted build side), and per-row-group (2^18 rows) mask
      compaction and a per-order running window sum (``mask_compact``,
-     ``segmented_cumsum``: carry, and tree at block_n 8192), all under
-     the policy's own choices; the launch counters are zeroed before and
-     read after, and every segmented-sum and mask kernel must have
-     launched. Every result is checked against a float64/int64 PyTorch
-     computation on the card: counts, group counts and join pairs exact,
-     float sums within 1e-4 relative;
+     ``segmented_cumsum``: carry, tree at block_n 8192, and decoupled),
+     and Q6's mask through ``mask_compact_kernel`` with schedule="fused"
+     (no running totals: the fused kernel), all else under the policy's
+     own choices (Q1's ``group_by`` runs the segmented-sum fused kernel);
+     the launch counters are zeroed before and read after, and every
+     segmented-sum and mask kernel must have launched. Every result is
+     checked against a float64/int64 PyTorch computation on the card:
+     counts, group counts and join pairs exact, float sums within 1e-4
+     relative;
   5. times (CUDA events, median after warm-up) of each sum schedule on
      (a) and (b), and of every kernel at its main-path shape, beside the
      device-memory bound, its plain version and, where one exists, the
      one-call PyTorch function (a yardstick only: the port never calls
-     it).
+     it); before they are timed, the fused kernel at Q1's (4, ~59M)
+     segmented sum and Q6's ~60M-row mask is held bitwise against
+     decoupled and ``fused_plain`` (the segmented sum exclusive at
+     block_n 16384 too), as every kernel is against its plain version;
+  6. the affine SSM path at zamba2-7b's width: the Mamba2 SSD
+     across-chunk carry of ``src/repro/configs/zamba2_7b.py`` (112 heads
+     x head_dim 64 x state 64 = 458,752 channels; ``ssm_chunk`` 128) for a
+     131,072-token prefill, (1, 1024, 458752) float32 with per-(chunk,
+     head) gates in (0.5, 1] and random chunk states from ``--seed``,
+     through ``repro_torch.kernels.ssm_scan.ssm_scan``: auto (carry),
+     each of the four schedules, and the backward through autograd; the
+     launch counters are zeroed before and read after, and every affine
+     kernel must have launched. Each schedule's output and the gradients
+     are bitwise equal to the plain versions, the forward within 2e-4 of
+     a float64 sequential recurrence; then each affine kernel's time.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,14 +98,15 @@ MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
 F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 
 SCHEDULES = ("carry", "decoupled", "fused", "tree")
-KERNELS = ("carry", "totals", "chain", "apply", "tree")
+KERNELS = ("carry", "totals", "chain", "apply", "fused", "tree")
 USES = {"carry": ("carry",), "decoupled": ("totals", "chain", "apply"),
-        "fused": ("totals", "chain", "apply"), "tree": ("tree",)}
+        "fused": ("fused",), "tree": ("tree",)}
 REPLACES = {
     "carry": "src/repro/kernels/scan_engine/schedules.py:335",
     "totals": "src/repro/kernels/scan_engine/schedules.py:390",
     "chain": "src/repro/kernels/scan_engine/schedules.py:248",
     "apply": "src/repro/kernels/scan_engine/schedules.py:405",
+    "fused": "src/repro/kernels/scan_engine/schedules.py:527",
     "tree": "src/repro/kernels/scan_engine/schedules.py:605",
 }
 # Tolerance of a float32 prefix sum against float64, relative to the
@@ -96,6 +123,13 @@ Q6_FROM, Q6_TO = 731, 1096    # [1994-01-01, 1995-01-01)
 Q1_SHIP_MAX = 2436            # 1998-12-01 - 90 days = 1998-09-02
 Q3_DATE = 1169                # 1995-03-15
 ROW_GROUP = 1 << 18           # rows of one column-store row group
+# zamba2-7b's Mamba2 SSD across-chunk carry (src/repro/configs/zamba2_7b.py:
+# ssm_heads 112, ssm_head_dim 64, ssm_state 64, ssm_chunk 128) for a
+# 131,072-token prefill: (B, chunks, H * P * N).
+SSD_SHAPE = (1, 131072 // 128, 112 * 64 * 64)
+# The reference tests' tolerance of a float32 affine scan
+# (tests/test_kernels.py::test_ssm_scan_shapes_dtypes).
+AFFINE_TOL = 2e-4
 # Float sums of the relational phase against float64: float32 rounding
 # along a chain of ~10^4 chunk totals stays near 1e-6 relative.
 REL_SUM_TOL = 1e-4
@@ -134,8 +168,10 @@ def main() -> int:
     from repro_torch import relational as rel
     from repro_torch.core.scan import api, policy
     from repro_torch.kernels.compact import ops as kc_ops
-    from repro_torch.kernels.scan_engine import Rows, cuda, monoids, schedules
+    from repro_torch.kernels.scan_engine import (Channels, Rows, cuda, monoids,
+                                                 schedules)
     from repro_torch.kernels.segscan import ops as seg_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.obs import trace
     from repro_torch.relational import compact as rel_compact
     from repro_torch.relational import groupby as rel_groupby
@@ -146,7 +182,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     bw, f32_peak = rate(MEM_RATE, name), rate(F32_RATE, name)
-    SUM, SEGSUM = monoids.SUM, monoids.SEGMENTED_SUM
+    SUM, SEGSUM, AFFINE = monoids.SUM, monoids.SEGMENTED_SUM, monoids.AFFINE
 
     def sync():
         torch.cuda.synchronize(dev)
@@ -165,6 +201,9 @@ def main() -> int:
     def same_bits(a, b):
         return a.shape == b.shape and a.dtype == b.dtype and \
             torch.equal(bits(a), bits(b))
+
+    def launched():
+        return {k for k, v in cuda.LAUNCHES.items() if v}
 
     def flat(x):
         if isinstance(x, torch.Tensor):
@@ -255,37 +294,46 @@ def main() -> int:
                     x = normals((rows, n), dtype)
                 x = F.pad(x, (0, pad)).contiguous()
                 lay = Rows(rows, n + pad, 1, bn)
-                for s in SCHEDULES:
-                    for exclusive in (False, True):
+                for exclusive in (False, True):
+                    got = {}
+                    for s in SCHEDULES:
                         cuda.reset_launches()
-                        (got,) = kernel[s]((x,), SUM, lay,
-                                           exclusive=exclusive)
+                        (got[s],) = kernel[s]((x,), SUM, lay,
+                                              exclusive=exclusive)
                         sync()
-                        grown = [k for k in USES[s] if cuda.LAUNCHES[k]]
-                        check(grown == list(USES[s]),
-                              f"{s} launched {cuda.LAUNCHES}")
+                        check(launched() == set(USES[s]),
+                              f"{s} launched {launched()}")
                         (want,) = plain[s]((x,), SUM, lay, exclusive)
-                        check(same_bits(got, want),
+                        check(same_bits(got[s], want),
                               f"kernel != plain: {s} excl={exclusive} "
                               f"{dtype} ({rows}, {n}) bn={bn}")
                         n_checks += 1
-            print(f"sum kernel == plain bitwise: ({rows}, {n}) bn={bn} "
-                  f"x 3 dtypes x 4 schedules x 2 modes")
+                    check(same_bits(got["fused"], got["decoupled"])
+                          and same_bits(got["fused"], got["carry"]),
+                          f"fused != decoupled / carry: excl={exclusive} "
+                          f"{dtype} ({rows}, {n}) bn={bn}")
+            print(f"sum kernel == plain bitwise, carry == decoupled == "
+                  f"fused: ({rows}, {n}) bn={bn} x 3 dtypes x 4 schedules "
+                  "x 2 modes")
     print(f"phase 2 (sum): {n_checks} kernel-vs-plain checks, all bitwise "
           "equal")
 
-    def spec_sweep(spec, operands, lay, what):
+    def spec_sweep(spec, operands, lay, what, exclusive=False):
         """Each schedule's kernel vs its plain version (outputs and running
-        totals), and carry == decoupled == fused; returns the checks."""
+        totals: fused with running totals runs decoupled), the fused
+        kernel without them, and carry == decoupled == fused; returns the
+        schedule runs."""
         results = {}
         for s in SCHEDULES:
             cuda.reset_launches()
-            outs, tot = kernel[s](operands, spec, lay, return_totals=True)
+            outs, tot = kernel[s](operands, spec, lay, exclusive=exclusive,
+                                  return_totals=True)
             sync()
-            want = tuple(cuda.kernel_name(spec.name, k) for k in USES[s])
-            check([k for k in want if cuda.LAUNCHES[k]] == list(want),
-                  f"{spec.name} {s} launched {cuda.LAUNCHES}")
-            w_outs, w_tot = plain[s](operands, spec, lay,
+            uses = USES["decoupled" if s == "fused" else s]
+            check(launched() == {cuda.kernel_name(spec.name, k)
+                                 for k in uses},
+                  f"{spec.name} {s} launched {launched()}")
+            w_outs, w_tot = plain[s](operands, spec, lay, exclusive,
                                      return_totals=True)
             check(all_same_bits(outs, w_outs) and all_same_bits(tot, w_tot),
                   f"{spec.name} kernel != plain: {s} {what}")
@@ -293,7 +341,16 @@ def main() -> int:
         for s in ("decoupled", "fused"):
             check(all_same_bits(results[s], results["carry"]),
                   f"{spec.name} {s} != carry bitwise: {what}")
-        return len(SCHEDULES)
+        cuda.reset_launches()
+        fo = kernel["fused"](operands, spec, lay, exclusive=exclusive)
+        sync()
+        check(launched() == {cuda.kernel_name(spec.name, "fused")},
+              f"{spec.name} fused launched {launched()}")
+        check(all_same_bits(fo, plain["fused"](operands, spec, lay,
+                                                exclusive))
+              and all_same_bits(fo, results["carry"][:1]),
+              f"{spec.name} fused kernel != plain / carry: {what}")
+        return len(SCHEDULES) + 1
 
     n_seg = n_mask = 0
     for rows, n in grid:
@@ -331,6 +388,24 @@ def main() -> int:
           "outputs and running totals bitwise equal to the plain versions; "
           "messy flags (negative, fractional, leading) equal to the CPU")
 
+    n_aff = 0
+    for shape, bt in (((2, 4096, 48), 64), ((1, 8192, 1024), 256),
+                      ((1, 2048, 40), 2048), ((3, 8192, 64), 8192)):
+        lay = Channels(*shape, bt, shape[2])
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            a = (0.7 + 0.3 * torch.rand(shape, device=dev,
+                                        generator=gen)).to(dtype)
+            b = normals(shape, dtype)
+            for exclusive in (False, True):
+                n_aff += spec_sweep(AFFINE, (a, b), lay,
+                                    f"{dtype} {shape} bt={bt} "
+                                    f"excl={exclusive}", exclusive)
+        print(f"affine kernels == plain bitwise (3 dtypes, 2 modes), carry "
+              f"== decoupled == fused: {shape} bt={bt}, "
+              f"{cuda.channel_width(lay)}-channel strips")
+    print(f"phase 2 (affine): {n_aff} schedule runs, outputs and running "
+          "totals bitwise equal to the plain versions")
+
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
     xa = normals((na,))
@@ -354,9 +429,26 @@ def main() -> int:
     check(choice_b.schedule == "carry", "(b) schedule should be carry")
 
     sync()
+    trace.enable()
+    trace.get().clear()
     cuda.reset_launches()
     ya = api.cumsum(xa)
+    sync()
+    one_call = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    events_a = [e["args"] for e in trace.get().events()
+                if e["name"] == "kernel.launch"]
+    trace.disable()
+    check(one_call == {"fused": 1}, f"(a) auto launched {one_call}")
+    check(len(events_a) == 1 and events_a[0]["schedule"] == "fused"
+          and events_a[0]["hbm_read_bytes_est"] == 4 * na,
+          f"(a) kernel.launch events {events_a}")
+    print(f"(a) auto: launches {one_call}; kernel.launch: schedule "
+          f"{events_a[0]['schedule']}, grid {events_a[0]['grid']}, reads "
+          f"{events_a[0]['hbm_read_bytes_est']} B (one pass)")
+    yf = api.cumsum(xa, algorithm="kernel", schedule="fused")
+    yd = api.cumsum(xa, algorithm="kernel", schedule="decoupled")
     yb = api.cumsum(xb, algorithm="kernel")
+    ybf = api.cumsum(xb, algorithm="kernel", schedule="fused")
     yc = api.cumsum(xb, algorithm="kernel", schedule="tree", block_n=8192)
     yg = api.cumsum(xg)
     fwd = dict(cuda.LAUNCHES)
@@ -382,18 +474,41 @@ def main() -> int:
     err_a = close_to_f64(ya, xa, "(a) fused")
     err_b = close_to_f64(yb, xb, "(b) carry")
     err_c = close_to_f64(yc, xb, "(c) tree")
-    del yb, yc
-    outs = {s: api.cumsum(xa, algorithm="kernel", schedule=s)
-            for s in ("carry", "decoupled")}
-    check(same_bits(outs["carry"], ya) and same_bits(outs["decoupled"], ya),
-          "(a) carry / decoupled / fused not bitwise equal")
-    del outs
+    xa2, lay_a = xa.view(1, na), Rows(1, na, 1, 2048)
+    check(same_bits(yf, ya) and same_bits(yd, ya),
+          "(a) auto / fused / decoupled not bitwise equal")
+    del yf, yd
+    yk = api.cumsum(xa, algorithm="kernel", schedule="carry")
+    check(same_bits(yk, ya), "(a) carry != fused bitwise")
+    del yk
+    (want,) = schedules.fused_plain((xa2,), SUM, lay_a)
+    check(same_bits(want.view(na), ya), "(a) fused kernel != fused_plain")
+    del want
+    for rep in range(5):
+        check(same_bits(api.cumsum(xa, algorithm="kernel", schedule="fused"),
+                        ya), f"(a) fused repeat {rep} changed bits")
+    lay_b = Rows(8192, 32768, 8, 2048)
+    (want,) = schedules.fused_plain((xb,), SUM, lay_b)
+    check(same_bits(ybf, yb) and same_bits(ybf, want),
+          "(b) fused != carry / fused_plain")
+    del ybf, yc, want
+    ye = api.cumsum(xa, exclusive=True, algorithm="kernel", schedule="fused",
+                    block_n=16384)
+    ye_d = api.cumsum(xa, exclusive=True, algorithm="kernel",
+                      schedule="decoupled", block_n=16384)
+    (want,) = schedules.fused_plain((xa2,), SUM, Rows(1, na, 1, 16384), True)
+    check(same_bits(ye, ye_d) and same_bits(ye, want.view(na)),
+          "(a) exclusive bn 16384: fused != decoupled / fused_plain")
+    del ye, ye_d, want
     yt = api.cumsum(xa, algorithm="kernel", schedule="tree")
     err_t = close_to_f64(yt, xa, "(a) tree")
-    del yt, ya
-    print(f"(a) carry == decoupled == fused bitwise; max |err| vs float64 "
-          f"(tolerance {REL_TOL} x max|prefix|): fused {err_a:.4g}, "
-          f"tree {err_t:.4g}; (b) carry {err_b:.4g}; (c) tree {err_c:.4g}")
+    del yt, ya, yb
+    print(f"(a) fused (auto) == fused == decoupled == carry == fused_plain "
+          f"bitwise, five repeats the same bits, exclusive at block_n "
+          f"16384 == decoupled == fused_plain; (b) fused == carry == "
+          f"fused_plain; max |err| vs float64 (tolerance {REL_TOL} x "
+          f"max|prefix|): (a) fused {err_a:.4g}, tree {err_t:.4g}; (b) "
+          f"carry {err_b:.4g}; (c) tree {err_c:.4g}")
 
     xi = randint(-4, 5, (na,))
     ref_i = torch.cumsum(xi.long(), 0)
@@ -501,6 +616,14 @@ def main() -> int:
                                                            win_flags))
     win_t, ms_wint = wall_ms(lambda: seg_ops.segmented_cumsum(
         price_rows, win_flags, block_n=8192))
+    win_d, ms_wind = wall_ms(lambda: seg_ops.segmented_cumsum(
+        price_rows, win_flags, schedule="decoupled"))
+    # Q6's mask as one padded row through the back-compat entry point
+    # with schedule="fused": no running totals, so the fused kernel
+    pad6 = (-T) % 2048
+    m6 = F.pad((q6_mask != 0).to(torch.int32), (0, pad6)).view(1, T + pad6)
+    (m6_dest, m6_cnt), ms_m6f = wall_ms(lambda: kc_ops.mask_compact_kernel(
+        m6, block_b=1, schedule="fused"))
     sync()
     rel_launches = dict(cuda.LAUNCHES)
     events = [e for e in trace.get().events() if e["name"] == "kernel.launch"]
@@ -539,7 +662,9 @@ def main() -> int:
     print(f"route row groups ({R} x {ROW_GROUP}): mask_compact "
           f"{route_rg[0]} {ms_rgc:.1f} ms, block_n 8192 {route_rg[1]} "
           f"{ms_rgt:.1f} ms; segmented_cumsum {route_rg[0]} "
-          f"{ms_win:.1f} ms, block_n 8192 {route_rg[1]} {ms_wint:.1f} ms")
+          f"{ms_win:.1f} ms, block_n 8192 {route_rg[1]} {ms_wint:.1f} ms, "
+          f"decoupled {ms_wind:.1f} ms; Q6 mask_compact_kernel fused "
+          f"{ms_m6f:.1f} ms")
     check(route_mask == ("kernel", "fused") and route_seg == ("kernel",
                                                               "fused")
           and route_rg == ("carry", "tree"), "unexpected routes")
@@ -588,24 +713,32 @@ def main() -> int:
     err_win = max(rel_err(win.flatten(), win_want),
                   rel_err(win_t.flatten(), win_want))
     check(err_win <= REL_SUM_TOL, f"window sum rel err {err_win}")
-    del c64, seg, base, win_want
+    check(same_bits(win_d, win), "window sums: decoupled != carry bitwise")
+    del c64, seg, base, win_want, win_d
+    m6_want = torch.cumsum(m6.long(), 1) - m6.long()
+    m6_want = torch.where(m6 != 0, m6_want, T + pad6)
+    check(torch.equal(m6_dest.long(), m6_want)
+          and int(m6_cnt) == want_q6, "Q6 fused mask compaction")
+    del m6_want, m6_dest
     print(f"Q6: {want_q6} rows, revenue {q6_rev.item():.6e} (float64 "
           f"{want_rev.item():.6e}, rel err {err_q6:.3g}); Q1: {T1} rows, "
           f"group counts exact {want_cnt.tolist()}, sums rel err "
           f"{err_q1:.3g}, means {err_q1m:.3g}; join: {c} pairs == "
           f"torch.sort/searchsorted join; row groups: compaction exact "
           f"(carry == tree), window sums rel err {err_win:.3g} "
-          f"(tolerance {REL_SUM_TOL})")
+          f"(tolerance {REL_SUM_TOL}, decoupled == carry bitwise); Q6's "
+          "fused mask compaction exact")
 
     # where each operator's device time goes (one profiled call each)
     from torch.profiler import ProfilerActivity, profile
 
     def short(kname):
         for k in ("carry_kernel", "totals_kernel", "chain_kernel",
-                  "apply_kernel", "tree_kernel"):
+                  "apply_kernel", "fused_kernel", "tree_kernel"):
             if k in kname:
                 spec = ("segsum" if "SegSum" in kname else "mask"
-                        if "Mask" in kname else "sum")
+                        if "Mask" in kname else "affine"
+                        if "Affine" in kname else "sum")
                 return f"{spec}.{k[:-7]}"
         return kname[:40]
 
@@ -645,7 +778,7 @@ def main() -> int:
         for s in SCHEDULES:
             ms = time_ms(lambda: api.cumsum(x, algorithm="kernel",
                                             schedule=s), reps)
-            traffic = 12 * n_el if s in ("decoupled", "fused") else 8 * n_el
+            traffic = 12 * n_el if s == "decoupled" else 8 * n_el
             print(f"time {tag} {s:9s}: {ms:9.3f} ms  "
                   f"{8 * n_el / ms / 1e6:7.1f} GB/s  bound "
                   f"{traffic / bw * 1e3:.3f} ms ({traffic / 2**30:.0f} GiB)"
@@ -657,7 +790,7 @@ def main() -> int:
     rows = []
 
     def kernel_row(kname, run, run_plain, nbytes, ops, reps, library,
-                   shape, launched):
+                   shape, counts):
         got, want = flat(run()), flat(run_plain())
         sync()
         check(all_same_bits(got, want), f"{kname}: kernel != plain at the "
@@ -672,7 +805,7 @@ def main() -> int:
         base = kname.split("_")[-1]
         rows.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
-            "replaces": REPLACES[base], "launches": launched[kname],
+            "replaces": REPLACES[base], "launches": counts[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         print(f"kernel {kname:14s} {shape:24s}: {ms:9.3f} ms  plain "
@@ -680,9 +813,6 @@ def main() -> int:
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
 
     # sum kernels at the prefix-sum main path's shapes
-    lay_a = Rows(1, na, 1, 2048)
-    xa2 = xa.view(1, na)
-    lay_b = Rows(8192, 32768, 8, 2048)
     lay_c = Rows(8192, 32768, 8, 8192)
     (tot,) = cuda.totals(SUM, (xa2,), lay_a)
     (offs,), _ = cuda.chain(SUM, (tot,))
@@ -708,11 +838,15 @@ def main() -> int:
                lambda: schedules.tree_plain((xb,), SUM, lay_c),
                8 * nb, nb, 5, lambda: torch.cumsum(xb, 1),
                "(8192, 32768) bn 8192", launches)
+    kernel_row("fused", lambda: cuda.fused(SUM, (xa2,), lay_a),
+               lambda: schedules.fused_plain((xa2,), SUM, lay_a),
+               8 * na, na, 5, lambda: torch.cumsum(xa, 0),
+               "(1, 2^28) bn 2048", launches)
     del xa, xb, xa2, tot, offs
 
-    # mask kernels: decoupled at Q6's column, carry/tree at the row groups
-    pad = (-T) % 2048
-    m6 = F.pad((q6_mask != 0).to(torch.int32), (0, pad)).view(1, T + pad)
+    # mask kernels: decoupled and fused at Q6's column (m6, built in
+    # phase 4), carry/tree at the row groups
+    pad = pad6
     lay6 = Rows(1, T + pad, 1, 2048)
     mspec = monoids.mask(T + pad)
     (mt,) = cuda.totals(mspec, (m6,), lay6)
@@ -732,6 +866,14 @@ def main() -> int:
                lambda: cuda.apply(mspec, (m6,), (mo,), lay6),
                lambda: schedules.apply_plain((m6,), (mo,), mspec, lay6),
                8 * (T + pad) + 4 * c6, T + pad, 5, None,
+               f"(1, {T + pad}) bn 2048", rel_launches)
+    (md,) = cuda.apply(mspec, (m6,), (mo,), lay6)
+    check(same_bits(cuda.fused(mspec, (m6,), lay6)[0], md),
+          "Q6 mask: fused kernel != decoupled")
+    del md
+    kernel_row("mask_fused", lambda: cuda.fused(mspec, (m6,), lay6),
+               lambda: schedules.fused_plain((m6,), mspec, lay6),
+               8 * (T + pad), T + pad, 5, None,
                f"(1, {T + pad}) bn 2048", rel_launches)
     rg = pred_rows.to(torch.int32).contiguous()
     nrg = rg.numel()
@@ -779,7 +921,29 @@ def main() -> int:
                                              SEGSUM, lay1),
                12 * n1 + 8 * c1, n1, 5, None,
                f"(4, {T1 + pad}) bn 2048", rel_launches)
-    del sv, sflags, st_v, st_f, so_v, so_f
+    (sd,) = cuda.apply(SEGSUM, (sv, sflags), (so_v, so_f), lay1)
+    check(same_bits(cuda.fused(SEGSUM, (sv, sflags), lay1)[0], sd),
+          "Q1 segsum: fused kernel != decoupled")
+    del sd
+    kernel_row("segsum_fused",
+               lambda: cuda.fused(SEGSUM, (sv, sflags), lay1),
+               lambda: schedules.fused_plain((sv, sflags), SEGSUM, lay1),
+               12 * n1, n1, 5, None, f"(4, {T1 + pad}) bn 2048",
+               rel_launches)
+    pad16 = (-T1) % 16384
+    sv16 = F.pad(sv[:, :T1], (0, pad16)).contiguous()
+    sf16 = F.pad(sflags[:, :T1], (0, pad16)).contiguous()
+    lay16 = Rows(4, T1 + pad16, 4, 16384)
+    (e_f,) = cuda.fused(SEGSUM, (sv16, sf16), lay16, exclusive=True)
+    (e_d,) = schedules.scan_decoupled((sv16, sf16), SEGSUM, lay16,
+                                      exclusive=True)
+    (e_p,) = schedules.fused_plain((sv16, sf16), SEGSUM, lay16, True)
+    check(same_bits(e_f, e_d) and same_bits(e_f, e_p),
+          "Q1 segsum exclusive bn 16384: fused != decoupled / fused_plain")
+    print(f"fused at Q6's ({T + pad},) mask and Q1's (4, {T1 + pad}) "
+          "segmented sum (and exclusive at block_n 16384) == decoupled == "
+          "fused_plain bitwise")
+    del sv, sflags, st_v, st_f, so_v, so_f, sv16, sf16, e_f, e_d, e_p
     print(f"segsum decoupled at (4, {T1 + pad}): bound "
           f"{20 * n1 / bw * 1e3:.4f} ms (20 B per element)")
     wf = win_flags.contiguous()
@@ -791,6 +955,126 @@ def main() -> int:
                    lambda: plain_fn((price_rows, wf), SEGSUM, lay),
                    12 * nrg, nrg, 5, None, f"({R}, {ROW_GROUP}) bn {bn}",
                    rel_launches)
+    del (price_rows, wf, win, win_t, pred_rows, q1_vals, v1, ids1, rev,
+         disc_price)
+    torch.cuda.empty_cache()
+
+    # -- 6. the affine SSM path at zamba2-7b's width ------------------------
+    bsz, nc, ch = SSD_SHAPE
+    heads = 112
+    n_ssd = bsz * nc * ch
+    # gates exp(A_tot) in (0.5, 1], one per (chunk, head), broadcast over
+    # head_dim x state as the SSD carry does; chunk states S
+    gate = 0.5 + 0.5 * torch.rand((bsz, nc, heads, 1), device=dev,
+                                  generator=gen)
+    a = gate.expand(bsz, nc, heads, ch // heads).reshape(SSD_SHAPE)
+    b = 0.1 * normals(SSD_SHAPE)
+    gh = normals(SSD_SHAPE)
+    del gate
+    route_ssd = ssm_ops.resolved_schedule(SSD_SHAPE, cores=sms)
+    lay_s = Channels(*SSD_SHAPE, 256, 512)
+    print(f"SSD carry {SSD_SHAPE} float32 ({4 * n_ssd / 1e9:.2f} GB per "
+          f"operand): auto -> {route_ssd}; {cuda.channel_width(lay_s)}-"
+          "channel strips, time tiles of 256")
+    check(route_ssd == "carry", "zamba2 SSD carry should route to carry")
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace.enable()
+    trace.get().clear()
+    cuda.reset_launches()
+    h, ms_auto = wall_ms(lambda: ssm_ops.ssm_scan(a, b))
+    hs, ms_s = {}, {}
+    for s in SCHEDULES:
+        hs[s], ms_s[s] = wall_ms(lambda: ssm_ops.ssm_scan(a, b, schedule=s))
+    ag, bg = a.clone().requires_grad_(), b.clone().requires_grad_()
+    hg = ssm_ops.ssm_scan(ag, bg)
+    (da, db), ms_bwd = wall_ms(lambda: torch.autograd.grad(hg, (ag, bg), gh))
+    sync()
+    aff_launches = dict(cuda.LAUNCHES)
+    aff_events = [e["args"]["schedule"] for e in trace.get().events()
+                  if e["name"] == "kernel.launch"
+                  and e["args"]["monoid"] == "affine"]
+    trace.disable()
+    ssd_peak = torch.cuda.max_memory_allocated(dev)
+    del ag, bg, hg
+    print(f"affine launches: "
+          f"{ {k: v for k, v in aff_launches.items() if k.startswith('affine_') and v} }"
+          f"; kernel.launch schedules {aff_events}; wall ms: auto "
+          f"{ms_auto:.1f}, " + ", ".join(f"{s} {ms_s[s]:.1f}"
+                                         for s in SCHEDULES)
+          + f", backward {ms_bwd:.1f}; peak memory {ssd_peak / 2**30:.2f} "
+          "GiB")
+    for k in KERNELS:
+        check(aff_launches[cuda.kernel_name("affine", k)] > 0,
+              f"affine_{k} never launched on the SSM path")
+    check(same_bits(hs["carry"], h), "auto != carry")
+    for s in SCHEDULES:
+        (want,) = plain[s]((a, b), AFFINE, lay_s)
+        check(same_bits(hs[s], want), f"SSD {s}: kernel != plain")
+        if s in ("decoupled", "fused"):
+            check(same_bits(hs[s], h), f"SSD {s} != carry bitwise")
+        del want
+    err_tree = (hs["tree"] - h).abs().max().item()
+    del hs
+    # the gradient: the same schedule's plain scan of the flipped
+    # cotangent through the flipped gates rolled one step
+    gate_b = torch.cat([torch.zeros_like(a[:, :1]),
+                        torch.flip(a, (1,))[:, :-1]], dim=1)
+    (lam,) = plain[route_ssd]((gate_b, torch.flip(gh, (1,)).contiguous()),
+                              AFFINE, lay_s)
+    del gate_b
+    lam = torch.flip(lam, (1,))
+    check(same_bits(db, lam), "SSD backward: db != plain")
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    check(same_bits(da, lam * h_prev), "SSD backward: da != plain")
+    del lam, h_prev, da, db, gh
+    h64 = torch.empty(SSD_SHAPE, dtype=torch.float64, device=dev)
+    state = torch.zeros((bsz, ch), dtype=torch.float64, device=dev)
+    for t in range(nc):
+        state = a[:, t].double() * state + b[:, t].double()
+        h64[:, t] = state
+    check(bool(torch.isfinite(h).all()), "SSD: non-finite output")
+    excess = ((h.double() - h64).abs()
+              - AFFINE_TOL * (1 + h64.abs())).max().item()
+    err_64 = (h.double() - h64).abs().max().item()
+    check(excess <= 0, f"SSD vs float64: max err {err_64} beyond "
+          f"{AFFINE_TOL} (1 + |h|)")
+    del h64, state
+    print(f"SSD: every schedule's output and the gradients bitwise equal "
+          f"to the plain versions; carry == decoupled == fused; tree max "
+          f"|diff| {err_tree:.3g}; max |err| vs a float64 recurrence "
+          f"{err_64:.3g} (tolerance {AFFINE_TOL} x (1 + |h|))")
+    del h
+
+    (at_, bt_) = cuda.totals(AFFINE, (a, b), lay_s)
+    (ao, bo), _ = cuda.chain(AFFINE, (at_, bt_))
+    n_sc = at_.numel()
+    kernel_row("affine_carry", lambda: cuda.carry(AFFINE, (a, b), lay_s)[0],
+               lambda: schedules.carry_plain((a, b), AFFINE, lay_s),
+               12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
+               aff_launches)
+    kernel_row("affine_totals", lambda: cuda.totals(AFFINE, (a, b), lay_s),
+               lambda: schedules.totals_plain((a, b), AFFINE, lay_s),
+               8 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
+               f"{SSD_SHAPE} bt 256", aff_launches)
+    kernel_row("affine_chain", lambda: cuda.chain(AFFINE, (at_, bt_))[0],
+               lambda: schedules.exclusive_chain(AFFINE, (at_, bt_)),
+               16 * n_sc, 3 * n_sc, 5, None,
+               f"{tuple(at_.shape)} totals", aff_launches)
+    kernel_row("affine_apply",
+               lambda: cuda.apply(AFFINE, (a, b), (ao, bo), lay_s),
+               lambda: schedules.apply_plain((a, b), (ao, bo), AFFINE, lay_s),
+               12 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
+               f"{SSD_SHAPE} bt 256", aff_launches)
+    kernel_row("affine_fused", lambda: cuda.fused(AFFINE, (a, b), lay_s),
+               lambda: schedules.fused_plain((a, b), AFFINE, lay_s),
+               12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
+               aff_launches)
+    kernel_row("affine_tree", lambda: cuda.tree(AFFINE, (a, b), lay_s)[0],
+               lambda: schedules.tree_plain((a, b), AFFINE, lay_s),
+               12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
+               aff_launches)
+    del a, b, at_, bt_, ao, bo
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

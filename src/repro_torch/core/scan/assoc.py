@@ -13,8 +13,8 @@ associative over them.
 Monoids that also run inside kernels carry a :class:`KernelSpec` (flat
 tensor leaves, identity fill constants, in-kernel combine) — the
 interface the scan engine (``repro_torch.kernels.scan_engine``) writes
-each schedule against, once. Registered here: sum, segmented sum and the
-compact-mask spec; the affine and softmax specs are not ported yet
+each schedule against, once. Registered here: sum, segmented sum, the
+compact-mask spec and the affine spec; the softmax spec is not ported yet
 (ROADMAP).
 """
 
@@ -190,6 +190,24 @@ SEGMENTED_SUM_KERNEL = KernelSpec(
 )
 
 
+def _affine_kcombine(left, right):
+    a1, b1 = left
+    a2, b2 = right
+    return (a1 * a2, a2 * b1 + b2)
+
+
+# (a, b) elements of h' = a*h + b, the earlier element on the left; the
+# output is the b leaf (the state trajectory from h_0 = 0), in b's dtype.
+AFFINE_KERNEL = KernelSpec(
+    name="affine",
+    fills=(1, 0),
+    combine=_affine_kcombine,
+    elem_dtypes=lambda dts: (accum_dtype(dts[0]), accum_dtype(dts[1])),
+    out_dtypes=lambda dts: (dts[1],),
+    out_leaves=(1,),
+)
+
+
 def mask_kernel_spec(sentinel: int) -> KernelSpec:
     """Compact-mask monoid: a 0/1 keep-mask cumsum with the predicate
     select FUSED into the writeback — surviving lanes emit their exclusive
@@ -261,16 +279,11 @@ MIN = Monoid(
 # Composition (earlier then later): (a1, b1) then (a2, b2) is
 # (a1*a2, a2*b1 + b2); identity (1, 0). The inclusive scan's b component
 # is the trajectory of h_t = a_t * h_{t-1} + b_t from h_0 = 0.
-def _affine_combine(left, right):
-    a1, b1 = left
-    a2, b2 = right
-    return (a1 * a2, a2 * b1 + b2)
-
-
 AFFINE = Monoid(
     "affine",
-    _affine_combine,
+    _affine_kcombine,
     lambda x: (torch.ones_like(x[0]), torch.zeros_like(x[1])),
+    kernel_spec=AFFINE_KERNEL,
 )
 
 

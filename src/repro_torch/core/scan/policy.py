@@ -19,8 +19,9 @@ organizations, executed by ``repro_torch.kernels.scan_engine``:
   'decoupled'  reduce-then-scan: a parallel totals pass, a tiny
                sequential chain over chunk totals, a parallel apply pass
                (read 2n + write n) — spreads ONE row over the card.
-  'fused'      the single-launch form of decoupled. The port has no
-               native single-launch kernel yet, so it runs decoupled.
+  'fused'      the single-launch form of decoupled: one kernel whose
+               chunks chain their prefixes through a look-back
+               (read n + write n).
   'tree'       carry's loop with the work-efficient Blelloch sweep as the
                in-tile network; chosen over carry for long tiles
                (``block_elems >= TREE_BLOCK_ELEMS``).
@@ -152,7 +153,7 @@ def choose_schedule(
     tile with — the chunks-per-spare-core test is meaningless against
     any other block size. ``prefer_fused=False`` picks the two-launch
     decoupled form over the single-launch fused one for parallel-sequence
-    shapes (the port runs both as decoupled today).
+    shapes.
     ``explain_schedule`` returns the same decision with its rationale.
     """
     return explain_schedule(batch, n, cores, block_elems, prefer_fused).value

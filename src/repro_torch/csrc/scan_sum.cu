@@ -1,18 +1,26 @@
-// Sum-family scan kernels of the scan engine, CUDA C++ for Hopper (sm_90a).
+// Element-monoid scan kernels of the scan engine, CUDA C++ for Hopper
+// (sm_90a).
 //
 // One in-tile network, one chain and one set of schedule kernels, written
 // once over a spec (a combine functor and a leaf tuple, the counterpart of
-// the reference's KernelSpec) and instantiated for the three specs of the
-// sum family:
+// the reference's KernelSpec) and a geometry, and instantiated for the
+// four element specs:
 //   SumSpec<T>     SUM_KERNEL            (assoc.py:202): x -> x
 //   SegSumSpec<T>  SEGMENTED_SUM_KERNEL  (assoc.py:221): (value, flag); a
 //                  flag on the right kills the carry, flags OR together
 //   MaskSpec       mask_kernel_spec      (assoc.py:246): an int32 sum whose
 //                  writeback is the fused select: inclusive - m on a kept
 //                  lane, the sentinel on a dropped one
+//   AffineSpec<T>  AFFINE_KERNEL         (assoc.py:236): (a, b) pairs of
+//                  h' = a h + b, combined (a1 a2, a2 b1 + b2); emits b
+// on the two layouts (kChan):
+//   Rows      (R, N), scanned along N. A lane is a row.
+//   Channels  (B, T, D), scanned along T. A lane is a strip of `width`
+//             adjacent channels (<= 32) of one batch row; each channel
+//             carries its own state.
 //
 // What each kernel replaces (Pallas TPU kernels of the reference package,
-// src/repro/kernels/scan_engine/schedules.py, run on the Rows layout):
+// src/repro/kernels/scan_engine/schedules.py):
 //   carry_kernel   scan_carry, pallas_call at :335 (body _carry_body :298),
 //                  with its optional running chunk totals (return_totals)
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
@@ -20,46 +28,61 @@
 //   chain_kernel   exclusive_chain :248, the sequential lax.scan over the
 //                  chunk totals between decoupled's two launches; it also
 //                  writes offsets + totals, decoupled's running totals
-//                  (schedules.py:418)
+//                  (schedules.py:418). chain_chan_kernel: the same chain
+//                  for Channels, one thread per (batch, channel)
 //   apply_kernel   scan_decoupled, apply pallas_call at :405
 //                  (body _apply_body :371)
+//   fused_kernel   scan_fused, pallas_call at :527 (body _fused_body :453):
+//                  decoupled in one launch, through a look-back (below)
 //   tree_kernel    scan_tree, pallas_call at :605 (body _tree_body :557,
 //                  tree_scan :224, _blelloch :178)
-// The reference's "fused" schedule runs as decoupled (its native form is
-// gated off at schedules.py:438), so it has no kernel of its own here.
 //
-// Bound: device-memory bytes. A scan does one combine per element, so on
-// an H100 (3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores) moving
-// an element in and out takes ~100x longer than combining it. The design
-// therefore touches device memory once per pass: each block reads a whole
-// tile with coalesced loads into shared memory, runs the in-tile network
-// there, and writes each result once. carry and tree keep the running
-// carry in registers while one block walks its row (read n + write n);
-// decoupled reads the data twice (totals, then apply) to spread one row
-// over every SM. The mask's select re-reads its element at the writeback
-// (an L1/L2 hit: the tile was just loaded). The tiles are not yet
-// pipelined (no cp.async or TMA), so a block waits for each tile's load.
+// Bound: device-memory bytes. A scan does one combine per element (the
+// affine one three flops), so on an H100 (3.35 TB/s, 67 TFLOP/s float32
+// outside the tensor cores) moving an element in and out takes ~25-100x
+// longer than combining it. The design therefore touches device memory
+// once per pass: each block reads a whole tile with coalesced loads into
+// shared memory (for Channels, `width` adjacent channels per time step),
+// runs the in-tile network there, and writes each result once. carry and
+// tree keep the running carry on chip while one block walks its lane
+// (read n + write n); decoupled reads the data twice (totals, then apply)
+// to spread one lane over every SM; fused spreads it in one pass (read n +
+// write n). The mask's select re-reads its element at the writeback (an
+// L1/L2 hit: the tile was just loaded). The tiles are not yet pipelined
+// (no cp.async or TMA), so a block waits for each tile's load.
 //
 // Association order. Every kernel reproduces the reference's order of
-// combines exactly, so its results are bitwise equal to the reference and
-// to the plain PyTorch versions in kernels/scan_engine/schedules.py,
-// floats included:
-//   tile_scan   = schedules.tile_scan: Hillis-Steele within 128-element
-//                 segments, Hillis-Steele over the segment totals, an
-//                 exclusive shift, a broadcast combine; Hillis-Steele over
-//                 the whole tile when it is not a multiple of 128 longer
-//                 than 128. Step k computes x[i] = x[i-k] (+) x[i], and
-//                 identity (+) x[i] below k, as the reference pads its
-//                 shift with the identity.
+// combines exactly, so its results are bitwise equal to the reference's
+// organization and to the plain PyTorch versions in
+// kernels/scan_engine/schedules.py, floats included:
+//   tile_scan   = schedules.tile_scan: on Rows, Hillis-Steele within
+//                 128-element segments, Hillis-Steele over the segment
+//                 totals, an exclusive shift, a broadcast combine;
+//                 Hillis-Steele over the whole tile when it is not a
+//                 multiple of 128 longer than 128. On Channels (time is not
+//                 the lane axis) Hillis-Steele over the whole tile, each
+//                 channel on its own. Step k computes x[i] = x[i-k] (+)
+//                 x[i], and identity (+) x[i] below k, as the reference
+//                 pads its shift with the identity.
 //   tree        = schedules._blelloch: up-sweep left (+) right, down-sweep
 //                 (parent, parent (+) old_left), padded to a power of two
 //                 with the identity; inclusive = excl (+) elems.
 //   carry/chain = the carry enters every tile as the LEFT operand, and
 //                 advances left to right from the identity:
 //                 carry = carry (+) total.
+//   fused       = the chain's own bits: chunk j's offset is the left fold
+//                 ((I (+) t0) (+) t1) ... (+) t(j-1), assembled from the
+//                 nearest published inclusive prefix I_k and the
+//                 aggregates after it, folded LEFT TO RIGHT:
+//                 I_k (+) t(k+1) (+) ... (+) t(j-1). Every I_k published
+//                 is itself that fold, so the result does not depend on
+//                 which k a chunk finds (see fused_kernel).
 // Floats accumulate in float32 (bf16 and f16 inputs too) and integers in
 // uint32, so an overflow wraps as XLA's int32 add does instead of being
-// undefined behaviour. Outputs round to the input type with the
+// undefined behaviour. The affine combine is written with __fmul_rn and
+// __fadd_rn: nvcc would otherwise contract a2 * b1 + b2 into one fused
+// multiply-add, which rounds once where the plain version's eager multiply
+// and add round twice. Outputs round to the input type with the
 // round-to-nearest-even intrinsics, as torch's casts do. A segmented flag
 // is loaded as (flag != 0) and kept in one byte of shared memory: every
 // combine yields 0/1 flags in the reference too, and a value depends on a
@@ -68,8 +91,10 @@
 // buffers in 160 KB.
 //
 // Interface: plain C functions, loaded with ctypes, each taking a spec
-// code (0 sum, 1 segmented sum, 2 mask) and a dtype code. Each launches on
-// the given stream, allocates nothing, and returns cudaGetLastError().
+// code (0 sum, 1 segmented sum, 2 mask, 3 affine), a dtype code and the
+// geometry. Each launches on the given stream, allocates nothing (fused's
+// ticket, states and published prefixes are scratch the caller zeroes),
+// and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -81,6 +106,7 @@ namespace {
 constexpr int kThreads = 512;      // threads of every tile kernel
 constexpr int kLanes = 128;        // the reference's lane width (LANES)
 constexpr int kChainStage = 1024;  // totals staged per chain iteration
+constexpr int kMaxWidth = 32;      // channels of one Channels strip
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int32_t> { using type = uint32_t; };
@@ -121,30 +147,50 @@ __device__ __forceinline__ void store(int8_t* p, uint32_t v) {
   *p = static_cast<int8_t>(v);
 }
 
+// A chain-leaf load; kCg reads through L2 (ld.global.cg), past an L1 that
+// may hold a stale line of a prefix another block has since published.
+template <bool kCg, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kCg) return __ldcg(p);
+  else return *p;
+}
+
 __host__ __device__ constexpr size_t round16(size_t bytes) {
   return (bytes + 15) & ~static_cast<size_t>(15);
 }
 
+// 32-bit patterns of an accumulator, for fused's packed state words.
+__device__ __forceinline__ uint32_t to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t to_bits(uint32_t v) { return v; }
+template <typename A> __device__ __forceinline__ A from_bits(uint32_t b);
+template <> __device__ __forceinline__ float from_bits<float>(uint32_t b) {
+  return __uint_as_float(b);
+}
+template <> __device__ __forceinline__ uint32_t from_bits<uint32_t>(uint32_t b) {
+  return b;
+}
+
 // The tensors a tile kernel reads and writes; each spec uses its own.
 struct Tensors {
-  const void* x;         // values (sum, segmented sum) or the int32 mask
-  const int32_t* flags;  // the segmented sum's int32 flags
-  void* out;             // the emitted output, the shape of x
-  int sentinel;          // the mask's output for a dropped lane
+  const void* x;  // values (sum, segmented sum), the int32 mask, affine a
+  const void* y;  // the segmented sum's int32 flags, affine b
+  void* out;      // the emitted output, the shape of x
+  int sentinel;   // the mask's output for a dropped lane
 };
 
-// Per-leaf (rows, chunks) tensors of the chain: totals, offsets or
-// running totals. v holds leaf 0 in the accumulation dtype; f the
-// segmented sum's int32 flag leaf. v == nullptr: not requested.
+// Per-leaf chain_shape tensors: totals, offsets, running totals or fused's
+// published prefixes. v holds leaf 0 in the accumulation dtype, f leaf 1
+// (the segmented sum's int32 flag, affine b). v == nullptr: not requested.
 struct Leaves {
   void* v;
-  int32_t* f;
+  void* f;
 };
 
 // A spec: the element E (its leaf tuple in registers), Buf (an array of E
 // in shared memory, one array per leaf), the identity and combine, how an
 // element is loaded and a result emitted, and how a leaf tuple is read
-// from and written to Leaves.
+// from and written to Leaves. kPack: E fits in the upper 62 bits of a
+// 64-bit word beside fused's 2-bit tile state (pack/unpack).
 
 // SUM: one leaf, the running sum.
 template <typename T>
@@ -172,11 +218,19 @@ struct SumSpec {
   __device__ static void emit(const Tensors& t, int64_t i, E c) {
     store(static_cast<T*>(t.out) + i, c.v);
   }
+  template <bool kCg = false>
   __device__ static E get(const Leaves& g, int64_t i) {
-    return {static_cast<const A*>(g.v)[i]};
+    return {ld<kCg>(static_cast<const A*>(g.v) + i)};
   }
   __device__ static void put(const Leaves& g, int64_t i, E e) {
     static_cast<A*>(g.v)[i] = e.v;
+  }
+  static constexpr bool kPack = true;
+  __device__ static uint64_t pack(E e) {
+    return static_cast<uint64_t>(to_bits(e.v)) << 32;
+  }
+  __device__ static E unpack(uint64_t w) {
+    return {from_bits<A>(static_cast<uint32_t>(w >> 32))};
   }
 };
 
@@ -212,17 +266,29 @@ struct SegSumSpec {
     return {r.f != 0u ? r.v : l.v + r.v, (l.f != 0u || r.f != 0u) ? 1u : 0u};
   }
   __device__ static E load(const Tensors& t, int64_t i) {
-    return {load_acc(static_cast<const T*>(t.x) + i), t.flags[i] != 0 ? 1u : 0u};
+    return {load_acc(static_cast<const T*>(t.x) + i),
+            static_cast<const int32_t*>(t.y)[i] != 0 ? 1u : 0u};
   }
   __device__ static void emit(const Tensors& t, int64_t i, E c) {
     store(static_cast<T*>(t.out) + i, c.v);
   }
+  template <bool kCg = false>
   __device__ static E get(const Leaves& g, int64_t i) {
-    return {static_cast<const A*>(g.v)[i], static_cast<uint32_t>(g.f[i])};
+    return {ld<kCg>(static_cast<const A*>(g.v) + i),
+            static_cast<uint32_t>(ld<kCg>(static_cast<const int32_t*>(g.f) + i))};
   }
   __device__ static void put(const Leaves& g, int64_t i, E e) {
     static_cast<A*>(g.v)[i] = e.v;
-    g.f[i] = static_cast<int32_t>(e.f);
+    static_cast<int32_t*>(g.f)[i] = static_cast<int32_t>(e.f);
+  }
+  static constexpr bool kPack = true;  // the value, and the flag in bit 2
+  __device__ static uint64_t pack(E e) {
+    return (static_cast<uint64_t>(to_bits(e.v)) << 32) |
+           (static_cast<uint64_t>(e.f) << 2);
+  }
+  __device__ static E unpack(uint64_t w) {
+    return {from_bits<A>(static_cast<uint32_t>(w >> 32)),
+            static_cast<uint32_t>((w >> 2) & 1u)};
   }
 };
 
@@ -235,26 +301,139 @@ struct MaskSpec : SumSpec<int32_t> {
   }
 };
 
-// In-tile inclusive scan of x[0, bn) (see "Association order" above).
+// AFFINE: (a, b) in float32, the earlier element on the left; the output
+// is the b leaf in T. Rounded multiply and add, never contracted.
+template <typename T>
+struct AffineSpec {
+  struct E { float a, b; };
+  struct Buf {
+    float* a;
+    float* b;
+    __device__ E get(int i) const { return {a[i], b[i]}; }
+    __device__ void set(int i, E e) const {
+      a[i] = e.a;
+      b[i] = e.b;
+    }
+  };
+  __host__ __device__ static size_t buf_bytes(int count) {
+    return 2 * round16(static_cast<size_t>(count) * sizeof(float));
+  }
+  __device__ static Buf carve(unsigned char*& p, int count) {
+    Buf b;
+    b.a = reinterpret_cast<float*>(p);
+    p += round16(static_cast<size_t>(count) * sizeof(float));
+    b.b = reinterpret_cast<float*>(p);
+    p += round16(static_cast<size_t>(count) * sizeof(float));
+    return b;
+  }
+  __device__ static E identity() { return {1.0f, 0.0f}; }
+  __device__ static E combine(E l, E r) {
+    return {__fmul_rn(l.a, r.a), __fadd_rn(__fmul_rn(r.a, l.b), r.b)};
+  }
+  __device__ static E load(const Tensors& t, int64_t i) {
+    return {load_acc(static_cast<const T*>(t.x) + i),
+            load_acc(static_cast<const T*>(t.y) + i)};
+  }
+  __device__ static void emit(const Tensors& t, int64_t i, E c) {
+    store(static_cast<T*>(t.out) + i, c.b);
+  }
+  template <bool kCg = false>
+  __device__ static E get(const Leaves& g, int64_t i) {
+    return {ld<kCg>(static_cast<const float*>(g.v) + i),
+            ld<kCg>(static_cast<const float*>(g.f) + i)};
+  }
+  __device__ static void put(const Leaves& g, int64_t i, E e) {
+    static_cast<float*>(g.v)[i] = e.a;
+    static_cast<float*>(g.f)[i] = e.b;
+  }
+  static constexpr bool kPack = false;  // 64 bits of payload
+  __device__ static uint64_t pack(E) { return 0; }
+  __device__ static E unpack(uint64_t) { return identity(); }
+};
+
+// Where a lane's tiles live. Rows: lane = row, positions contiguous (the
+// kernels take d = width = strips = 1 as constants). Channels: lane =
+// (batch row, strip s of `width` channels); position p of channel w lies
+// at row * n * d + p * d + s * width + w, and its chunk-c chain entry at
+// row * chunks * d + c * d + s * width + w. Inside a tile, element
+// e = i * width + w holds position i of channel w. Tiles are numbered
+// lane-major, and there are fewer than 2^31 of them (the wrapper checks),
+// so lane and chunk indices take 32-bit arithmetic.
+struct Geom {
+  int64_t n;        // scanned length (N or T)
+  int64_t d;        // elements between consecutive positions (1 or D)
+  int64_t chunks;   // tiles per lane, n / bn
+  uint32_t strips;  // strips per batch row (1 or D / width)
+  int width;        // channels per strip (1 for Rows)
+  int bn;           // tile length along the scan
+};
+
+// A lane's first element and first chain entry (channel 0).
+template <bool kChan>
+__device__ __forceinline__ int64_t data_base(const Geom& g, uint32_t lane) {
+  if (!kChan) return lane * g.n;
+  return (lane / g.strips) * g.n * g.d + (lane % g.strips) * g.width;
+}
+template <bool kChan>
+__device__ __forceinline__ int64_t chain_base(const Geom& g, uint32_t lane) {
+  if (!kChan) return lane * g.chunks;
+  return (lane / g.strips) * g.chunks * g.d + (lane % g.strips) * g.width;
+}
+
+// Tile `tile`'s first element and chain entry (channel 0); on Rows no
+// division at all: a row's tiles follow each other.
+template <bool kChan>
+__device__ __forceinline__ void tile_at(const Geom& g, uint32_t tile,
+                                        int64_t& data, int64_t& chain) {
+  if (!kChan) {
+    data = static_cast<int64_t>(tile) * g.bn;
+    chain = tile;
+    return;
+  }
+  const uint32_t chunks = static_cast<uint32_t>(g.chunks);
+  const uint32_t lane = tile / chunks, j = tile % chunks;
+  data = data_base<true>(g, lane) + static_cast<int64_t>(j) * g.bn * g.d;
+  chain = chain_base<true>(g, lane) + static_cast<int64_t>(j) * g.d;
+}
+
+template <bool kChan> __device__ __forceinline__ int width_of(const Geom& g) {
+  return kChan ? g.width : 1;
+}
+template <bool kChan> __device__ __forceinline__ int64_t stride_of(const Geom& g) {
+  return kChan ? g.d : 1;
+}
+// log2 of the strip width, a power of two: tile element e holds position
+// e >> shift of channel e & (w - 1), with no division in the loops.
+template <bool kChan> __device__ __forceinline__ int shift_of(int w) {
+  return kChan ? __ffs(w) - 1 : 0;
+}
+
+// In-tile inclusive scan of x[0, bn * w) (see "Association order" above).
 // Every step reads one buffer and writes the other, with a barrier
 // between steps; returns the buffer that holds the result. tx/ty hold the
-// segment totals. Ends with a barrier, so the result is visible to all.
-template <typename S>
+// segment totals of the Rows split. Ends with a barrier, so the result is
+// visible to all.
+template <typename S, bool kChan>
 __device__ typename S::Buf tile_scan(typename S::Buf x, typename S::Buf y,
-                                     typename S::Buf tx, typename S::Buf ty, int bn) {
+                                     typename S::Buf tx, typename S::Buf ty,
+                                     int bn, int w) {
   using E = typename S::E;
   using Buf = typename S::Buf;
-  const int seg = (bn > kLanes && bn % kLanes == 0) ? kLanes : bn;
+  if (!kChan) w = 1;  // a constant for Rows
+  const int m = bn * w, ws = shift_of<kChan>(w);
+  const int seg = (!kChan && bn > kLanes && bn % kLanes == 0) ? kLanes : bn;
   for (int k = 1; k < seg; k <<= 1) {
-    for (int i = threadIdx.x; i < bn; i += blockDim.x) {
-      const E left = (i % seg) >= k ? x.get(i - k) : S::identity();
-      y.set(i, S::combine(left, x.get(i)));
+    for (int e = threadIdx.x; e < m; e += blockDim.x) {
+      // the position within its segment (Channels: the whole tile)
+      const int i = kChan ? e >> ws : e % seg;
+      const E left = i >= k ? x.get(e - k * w) : S::identity();
+      y.set(e, S::combine(left, x.get(e)));
     }
     __syncthreads();
     const Buf t = x; x = y; y = t;
   }
   if (seg == bn) return x;
-  const int r = bn / seg;
+  const int r = bn / seg;  // Rows only from here on: w == 1
   for (int q = threadIdx.x; q < r; q += blockDim.x) tx.set(q, x.get(q * seg + seg - 1));
   __syncthreads();
   for (int k = 1; k < r; k <<= 1) {
@@ -274,77 +453,107 @@ __device__ typename S::Buf tile_scan(typename S::Buf x, typename S::Buf y,
   return x;
 }
 
-// Shared memory of one tile network: two tile buffers, two totals buffers.
+// Shared memory of one tile network: two tile buffers, two totals buffers
+// and one element per channel of the strip (the carry or the offset).
 template <typename S>
-size_t network_bytes(int bn) {
-  return 2 * S::buf_bytes(bn) + 2 * S::buf_bytes(bn / kLanes + 1);
+size_t network_bytes(int bn, int w) {
+  return 2 * S::buf_bytes(bn * w) + 2 * S::buf_bytes(bn / kLanes + 1) +
+         S::buf_bytes(kMaxWidth);
 }
 
-template <typename S>
+template <typename S, bool kChan>
 struct Network {
-  typename S::Buf x, y, tx, ty;
-  __device__ Network(unsigned char* smem, int bn) {
+  typename S::Buf x, y, tx, ty, lane;
+  int bn, w;
+  __device__ Network(unsigned char* smem, int bn_, int w_) : bn(bn_), w(w_) {
     unsigned char* p = smem;
-    x = S::carve(p, bn);
-    y = S::carve(p, bn);
+    x = S::carve(p, bn * w);
+    y = S::carve(p, bn * w);
     tx = S::carve(p, bn / kLanes + 1);
     ty = S::carve(p, bn / kLanes + 1);
+    lane = S::carve(p, kMaxWidth);
   }
-  __device__ typename S::Buf scan(int bn) { return tile_scan<S>(x, y, tx, ty, bn); }
+  __device__ typename S::Buf scan() {
+    return tile_scan<S, kChan>(x, y, tx, ty, bn, w);
+  }
+  // channel c's element at the tile's last position
+  __device__ typename S::E last(const typename S::Buf& s, int c) const {
+    return s.get((bn - 1) * w + c);
+  }
 };
 
-template <typename S>
-__device__ void load_tile(const Tensors& t, int64_t base, typename S::Buf dst, int bn) {
-  for (int i = threadIdx.x; i < bn; i += blockDim.x) dst.set(i, S::load(t, base + i));
+template <typename S, bool kChan>
+__device__ void load_tile(const Tensors& t, const Geom& g, int64_t base,
+                          typename S::Buf dst, int bn, int w) {
+  const int64_t d = stride_of<kChan>(g);
+  const int ws = shift_of<kChan>(w);
+  for (int e = threadIdx.x; e < bn * w; e += blockDim.x)
+    dst.set(e, S::load(t, base + (e >> ws) * d + (e & (w - 1))));
   __syncthreads();
 }
 
-// Emits left (+) (exclusive ? s shifted one step right with the identity : s).
-template <typename S>
-__device__ void store_tile(const Tensors& t, int64_t base, typename S::Buf s,
-                           typename S::E left, int bn, int exclusive) {
-  for (int i = threadIdx.x; i < bn; i += blockDim.x) {
+// Emits left[c] (+) (exclusive ? s shifted one step right with the
+// identity : s), channel c's offset as the EARLIER operand.
+template <typename S, bool kChan>
+__device__ void store_tile(const Tensors& t, const Geom& g, int64_t base,
+                           typename S::Buf s, typename S::Buf left, int bn,
+                           int w, int exclusive) {
+  const int64_t d = stride_of<kChan>(g);
+  const int ws = shift_of<kChan>(w);
+  const typename S::E row_left = left.get(0);  // Rows: one offset per tile
+  for (int e = threadIdx.x; e < bn * w; e += blockDim.x) {
+    const int i = e >> ws, c = e & (w - 1);
     const typename S::E sel =
-        exclusive ? (i > 0 ? s.get(i - 1) : S::identity()) : s.get(i);
-    S::emit(t, base + i, S::combine(left, sel));
+        exclusive ? (i > 0 ? s.get(e - w) : S::identity()) : s.get(e);
+    S::emit(t, base + i * d + c, S::combine(kChan ? left.get(c) : row_left, sel));
   }
 }
 
-// carry: one block per row walks the row's chunks in order; with running
-// totals, thread 0 writes the carry after each chunk.
-template <typename S>
+// carry: one block per lane walks the lane's chunks in order, the carry of
+// each channel in shared memory; with running totals, the carry is written
+// after each chunk.
+template <typename S, bool kChan>
 __global__ void __launch_bounds__(kThreads)
-carry_kernel(Tensors t, Leaves running, int64_t n, int bn, int exclusive) {
+carry_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Network<S> net(smem, bn);
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
-  const int64_t chunks = n / bn;
-  typename S::E carry = S::identity();
-  for (int64_t c = 0; c < chunks; ++c) {
-    load_tile<S>(t, base + c * bn, net.x, bn);
-    const typename S::Buf s = net.scan(bn);
-    store_tile<S>(t, base + c * bn, s, carry, bn, exclusive);
-    carry = S::combine(carry, s.get(bn - 1));
-    if (running.v != nullptr && threadIdx.x == 0)
-      S::put(running, static_cast<int64_t>(blockIdx.x) * chunks + c, carry);
+  const int w = width_of<kChan>(g);
+  const int64_t d = stride_of<kChan>(g);
+  Network<S, kChan> net(smem, g.bn, w);
+  const int64_t base = data_base<kChan>(g, blockIdx.x);
+  const int64_t cbase = chain_base<kChan>(g, blockIdx.x);
+  for (int c = threadIdx.x; c < w; c += blockDim.x) net.lane.set(c, S::identity());
+  for (int64_t j = 0; j < g.chunks; ++j) {
+    const int64_t tile = base + j * g.bn * d;
+    load_tile<S, kChan>(t, g, tile, net.x, g.bn, w);
+    const typename S::Buf s = net.scan();
+    store_tile<S, kChan>(t, g, tile, s, net.lane, g.bn, w, exclusive);
+    __syncthreads();  // every read of the carry is done
+    for (int c = threadIdx.x; c < w; c += blockDim.x) {
+      const typename S::E carry = S::combine(net.lane.get(c), net.last(s, c));
+      net.lane.set(c, carry);
+      if (running.v != nullptr) S::put(running, cbase + j * d + c, carry);
+    }
     __syncthreads();  // the next tile overwrites s
   }
 }
 
-// totals: one block per (row, chunk) tile writes the LAST element of the
+// totals: one block per (lane, chunk) tile writes the LAST element of the
 // same network, so the chain below reproduces carry's combines.
-template <typename S>
+template <typename S, bool kChan>
 __global__ void __launch_bounds__(kThreads)
-totals_kernel(Tensors t, Leaves totals, int bn) {
+totals_kernel(Tensors t, Leaves totals, Geom g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Network<S> net(smem, bn);
-  const int64_t tile = blockIdx.x;
-  load_tile<S>(t, tile * bn, net.x, bn);
-  const typename S::Buf s = net.scan(bn);
-  if (threadIdx.x == 0) S::put(totals, tile, s.get(bn - 1));
+  const int w = width_of<kChan>(g);
+  Network<S, kChan> net(smem, g.bn, w);
+  int64_t tile, chain;
+  tile_at<kChan>(g, blockIdx.x, tile, chain);
+  load_tile<S, kChan>(t, g, tile, net.x, g.bn, w);
+  const typename S::Buf s = net.scan();
+  for (int c = threadIdx.x; c < w; c += blockDim.x)
+    S::put(totals, chain + c, net.last(s, c));
 }
 
-// chain: one warp per row stages totals through shared memory with
+// chain (Rows): one warp per row stages totals through shared memory with
 // coalesced loads and stores; lane 0 alone runs the sequential exclusive
 // chain, left to right from the identity, in lax.scan's order. With
 // running != nullptr the warp also writes offset (+) total, the running
@@ -393,208 +602,517 @@ __global__ void chain_kernel(Leaves totals, Leaves offsets, Leaves running,
   }
 }
 
-// apply: one block per (row, chunk) tile rescans and combines its offset.
+// chain (Channels): the same chain for each (batch row, channel), one
+// thread each, reading and writing its (B, chunks, D) entries with loads
+// coalesced across channels.
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(Tensors t, Leaves offsets, int bn, int exclusive) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Network<S> net(smem, bn);
-  const int64_t tile = blockIdx.x;
-  load_tile<S>(t, tile * bn, net.x, bn);
-  const typename S::Buf s = net.scan(bn);
-  store_tile<S>(t, tile * bn, s, S::get(offsets, tile), bn, exclusive);
+__global__ void chain_chan_kernel(Leaves totals, Leaves offsets, Leaves running,
+                                  int64_t batch, int64_t chunks, int64_t d) {
+  using E = typename S::E;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= batch * d) return;
+  const int64_t base = (lane / d) * chunks * d + lane % d;
+  E acc = S::identity();
+  for (int64_t c = 0; c < chunks; ++c) {
+    const E tot = S::get(totals, base + c * d);
+    S::put(offsets, base + c * d, acc);
+    if (running.v != nullptr) S::put(running, base + c * d, S::combine(acc, tot));
+    acc = S::combine(acc, tot);
+  }
 }
 
-// tree: carry's row walk with an in-place Blelloch sweep over the tile
-// padded to m (a power of two) with the identity. e keeps the elements
-// for the inclusive form.
-template <typename S>
+// apply: one block per (lane, chunk) tile rescans and combines its offsets.
+template <typename S, bool kChan>
 __global__ void __launch_bounds__(kThreads)
-tree_kernel(Tensors t, Leaves running, int64_t n, int bn, int m, int exclusive) {
+apply_kernel(Tensors t, Leaves offsets, Geom g, int exclusive) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w = width_of<kChan>(g);
+  Network<S, kChan> net(smem, g.bn, w);
+  int64_t tile, chain;
+  tile_at<kChan>(g, blockIdx.x, tile, chain);
+  for (int c = threadIdx.x; c < w; c += blockDim.x)
+    net.lane.set(c, S::get(offsets, chain + c));
+  load_tile<S, kChan>(t, g, tile, net.x, g.bn, w);  // its barrier covers lane
+  const typename S::Buf s = net.scan();
+  store_tile<S, kChan>(t, g, tile, s, net.lane, g.bn, w, exclusive);
+}
+
+// fused: decoupled's totals, chain and apply in one launch, one block per
+// (lane, chunk) tile, through a decoupled look-back that keeps the chain's
+// association.
+//
+// Order. A block's tile comes from an atomic ticket, not from blockIdx, so
+// every tile a block waits on belongs to a block that started earlier and
+// is resident: the look-back makes progress whatever the grid size.
+//
+// Publication. Each tile has a 64-bit state word: none, aggregate (its
+// tile total t_j) or inclusive (its prefix I_j = offset (+) t_j). A block
+// publishes "aggregate" right after its tile is scanned and "inclusive"
+// once its offset is known; the last tile of a lane publishes nothing,
+// the first only I_0. On Rows, where a tuple fits in 32 bits (and the
+// segmented flag in one more), the value rides in the same word as the
+// state (S::kPack): one relaxed 64-bit store publishes both, one load
+// reads both, no fence. Otherwise (the affine pair, Channels strips) the
+// value goes to the agg/incl arrays first, then the state is released
+// (st.release; with a fence first where several lanes wrote), and read
+// with acquire loads before the values are read through L2.
+//
+// Look-back. Warp 0 reads the states of the 32 tiles before its own and
+// finds the nearest k with "inclusive" such that every tile between k and
+// its own has at least "aggregate"; with none such it waits, and when all
+// 32 are "aggregate" it moves 32 tiles back (packed: up to kStackWindows
+// windows, keeping their words in shared memory). Then the fold, LEFT TO
+// RIGHT: offset = I_k (+) t(k+1) (+) ... (+) t(j-1): on Rows by lane 0,
+// on Channels by each lane of the strip for its own channel. A textbook
+// look-back sums its window right to left, which re-associates floats;
+// this order is the chain's, so the offset is bitwise the chain's
+// exclusive prefix whichever k was found (each I_k is that fold itself,
+// by induction from I_0 = I (+) t0).
+//
+// Scratch (zeroed by the caller per launch): word[0] holds the ticket
+// counter, word[1 + tile] the tile's state. Read n + write n.
+constexpr uint32_t kNone = 0, kAggregate = 1, kInclusive = 2;
+constexpr int kStackWindows = 16;
+
+__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+// The look-back of a packed Rows tile j > 0, by warp 0: returns the offset
+// in lane 0 (the identity elsewhere).
+template <typename S>
+__device__ typename S::E lookback_packed(const uint64_t* st, int64_t j,
+                                         uint64_t* stack) {
+  using E = typename S::E;
+  const int l = threadIdx.x;
+  int64_t hi = j - 1;
+  int nw = 0, first = 0;
+  for (;;) {
+    const int64_t idx = hi - l;
+    const uint64_t word = idx >= 0 ? ld_relaxed(st + idx) : 0u;
+    const uint32_t sv = static_cast<uint32_t>(word) & 3u;
+    const unsigned inc = __ballot_sync(0xffffffffu, sv == kInclusive);
+    const unsigned none = __ballot_sync(0xffffffffu, sv == kNone);
+    if (inc != 0u) {
+      first = __ffs(inc) - 1;
+      if ((none & ((1u << first) - 1u)) == 0u) {
+        stack[nw * 32 + l] = word;
+        break;
+      }
+    } else if (none == 0u && nw + 1 < kStackWindows) {
+      stack[nw * 32 + l] = word;  // 32 aggregates: look further back
+      ++nw;
+      hi -= 32;
+      continue;
+    }
+    __nanosleep(64);
+  }
+  __syncwarp();
+  E pre = S::identity();
+  if (l == 0) {
+    // I_k, then the aggregates from tile k + 1 up to tile j - 1
+    pre = S::unpack(stack[nw * 32 + first]);
+#pragma unroll 8
+    for (int q = first - 1; q >= 0; --q)
+      pre = S::combine(pre, S::unpack(stack[nw * 32 + q]));
+    for (int v = nw - 1; v >= 0; --v) {
+#pragma unroll 8
+      for (int q = 31; q >= 0; --q)
+        pre = S::combine(pre, S::unpack(stack[v * 32 + q]));
+    }
+  }
+  return pre;
+}
+
+// The look-back of tile j > 0 with its values in the agg/incl arrays, by
+// warp 0: lanes l < w return their channel's offset.
+template <typename S>
+__device__ typename S::E lookback_arrays(const uint64_t* st, int64_t j,
+                                         Leaves agg, Leaves incl,
+                                         int64_t cbase, int64_t d, int w) {
+  using E = typename S::E;
+  const int l = threadIdx.x;
+  int64_t hi = j - 1, k;
+  for (;;) {
+    const int64_t idx = hi - l;
+    const uint32_t sv = idx >= 0 ? static_cast<uint32_t>(ld_acquire(st + idx))
+                                 : kNone;
+    const unsigned inc = __ballot_sync(0xffffffffu, sv == kInclusive);
+    const unsigned none = __ballot_sync(0xffffffffu, sv == kNone);
+    if (inc != 0u) {
+      const int first = __ffs(inc) - 1;
+      if ((none & ((1u << first) - 1u)) == 0u) {
+        k = hi - first;
+        break;
+      }
+    } else if (none == 0u) {
+      hi -= 32;  // 32 aggregates: look further back
+      continue;
+    }
+    __nanosleep(64);
+  }
+  __syncwarp();  // the acquires above order the reads below, lane to lane
+  E pre = S::identity();
+  if (l < w) {
+    pre = S::template get<true>(incl, cbase + k * d + l);
+    int64_t i = k + 1;
+    for (; i + 8 <= j; i += 8) {  // eight loads in flight per step
+      E v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = S::template get<true>(agg, cbase + (i + u) * d + l);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) pre = S::combine(pre, v[u]);
+    }
+    for (; i < j; ++i) pre = S::combine(pre, S::template get<true>(agg, cbase + i * d + l));
+  }
+  return pre;
+}
+
+template <typename S, bool kChan>
+__global__ void __launch_bounds__(kThreads)
+fused_kernel(Tensors t, uint64_t* state, Leaves agg, Leaves incl, Geom g,
+             int exclusive) {
+  using E = typename S::E;
+  constexpr bool kPacked = !kChan && S::kPack;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t ticket;
+  __shared__ uint64_t stack[kPacked ? kStackWindows * 32 : 1];
+  const int w = width_of<kChan>(g);
+  const int64_t d = stride_of<kChan>(g);
+  Network<S, kChan> net(smem, g.bn, w);
+  if (threadIdx.x == 0) ticket = atomicAdd(reinterpret_cast<unsigned*>(state), 1u);
+  __syncthreads();
+  const uint32_t j = ticket % static_cast<uint32_t>(g.chunks);
+  int64_t tile, chain;
+  tile_at<kChan>(g, ticket, tile, chain);
+  const int64_t cbase = chain - j * d;           // the lane's chain entries
+  uint64_t* st = state + 1 + (ticket - j);       // and its tile states
+  const bool publish = j + 1 < g.chunks;         // a successor reads it
+  load_tile<S, kChan>(t, g, tile, net.x, g.bn, w);
+  const typename S::Buf s = net.scan();
+  if (threadIdx.x < 32) {  // w <= 32: the strip's channels are warp 0's lanes
+    const int l = threadIdx.x;
+    if (j > 0 && publish) {
+      if constexpr (kPacked) {
+        if (l == 0) st_relaxed(st + j, S::pack(net.last(s, 0)) | kAggregate);
+      } else {
+        if (l < w) {
+          S::put(agg, cbase + j * d + l, net.last(s, l));
+          if (w > 1) __threadfence();
+        }
+        __syncwarp();
+        if (l == 0) st_release(st + j, kAggregate);
+      }
+    }
+    E pre = S::identity();
+    if (j > 0) {
+      if constexpr (kPacked) pre = lookback_packed<S>(st, j, stack);
+      else pre = lookback_arrays<S>(st, j, agg, incl, cbase, d, w);
+    }
+    if (l < w) net.lane.set(l, pre);
+    if (publish) {
+      if constexpr (kPacked) {
+        if (l == 0)
+          st_relaxed(st + j, S::pack(S::combine(pre, net.last(s, 0))) | kInclusive);
+      } else {
+        if (l < w) {
+          S::put(incl, cbase + j * d + l, S::combine(pre, net.last(s, l)));
+          if (w > 1) __threadfence();
+        }
+        __syncwarp();
+        if (l == 0) st_release(st + j, kInclusive);
+      }
+    }
+  }
+  __syncthreads();
+  store_tile<S, kChan>(t, g, tile, s, net.lane, g.bn, w, exclusive);
+}
+
+// tree: carry's lane walk with an in-place Blelloch sweep over the tile
+// padded to m (a power of two) positions with the identity, each channel
+// on its own. e keeps the elements for the inclusive form.
+template <typename S, bool kChan>
+__global__ void __launch_bounds__(kThreads)
+tree_kernel(Tensors t, Leaves running, Geom g, int m, int exclusive) {
   using E = typename S::E;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int w = width_of<kChan>(g), ws = shift_of<kChan>(w);
+  const int64_t d = stride_of<kChan>(g);
+  const int bn = g.bn;
   unsigned char* p = smem;
-  const typename S::Buf a = S::carve(p, m);
-  const typename S::Buf e = S::carve(p, bn);
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
-  const int64_t chunks = n / bn;
-  E carry = S::identity();
-  for (int64_t c = 0; c < chunks; ++c) {
-    const int64_t c0 = base + c * bn;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const E v = i < bn ? S::load(t, c0 + i) : S::identity();
-      a.set(i, v);
-      if (i < bn) e.set(i, v);
+  const typename S::Buf a = S::carve(p, m * w);
+  const typename S::Buf e = S::carve(p, bn * w);
+  const typename S::Buf carry = S::carve(p, kMaxWidth);
+  const typename S::Buf root = S::carve(p, kMaxWidth);
+  const int64_t base = data_base<kChan>(g, blockIdx.x);
+  const int64_t cbase = chain_base<kChan>(g, blockIdx.x);
+  for (int c = threadIdx.x; c < w; c += blockDim.x) carry.set(c, S::identity());
+  for (int64_t j = 0; j < g.chunks; ++j) {
+    const int64_t tile = base + j * bn * d;
+    for (int q = threadIdx.x; q < m * w; q += blockDim.x) {
+      const int i = q >> ws;
+      const E v = i < bn ? S::load(t, tile + i * d + (q & (w - 1))) : S::identity();
+      a.set(q, v);
+      if (i < bn) e.set(q, v);
     }
     __syncthreads();
-    for (int d = 1; d < m; d <<= 1) {  // up-sweep: left (+) right
-      for (int q = threadIdx.x; q < m / (2 * d); q += blockDim.x) {
-        const int right = (q + 1) * 2 * d - 1;
-        a.set(right, S::combine(a.get(right - d), a.get(right)));
+    for (int s = 1; s < m; s <<= 1) {  // up-sweep: left (+) right
+      for (int q = threadIdx.x; q < (m / (2 * s)) * w; q += blockDim.x) {
+        const int right = (((q >> ws) + 1) * 2 * s - 1) * w + (q & (w - 1));
+        a.set(right, S::combine(a.get(right - s * w), a.get(right)));
       }
       __syncthreads();
     }
-    const E root = a.get(m - 1);
+    for (int c = threadIdx.x; c < w; c += blockDim.x) {
+      root.set(c, a.get((m - 1) * w + c));
+      a.set((m - 1) * w + c, S::identity());
+    }
     __syncthreads();
-    if (threadIdx.x == 0) a.set(m - 1, S::identity());
-    __syncthreads();
-    for (int d = m >> 1; d >= 1; d >>= 1) {  // down-sweep
-      for (int q = threadIdx.x; q < m / (2 * d); q += blockDim.x) {
-        const int right = (q + 1) * 2 * d - 1;
+    for (int s = m >> 1; s >= 1; s >>= 1) {  // down-sweep
+      for (int q = threadIdx.x; q < (m / (2 * s)) * w; q += blockDim.x) {
+        const int right = (((q >> ws) + 1) * 2 * s - 1) * w + (q & (w - 1));
         const E parent = a.get(right);
-        const E old_left = a.get(right - d);
-        a.set(right - d, parent);
+        const E old_left = a.get(right - s * w);
+        a.set(right - s * w, parent);
         a.set(right, S::combine(parent, old_left));  // combine(parent, old_left)
       }
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < bn; i += blockDim.x) {
-      const E sel = exclusive ? a.get(i) : S::combine(a.get(i), e.get(i));
-      S::emit(t, c0 + i, S::combine(carry, sel));
+    const E row_carry = carry.get(0);  // Rows: one carry per tile
+    for (int q = threadIdx.x; q < bn * w; q += blockDim.x) {
+      const int c = q & (w - 1);
+      const E sel = exclusive ? a.get(q) : S::combine(a.get(q), e.get(q));
+      S::emit(t, tile + (q >> ws) * d + c,
+              S::combine(kChan ? carry.get(c) : row_carry, sel));
     }
-    carry = S::combine(carry, root);
-    if (running.v != nullptr && threadIdx.x == 0)
-      S::put(running, static_cast<int64_t>(blockIdx.x) * chunks + c, carry);
-    __syncthreads();  // the next tile overwrites a and e
+    __syncthreads();  // every read of the carry is done
+    for (int c = threadIdx.x; c < w; c += blockDim.x) {
+      const E next = S::combine(carry.get(c), root.get(c));
+      carry.set(c, next);
+      if (running.v != nullptr) S::put(running, cbase + j * d + c, next);
+    }
+    __syncthreads();  // the next tile overwrites a, e and root
   }
 }
 
+// Opts in to more than 48 KB of shared memory, static included (fused
+// adds up to 4 KB of its own).
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + 8 * 1024 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-template <typename S>
-int launch_carry(Tensors t, Leaves running, long long rows, long long n, int bn,
+// The geometry of the C interface: Rows (chan 0) pass (rows, n, 1, 1);
+// Channels (chan 1) pass (B, T, D, width).
+Geom make_geom(int chan, long long n, long long d, int width, int bn) {
+  if (!chan) return Geom{n, 1, n / bn, 1, 1, bn};
+  return Geom{n, d, n / bn, static_cast<uint32_t>(d / width), width, bn};
+}
+
+long long lanes_of(int chan, long long b, long long d, int width) {
+  return chan ? b * (d / width) : b;
+}
+
+template <typename S, bool kChan>
+int launch_carry(Tensors t, Leaves running, long long b, long long n,
+                 long long d, int width, int bn, int exclusive,
+                 cudaStream_t stream) {
+  const Geom g = make_geom(kChan, n, d, width, bn);
+  const size_t smem = network_bytes<S>(bn, g.width);
+  cudaError_t err = allow_smem(carry_kernel<S, kChan>, smem);
+  if (err != cudaSuccess) return err;
+  carry_kernel<S, kChan><<<static_cast<unsigned>(lanes_of(kChan, b, d, width)),
+                           kThreads, smem, stream>>>(t, running, g, exclusive);
+  return cudaGetLastError();
+}
+
+template <typename S, bool kChan>
+int launch_totals(Tensors t, Leaves totals, long long b, long long n,
+                  long long d, int width, int bn, cudaStream_t stream) {
+  const Geom g = make_geom(kChan, n, d, width, bn);
+  const size_t smem = network_bytes<S>(bn, g.width);
+  cudaError_t err = allow_smem(totals_kernel<S, kChan>, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
+  totals_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
+                            stream>>>(t, totals, g);
+  return cudaGetLastError();
+}
+
+template <typename S, bool kChan>
+int launch_chain(Leaves totals, Leaves offsets, Leaves running, long long b,
+                 long long chunks, long long d, cudaStream_t stream) {
+  if (kChan) {
+    const long long lanes = b * d;
+    chain_chan_kernel<S><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0,
+                           stream>>>(totals, offsets, running, b, chunks, d);
+  } else {
+    chain_kernel<S><<<static_cast<unsigned>(b), 32, 0, stream>>>(
+        totals, offsets, running, chunks);
+  }
+  return cudaGetLastError();
+}
+
+template <typename S, bool kChan>
+int launch_apply(Tensors t, Leaves offsets, long long b, long long n,
+                 long long d, int width, int bn, int exclusive,
+                 cudaStream_t stream) {
+  const Geom g = make_geom(kChan, n, d, width, bn);
+  const size_t smem = network_bytes<S>(bn, g.width);
+  cudaError_t err = allow_smem(apply_kernel<S, kChan>, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
+  apply_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
+                           stream>>>(t, offsets, g, exclusive);
+  return cudaGetLastError();
+}
+
+template <typename S, bool kChan>
+int launch_fused(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
+                 long long b, long long n, long long d, int width, int bn,
                  int exclusive, cudaStream_t stream) {
-  const size_t smem = network_bytes<S>(bn);
-  cudaError_t err = allow_smem(carry_kernel<S>, smem);
+  const Geom g = make_geom(kChan, n, d, width, bn);
+  const size_t smem = network_bytes<S>(bn, g.width);
+  cudaError_t err = allow_smem(fused_kernel<S, kChan>, smem);
   if (err != cudaSuccess) return err;
-  carry_kernel<S><<<static_cast<unsigned>(rows), kThreads, smem, stream>>>(
-      t, running, n, bn, exclusive);
+  const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
+  fused_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
+                           stream>>>(t, state, agg, incl, g, exclusive);
   return cudaGetLastError();
 }
 
-template <typename S>
-int launch_totals(Tensors t, Leaves totals, long long rows, long long n, int bn,
-                  cudaStream_t stream) {
-  const size_t smem = network_bytes<S>(bn);
-  cudaError_t err = allow_smem(totals_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = rows * (n / bn);
-  totals_kernel<S><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-      t, totals, bn);
-  return cudaGetLastError();
-}
-
-template <typename S>
-int launch_chain(Leaves totals, Leaves offsets, Leaves running, long long rows,
-                 long long chunks, cudaStream_t stream) {
-  chain_kernel<S><<<static_cast<unsigned>(rows), 32, 0, stream>>>(
-      totals, offsets, running, chunks);
-  return cudaGetLastError();
-}
-
-template <typename S>
-int launch_apply(Tensors t, Leaves offsets, long long rows, long long n, int bn,
-                 int exclusive, cudaStream_t stream) {
-  const size_t smem = network_bytes<S>(bn);
-  cudaError_t err = allow_smem(apply_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = rows * (n / bn);
-  apply_kernel<S><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-      t, offsets, bn, exclusive);
-  return cudaGetLastError();
-}
-
-template <typename S>
-int launch_tree(Tensors t, Leaves running, long long rows, long long n, int bn,
-                int exclusive, cudaStream_t stream) {
+template <typename S, bool kChan>
+int launch_tree(Tensors t, Leaves running, long long b, long long n,
+                long long d, int width, int bn, int exclusive,
+                cudaStream_t stream) {
+  const Geom g = make_geom(kChan, n, d, width, bn);
   int m = 1;
   while (m < bn) m <<= 1;
-  const size_t smem = S::buf_bytes(m) + S::buf_bytes(bn);
-  cudaError_t err = allow_smem(tree_kernel<S>, smem);
+  const size_t smem = S::buf_bytes(m * g.width) + S::buf_bytes(bn * g.width) +
+                      2 * S::buf_bytes(kMaxWidth);
+  cudaError_t err = allow_smem(tree_kernel<S, kChan>, smem);
   if (err != cudaSuccess) return err;
-  tree_kernel<S><<<static_cast<unsigned>(rows), kThreads, smem, stream>>>(
-      t, running, n, bn, m, exclusive);
+  tree_kernel<S, kChan><<<static_cast<unsigned>(lanes_of(kChan, b, d, width)),
+                          kThreads, smem, stream>>>(t, running, g, m, exclusive);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // spec codes, as kernels/scan_engine/cuda.py numbers them: 0 sum,
-// 1 segmented sum, 2 mask. dtype codes of the values: 0 float32,
-// 1 bfloat16, 2 float16, 3 int32, 4 int16, 5 int8 (the mask takes int32).
-#define SCAN_DISPATCH(spec, dtype, fn, ...)                        \
-  switch ((spec) * 8 + (dtype)) {                                  \
-    case 0: return fn<SumSpec<float>>(__VA_ARGS__);                \
-    case 1: return fn<SumSpec<__nv_bfloat16>>(__VA_ARGS__);        \
-    case 2: return fn<SumSpec<__half>>(__VA_ARGS__);               \
-    case 3: return fn<SumSpec<int32_t>>(__VA_ARGS__);              \
-    case 4: return fn<SumSpec<int16_t>>(__VA_ARGS__);              \
-    case 5: return fn<SumSpec<int8_t>>(__VA_ARGS__);               \
-    case 8: return fn<SegSumSpec<float>>(__VA_ARGS__);             \
-    case 9: return fn<SegSumSpec<__nv_bfloat16>>(__VA_ARGS__);     \
-    case 10: return fn<SegSumSpec<__half>>(__VA_ARGS__);           \
-    case 11: return fn<SegSumSpec<int32_t>>(__VA_ARGS__);          \
-    case 12: return fn<SegSumSpec<int16_t>>(__VA_ARGS__);          \
-    case 13: return fn<SegSumSpec<int8_t>>(__VA_ARGS__);           \
-    case 19: return fn<MaskSpec>(__VA_ARGS__);                     \
-    default: return cudaErrorInvalidValue;                         \
-  }
+// 1 segmented sum, 2 mask, 3 affine. dtype codes of the values: 0 float32,
+// 1 bfloat16, 2 float16, 3 int32, 4 int16, 5 int8 (the mask takes int32,
+// the affine spec the three float types). chan: 0 Rows, 1 Channels.
+#define SCAN_SPECS(fn, CH, ...)                                       \
+  case 0: return fn<SumSpec<float>, CH>(__VA_ARGS__);                 \
+  case 1: return fn<SumSpec<__nv_bfloat16>, CH>(__VA_ARGS__);         \
+  case 2: return fn<SumSpec<__half>, CH>(__VA_ARGS__);                \
+  case 3: return fn<SumSpec<int32_t>, CH>(__VA_ARGS__);               \
+  case 4: return fn<SumSpec<int16_t>, CH>(__VA_ARGS__);               \
+  case 5: return fn<SumSpec<int8_t>, CH>(__VA_ARGS__);                \
+  case 8: return fn<SegSumSpec<float>, CH>(__VA_ARGS__);              \
+  case 9: return fn<SegSumSpec<__nv_bfloat16>, CH>(__VA_ARGS__);      \
+  case 10: return fn<SegSumSpec<__half>, CH>(__VA_ARGS__);            \
+  case 11: return fn<SegSumSpec<int32_t>, CH>(__VA_ARGS__);           \
+  case 12: return fn<SegSumSpec<int16_t>, CH>(__VA_ARGS__);           \
+  case 13: return fn<SegSumSpec<int8_t>, CH>(__VA_ARGS__);            \
+  case 19: return fn<MaskSpec, CH>(__VA_ARGS__);                      \
+  case 24: return fn<AffineSpec<float>, CH>(__VA_ARGS__);             \
+  case 25: return fn<AffineSpec<__nv_bfloat16>, CH>(__VA_ARGS__);     \
+  case 26: return fn<AffineSpec<__half>, CH>(__VA_ARGS__);            \
+  default: return cudaErrorInvalidValue;
+
+#define SCAN_DISPATCH(chan, spec, dtype, fn, ...)                     \
+  if (chan) {                                                         \
+    switch ((spec) * 8 + (dtype)) { SCAN_SPECS(fn, true, __VA_ARGS__) } \
+  }                                                                   \
+  switch ((spec) * 8 + (dtype)) { SCAN_SPECS(fn, false, __VA_ARGS__) }
 
 extern "C" {
 
-int scan_carry(int spec, int dtype, const void* x, const void* flags, void* out,
-               void* run_v, void* run_f, long long rows, long long n, int bn,
-               int exclusive, int sentinel, void* stream) {
-  const Tensors t{x, static_cast<const int32_t*>(flags), out, sentinel};
-  const Leaves running{run_v, static_cast<int32_t*>(run_f)};
-  SCAN_DISPATCH(spec, dtype, launch_carry, t, running, rows, n, bn, exclusive,
-                static_cast<cudaStream_t>(stream));
+int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
+               void* out, void* run_v, void* run_f, long long b, long long n,
+               long long d, int width, int bn, int exclusive, int sentinel,
+               void* stream) {
+  const Tensors t{x, y, out, sentinel};
+  const Leaves running{run_v, run_f};
+  SCAN_DISPATCH(chan, spec, dtype, launch_carry, t, running, b, n, d, width,
+                bn, exclusive, static_cast<cudaStream_t>(stream));
 }
 
-int scan_totals(int spec, int dtype, const void* x, const void* flags, void* tot_v,
-                void* tot_f, long long rows, long long n, int bn, void* stream) {
-  const Tensors t{x, static_cast<const int32_t*>(flags), nullptr, 0};
-  const Leaves totals{tot_v, static_cast<int32_t*>(tot_f)};
-  SCAN_DISPATCH(spec, dtype, launch_totals, t, totals, rows, n, bn,
-                static_cast<cudaStream_t>(stream));
+int scan_totals(int spec, int dtype, int chan, const void* x, const void* y,
+                void* tot_v, void* tot_f, long long b, long long n,
+                long long d, int width, int bn, void* stream) {
+  const Tensors t{x, y, nullptr, 0};
+  const Leaves totals{tot_v, tot_f};
+  SCAN_DISPATCH(chan, spec, dtype, launch_totals, t, totals, b, n, d, width,
+                bn, static_cast<cudaStream_t>(stream));
 }
 
 // The chain's dtype code is its totals' accumulation dtype: 0 float32 or
-// 3 int32.
-int scan_chain(int spec, int dtype, const void* tot_v, const void* tot_f,
-               void* off_v, void* off_f, void* run_v, void* run_f, long long rows,
-               long long chunks, void* stream) {
+// 3 int32. Rows chains are (b, chunks), Channels chains (b, chunks, d).
+int scan_chain(int spec, int dtype, int chan, const void* tot_v,
+               const void* tot_f, void* off_v, void* off_f, void* run_v,
+               void* run_f, long long b, long long chunks, long long d,
+               void* stream) {
   if (dtype != 0 && dtype != 3) return cudaErrorInvalidValue;
-  const Leaves totals{const_cast<void*>(tot_v),
-                      const_cast<int32_t*>(static_cast<const int32_t*>(tot_f))};
-  const Leaves offsets{off_v, static_cast<int32_t*>(off_f)};
-  const Leaves running{run_v, static_cast<int32_t*>(run_f)};
-  SCAN_DISPATCH(spec, dtype, launch_chain, totals, offsets, running, rows, chunks,
-                static_cast<cudaStream_t>(stream));
+  const Leaves totals{const_cast<void*>(tot_v), const_cast<void*>(tot_f)};
+  const Leaves offsets{off_v, off_f};
+  const Leaves running{run_v, run_f};
+  SCAN_DISPATCH(chan, spec, dtype, launch_chain, totals, offsets, running, b,
+                chunks, d, static_cast<cudaStream_t>(stream));
 }
 
-int scan_apply(int spec, int dtype, const void* x, const void* flags,
-               const void* off_v, const void* off_f, void* out, long long rows,
-               long long n, int bn, int exclusive, int sentinel, void* stream) {
-  const Tensors t{x, static_cast<const int32_t*>(flags), out, sentinel};
-  const Leaves offsets{const_cast<void*>(off_v),
-                       const_cast<int32_t*>(static_cast<const int32_t*>(off_f))};
-  SCAN_DISPATCH(spec, dtype, launch_apply, t, offsets, rows, n, bn, exclusive,
-                static_cast<cudaStream_t>(stream));
+int scan_apply(int spec, int dtype, int chan, const void* x, const void* y,
+               const void* off_v, const void* off_f, void* out, long long b,
+               long long n, long long d, int width, int bn, int exclusive,
+               int sentinel, void* stream) {
+  const Tensors t{x, y, out, sentinel};
+  const Leaves offsets{const_cast<void*>(off_v), const_cast<void*>(off_f)};
+  SCAN_DISPATCH(chan, spec, dtype, launch_apply, t, offsets, b, n, d, width,
+                bn, exclusive, static_cast<cudaStream_t>(stream));
 }
 
-int scan_tree(int spec, int dtype, const void* x, const void* flags, void* out,
-              void* run_v, void* run_f, long long rows, long long n, int bn,
-              int exclusive, int sentinel, void* stream) {
-  const Tensors t{x, static_cast<const int32_t*>(flags), out, sentinel};
-  const Leaves running{run_v, static_cast<int32_t*>(run_f)};
-  SCAN_DISPATCH(spec, dtype, launch_tree, t, running, rows, n, bn, exclusive,
-                static_cast<cudaStream_t>(stream));
+// state: 1 + tiles zeroed 64-bit words; agg/inc: chain_shape leaves (not
+// read or written where the state words carry the values).
+int scan_fused(int spec, int dtype, int chan, const void* x, const void* y,
+               void* out, void* state, void* agg_v, void* agg_f, void* inc_v,
+               void* inc_f, long long b, long long n, long long d, int width,
+               int bn, int exclusive, int sentinel, void* stream) {
+  const Tensors t{x, y, out, sentinel};
+  const Leaves agg{agg_v, agg_f};
+  const Leaves incl{inc_v, inc_f};
+  SCAN_DISPATCH(chan, spec, dtype, launch_fused, t,
+                static_cast<uint64_t*>(state), agg, incl, b, n, d, width, bn,
+                exclusive, static_cast<cudaStream_t>(stream));
+}
+
+int scan_tree(int spec, int dtype, int chan, const void* x, const void* y,
+              void* out, void* run_v, void* run_f, long long b, long long n,
+              long long d, int width, int bn, int exclusive, int sentinel,
+              void* stream) {
+  const Tensors t{x, y, out, sentinel};
+  const Leaves running{run_v, run_f};
+  SCAN_DISPATCH(chan, spec, dtype, launch_tree, t, running, b, n, d, width,
+                bn, exclusive, static_cast<cudaStream_t>(stream));
 }
 
 const char* scan_error_string(int err) {

@@ -1,4 +1,4 @@
-"""Build, bind and launch the sum-family scan kernels (``csrc/scan_sum.cu``).
+"""Build, bind and launch the element-monoid scan kernels (``csrc/scan_sum.cu``).
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` at the repository root — a shared library with a plain C
@@ -6,16 +6,18 @@ interface, loaded with ``ctypes`` — and cached there under a hash of the
 source and flags. A missing ``nvcc`` or a failed build raises with the
 compiler's output.
 
-One set of kernels (carry, totals, chain, apply, tree) is written once
-over a spec and instantiated for the three specs with a CUDA kernel: the
-sum, the segmented sum (values and int32 flags) and the compact mask
-(int32 mask, int32 destinations). Each wrapper below takes the spec and
-its operands as the engine passes them, checks device, dtype, 2-D
-contiguity and the ``Rows`` geometry, raises on anything the kernel does
-not take, allocates the outputs with ``torch.empty``, launches on
-PyTorch's current stream, raises if the launch returns an error, and
-adds one to its entry of ``LAUNCHES``. The plain PyTorch version of each
-kernel lives beside its schedule in ``schedules.py``.
+One set of kernels (carry, totals, chain, apply, fused, tree) is written
+once over a spec and a geometry and instantiated for the four specs with
+a CUDA kernel — the sum, the segmented sum (values and int32 flags), the
+compact mask (int32 mask, int32 destinations) and the affine recurrence
+(gates a and offsets b of one float dtype) — on ``Rows`` (2-D) and
+``Channels`` (3-D) layouts. Each wrapper below takes the spec and its
+operands as the engine passes them, checks device, dtype, contiguity and
+the layout's shape, raises on anything the kernel does not take,
+allocates the outputs and scratch with ``torch.empty``/``torch.zeros``,
+launches on PyTorch's current stream, raises if the launch returns an
+error, and adds one to its entry of ``LAUNCHES``. The plain PyTorch
+version of each kernel lives beside its schedule in ``schedules.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.scan_engine.layouts import Channels
+
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "scan_sum.cu"
 BUILD_DIR = _PKG.parents[1] / "build"
@@ -36,13 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Spec codes of the C interface, by KernelSpec name.
-SPEC_CODES = {"sum": 0, "segsum": 1, "mask": 2}
-KERNELS = ("carry", "totals", "chain", "apply", "tree")
+SPEC_CODES = {"sum": 0, "segsum": 1, "mask": 2, "affine": 3}
+KERNELS = ("carry", "totals", "chain", "apply", "fused", "tree")
 
 
 def kernel_name(spec_name: str, kernel: str) -> str:
-    """The launch counter's key: ``carry`` for the sum, ``segsum_carry``
-    and ``mask_carry`` for the others."""
+    """The launch counter's key: ``carry`` for the sum, ``segsum_carry``,
+    ``mask_carry`` and ``affine_carry`` for the others."""
     return kernel if spec_name == "sum" else f"{spec_name}_{kernel}"
 
 
@@ -52,11 +56,18 @@ LAUNCHES = {kernel_name(s, k): 0 for s in SPEC_CODES for k in KERNELS}
 # dtype codes of the values (see the dispatch in scan_sum.cu).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int32: 3, torch.int16: 4, torch.int8: 5}
+FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 # Longest tile: the network's two buffers of 16384 (value, flag) pairs
 # take 160 KB, the tree's of 16384 float32 words 128 KB, of the 227 KB a
-# block may use.
+# block may use; an affine (a, b) pair takes 8 bytes, so 8192 of them.
 MAX_BLOCK_N = 16384
+MAX_AFFINE_BLOCK_N = 8192
+# Channels: a block takes `width` adjacent channels of one batch row (one
+# warp's worth at most) and at most this many tile elements, so the affine
+# network's two buffers stay within 64 KB and three blocks share an SM.
+MAX_WIDTH = 32
+MAX_CHANNEL_TILE = 4096
 
 _lib = None
 build_log = ""  # the compiler's output of the last build in this process
@@ -103,12 +114,15 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    tile = (i, i, i, p, p)          # spec, dtype, chan, x, y
+    geom = (ll, ll, ll, i, i)       # b, n, d, width, bn
     signatures = {
-        "scan_carry": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
-        "scan_totals": (i, i, p, p, p, p, ll, ll, i, p),
-        "scan_chain": (i, i, p, p, p, p, p, p, ll, ll, p),
-        "scan_apply": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
-        "scan_tree": (i, i, p, p, p, p, p, ll, ll, i, i, i, p),
+        "scan_carry": tile + (p, p, p) + geom + (i, i, p),
+        "scan_totals": tile + (p, p) + geom + (p,),
+        "scan_chain": (i, i, i, p, p, p, p, p, p, ll, ll, ll, p),
+        "scan_apply": tile + (p, p, p) + geom + (i, i, p),
+        "scan_fused": tile + (p, p, p, p, p, p) + geom + (i, i, p),
+        "scan_tree": tile + (p, p, p) + geom + (i, i, p),
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -126,53 +140,85 @@ def _on_cuda(t: torch.Tensor) -> None:
             f"the CUDA scan kernels take CUDA tensors, got {t.device}")
 
 
-def _operands(spec, operands, layout):
-    """(spec code, values, flags or None) after the checks."""
+def _check_spec(spec) -> None:
     if spec.name not in SPEC_CODES:
         raise NotImplementedError(
             f"no CUDA kernel for the {spec.name!r} spec yet (ROADMAP "
             "Queue 2)")
+
+
+def channel_width(layout: Channels) -> int:
+    """Channels one block takes: the widest power of two up to
+    ``MAX_WIDTH`` that divides D and keeps the tile within
+    ``MAX_CHANNEL_TILE`` elements. Any split gives the same bits: only
+    the time tile fixes the association."""
+    w = MAX_WIDTH
+    while w > 1 and (layout.d % w or layout.bt * w > MAX_CHANNEL_TILE):
+        w //= 2
+    return w
+
+
+def _geometry(layout):
+    """(chan, b, n, d, width, bn) of the C interface."""
+    if isinstance(layout, Channels):
+        return (1, layout.b, layout.t, layout.d, channel_width(layout),
+                layout.bt)
+    return 0, layout.rows, layout.n, 1, 1, layout.bn
+
+
+def _operands(spec, operands, layout):
+    """(spec code, first operand, second operand or None) after the
+    checks."""
+    _check_spec(spec)
     x = operands[0]
     _on_cuda(x)
-    if x.dtype not in DTYPE_CODES or (spec.name == "mask"
-                                      and x.dtype != torch.int32):
-        takes = (["torch.int32"] if spec.name == "mask"
-                 else sorted(str(d) for d in DTYPE_CODES))
+    if spec.name == "mask":
+        takes = (torch.int32,)
+    elif spec.name == "affine":
+        takes = FLOATS
+    else:
+        takes = tuple(DTYPE_CODES)
+    if x.dtype not in takes:
         raise TypeError(f"no CUDA scan kernel for {x.dtype} ({spec.name} "
-                        f"spec); supported: {takes}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("the CUDA scan kernels take contiguous 2-D tensors, "
-                         f"got shape {tuple(x.shape)} strides {x.stride()}")
+                        f"spec); supported: {sorted(str(d) for d in takes)}")
+    ndim = 3 if isinstance(layout, Channels) else 2
+    if x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(
+            f"the CUDA scan kernels take contiguous {ndim}-D tensors on "
+            f"{type(layout).__name__}, got shape {tuple(x.shape)} strides "
+            f"{x.stride()}")
     if tuple(x.shape) != layout.shape:
         raise ValueError(f"tensor shape {tuple(x.shape)} != layout "
                          f"{layout.shape}")
-    if not 1 <= layout.bn <= MAX_BLOCK_N:
-        raise ValueError(
-            f"block_n {layout.bn} outside [1, {MAX_BLOCK_N}]")
-    if layout.rows * layout.num_seq_blocks >= 2 ** 31:
-        raise ValueError(f"{layout.rows} x {layout.num_seq_blocks} tiles "
-                         "exceed one launch grid")
-    flags = None
-    if spec.name == "segsum":
-        flags = operands[1]
-        if (flags.device != x.device or flags.dtype != torch.int32
-                or flags.shape != x.shape or not flags.is_contiguous()):
+    _, b, n, d, width, bn = _geometry(layout)
+    top = MAX_AFFINE_BLOCK_N if spec.name == "affine" else MAX_BLOCK_N
+    if not 1 <= bn <= top:
+        raise ValueError(f"block {bn} outside [1, {top}] ({spec.name} "
+                         "spec)")
+    if b * (d // width) * (n // bn) >= 2 ** 31:
+        raise ValueError(f"{b * (d // width)} x {n // bn} tiles exceed one "
+                         "launch grid")
+    y = None
+    if spec.name in ("segsum", "affine"):
+        y = operands[1]
+        want = torch.int32 if spec.name == "segsum" else x.dtype
+        if (y.device != x.device or y.dtype != want or y.shape != x.shape
+                or not y.is_contiguous()):
             raise ValueError(
-                f"segmented flags must be contiguous int32 of shape "
-                f"{tuple(x.shape)} on {x.device}, got {flags.dtype} "
-                f"{tuple(flags.shape)} on {flags.device}")
-    return SPEC_CODES[spec.name], x, flags
+                f"the {spec.name} spec's second operand must be contiguous "
+                f"{want} of shape {tuple(x.shape)} on {x.device}, got "
+                f"{y.dtype} {tuple(y.shape)} on {y.device}")
+    return SPEC_CODES[spec.name], x, y
 
 
-def _leaf_dtypes(spec, x):
-    """Accumulation dtype of each element leaf (the chain's dtypes); the
-    segmented flags are int32."""
-    return spec.elem_dtypes((x.dtype, torch.int32))
+def _leaf_dtypes(spec, x, y):
+    """Accumulation dtype of each element leaf (the chain's dtypes)."""
+    return spec.elem_dtypes((x.dtype, torch.int32 if y is None else y.dtype))
 
 
-def _new_leaves(spec, x, shape):
+def _new_leaves(spec, x, y, shape):
     return tuple(torch.empty(shape, dtype=dt, device=x.device)
-                 for dt in _leaf_dtypes(spec, x))
+                 for dt in _leaf_dtypes(spec, x, y))
 
 
 def _ptrs(leaves):
@@ -181,6 +227,10 @@ def _ptrs(leaves):
         return None, None
     return (leaves[0].data_ptr(),
             leaves[1].data_ptr() if len(leaves) > 1 else None)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(spec, kernel: str, fn, device, *args) -> None:
@@ -193,77 +243,82 @@ def _launch(spec, kernel: str, fn, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _out(spec, x, layout):
-    dt = spec.out_dtypes((x.dtype, torch.int32))[0]
+def _out(spec, x, y, layout):
+    dt = spec.out_dtypes((x.dtype, torch.int32 if y is None else y.dtype))[0]
     return torch.empty(layout.shape, dtype=dt, device=x.device)
 
 
 def carry(spec, operands, layout, exclusive=False, return_totals=False):
-    """Carry schedule: one block per row, the running carry in registers.
-    Returns ``(outputs, running totals or None)``."""
-    code, x, flags = _operands(spec, operands, layout)
-    out = _out(spec, x, layout)
-    running = (_new_leaves(spec, x, layout.chain_shape)
+    """Carry schedule: one block per lane (row, or channel strip), the
+    running carry on chip. Returns ``(outputs, running totals or None)``."""
+    code, x, y = _operands(spec, operands, layout)
+    out = _out(spec, x, y, layout)
+    running = (_new_leaves(spec, x, y, layout.chain_shape)
                if return_totals else None)
     if x.numel():
+        geo = _geometry(layout)
         _launch(spec, "carry", build().scan_carry, x.device, code,
-                DTYPE_CODES[x.dtype], x.data_ptr(),
-                None if flags is None else flags.data_ptr(), out.data_ptr(),
-                *_ptrs(running), layout.rows, layout.n, layout.bn,
-                int(exclusive), spec.sentinel or 0)
+                DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
+                out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
+                spec.sentinel or 0)
     return (out,), running
 
 
 def totals(spec, operands, layout):
-    """Per-chunk totals (rows, chunks), one tensor per element leaf in
-    its accumulation dtype."""
-    code, x, flags = _operands(spec, operands, layout)
-    tot = _new_leaves(spec, x, layout.chain_shape)
+    """Per-chunk totals (``layout.chain_shape``), one tensor per element
+    leaf in its accumulation dtype."""
+    code, x, y = _operands(spec, operands, layout)
+    tot = _new_leaves(spec, x, y, layout.chain_shape)
     if x.numel():
+        geo = _geometry(layout)
         _launch(spec, "totals", build().scan_totals, x.device, code,
-                DTYPE_CODES[x.dtype], x.data_ptr(),
-                None if flags is None else flags.data_ptr(), *_ptrs(tot),
-                layout.rows, layout.n, layout.bn)
+                DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
+                *_ptrs(tot), *geo[1:])
     return tot
 
 
 def chain(spec, totals, return_running=False):
-    """Sequential exclusive chain over (rows, chunks) totals, left to right
-    from the identity. Returns ``(offsets, running totals or None)``; the
-    running totals are offset ⊕ total, the carry after each chunk."""
-    if spec.name not in SPEC_CODES:
-        raise NotImplementedError(
-            f"no CUDA kernel for the {spec.name!r} spec yet")
-    n_leaves = 2 if spec.name == "segsum" else 1
+    """Sequential exclusive chain over the chunk axis (axis 1) of
+    (rows, chunks) or (B, chunks, D) totals, left to right from the
+    identity. Returns ``(offsets, running totals or None)``; the running
+    totals are offset ⊕ total, the carry after each chunk."""
+    _check_spec(spec)
+    n_leaves = spec.n_leaves
     if len(totals) != n_leaves:
         raise ValueError(f"{spec.name} chain takes {n_leaves} leaves")
     t0 = totals[0]
     _on_cuda(t0)
-    want = (t0.dtype,) + ((torch.int32,) if n_leaves == 2 else ())
+    if spec.name == "affine":
+        want = (torch.float32, torch.float32)
+    else:
+        want = (t0.dtype,) + ((torch.int32,) if n_leaves == 2 else ())
     if t0.dtype not in (torch.float32, torch.int32) or (
             spec.name == "mask" and t0.dtype != torch.int32):
         raise TypeError(f"chain takes float32/int32 totals, got {t0.dtype}")
     for t, dt in zip(totals, want):
-        if (t.device != t0.device or t.dtype != dt or t.dim() != 2
+        if (t.device != t0.device or t.dtype != dt or t.dim() not in (2, 3)
                 or t.shape != t0.shape or not t.is_contiguous()):
             raise ValueError(
-                f"chain takes contiguous 2-D totals of one shape with "
-                f"dtypes {want}")
+                f"chain takes contiguous 2-D or 3-D totals of one shape "
+                f"with dtypes {want}")
     offsets = tuple(torch.empty_like(t) for t in totals)
     running = (tuple(torch.empty_like(t) for t in totals)
                if return_running else None)
     if t0.numel():
+        chan = int(t0.dim() == 3)
+        d = t0.shape[2] if chan else 1
         _launch(spec, "chain", build().scan_chain, t0.device,
-                SPEC_CODES[spec.name], DTYPE_CODES[t0.dtype], *_ptrs(totals),
-                *_ptrs(offsets), *_ptrs(running), t0.shape[0], t0.shape[1])
+                SPEC_CODES[spec.name], DTYPE_CODES[t0.dtype], chan,
+                *_ptrs(totals), *_ptrs(offsets), *_ptrs(running),
+                t0.shape[0], t0.shape[1], d)
     return offsets, running
 
 
 def apply(spec, operands, offsets, layout, exclusive=False):
-    """Rescan every (row, chunk) tile and combine its chunk offset;
+    """Rescan every (lane, chunk) tile and combine its chunk offsets;
     returns the outputs."""
-    code, x, flags = _operands(spec, operands, layout)
-    want = _leaf_dtypes(spec, x)
+    code, x, y = _operands(spec, operands, layout)
+    want = _leaf_dtypes(spec, x, y)
     if len(offsets) != len(want) or any(
             tuple(o.shape) != layout.chain_shape or o.dtype != dt
             or o.device != x.device or not o.is_contiguous()
@@ -272,27 +327,49 @@ def apply(spec, operands, offsets, layout, exclusive=False):
             f"offsets {[(tuple(o.shape), o.dtype, str(o.device)) for o in offsets]}"
             f" do not match the chain {layout.chain_shape} {want} on "
             f"{x.device}")
-    out = _out(spec, x, layout)
+    out = _out(spec, x, y, layout)
     if x.numel():
+        geo = _geometry(layout)
         _launch(spec, "apply", build().scan_apply, x.device, code,
-                DTYPE_CODES[x.dtype], x.data_ptr(),
-                None if flags is None else flags.data_ptr(), *_ptrs(offsets),
-                out.data_ptr(), layout.rows, layout.n, layout.bn,
-                int(exclusive), spec.sentinel or 0)
+                DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
+                *_ptrs(offsets), out.data_ptr(), *geo[1:], int(exclusive),
+                spec.sentinel or 0)
+    return (out,)
+
+
+def fused(spec, operands, layout, exclusive=False):
+    """Fused schedule: decoupled in one launch, each tile taking its
+    offset through a look-back over its predecessors' published
+    prefixes. Returns the outputs. The scratch — a ticket counter and one
+    64-bit state word per tile, zeroed here per launch, and each tile's
+    published aggregate and inclusive prefix where they do not ride in
+    the state word — is allocated here."""
+    code, x, y = _operands(spec, operands, layout)
+    out = _out(spec, x, y, layout)
+    if x.numel():
+        geo = _geometry(layout)
+        tiles = geo[1] * (geo[3] // geo[4]) * (geo[2] // geo[5])
+        state = torch.zeros(1 + tiles, dtype=torch.int64, device=x.device)
+        agg = _new_leaves(spec, x, y, layout.chain_shape)
+        incl = _new_leaves(spec, x, y, layout.chain_shape)
+        _launch(spec, "fused", build().scan_fused, x.device, code,
+                DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
+                out.data_ptr(), state.data_ptr(), *_ptrs(agg), *_ptrs(incl),
+                *geo[1:], int(exclusive), spec.sentinel or 0)
     return (out,)
 
 
 def tree(spec, operands, layout, exclusive=False, return_totals=False):
-    """Tree schedule: carry's row walk, Blelloch sweep inside each tile.
+    """Tree schedule: carry's lane walk, Blelloch sweep inside each tile.
     Returns ``(outputs, running totals or None)``."""
-    code, x, flags = _operands(spec, operands, layout)
-    out = _out(spec, x, layout)
-    running = (_new_leaves(spec, x, layout.chain_shape)
+    code, x, y = _operands(spec, operands, layout)
+    out = _out(spec, x, y, layout)
+    running = (_new_leaves(spec, x, y, layout.chain_shape)
                if return_totals else None)
     if x.numel():
+        geo = _geometry(layout)
         _launch(spec, "tree", build().scan_tree, x.device, code,
-                DTYPE_CODES[x.dtype], x.data_ptr(),
-                None if flags is None else flags.data_ptr(), out.data_ptr(),
-                *_ptrs(running), layout.rows, layout.n, layout.bn,
-                int(exclusive), spec.sentinel or 0)
+                DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
+                out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
+                spec.sentinel or 0)
     return (out,), running

@@ -1,8 +1,8 @@
 """Monoid registrations for the scan engine.
 
 Each kernel family is one of these entries; the kernel specs live next to
-their library monoids in ``repro_torch.core.scan.assoc``. This slice
-registers the sum, the segmented sum and the compact mask.
+their library monoids in ``repro_torch.core.scan.assoc``: the sum, the
+segmented sum, the affine recurrence and the compact mask.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from repro_torch.core.scan import assoc
 
 SUM = assoc.SUM_KERNEL
 SEGMENTED_SUM = assoc.SEGMENTED_SUM_KERNEL
+AFFINE = assoc.AFFINE_KERNEL
 
 
 def mask(sentinel: int) -> assoc.KernelSpec:

@@ -3,23 +3,27 @@
 The PyTorch counterpart of the reference's ``kernels/scan_engine/
 schedules.py``. Prefix-scan performance is decided by how the
 sub-procedures are ORGANIZED, not by the operator, so each schedule is
-written once over a ``KernelSpec`` and a ``Rows`` layout:
+written once over a ``KernelSpec`` and a layout (``Rows`` or
+``Channels``):
 
-  carry      single-pass accumulate: one block per row walks the row's
-             chunks, the running total in a register. read n + write n.
+  carry      single-pass accumulate: one block per row (or channel
+             strip) walks its chunks, the running carry on chip.
+             read n + write n.
   decoupled  reduce-then-scan: a parallel totals pass, a sequential
              exclusive chain over the chunk totals, a parallel apply pass
              that rescans each chunk and adds its offset. read 2n +
              write n — the price of spreading ONE row over the card.
-  fused      decoupled in one launch. Not ported yet (ROADMAP): it runs
-             decoupled, as the reference does off-TPU.
-  tree       carry's row walk with the work-efficient Blelloch sweep as
-             the in-tile network (the paper's §3.3). read n + write n.
+  fused      decoupled in one launch: each chunk scans its tile once,
+             takes its predecessors' published prefix through a
+             look-back, republishes, and writes. read n + write n.
+             ``return_totals`` runs decoupled, as in the reference.
+  tree       carry's walk with the work-efficient Blelloch sweep as the
+             in-tile network (the paper's §3.3). read n + write n.
 
-A schedule launches the CUDA kernels of ``cuda.py`` (the sum, segmented
-sum and mask specs) when its operands lie on a CUDA device, and runs the
-plain PyTorch versions below when they lie on the CPU. There is no
-fallback between the two: a CUDA tensor goes through a kernel or raises.
+A schedule launches the CUDA kernels of ``cuda.py`` when its operands
+lie on a CUDA device, and runs the plain PyTorch versions below when
+they lie on the CPU. There is no fallback between the two: a CUDA tensor
+goes through a kernel or raises.
 
 The plain versions keep the reference's association order exactly, so
 they are bitwise equal to the reference and to the kernels, floats
@@ -30,6 +34,8 @@ bitwise on exact data and to rounding error otherwise.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -62,43 +68,50 @@ def resolve_schedule(schedule: str, batch: int, n: int, block_elems: int,
 
 
 # ---------------------------------------------------------------------------
-# Plain in-tile networks (over the last axis; leading axes are independent)
+# Plain in-tile networks (over one axis; the other axes are independent)
 # ---------------------------------------------------------------------------
 
 
-def _shift(x, k, fill):
-    """Shift ``x`` right by ``k`` along the last axis, filling with
-    the identity."""
-    head = torch.full(x.shape[:-1] + (k,), fill, dtype=x.dtype,
-                      device=x.device)
-    return torch.cat([head, x[..., :x.shape[-1] - k]], dim=-1)
+def _shift(x, k, fill, axis=-1):
+    """Shift ``x`` right by ``k`` along ``axis``, filling with the
+    identity."""
+    axis %= x.dim()
+    head = list(x.shape)
+    head[axis] = k
+    return torch.cat([torch.full(head, fill, dtype=x.dtype, device=x.device),
+                      x.narrow(axis, 0, x.shape[axis] - k)], dim=axis)
 
 
-def shift_one(spec: KernelSpec, leaves):
+def shift_one(spec: KernelSpec, leaves, axis=-1):
     """Exclusive shift: one step right, identity-filled (all leaves)."""
-    return tuple(_shift(x, 1, f) for x, f in zip(leaves, spec.fills))
+    return tuple(_shift(x, 1, f, axis) for x, f in zip(leaves, spec.fills))
 
 
-def log_scan(spec: KernelSpec, leaves):
+def log_scan(spec: KernelSpec, leaves, axis=-1):
     """Hillis–Steele log-step inclusive scan of monoid leaves (§3.1)."""
-    n = leaves[0].shape[-1]
+    n = leaves[0].shape[axis]
     k = 1
     while k < n:
-        shifted = tuple(_shift(x, k, f) for x, f in zip(leaves, spec.fills))
+        shifted = tuple(_shift(x, k, f, axis)
+                        for x, f in zip(leaves, spec.fills))
         leaves = spec.combine(shifted, leaves)
         k *= 2
     return leaves
 
 
-def tile_scan(spec: KernelSpec, leaves):
+def tile_scan(spec: KernelSpec, leaves, axis=-1):
     """In-tile inclusive scan; two-level split on lane-divisible tiles.
 
-    When the tile is a multiple of 128 longer than 128: scan within each
-    128-lane segment, exclusive-scan the segment totals, broadcast-combine
-    ("scan the vector in register, broadcast the last element").
+    When the scanned axis is the LAST (lane) axis and a multiple of 128
+    longer than 128: scan within each 128-lane segment, exclusive-scan
+    the segment totals, broadcast-combine ("scan the vector in register,
+    broadcast the last element"). Any other axis — the time axis of
+    ``Channels`` — takes the plain Hillis–Steele network.
     """
-    n = leaves[0].shape[-1]
-    if n > LANES and n % LANES == 0:
+    x0 = leaves[0]
+    axis %= x0.dim()
+    n = x0.shape[axis]
+    if axis == x0.dim() - 1 and n > LANES and n % LANES == 0:
         r = n // LANES
         ts = tuple(x.reshape(x.shape[:-1] + (r, LANES)) for x in leaves)
         ts = log_scan(spec, ts)
@@ -106,53 +119,63 @@ def tile_scan(spec: KernelSpec, leaves):
         off = shift_one(spec, log_scan(spec, tot))      # exclusive
         ts = spec.combine(tuple(o[..., None] for o in off), ts)
         return tuple(t.reshape(x.shape) for t, x in zip(ts, leaves))
-    return log_scan(spec, leaves)
+    return log_scan(spec, leaves, axis)
 
 
-def _blelloch(spec: KernelSpec, leaves):
+def _blelloch(spec: KernelSpec, leaves, axis):
     """Recursive pairwise Blelloch sweep; power-of-two length required.
 
     Up-sweep: ``combine(evens, odds)`` (left argument earlier), recursing
     on the half-length pair totals. Down-sweep: each even slot takes its
     parent's exclusive prefix and each odd slot ``combine(parent,
     old_left)``. Returns ``(exclusive_scan, root_total)``, the total with
-    a size-1 last axis.
+    a size-1 ``axis``.
     """
-    m = leaves[0].shape[-1]
+    m = leaves[0].shape[axis]
     if m == 1:
         ident = tuple(torch.full_like(x, f) for x, f in zip(leaves, spec.fills))
         return ident, leaves
-    evens = tuple(x[..., 0::2] for x in leaves)
-    odds = tuple(x[..., 1::2] for x in leaves)
-    parent_excl, total = _blelloch(spec, spec.combine(evens, odds))
+    lead = (slice(None),) * axis
+    evens = tuple(x[lead + (slice(0, None, 2),)] for x in leaves)
+    odds = tuple(x[lead + (slice(1, None, 2),)] for x in leaves)
+    parent_excl, total = _blelloch(spec, spec.combine(evens, odds), axis)
     right = spec.combine(parent_excl, evens)   # combine(parent, old_left)
-    excl = tuple(torch.stack([l, r], dim=-1).reshape(l.shape[:-1] + (m,))
-                 for l, r in zip(parent_excl, right))
+
+    def merge(left, rt):
+        shape = list(left.shape)
+        shape[axis] = m
+        return torch.stack([left, rt], dim=axis + 1).reshape(shape)
+
+    excl = tuple(merge(l, r) for l, r in zip(parent_excl, right))
     return excl, total
 
 
-def tree_scan(spec: KernelSpec, leaves):
+def tree_scan(spec: KernelSpec, leaves, axis=-1):
     """Work-efficient in-tile EXCLUSIVE scan (§3.3 balanced tree).
 
-    Pads to a power of two with the identity, runs the Blelloch sweep,
-    and returns ``(exclusive_scan, total)``.
+    Pads ``axis`` to a power of two with the identity, runs the Blelloch
+    sweep, and returns ``(exclusive_scan, total)``.
     """
-    n = leaves[0].shape[-1]
+    axis %= leaves[0].dim()
+    n = leaves[0].shape[axis]
     m = 1
     while m < n:
         m *= 2
     if m != n:
-        leaves = tuple(
-            torch.cat([x, torch.full(x.shape[:-1] + (m - n,), f,
-                                     dtype=x.dtype, device=x.device)], dim=-1)
-            for x, f in zip(leaves, spec.fills))
-    excl, total = _blelloch(spec, leaves)
-    return tuple(x[..., :n] for x in excl), total
+        def pad(x, f):
+            shape = list(x.shape)
+            shape[axis] = m - n
+            return torch.cat([x, torch.full(shape, f, dtype=x.dtype,
+                                            device=x.device)], dim=axis)
+        leaves = tuple(pad(x, f) for x, f in zip(leaves, spec.fills))
+    excl, total = _blelloch(spec, leaves, axis)
+    return tuple(x.narrow(axis, 0, n) for x in excl), total
 
 
 def exclusive_chain(spec: KernelSpec, totals):
-    """Sequential exclusive scan of (rows, chunks) chunk totals along the
-    chunk axis — the plain version of the ``chain`` kernel.
+    """Sequential exclusive scan of chunk totals along the chunk axis
+    (axis 1 of ``layout.chain_shape``) — the plain version of the
+    ``chain`` kernel.
 
     Left to right from the identity, applying ``combine`` in exactly the
     carry schedule's order: what makes decoupled bit-identical to carry.
@@ -173,12 +196,15 @@ def exclusive_chain(spec: KernelSpec, totals):
 # Plain versions of the kernels
 # ---------------------------------------------------------------------------
 
+# Axis of a tile's positions in ``layout.tile_shape`` (axis 1 is the chunk).
+_POS = 2
+
 
 def _tiles(spec, operands, layout):
-    """Operands as (rows, chunks, bn) tiles in the accumulation dtypes."""
+    """Operands in ``layout.tile_shape`` in the accumulation dtypes."""
     dts = spec.elem_dtypes(tuple(o.dtype for o in operands))
-    shape = (layout.rows, layout.num_seq_blocks, layout.bn)
-    return tuple(o.reshape(shape).to(dt) for o, dt in zip(operands, dts))
+    return tuple(o.reshape(layout.tile_shape).to(dt)
+                 for o, dt in zip(operands, dts))
 
 
 def _emit(spec, operands, layout, elems, combined):
@@ -193,12 +219,17 @@ def _emit(spec, operands, layout, elems, combined):
 
 
 def _select(spec, scanned, exclusive):
-    return shift_one(spec, scanned) if exclusive else scanned
+    return shift_one(spec, scanned, _POS) if exclusive else scanned
+
+
+def _last(leaves):
+    """Each tile's last position: a ``chain_shape`` tensor per leaf."""
+    return tuple(s.select(_POS, -1) for s in leaves)
 
 
 def _offset(spec, offsets, sel):
     """combine(offset, sel) with the offset as the EARLIER operand."""
-    return spec.combine(tuple(o[..., None] for o in offsets), sel)
+    return spec.combine(tuple(o.unsqueeze(_POS) for o in offsets), sel)
 
 
 def _with_totals(outs, running, return_totals):
@@ -207,14 +238,13 @@ def _with_totals(outs, running, return_totals):
 
 def totals_plain(operands, spec, layout):
     """Plain ``totals``: the last element of each tile's network."""
-    scanned = tile_scan(spec, _tiles(spec, operands, layout))
-    return tuple(s[..., -1] for s in scanned)
+    return _last(tile_scan(spec, _tiles(spec, operands, layout), _POS))
 
 
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
     elems = _tiles(spec, operands, layout)
-    sel = _select(spec, tile_scan(spec, elems), exclusive)
+    sel = _select(spec, tile_scan(spec, elems, _POS), exclusive)
     return _emit(spec, operands, layout, elems, _offset(spec, offsets, sel))
 
 
@@ -234,28 +264,54 @@ def carry_plain(operands, spec, layout, exclusive=False, return_totals=False):
     identity, left to right). ``return_totals`` adds the running chunk
     totals (the carry after each chunk) per element leaf."""
     elems = _tiles(spec, operands, layout)
-    scanned = tile_scan(spec, elems)
-    lasts = tuple(s[..., -1] for s in scanned)
+    scanned = tile_scan(spec, elems, _POS)
+    lasts = _last(scanned)
     carries = exclusive_chain(spec, lasts)
     sel = _select(spec, scanned, exclusive)
     outs = _emit(spec, operands, layout, elems, _offset(spec, carries, sel))
     return _with_totals(outs, spec.combine(carries, lasts), return_totals)
 
 
+def fused_plain(operands, spec, layout, exclusive=False, return_totals=False):
+    """Plain ``fused``: the single-launch chained scan, chunk by chunk in
+    ``_fused_body``'s order. Each chunk scans its tile, takes the
+    inclusive prefix its predecessor published (the identity for chunk
+    0), publishes ``combine(prefix, total)`` for its successor and emits
+    ``combine(prefix, sel)``. ``return_totals`` runs decoupled, as the
+    reference routes it."""
+    if return_totals or layout.num_seq_blocks == 0:
+        return decoupled_plain(operands, spec, layout, exclusive,
+                               return_totals)
+    elems = _tiles(spec, operands, layout)
+    scanned = tile_scan(spec, elems, _POS)
+    sel = _select(spec, scanned, exclusive)
+    lasts = _last(scanned)
+    prefix = tuple(torch.full_like(t[:, 0], f)
+                   for t, f in zip(lasts, spec.fills))
+    chunks = []
+    for j in range(layout.num_seq_blocks):
+        chunks.append(spec.combine(tuple(p.unsqueeze(1) for p in prefix),
+                                   tuple(s[:, j] for s in sel)))
+        prefix = spec.combine(prefix, tuple(t[:, j] for t in lasts))
+    combined = tuple(torch.stack([c[i] for c in chunks], dim=1)
+                     for i in range(spec.n_leaves))
+    return _emit(spec, operands, layout, elems, combined)
+
+
 def tree_plain(operands, spec, layout, exclusive=False, return_totals=False):
     """Plain ``tree``: the Blelloch network per tile; the carry advances
     by each tile's root."""
     elems = _tiles(spec, operands, layout)
-    excl, total = tree_scan(spec, elems)
+    excl, total = tree_scan(spec, elems, _POS)
     sel = excl if exclusive else spec.combine(excl, elems)
-    roots = tuple(t[..., 0] for t in total)
+    roots = tuple(t.select(_POS, 0) for t in total)
     carries = exclusive_chain(spec, roots)
     outs = _emit(spec, operands, layout, elems, _offset(spec, carries, sel))
     return _with_totals(outs, spec.combine(carries, roots), return_totals)
 
 
 PLAIN = {"carry": carry_plain, "decoupled": decoupled_plain,
-         "fused": decoupled_plain, "tree": tree_plain}
+         "fused": fused_plain, "tree": tree_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -288,11 +344,16 @@ def scan_decoupled(operands, spec, layout, *, exclusive=False,
 
 def scan_fused(operands, spec, layout, *, exclusive=False,
                return_totals=False):
-    """Single-launch decoupled. The port has no native single-launch
-    kernel yet (its Hopper form is a decoupled look-back scan, ROADMAP
-    Queue 2), so every request runs the bit-identical two-launch form."""
-    return scan_decoupled(operands, spec, layout, exclusive=exclusive,
-                          return_totals=return_totals)
+    """Single-launch decoupled: one kernel whose chunks chain their
+    prefixes through a look-back (read n + write n). ``return_totals``
+    runs the two-launch decoupled form, as the reference routes it: the
+    running totals come from decoupled's chain."""
+    if return_totals:
+        return scan_decoupled(operands, spec, layout, exclusive=exclusive,
+                              return_totals=True)
+    if _on_cuda(operands):
+        return cuda.fused(spec, operands, layout, exclusive)
+    return fused_plain(operands, spec, layout, exclusive)
 
 
 def scan_tree(operands, spec, layout, *, exclusive=False,
@@ -309,7 +370,8 @@ def scan_tree(operands, spec, layout, *, exclusive=False,
 # ---------------------------------------------------------------------------
 
 
-def _launch_event(operands, spec: KernelSpec, layout, schedule: str) -> None:
+def _launch_event(operands, spec: KernelSpec, layout, schedule: str,
+                  return_totals: bool) -> None:
     """Record a ``kernel.launch`` trace event with the reference's fields:
     monoid, schedule, grid, one tile's bytes (``vmem_block_bytes_est``,
     the shared-memory working set here) and the schedule's device-memory
@@ -318,16 +380,19 @@ def _launch_event(operands, spec: KernelSpec, layout, schedule: str) -> None:
     if not trace.enabled():
         return
     in_bytes = sum(o.numel() * o.element_size() for o in operands)
-    tile_bytes = sum(layout.bb * layout.bn * o.element_size()
+    tile_bytes = sum(math.prod(layout.block_shape) * o.element_size()
                      for o in operands)
     out_dts = spec.out_dtypes(tuple(o.dtype for o in operands))
-    out_bytes = sum(layout.rows * layout.n * dt.itemsize for dt in out_dts)
-    # decoupled's totals pass re-reads the data; fused runs decoupled here.
-    reads = 2 * in_bytes if schedule in ("decoupled", "fused") else in_bytes
+    out_bytes = sum(math.prod(layout.shape) * dt.itemsize for dt in out_dts)
+    # decoupled's totals pass re-reads the data; fused reads it once,
+    # unless return_totals sends it to decoupled.
+    two_pass = schedule == "decoupled" or (schedule == "fused"
+                                           and return_totals)
     trace.instant(
         "kernel.launch", monoid=spec.name, schedule=schedule, fold=False,
         grid=list(layout.grid), vmem_block_bytes_est=tile_bytes,
-        hbm_read_bytes_est=reads, hbm_write_bytes_est=out_bytes)
+        hbm_read_bytes_est=2 * in_bytes if two_pass else in_bytes,
+        hbm_write_bytes_est=out_bytes)
 
 
 def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
@@ -347,7 +412,7 @@ def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
     if exclusive and not spec.supports_exclusive:
         raise ValueError(
             f"monoid {spec.name!r} does not support exclusive mode")
-    _launch_event(operands, spec, layout, schedule)
+    _launch_event(operands, spec, layout, schedule, return_totals)
     fn = {"carry": scan_carry, "decoupled": scan_decoupled,
           "fused": scan_fused, "tree": scan_tree}[schedule]
     return fn(tuple(operands), spec, layout, exclusive=exclusive,

@@ -34,6 +34,18 @@ RELATIONAL_MODULES = (
 )
 
 
+# The modules of the affine slice (the SSM scan and the engine pieces it
+# added): each must be found by the import sweep and be free of JAX and
+# the reference on its own.
+AFFINE_MODULES = (
+    "repro_torch.kernels.scan_engine.layouts",
+    "repro_torch.kernels.scan_engine.cuda",
+    "repro_torch.kernels.ssm_scan",
+    "repro_torch.kernels.ssm_scan.ops",
+    "repro_torch.kernels.ssm_scan.ref",
+)
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -69,6 +81,16 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("module", RELATIONAL_MODULES)
 def test_relational_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    assert FORBIDDEN.findall(path.read_text()) == []
+
+
+@pytest.mark.parametrize("module", AFFINE_MODULES)
+def test_affine_module_imports_no_jax(module):
     assert module in set(_modules())
     rel = pathlib.Path(*module.split("."))
     path = PKG.parent / rel / "__init__.py"
