@@ -72,7 +72,34 @@ first failure and prints no result):
      launch counters are zeroed before and read after, and every affine
      kernel must have launched. Each schedule's output and the gradients
      are bitwise equal to the plain versions, the forward within 2e-4 of
-     a float64 sequential recurrence; then each affine kernel's time.
+     a float64 sequential recurrence; then each affine kernel's time;
+  7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
+     fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
+     forms are counted apart as fold_chain and fold_chain_sum) through
+     ``repro_torch.kernels.flash_attention.flash_attention`` and autograd,
+     at two models' full attention widths with random bf16 inputs:
+     (f) gemma2-9b training, B 1 x T 8192, 16 q / 8 kv heads of 256,
+     softcap 50, its global (causal) and local (4096-window) layers under
+     auto (carry) and decoupled, forward and backward; (g) phi3-medium-14b
+     decode, q (4, 40, 1, 128) against a 131,072-token cache of 10 kv
+     heads (auto: decoupled, split-KV); (h) phi3-medium-14b causal
+     prefill, T 4096, forward and backward (auto: carry). The launch
+     counters are zeroed before and read after, and all five counters
+     must have moved. The folds' specs and layouts come from the entry
+     points' own builders (``forward_fold``, ``backward_folds``,
+     ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
+     included, against its plain version in float32 at the (f), (g) and
+     (h) shapes (1e-5 forward, 1e-4 gradients: the reference tests'
+     tolerances) and in bf16 at the timed shapes (atol 1e-3, rtol two
+     bf16 ulps); the (f) forward within 2e-3 of a float64 dense
+     attention on two heads; carry == decoupled within 1e-5 (float32)
+     and two bf16 ulps (bf16); use_kv_bounds
+     on and off, and a page-permuted cache through kv_block_map against
+     the contiguous one, bitwise; count_cells equal to the analytic live
+     cells; fully masked rows exactly 0 with zero gradients; then each
+     fold kernel's time beside its bound, its plain version and, where
+     one PyTorch call computes the same function,
+     ``scaled_dot_product_attention`` (not for gemma2's softcap).
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -87,15 +114,20 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 CU_SOURCE = "src/repro_torch/csrc/scan_sum.cu"
+ATTN_SOURCE = "src/repro_torch/csrc/attn_fold.cu"
 
 # Device-memory rate (bytes/s) and float32 non-tensor-core peak (ops/s)
 # of the H100 variants, from NVIDIA's data sheets.
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
 F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
+# Dense bf16 tensor-core peak (ops/s), the data sheets' rate without
+# sparsity.
+BF16_RATE = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12}
 
 SCHEDULES = ("carry", "decoupled", "fused", "tree")
 KERNELS = ("carry", "totals", "chain", "apply", "fused", "tree")
@@ -133,6 +165,29 @@ AFFINE_TOL = 2e-4
 # Float sums of the relational phase against float64: float32 rounding
 # along a chain of ~10^4 chunk totals stays near 1e-6 relative.
 REL_SUM_TOL = 1e-4
+# gemma2-9b's attention (src/repro/configs/gemma2_9b.py:17-33): 16 q heads,
+# 8 kv heads of 256, logit softcap 50, local layers' window 4096, at a
+# training sequence of 8192 (max_seq_len).
+GEMMA = dict(hq=16, hkv=8, d=256, softcap=50.0, window=4096, t=8192)
+# phi3-medium-14b's attention (src/repro/configs/phi3_medium_14b.py): 40 q
+# heads, 10 kv heads of 128, no softcap or window; a batch of 4 decoding
+# against its 131,072-token max_seq_len cache, and a 4096-token prefill.
+PHI3 = dict(hq=40, hkv=10, d=128, batch=4, cache=131072, prefill=4096)
+# Attention tolerances, (atol, rtol) of an allclose. float32: the reference
+# tests' own, carry vs decoupled forward (tests/test_flash_engine.py:99),
+# gradients (tests/test_flash_backward.py:102), the fold against dense
+# attention (tests/test_flash_engine.py:80); kernel and plain version
+# associate their dot products differently. bf16: both sides take the same
+# bf16 inputs and compute in float32, so they differ by the last rounding
+# to bf16, one ulp (2^-7 of the value at most); the bar is two ulps, with
+# an atol for the float32 differences of near-zero sums.
+FWD_TOL, GRAD_TOL, DENSE_TOL = (1e-5, 1e-5), (1e-4, 1e-4), (2e-3, 2e-3)
+BF16_TOL = (1e-3, 2 ** -6)
+ATTN_REPLACES = {
+    "carry": "src/repro/kernels/scan_engine/schedules.py:722",
+    "split": "src/repro/kernels/scan_engine/schedules.py:778",
+    "chain": "src/repro/kernels/scan_engine/schedules.py:631",
+}
 
 
 class SmokeFailure(AssertionError):
@@ -165,10 +220,26 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
+    # float32 products in full float32 everywhere (the plain versions'
+    # torch.matmul included), before any check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 must be off")
+
     from repro_torch import relational as rel
     from repro_torch.core.scan import api, policy
     from repro_torch.kernels.compact import ops as kc_ops
-    from repro_torch.kernels.scan_engine import (Channels, Rows, cuda, monoids,
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds, flash_attention_bwd_kernel, flash_attention_kernel,
+        forward_fold)
+    from repro_torch.kernels.scan_engine import (Channels, Rows, cuda,
+                                                 cuda_fold, monoids,
                                                  schedules)
     from repro_torch.kernels.segscan import ops as seg_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
@@ -182,6 +253,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     bw, f32_peak = rate(MEM_RATE, name), rate(F32_RATE, name)
+    bf16_peak = rate(BF16_RATE, name)
     SUM, SEGSUM, AFFINE = monoids.SUM, monoids.SEGMENTED_SUM, monoids.AFFINE
 
     def sync():
@@ -258,18 +330,22 @@ def main() -> int:
                           text=True, check=True)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    cuda.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        for fut in [pool.submit(lib.build) for lib in (cuda, cuda_fold)]:
+            fut.result()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{os.path.relpath(cuda.SOURCE, ROOT)}")
-    log = cuda.build_log.splitlines()
-    regs = [int(line.split("Used")[1].split("registers")[0])
-            for line in log if "Used" in line and "registers" in line]
-    spills = sum("spill stores" in line and not (
-        "0 bytes spill stores" in line and "0 bytes spill loads" in line)
-        for line in log)
-    if regs:
-        print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, {spills} with spills")
+          f"{os.path.relpath(cuda.SOURCE, ROOT)} and "
+          f"{os.path.relpath(cuda_fold.SOURCE, ROOT)} (in parallel)")
+    for lib in (cuda, cuda_fold):
+        log = lib.build_log.splitlines()
+        regs = [int(line.split("Used")[1].split("registers")[0])
+                for line in log if "Used" in line and "registers" in line]
+        spills = sum("spill stores" in line and not (
+            "0 bytes spill stores" in line and "0 bytes spill loads" in line)
+            for line in log)
+        if regs:
+            print(f"  ptxas {lib.SOURCE.name}: {len(regs)} kernels, "
+                  f"{min(regs)}-{max(regs)} registers, {spills} with spills")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
     kernel = {"carry": schedules.scan_carry,
@@ -1075,6 +1151,472 @@ def main() -> int:
                12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
                aff_launches)
     del a, b, at_, bt_, ao, bo
+
+    # -- 7. the attention fold: gemma2-9b and phi3-medium-14b --------------
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    g_t, g_d, g_hq, g_hkv = GEMMA["t"], GEMMA["d"], GEMMA["hq"], GEMMA["hkv"]
+    cap, win = GEMMA["softcap"], GEMMA["window"]
+    p_hq, p_hkv, p_d = PHI3["hq"], PHI3["hkv"], PHI3["d"]
+    nb_, cache, t_h = PHI3["batch"], PHI3["cache"], PHI3["prefill"]
+
+    def allclose(got, want, tol):
+        """assert_allclose(atol, rtol) with tol = (atol, rtol): (within,
+        max |got - want|)."""
+        got, want = flat(got), flat(want)
+        (atol, rtol), ok, err = tol, True, 0.0
+        for a, b in zip(got, want):
+            diff = (a.double() - b.double()).abs()
+            ok &= bool((diff <= atol + rtol * b.double().abs()).all())
+            err = max(err, diff.max().item())
+        return ok and len(got) == len(want), err
+
+    def bwd_operands(q, k, v, out, m, l):
+        """(q, k, v, dO, m, l, delta) with a random cotangent dO."""
+        do = normals(q.shape, q.dtype)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        return (q, k, v, do, m, l, delta)
+
+    # the main path: counters zeroed just before, read just after
+    qf = normals((1, g_hq, g_t, g_d), bf16).requires_grad_()
+    kf = normals((1, g_hkv, g_t, g_d), bf16).requires_grad_()
+    vf = normals((1, g_hkv, g_t, g_d), bf16).requires_grad_()
+    gof = normals((1, g_hq, g_t, g_d), bf16)
+    qg = normals((nb_, p_hq, 1, p_d), bf16)
+    kg = normals((nb_, p_hkv, cache, p_d), bf16)
+    vg = normals((nb_, p_hkv, cache, p_d), bf16)
+    qh = normals((1, p_hq, t_h, p_d), bf16).requires_grad_()
+    kh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
+    vh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
+    goh = normals((1, p_hq, t_h, p_d), bf16)
+    routes = {
+        "f": fa_ops.resolved_attention_schedule(qf.shape, g_t, cores=sms),
+        "g": fa_ops.resolved_attention_schedule(qg.shape, cache, cores=sms),
+        "h": fa_ops.resolved_attention_schedule(qh.shape, t_h, cores=sms)}
+    print(f"attention routes (auto, {sms} SMs): (f) gemma2-9b training "
+          f"{routes['f']}, (g) phi3 decode {routes['g']}, (h) phi3 prefill "
+          f"{routes['h']}")
+    check(routes == {"f": "carry", "g": "decoupled", "h": "carry"},
+          f"attention routes {routes}")
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace.enable()
+    trace.get().clear()
+    cuda_fold.reset_launches()
+    main = {}
+    for layer, window in (("global", None), ("local", win)):
+        for sched in ("auto", "decoupled"):
+            o, ms_f = wall_ms(lambda: fa_ops.flash_attention(
+                qf, kf, vf, softcap=cap, window=window, schedule=sched))
+            grads, ms_b = wall_ms(lambda: torch.autograd.grad(
+                o, (qf, kf, vf), gof))
+            main[layer, sched] = (o.detach(),) + grads, ms_f, ms_b
+    og, ms_g = wall_ms(lambda: fa_ops.flash_attention(qg, kg, vg,
+                                                      causal=False))
+    oh, ms_hf = wall_ms(lambda: fa_ops.flash_attention(qh, kh, vh))
+    gh, ms_hb = wall_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), goh))
+    sync()
+    attn_launches = dict(cuda_fold.LAUNCHES)
+    attn_events = {}
+    for e in trace.get().events():
+        if e["name"] == "kernel.launch" and e["args"]["fold"]:
+            key = (e["args"]["monoid"], e["args"]["schedule"])
+            attn_events[key] = attn_events.get(key, 0) + 1
+    trace.disable()
+    attn_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"attention launches: {attn_launches}; kernel.launch events "
+          + ", ".join(f"{m}/{s} x{n}" for (m, s), n in
+                      sorted(attn_events.items()))
+          + f"; peak memory {attn_peak / 2**30:.2f} GiB")
+    for k_ in cuda_fold.KERNELS:
+        check(attn_launches[k_] > 0,
+              f"kernel {k_} never launched on the attention path")
+    for (layer, sched), (res, ms_f, ms_b) in main.items():
+        print(f"(f) gemma2-9b {layer:6s} {sched:9s}: forward {ms_f:8.2f} ms,"
+              f" backward {ms_b:8.2f} ms (host clock, one call)")
+    print(f"(g) phi3 decode (4 x 40 heads vs 131072 keys), decoupled: "
+          f"{ms_g:.2f} ms; (h) phi3 prefill 4096, carry: forward "
+          f"{ms_hf:.2f} ms, backward {ms_hb:.2f} ms")
+    for res, _, _ in main.values():
+        check(all(bool(torch.isfinite(t).all()) for t in res),
+              "(f) non-finite output or gradient")
+    check(og.shape == qg.shape and bool(torch.isfinite(og).all())
+          and bool(torch.isfinite(oh).all())
+          and all(bool(torch.isfinite(t).all()) for t in gh),
+          "(g)/(h) non-finite output")
+    for layer in ("global", "local"):
+        ok, err = allclose(main[layer, "decoupled"][0],
+                           main[layer, "auto"][0], BF16_TOL)
+        check(ok, f"(f) {layer} bf16 decoupled vs carry: {err}")
+        print(f"(f) {layer} bf16: decoupled vs carry (forward and "
+              f"gradients) max |diff| {err:.3g} (tolerance {BF16_TOL})")
+
+    # use_kv_bounds on and off, bitwise (forward and gradients)
+    o_off = fa_ops.flash_attention(qf, kf, vf, softcap=cap,
+                                   use_kv_bounds=False)
+    g_off = torch.autograd.grad(o_off, (qf, kf, vf), gof)
+    check(all_same_bits((o_off.detach(),) + g_off, main["global", "auto"][0]),
+          "(f) use_kv_bounds off != on bitwise")
+    del o_off, g_off
+    # count_cells against the analytic live cells
+    flat_f = [t.detach().reshape(-1, g_t, g_d) for t in (qf, kf, vf)]
+    shapes_f = (flat_f[0].shape, flat_f[1].shape)
+    # flash_attention_kernel's keywords at (f): those flash_attention uses
+    kw_f = dict(group=g_hq // g_hkv, scale=g_d ** -0.5, causal=True,
+                softcap=cap)
+    for layer, window, want_cells in (("global", None, 2080),
+                                      ("local", win, 1584)):
+        _, lay = forward_fold(*shapes_f, window=window, **kw_f)
+        out_c, counts = flash_attention_kernel(
+            *flat_f, window=window, count_cells=True, **kw_f)
+        out_n = flash_attention_kernel(*flat_f, window=window, **kw_f)
+        check(lay.active_cells() == want_cells
+              and int(counts.sum()) == g_hq * want_cells
+              and torch.equal(counts.sum(1).cpu(), torch.full(
+                  (g_hq,), want_cells, dtype=torch.int64)),
+              f"(f) {layer} count_cells {int(counts.sum())} != "
+              f"{g_hq} x {want_cells}")
+        check(same_bits(out_c, out_n), "count_cells changed the output")
+        print(f"(f) {layer}: count_cells {int(counts.sum())} = {g_hq} x "
+              f"{lay.active_cells()} live of {lay.nq * lay.nk} cells per "
+              "head (_active_cell_count); output bitwise unchanged")
+    del out_c, out_n, counts
+    # a page-permuted decode cache through kv_block_map, bitwise
+    # the decode's flattened, padded operands and kernel keywords, as
+    # flash_attention builds them (q padded to 8 rows)
+    (qg8, kgf, vgf), dec = fa_ops.kernel_inputs(qg, kg, vg, fa_ops.FlashConfig(
+        scale=p_d ** -0.5, causal=False, window=None, softcap=None,
+        block_q=128, block_k=128, schedule="decoupled", kv_splits=None,
+        use_kv_bounds=True))
+    nkb = cache // 128
+    perm = torch.randperm(nkb, device=dev, generator=gen)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(nkb, device=dev)
+    kgp = kgf.view(-1, nkb, 128, p_d)[:, inv].reshape(kgf.shape)
+    vgp = vgf.view(-1, nkb, 128, p_d)[:, inv].reshape(vgf.shape)
+    o_c = flash_attention_kernel(qg8, kgf, vgf, **dec)
+    o_p = flash_attention_kernel(qg8, kgp, vgp, kv_block_map=perm, **dec)
+    check(same_bits(o_c, o_p), "(g) kv_block_map != contiguous bitwise")
+    check(same_bits(o_c[:, :1].reshape(og.shape), og),
+          "(g) kernel entry point != flash_attention")
+    del kgp, vgp, o_p, o_c
+    print("(f) use_kv_bounds off == on bitwise (forward, dq, dk, dv); (g) "
+          f"a random permutation of the {nkb} cache pages through "
+          "kv_block_map == the contiguous cache bitwise")
+    # fully masked rows (q past kv_len + window): exactly 0, zero grads
+    qm, km, vm = (normals((g_hq if i == 0 else g_hkv, 1024, g_d), bf16)
+                  for i in range(3))
+    mk = dict(group=2, scale=g_d ** -0.5, causal=True, window=128,
+              kv_len=256)
+    for sched in ("carry", "decoupled"):
+        om, mm_, lm = flash_attention_kernel(qm, km, vm, schedule=sched,
+                                             return_stats=True, **mk)
+        gm = torch.zeros_like(om)
+        gm[:, 384:] = om[:, 384:] * 2 + 1
+        dm = (gm.float() * om.float()).sum(-1, keepdim=True)
+        dqm, dkm, dvm = flash_attention_bwd_kernel(
+            qm, km, vm, gm, mm_, lm, dm, schedule=sched, **mk)
+        check(not bool(om[:, 384:].any()) and bool(om[:, :384].any())
+              and not any(bool(t.any()) for t in (dqm, dkm, dvm))
+              and all(bool(torch.isfinite(t).all())
+                      for t in (om, dqm, dkm, dvm)),
+              f"fully masked rows ({sched}): output or gradients not 0")
+    del qm, km, vm, om, gm, dqm, dkm, dvm
+    print("fully masked rows (kv_len 256, window 128: rows >= 384): output "
+          "exactly 0, dq = dk = dv = 0 under carry and decoupled")
+
+    # kernels vs plain versions in float32 at the (f) and (g) shapes
+    qf32, kf32, vf32 = (t.float() for t in flat_f)
+    spec_c, lay_c = forward_fold(*shapes_f, return_stats=True, **kw_f)
+    ops_c = (qf32, kf32, vf32)
+    got, _ = cuda_fold.fold(spec_c, ops_c, lay_c)
+    want = schedules.fold_carry_plain(ops_c, spec_c, lay_c)
+    ok, e_fwd = allclose(got, want, FWD_TOL)
+    check(ok, f"fold_fwd f32 vs plain: {e_fwd}")
+    out32, m32, l32 = got
+    ops_b = bwd_operands(qf32, kf32, vf32, out32, m32, l32)
+    (sq, lq), (sk, lk) = backward_folds(*shapes_f, **kw_f)
+    ok, e_dq = allclose(cuda_fold.fold(sq, ops_b, lq)[0],
+                        schedules.fold_carry_plain(ops_b, sq, lq), GRAD_TOL)
+    check(ok, f"fold_dq f32 vs plain: {e_dq}")
+    ok, e_dkv = allclose(cuda_fold.fold(sk, ops_b, lk)[0],
+                         schedules.fold_carry_plain(ops_b, sk, lk), GRAD_TOL)
+    check(ok, f"fold_dkv f32 vs plain: {e_dkv}")
+    # carry vs decoupled (float32), forward and gradients
+    o_cy = flash_attention_kernel(*ops_c, **kw_f)
+    o_dc = flash_attention_kernel(*ops_c, schedule="decoupled", **kw_f)
+    g_cy = flash_attention_bwd_kernel(*ops_b, **kw_f)
+    g_dc = flash_attention_bwd_kernel(*ops_b, schedule="decoupled", **kw_f)
+    ok, e_cd = allclose((o_dc,) + g_dc, (o_cy,) + g_cy, FWD_TOL)
+    check(ok, f"(f) f32 carry vs decoupled: {e_cd}")
+    check(same_bits(o_cy, out32), "flash_attention_kernel != fold kernel")
+    del o_dc, g_cy, g_dc
+    # the split pass and chain of the local layer, float32
+    spec_s, lay_s = forward_fold(*shapes_f, window=win, schedule="decoupled",
+                                 return_stats=True, **kw_f)
+    tot = cuda_fold.fold_totals(spec_s, ops_c, lay_s)
+    ok, e_tot = allclose(tot, schedules.fold_totals_plain(ops_c, spec_s,
+                                                          lay_s), FWD_TOL)
+    check(ok, f"fold_fwd split pass f32 vs plain: {e_tot}")
+    out_dts = (torch.float32,) * 3
+    ok, e_ch = allclose(cuda_fold.chain(spec_s, tot, lay_s, out_dts),
+                        schedules.fold_finalize_plain(spec_s, lay_s, tot,
+                                                      out_dts), FWD_TOL)
+    check(ok, f"fold_chain f32 vs plain: {e_ch}")
+    o_loc = cuda_fold.chain(spec_s, tot, lay_s, out_dts)
+    ops_bl = bwd_operands(qf32, kf32, vf32, *o_loc)
+    (sq_s, lq_s), (sk_s, lk_s) = backward_folds(
+        *shapes_f, window=win, schedule="decoupled", **kw_f)
+    e_bwd = {}
+    for what, sp, ly in (("dq", sq_s, lq_s), ("dkv", sk_s, lk_s)):
+        tot_b = cuda_fold.fold_totals(sp, ops_bl, ly)
+        ok, e_bwd[what] = allclose(
+            tot_b, schedules.fold_totals_plain(ops_bl, sp, ly), GRAD_TOL)
+        check(ok, f"fold_{what} split pass f32 vs plain: {e_bwd[what]}")
+        # the chain of the sum specs (fold_chain_sum)
+        dts = (torch.float32,) * len(tot_b)
+        ok, e_bwd[what + " chain"] = allclose(
+            cuda_fold.chain(sp, tot_b, ly, dts),
+            schedules.fold_finalize_plain(sp, ly, tot_b, dts), GRAD_TOL)
+        check(ok, f"fold_chain ({what}) f32 vs plain: "
+              f"{e_bwd[what + ' chain']}")
+        del tot_b
+    del tot, o_loc, ops_bl
+    # the forward against float64 dense attention, two heads
+    o2 = flash_attention_kernel(qf32[:2], kf32[:1], vf32[:1], **kw_f)
+    ref64 = fa_ref.mha_ref(qf32[:2].double(), kf32[:1].double(),
+                           vf32[:1].double(), **kw_f)
+    ok, e_64 = allclose(o2, ref64, DENSE_TOL)
+    check(ok, f"(f) vs float64 dense: {e_64}")
+    del o2, ref64, ops_b, got, want
+    # the decode shape, float32: the split pass and the chain
+    qg32, kg32, vg32 = qg8.float(), kgf.float(), vgf.float()
+    spec_g, lay_g = forward_fold(qg8.shape, kgf.shape, **dec)
+    ops_g = (qg32, kg32, vg32)
+    tot_g = cuda_fold.fold_totals(spec_g, ops_g, lay_g)
+    ok, e_gt = allclose(tot_g, schedules.fold_totals_plain(ops_g, spec_g,
+                                                           lay_g), FWD_TOL)
+    check(ok, f"(g) fold_fwd split pass f32 vs plain: {e_gt}")
+    ok, e_gc = allclose(
+        cuda_fold.chain(spec_g, tot_g, lay_g, (torch.float32,)),
+        schedules.fold_finalize_plain(spec_g, lay_g, tot_g,
+                                      (torch.float32,)), FWD_TOL)
+    check(ok, f"(g) fold_chain f32 vs plain: {e_gc}")
+    del qg32, kg32, vg32, tot_g, ops_g
+    # the (h) shape in float32: the kernels' d = 128 tiling
+    ops_h32 = tuple(t.detach().reshape(-1, t_h, p_d).float()
+                    for t in (qh, kh, vh))
+    shapes_h = (ops_h32[0].shape, ops_h32[1].shape)
+    kw_h = dict(group=p_hq // p_hkv, scale=p_d ** -0.5, causal=True)
+    spec_h, lay_h = forward_fold(*shapes_h, return_stats=True, **kw_h)
+    got_h, _ = cuda_fold.fold(spec_h, ops_h32, lay_h)
+    ok, e_h = allclose(got_h, schedules.fold_carry_plain(ops_h32, spec_h,
+                                                         lay_h), FWD_TOL)
+    check(ok, f"(h) fold_fwd f32 vs plain: {e_h}")
+    ops_bh32 = bwd_operands(*ops_h32, *got_h)
+    e_hb = {}
+    for what, (sp, ly) in zip(("dq", "dkv"),
+                              backward_folds(*shapes_h, **kw_h)):
+        ok, e_hb[what] = allclose(
+            cuda_fold.fold(sp, ops_bh32, ly)[0],
+            schedules.fold_carry_plain(ops_bh32, sp, ly), GRAD_TOL)
+        check(ok, f"(h) fold_{what} f32 vs plain: {e_hb[what]}")
+    del ops_h32, got_h, ops_bh32
+    print(f"float32 kernels vs plain (max |diff|; (atol, rtol) {FWD_TOL} "
+          f"forward, {GRAD_TOL} gradients): (f) fold_fwd "
+          f"{e_fwd:.3g}, fold_dq {e_dq:.3g}, fold_dkv {e_dkv:.3g}; local "
+          f"split passes fwd {e_tot:.3g}, dq {e_bwd['dq']:.3g}, dkv "
+          f"{e_bwd['dkv']:.3g}; chains fwd {e_ch:.3g}, dq "
+          f"{e_bwd['dq chain']:.3g}, dkv {e_bwd['dkv chain']:.3g}; (g) split "
+          f"pass {e_gt:.3g}, chain {e_gc:.3g}; (h) fold_fwd {e_h:.3g}, "
+          f"fold_dq {e_hb['dq']:.3g}, fold_dkv {e_hb['dkv']:.3g}; carry vs "
+          f"decoupled {e_cd:.3g}; (f) vs float64 dense attention (2 heads) "
+          f"{e_64:.3g} ((atol, rtol) {DENSE_TOL})")
+    torch.cuda.empty_cache()
+
+    def sdpa_backend(fn):
+        """The SDPA backend a default call takes: the first whose forced
+        call gives the default's bits."""
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        want = fn()
+        for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                  SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([b]):
+                    got = fn()
+            except RuntimeError:   # this backend refuses the inputs
+                continue
+            if same_bits(got, want):
+                return b.name
+        return "not identified"
+
+    # each fold kernel's time at its main-path shape (bf16)
+    def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
+                 library, shape, reps=3):
+        got, want = flat(run()), flat(run_plain())
+        sync()
+        ok, err = allclose(got, want, BF16_TOL)
+        check(ok, f"{rname}: kernel vs plain at the main-path shape: {err}")
+        del got, want
+        ms = time_ms(run, reps)
+        plain_ms = time_ms(run_plain, 1, warmup=0)
+        lib_ms = None if library is None else time_ms(library, reps)
+        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+            t_bytes, "bytes")
+        rows.append({
+            "name": rname, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES[replaces],
+            "launches": attn_launches[kernel], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms})
+        print(f"kernel {rname:16s} {shape:30s}: {ms:9.3f} ms  plain "
+              f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by}; float32 "
+              f"non-tensor {flops / f32_peak * 1e3:.3f} ms)  library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cell = 128 * 128
+    ops_f = tuple(flat_f)
+    for layer, window, splits in (("global", None, 1), ("local", win, 16)):
+        tag = "" if splits == 1 else "_split"
+        which = "carry" if splits == 1 else "split"
+        sched = "carry" if splits == 1 else "decoupled"
+        spec, lay = forward_fold(*shapes_f, window=window, schedule=sched,
+                                 return_stats=True, **kw_f)
+        check(lay.splits == splits, f"(f) {layer}: {lay.splits} splits")
+        live = g_hq * lay.active_cells()
+        outs = (cuda_fold.fold(spec, ops_f, lay)[0] if splits == 1 else
+                cuda_fold.chain(spec, cuda_fold.fold_totals(spec, ops_f, lay),
+                                lay, (bf16, torch.float32, torch.float32)))
+        ops_bf = bwd_operands(*ops_f, *outs)
+        (sq, lq), (sk, lk) = backward_folds(*shapes_f, window=window,
+                                            schedule=sched, **kw_f)
+        shape = f"(f) {layer} 16x8192x256"
+        if splits == 1:
+            fwd = (lambda: cuda_fold.fold(spec, ops_f, lay)[0],
+                   lambda: schedules.fold_carry_plain(ops_f, spec, lay))
+            dq = (lambda: cuda_fold.fold(sq, ops_bf, lq)[0],
+                  lambda: schedules.fold_carry_plain(ops_bf, sq, lq))
+            dkv = (lambda: cuda_fold.fold(sk, ops_bf, lk)[0],
+                   lambda: schedules.fold_carry_plain(ops_bf, sk, lk))
+            out_b = nbytes(*outs)
+            dq_b, dkv_b = nbytes(ops_f[0]), nbytes(*ops_f[1:])
+        else:
+            fwd = (lambda: cuda_fold.fold_totals(spec, ops_f, lay),
+                   lambda: schedules.fold_totals_plain(ops_f, spec, lay))
+            dq = (lambda: cuda_fold.fold_totals(sq, ops_bf, lq),
+                  lambda: schedules.fold_totals_plain(ops_bf, sq, lq))
+            dkv = (lambda: cuda_fold.fold_totals(sk, ops_bf, lk),
+                   lambda: schedules.fold_totals_plain(ops_bf, sk, lk))
+            out_b = 4 * lay.bh * lay.nq * splits * 128 * (g_d + 2)
+            dq_b = 4 * lq.bh * lq.nq * splits * 128 * g_d
+            dkv_b = 8 * lk.bh_kv * lk.nk * splits * 128 * g_d
+        attn_row(f"fold_fwd{tag}", "fold_fwd", which, *fwd,
+                 nbytes(*ops_f) + out_b, 4 * cell * g_d * live, None, shape)
+        attn_row(f"fold_dq{tag}", "fold_dq", which, *dq,
+                 nbytes(*ops_bf) + dq_b, 6 * cell * g_d * live, None, shape)
+        attn_row(f"fold_dkv{tag}", "fold_dkv", which, *dkv,
+                 nbytes(*ops_bf) + dkv_b, 8 * cell * g_d * live, None, shape)
+        if splits > 1:   # the chain of the sum specs (fold_chain_sum)
+            for rname, (sp, ly) in (("fold_chain_dq", (sq, lq)),
+                                    ("fold_chain_dkv", (sk, lk))):
+                tot_b = cuda_fold.fold_totals(sp, ops_bf, ly)
+                dts = (bf16,) * len(tot_b)
+                out_b = sum(2 * torch.Size(ly.out_shape_for(i)).numel()
+                            for i in range(len(tot_b)))
+                attn_row(rname, "fold_chain_sum", "chain",
+                         lambda: cuda_fold.chain(sp, tot_b, ly, dts),
+                         lambda: schedules.fold_finalize_plain(sp, ly, tot_b,
+                                                               dts),
+                         nbytes(*tot_b) + out_b, nbytes(*tot_b) // 4, None,
+                         f"{shape}, 16 splits")
+                del tot_b
+        if splits == 1:
+            fold_ms = sum(r["ms"] for r in rows[-3:])
+
+            def train_step():
+                o = fa_ops.flash_attention(qf, kf, vf, softcap=cap)
+                return torch.autograd.grad(o, (qf, kf, vf), gof)
+
+            step_ms = statistics.median(wall_ms(train_step)[1]
+                                        for _ in range(3))
+            print(f"(f) global forward + backward: {step_ms:.1f} ms host "
+                  f"clock (median of 3), of which the three fold kernels' "
+                  f"medians {fold_ms:.1f} ms: device idle share at most "
+                  f"{1 - fold_ms / step_ms:.3f}")
+        del outs, ops_bf
+    # (g) the decode's split pass and chain; SDPA on the whole forward
+    spec_g, lay_g = forward_fold(qg8.shape, kgf.shape, **dec)
+    ops_g = (qg8, kgf, vgf)
+    tot_g = cuda_fold.fold_totals(spec_g, ops_g, lay_g)
+    lib_g = time_ms(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, enable_gqa=True), 5)
+    backend_g = sdpa_backend(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, enable_gqa=True))
+    split_b = nbytes(*tot_g)
+    attn_row("fold_fwd_decode", "fold_fwd", "split",
+             lambda: cuda_fold.fold_totals(spec_g, ops_g, lay_g),
+             lambda: schedules.fold_totals_plain(ops_g, spec_g, lay_g),
+             nbytes(*ops_g) + split_b, 4 * nb_ * p_hq * cache * p_d, None,
+             "(g) 160x1(8) vs 40x131072x128", reps=5)
+    attn_row("fold_chain", "fold_chain", "chain",
+             lambda: cuda_fold.chain(spec_g, tot_g, lay_g, (bf16,)),
+             lambda: schedules.fold_finalize_plain(spec_g, lay_g, tot_g,
+                                                   (bf16,)),
+             split_b + nb_ * p_hq * 8 * p_d * 2, 6 * split_b // 4, None,
+             "(g) 160x8 rows x 16 splits", reps=5)
+    dec_ms = rows[-2]["ms"] + rows[-1]["ms"]
+    print(f"(g) decode: split pass + chain {dec_ms:.3f} ms; "
+          f"scaled_dot_product_attention(enable_gqa=True) {lib_g:.3f} ms "
+          f"({backend_g} backend); "
+          f"bound {2 * nbytes(kgf) / bw * 1e3:.3f} ms (reading the cache)")
+    del tot_g, ops_g, kg, vg, kgf, vgf
+    # (h) the prefill's carry folds; SDPA forward and backward
+    ops_h = tuple(t.detach().reshape(-1, t_h, p_d) for t in (qh, kh, vh))
+    spec_h, lay_h = forward_fold(*shapes_h, return_stats=True, **kw_h)
+    live_h = p_hq * lay_h.active_cells()
+    outs_h, _ = cuda_fold.fold(spec_h, ops_h, lay_h)
+    ops_bh = bwd_operands(*ops_h, *outs_h)
+    (sq, lq), (sk, lk) = backward_folds(*shapes_h, **kw_h)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    lib_hf = time_ms(lambda: F.scaled_dot_product_attention(
+        qh.detach(), kh.detach(), vh.detach(), is_causal=True,
+        enable_gqa=True), 5)
+    lib_hb = time_ms(lambda: torch.autograd.grad(
+        o_s, (qs, ks, vs), goh, retain_graph=True), 5)
+    backend_h = sdpa_backend(lambda: F.scaled_dot_product_attention(
+        qh.detach(), kh.detach(), vh.detach(), is_causal=True,
+        enable_gqa=True))
+    shape = "(h) 40x4096x128 causal"
+    attn_row("fold_fwd_prefill", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_h, ops_h, lay_h)[0],
+             lambda: schedules.fold_carry_plain(ops_h, spec_h, lay_h),
+             nbytes(*ops_h, *outs_h), 4 * cell * p_d * live_h,
+             lambda: F.scaled_dot_product_attention(
+                 qh.detach(), kh.detach(), vh.detach(), is_causal=True,
+                 enable_gqa=True), shape, reps=5)
+    for rname, kernel, (sp, ly), fl in (
+            ("fold_dq_prefill", "fold_dq", (sq, lq), 6),
+            ("fold_dkv_prefill", "fold_dkv", (sk, lk), 8)):
+        outs_k = cuda_fold.fold(sp, ops_bh, ly)[0]
+        attn_row(rname, kernel, "carry",
+                 lambda: cuda_fold.fold(sp, ops_bh, ly)[0],
+                 lambda: schedules.fold_carry_plain(ops_bh, sp, ly),
+                 nbytes(*ops_bh, *outs_k), fl * cell * p_d * live_h,
+                 lambda: torch.autograd.grad(o_s, (qs, ks, vs), goh,
+                                             retain_graph=True),
+                 shape, reps=5)
+    print(f"(h) prefill: SDPA ({backend_h} backend) forward "
+          f"{lib_hf:.3f} ms, backward (dq, dk, "
+          f"dv together; the library time of the dq and dkv rows) "
+          f"{lib_hb:.3f} ms; fold_dq + fold_dkv "
+          f"{rows[-2]['ms'] + rows[-1]['ms']:.3f} ms")
+    del ops_h, outs_h, ops_bh, o_s, qs, ks, vs
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

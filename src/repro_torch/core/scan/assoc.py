@@ -14,8 +14,12 @@ Monoids that also run inside kernels carry a :class:`KernelSpec` (flat
 tensor leaves, identity fill constants, in-kernel combine) — the
 interface the scan engine (``repro_torch.kernels.scan_engine``) writes
 each schedule against, once. Registered here: sum, segmented sum, the
-compact-mask spec and the affine spec; the softmax spec is not ported yet
-(ROADMAP).
+compact-mask spec, the affine spec, and the flash-attention softmax-pair
+spec (a *carried payload* monoid: its elements are built per block by an
+input TRANSFORM from raw operand tiles rather than read from element
+tensors) with its two BACKWARD specs — dq as a sum fold over KV blocks,
+dk/dv as a sum fold over a transposed q-major layout — which recompute
+the logits per tile instead of materializing the attention matrix.
 """
 
 from __future__ import annotations
@@ -69,6 +73,22 @@ class KernelSpec:
         ``exclusive=True``.
       sentinel: the value ``emit`` writes for a dropped lane (the mask
         spec), handed to its CUDA kernel; None for the other specs.
+      transform: optional per-block INPUT TRANSFORM. When set, the monoid
+        is a *carried payload*: the engine reads no element tensors —
+        each block along the folded axis yields ONE macro element
+        ``transform(op_tiles, block_ids) -> leaf tuple`` computed from the
+        raw operand tiles (flash attention: the ``q·kᵀ`` logits block with
+        masking, folded to its ``(m, l, p·v)`` triple). The tiles may
+        carry leading batch axes (the plain fold versions run every
+        (row, q-block) pair of a fold step at once), and ``block_ids``
+        are the layout's ``(head, q_block, kv_block)`` coordinates,
+        integer tensors broadcast against those axes. The scan is a FOLD
+        over blocks: outputs are emitted once, from the final state.
+      finalize: ``finalize(combined) -> outputs`` for transform monoids —
+        the fold-time emitter (flash attention's ``acc / l`` normalize).
+      attn: the masking geometry baked into an attention transform
+        (:class:`AttnMask`), handed to its CUDA fold kernel; None for the
+        element specs.
     """
 
     name: str
@@ -80,6 +100,9 @@ class KernelSpec:
     emit: "Callable[[tuple, tuple], tuple] | None" = None
     supports_exclusive: bool = True
     sentinel: "int | None" = None
+    transform: "Callable[[tuple, tuple], tuple] | None" = None
+    finalize: "Callable[[tuple], tuple] | None" = None
+    attn: "AttnMask | None" = None
 
     @property
     def n_leaves(self) -> int:
@@ -234,6 +257,278 @@ def mask_kernel_spec(sentinel: int) -> KernelSpec:
     )
 
 
+# Finite stand-in for -inf in masked logits: keeps the softmax-pair
+# max-carry NaN-free (``-inf - -inf`` is NaN; ``NEG_INF - NEG_INF`` is 0).
+# Masked probabilities are additionally zeroed (``p = where(mask, ·, 0)``)
+# so a fully-masked row yields l == 0 and finalizes to EXACTLY 0 — not
+# the visited-column-count-dependent uniform softmax. That invariance is
+# what makes the causal-aware KV bound bitwise-free: a skipped
+# fully-masked block's element is the monoid identity ``(NEG_INF, 0, 0)``,
+# and combining the identity in is bitwise a no-op.
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMask:
+    """The attention geometry of one fold: the logits scale, the
+    causal / sliding-window / KV-length mask, the softcap and the block
+    sizes that turn block ids into absolute positions (``None``: no such
+    mask). ``with_stats`` makes the forward emit its ``(m, l)`` rows."""
+
+    scale: float
+    causal: bool = True
+    window: "int | None" = None
+    softcap: "float | None" = None
+    kv_len: "int | None" = None
+    block_q: int = 128
+    block_k: int = 128
+    with_stats: bool = False
+
+
+def _softmax_acc_kcombine(left, right):
+    """Carried-payload lift of the softmax pair: (m, l, acc) triples.
+
+    ``m`` is the running row max, ``l`` the sum of ``exp(s - m)``, and
+    ``acc`` the exp-weighted value accumulator — both sums rescale by
+    ``exp(m_i - m)`` when the shared max moves. Associative; identity is
+    ``(NEG_INF, 0, 0)`` (exp underflows to exactly 0 against any live
+    max, and ``exp(0) = 1`` against another NEG_INF).
+    """
+    m1, l1, a1 = left
+    m2, l2, a2 = right
+    m = torch.maximum(m1, m2)
+    alpha1 = torch.exp(m1 - m)
+    alpha2 = torch.exp(m2 - m)
+    return (m, l1 * alpha1 + l2 * alpha2, a1 * alpha1 + a2 * alpha2)
+
+
+def _attn_block_logits(q, k, block_ids, *, scale, causal, window, softcap,
+                       kv_len, block_q, block_k):
+    """Shared q·kᵀ logits tile for the attention forward AND backward
+    transforms: ``(s, mask)`` where ``s`` is the scaled (and softcapped)
+    logits block BEFORE masking and ``mask`` the combined
+    causal/window/length liveness — stated once so the backward's
+    recomputed logits are bit-identical to the forward's.
+
+    ``block_ids`` convention (``KVBlocks``/``QBlocks`` layouts):
+    ``(head, q_block, kv_block)`` — absolute row/col positions derive
+    from the last two (integer tensors, broadcast against the tiles'
+    leading axes). ``kv_len`` masks padded KV tails (``None``: no length
+    mask beyond the geometry).
+    """
+    qi, kj = block_ids[-2], block_ids[-1]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale     # (..., bq, bk)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    dev = s.device
+    qi = torch.as_tensor(qi, device=dev)[..., None, None]
+    kj = torch.as_tensor(kj, device=dev)[..., None, None]
+    rows = qi * block_q + torch.arange(s.shape[-2], device=dev)[:, None]
+    cols = kj * block_k + torch.arange(s.shape[-1], device=dev)[None, :]
+    mask = torch.ones(s.shape, dtype=torch.bool, device=dev)
+    if kv_len is not None:
+        mask = mask & (cols < kv_len)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    return s, mask
+
+
+def softmax_pair_kernel_spec(
+    *,
+    scale: float,
+    causal: bool = True,
+    window: "int | None" = None,
+    softcap: "float | None" = None,
+    kv_len: "int | None" = None,
+    block_q: int = 128,
+    block_k: int = 128,
+    with_stats: bool = False,
+) -> KernelSpec:
+    """Flash-attention monoid: online softmax with the value payload.
+
+    The KV-block loop of flash attention is an inclusive FOLD over KV
+    blocks of :data:`SOFTMAX_PAIR` with the weighted-value accumulator
+    carried alongside. The per-block element is produced by the input
+    transform — ``q·kᵀ`` logits with causal/window/softcap/length
+    masking, folded within the block to its ``(m, l, acc)`` triple — so
+    the engine's schedules never see an element array, only operands
+    ``(q, k, v)`` tiles of shapes ``(bq, d)/(bk, d)/(bk, d)``.
+
+    ``with_stats=True`` additionally emits the folded ``(m, l)`` row
+    statistics (f32, trailing dim 1) after the normalized output — the
+    residuals the backward folds need to reconstruct the softmax without
+    materializing the attention matrix.
+
+    Masked probabilities are zeroed, so a fully-masked row emits exactly
+    0 (and zero gradients) rather than a uniform average over however
+    many masked columns the grid happened to visit — the invariance that
+    lets the causal-aware KV bound skip fully-masked blocks bitwise-free.
+    """
+    geom = AttnMask(scale=scale, causal=causal, window=window,
+                    softcap=softcap, kv_len=kv_len, block_q=block_q,
+                    block_k=block_k, with_stats=with_stats)
+
+    def transform(ops, block_ids):
+        q, k, v = (o.to(torch.float32) for o in ops)
+        s, mask = _attn_block_logits(
+            q, k, block_ids, scale=scale, causal=causal, window=window,
+            softcap=softcap, kv_len=kv_len, block_q=block_q,
+            block_k=block_k)
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)           # (..., bq, 1)
+        # exp underflows to exactly 0 at masked columns of LIVE rows, so
+        # the where only changes fully-masked rows (m == NEG_INF there,
+        # where exp(s - m) would be exp(0) = 1): they get l == 0.
+        p = torch.where(mask, torch.exp(s - m), 0.0)      # (..., bq, bk)
+        l = torch.sum(p, dim=-1, keepdim=True)            # (..., bq, 1)
+        acc = torch.matmul(p, v)                          # (..., bq, d)
+        return (m, l, acc)
+
+    def finalize(combined):
+        m, l, acc = combined
+        # l == 0 marks a fully-masked row (or an empty fold): acc is 0
+        # there, and the guarded divide makes the output exactly 0.
+        safe = torch.where(l == 0.0, 1.0, l)
+        if with_stats:
+            return (acc / safe, m, l)
+        return (acc / safe,)
+
+    def out_dtypes(dts):
+        if with_stats:
+            return (dts[0], torch.float32, torch.float32)
+        return (dts[0],)
+
+    return KernelSpec(
+        name="softmax_pair",
+        fills=(NEG_INF, 0, 0),
+        combine=_softmax_acc_kcombine,
+        elem_dtypes=lambda dts: (torch.float32,) * 3,
+        out_dtypes=out_dtypes,
+        supports_exclusive=False,
+        transform=transform,
+        finalize=finalize,
+        attn=geom,
+    )
+
+
+def _identity_finalize(combined):
+    return tuple(combined)
+
+
+def _attn_bwd_ds(ops, block_ids, *, scale, causal, window, softcap, kv_len,
+                 block_q, block_k):
+    """Shared backward tile: recomputed probabilities ``p`` and masked
+    logit gradients ``ds`` for one (q-block, kv-block) cell.
+
+    ``ops`` are f32 tiles ``(q, k, v, do, m, l, delta)`` where ``m``/``l``
+    are the forward's saved row statistics and ``delta = rowsum(dO ⊙ O)``
+    — the standard flash backward: ``p = exp(s - m)/l`` (no materialized
+    attention matrix outside this tile), ``dp = dO·Vᵀ``,
+    ``ds = p ⊙ (dp - delta)``, with the softcap chain rule
+    ``tanh' = 1 - (s/cap)²`` applied on the recomputed capped logits.
+    """
+    q, k, v, do, m, l, delta = ops
+    s, mask = _attn_block_logits(
+        q, k, block_ids, scale=scale, causal=causal, window=window,
+        softcap=softcap, kv_len=kv_len, block_q=block_q, block_k=block_k)
+    sm = torch.where(mask, s, NEG_INF)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    p = torch.where(mask, torch.exp(sm - m), 0.0) / safe_l  # (..., bq, bk)
+    dp = torch.matmul(do, v.transpose(-1, -2))              # (..., bq, bk)
+    ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap) ** 2)                # tanh'
+    return p, ds
+
+
+def _dsum_kcombine(left, right):
+    return tuple(a + b for a, b in zip(left, right))
+
+
+def softmax_pair_bwd_dq_kernel_spec(
+    *,
+    scale: float,
+    causal: bool = True,
+    window: "int | None" = None,
+    softcap: "float | None" = None,
+    kv_len: "int | None" = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> KernelSpec:
+    """Flash-backward dq: a SUM fold over KV blocks (``KVBlocks``).
+
+    Operands ``(q, k, v, do, m, l, delta)``; each block contributes
+    ``scale · ds @ K`` to the carried (bq, d) dq accumulator. Plain sum
+    monoid — all the attention structure lives in the transform, so the
+    engine's fold schedules (carry accumulate / split-KV decoupled) run
+    it unchanged.
+    """
+    cfg = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+               kv_len=kv_len, block_q=block_q, block_k=block_k)
+
+    def transform(ops, block_ids):
+        ops = tuple(o.to(torch.float32) for o in ops)
+        _, ds = _attn_bwd_ds(ops, block_ids, **cfg)
+        dq = torch.matmul(ds, ops[1]) * scale             # (..., bq, d)
+        return (dq,)
+
+    return KernelSpec(
+        name="softmax_bwd_dq",
+        fills=(0,),
+        combine=_dsum_kcombine,
+        elem_dtypes=lambda dts: (torch.float32,),
+        out_dtypes=lambda dts: (dts[0],),
+        supports_exclusive=False,
+        transform=transform,
+        finalize=_identity_finalize,
+        attn=AttnMask(**cfg),
+    )
+
+
+def softmax_pair_bwd_dkv_kernel_spec(
+    *,
+    scale: float,
+    causal: bool = True,
+    window: "int | None" = None,
+    softcap: "float | None" = None,
+    kv_len: "int | None" = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> KernelSpec:
+    """Flash-backward dk/dv: a SUM fold over q blocks (``QBlocks``).
+
+    The transposed organization: for each KV block the fold walks the
+    (group × q-block) axis — GQA head summation included, since every q
+    head mapping to this KV head is part of the fold — accumulating
+    ``dk += scale · dsᵀ @ Q`` and ``dv += pᵀ @ dO`` into the carried
+    (bk, d) pair.
+    """
+    cfg = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+               kv_len=kv_len, block_q=block_q, block_k=block_k)
+
+    def transform(ops, block_ids):
+        ops = tuple(o.to(torch.float32) for o in ops)
+        p, ds = _attn_bwd_ds(ops, block_ids, **cfg)
+        q, do = ops[0], ops[3]
+        dk = torch.matmul(ds.transpose(-1, -2), q) * scale  # (..., bk, d)
+        dv = torch.matmul(p.transpose(-1, -2), do)          # (..., bk, d)
+        return (dk, dv)
+
+    return KernelSpec(
+        name="softmax_bwd_dkv",
+        fills=(0, 0),
+        combine=_dsum_kcombine,
+        elem_dtypes=lambda dts: (torch.float32,) * 2,
+        out_dtypes=lambda dts: (dts[1], dts[2]),
+        supports_exclusive=False,
+        transform=transform,
+        finalize=_identity_finalize,
+        attn=AttnMask(**cfg),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Standard monoids
 # ---------------------------------------------------------------------------
@@ -287,7 +582,30 @@ AFFINE = Monoid(
 )
 
 
-REGISTRY: dict[str, Monoid] = {m.name: m for m in (SUM, PROD, MAX, MIN, AFFINE)}
+# Online-softmax monoid: elements (m, s) where m is a running max and s the
+# sum of exp(x - m). Flash attention's KV-block loop is an inclusive scan of
+# these pairs — the paper's blocked-scan pattern with this monoid.
+def _softmax_combine(left, right):
+    m1, s1 = left
+    m2, s2 = right
+    m = torch.maximum(m1, m2)
+    s = s1 * torch.exp(m1 - m) + s2 * torch.exp(m2 - m)
+    return (m, s)
+
+
+# Kernel-side, the registration is ``softmax_pair_kernel_spec`` — a
+# config-dependent factory (like ``mask_kernel_spec``) because masking
+# geometry is baked into the per-block input transform, so the Monoid
+# carries no static ``kernel_spec``.
+SOFTMAX_PAIR = Monoid(
+    "softmax_pair",
+    _softmax_combine,
+    lambda x: (torch.full_like(x[0], -float("inf")), torch.zeros_like(x[1])),
+)
+
+
+REGISTRY: dict[str, Monoid] = {
+    m.name: m for m in (SUM, PROD, MAX, MIN, AFFINE, SOFTMAX_PAIR)}
 
 
 def get(op: "str | Monoid") -> Monoid:

@@ -26,10 +26,16 @@ organizations, executed by ``repro_torch.kernels.scan_engine``:
                in-tile network; chosen over carry for long tiles
                (``block_elems >= TREE_BLOCK_ELEMS``).
 
+Attention FOLD rule (``choose_attention_schedule``): two-way, carry
+(the flash forward's (head, q-block) rows in parallel, KV sequential) or
+decoupled (split-KV / flash-decoding) for rows that leave cores idle or
+KV chains that dominate a row's latency.
+
 The thresholds are the reference's TPU guesses and count as unmeasured on
 the GPU. ``NUM_CORES`` stays the default so that CPU callers reach the
-reference's decisions; ``core.scan.api`` passes the card's SM count
-(``cores_of``) for CUDA tensors.
+reference's decisions; ``core.scan.api``, ``ssm_scan`` and
+``flash_attention`` pass the card's SM count (``cores_of``) for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -157,6 +163,89 @@ def choose_schedule(
     ``explain_schedule`` returns the same decision with its rationale.
     """
     return explain_schedule(batch, n, cores, block_elems, prefer_fused).value
+
+
+# Attention (carried-payload fold) thresholds. SPLIT_KV_CHUNKS is the KV
+# chain length past which the fold's serial latency dominates a row's
+# cost and the split-KV form pays for its chain traffic — 256 chunks is
+# 32k context at the default 128-wide KV block, the serve long-context
+# class. SPLIT_KV_ROW_CAP bounds it to decode/scoring shapes (few query
+# rows): when (head, q-block) rows already oversubscribe every core by
+# this factor, splitting KV buys no throughput and only adds traffic.
+SPLIT_KV_CHUNKS = 256
+SPLIT_KV_ROW_CAP = 8
+
+
+def explain_attention_schedule(
+    batch_rows: int,
+    kv_len: int,
+    cores: int = NUM_CORES,
+    block_elems: int = 128,
+    split_kv_chunks: int = SPLIT_KV_CHUNKS,
+    split_kv_row_cap: int = SPLIT_KV_ROW_CAP,
+) -> Decision:
+    """``choose_attention_schedule`` with its working shown — emitted as
+    a ``policy.attention_schedule`` trace event."""
+    batch_rows = max(int(batch_rows), 1)
+    chunks = -(-kv_len // max(block_elems, 1))
+    spare = cores // batch_rows
+    inputs = dict(batch_rows=batch_rows, kv_len=kv_len, cores=cores,
+                  block_elems=block_elems, chunks=chunks, spare=spare,
+                  split_kv_chunks=split_kv_chunks,
+                  split_kv_row_cap=split_kv_row_cap)
+    if batch_rows < cores and spare >= 2 and chunks >= spare:
+        return Decision(
+            "attention_schedule", "decoupled",
+            f"{batch_rows} fold row(s) leave {spare} cores idle and the "
+            f"KV chain has {chunks} chunks to spread: split-KV "
+            f"(flash-decoding)", inputs).emit()
+    if chunks >= split_kv_chunks and batch_rows < cores * split_kv_row_cap:
+        return Decision(
+            "attention_schedule", "decoupled",
+            f"KV chain of {chunks} chunks >= {split_kv_chunks} dominates "
+            f"a row's latency and {batch_rows} rows < "
+            f"{cores * split_kv_row_cap} saturation cap: split-KV",
+            inputs).emit()
+    return Decision(
+        "attention_schedule", "carry",
+        f"{batch_rows} rows fill the machine (or the {chunks}-chunk KV "
+        f"chain is short): classic flash carry accumulate", inputs).emit()
+
+
+def choose_attention_schedule(
+    batch_rows: int,
+    kv_len: int,
+    cores: int = NUM_CORES,
+    block_elems: int = 128,
+    split_kv_chunks: int = SPLIT_KV_CHUNKS,
+    split_kv_row_cap: int = SPLIT_KV_ROW_CAP,
+) -> str:
+    """Grid organization for the attention fold (softmax pair + payload).
+
+    Two-way (attention has no fused form — the output is the fold, so
+    there is no per-element writeback to chain a prefix into):
+
+      carry      the flash forward: (head, q-block) rows parallel, KV
+                 blocks a sequential accumulate. Right whenever the rows
+                 fill the machine and the KV chain is short — training
+                 and ordinary prefill shapes.
+      decoupled  split-KV / flash-decoding: KV chunks parallel, partial
+                 (m, l, acc) payloads combined in a tiny second step.
+                 Chosen when rows leave cores idle (decode: one q block,
+                 ``batch_rows == B·H``), or when the KV chain is long
+                 (the 32k/500k-context prefill and padded-cache scoring
+                 class) while rows stay within ``SPLIT_KV_ROW_CAP·cores``
+                 — fully saturated rows keep the carry form, where
+                 splitting adds chain traffic and returns nothing.
+
+    ``batch_rows`` is the number of independent fold chains the carry
+    grid already parallelizes (B·H_q·q_blocks); ``block_elems`` the KV
+    chunk length actually tiled. ``explain_attention_schedule`` returns
+    the same decision with its rationale.
+    """
+    return explain_attention_schedule(
+        batch_rows, kv_len, cores, block_elems, split_kv_chunks,
+        split_kv_row_cap).value
 
 
 def choose(

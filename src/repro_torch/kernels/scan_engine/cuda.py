@@ -87,9 +87,33 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the scan kernels are "
-        f"compiled from {SOURCE} at first use on a machine with the CUDA "
+        "nvcc not found (PATH, $CUDA_HOME/bin): the kernels are compiled "
+        f"from {SOURCE.parent} at first use on a machine with the CUDA "
         "toolkit")
+
+
+def compile_library(source: Path, build_dir: Path) -> "tuple[Path, str]":
+    """Compile ``source`` with ``nvcc`` into a shared library in
+    ``build_dir``, named by a hash of the source and flags, unless it is
+    there already. Returns the library's path and the compiler's output
+    ("" when the library was cached); raises with that output if nvcc
+    fails."""
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = build_dir / f"{source.stem}_{digest}.so"
+    if so.exists():
+        return so, ""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) on {source}:\n{log}")
+    os.replace(tmp, so)
+    return so, log
 
 
 def build() -> ctypes.CDLL:
@@ -97,21 +121,8 @@ def build() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"scan_sum_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) on {SOURCE}:\n"
-                f"{build_log}")
-        os.replace(tmp, so)
+    so, log = compile_library(SOURCE, BUILD_DIR)
+    build_log = log or build_log
     lib = ctypes.CDLL(str(so))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     tile = (i, i, i, p, p)          # spec, dtype, chan, x, y

@@ -2,7 +2,9 @@
 
 Each kernel family is one of these entries; the kernel specs live next to
 their library monoids in ``repro_torch.core.scan.assoc``: the sum, the
-segmented sum, the affine recurrence and the compact mask.
+segmented sum, the affine recurrence and the compact mask. The
+flash-attention specs are config-dependent factories in ``assoc``
+(``softmax_pair_kernel_spec`` and its two backward specs).
 """
 
 from __future__ import annotations
@@ -21,3 +23,4 @@ def mask(sentinel: int) -> assoc.KernelSpec:
     row length, so a size-(n+1) scatter buffer parks them harmlessly).
     """
     return assoc.mask_kernel_spec(sentinel)
+

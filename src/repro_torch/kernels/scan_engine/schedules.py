@@ -20,17 +20,30 @@ written once over a ``KernelSpec`` and a layout (``Rows`` or
   tree       carry's walk with the work-efficient Blelloch sweep as the
              in-tile network (the paper's §3.3). read n + write n.
 
-A schedule launches the CUDA kernels of ``cuda.py`` when its operands
-lie on a CUDA device, and runs the plain PyTorch versions below when
-they lie on the CPU. There is no fallback between the two: a CUDA tensor
-goes through a kernel or raises.
+Carried-payload monoids (``spec.transform``: flash attention's forward
+and its two backward folds) run the FOLD forms on the ``KVBlocks`` /
+``QBlocks`` layouts: ``fold_carry`` (one grid row per block, the fold
+axis a sequential accumulate) and ``fold_decoupled`` (split-KV: chunks of
+the fold axis in parallel, each publishing its partial payload, then
+``fold_chain`` and the finalize).
+
+A schedule launches the CUDA kernels of ``cuda.py`` (element specs) or
+``cuda_fold.py`` (the attention fold) when its operands lie on a CUDA
+device, and runs the plain PyTorch versions below when they lie on the
+CPU. There is no fallback between the two: a CUDA tensor goes through a
+kernel or raises.
 
 The plain versions keep the reference's association order exactly, so
 they are bitwise equal to the reference and to the kernels, floats
 included: carry, decoupled and fused share one in-tile network and one
 left-to-right chain, so they are bitwise equal to each other on any
 data; tree associates differently inside a tile and agrees with them
-bitwise on exact data and to rounding error otherwise.
+bitwise on exact data and to rounding error otherwise. The fold versions
+keep the reference's order of combines, but their dot products (torch
+matmuls) and the kernels' (FMA loops) associate differently, so folds
+agree with the reference and the kernels to rounding error; kernel
+against kernel they are bitwise where the reference's tests are (bounds
+on and off, the page map).
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ import torch
 
 from repro_torch.core.scan import policy
 from repro_torch.core.scan.assoc import KernelSpec
-from repro_torch.kernels.scan_engine import cuda
+from repro_torch.kernels.scan_engine import cuda, cuda_fold
 from repro_torch.obs import trace
 
 LANES = 128
@@ -366,6 +379,150 @@ def scan_tree(operands, spec, layout, *, exclusive=False,
 
 
 # ---------------------------------------------------------------------------
+# Carried-payload fold schedules (spec.transform monoids)
+# ---------------------------------------------------------------------------
+
+
+def fold_chain(spec: KernelSpec, totals, axis: int = 1):
+    """Sequential INCLUSIVE fold of chunk elements along ``axis`` — the
+    plain version of the ``fold_chain`` kernel (without its finalize).
+
+    Left to right from the monoid identity — the same association order
+    as the fold-carry chain, so the decoupled fold re-associates only at
+    chunk boundaries.
+    """
+    carry = tuple(torch.full_like(t.select(axis, 0), f)
+                  for t, f in zip(totals, spec.fills))
+    for c in range(totals[0].shape[axis]):
+        carry = spec.combine(carry, tuple(t.select(axis, c) for t in totals))
+    return carry
+
+
+def _fold_dtypes(spec, operands):
+    dts = tuple(o.dtype for o in operands)
+    return spec.elem_dtypes(dts), spec.out_dtypes(dts)
+
+
+def _fold_identity(spec, layout, elem_dts, device):
+    """The identity payload carries, one (batch_shape, tile_rows, leaf_dim)
+    tensor per leaf."""
+    return tuple(
+        torch.full(layout.batch_shape + (layout.tile_rows,
+                                         layout.leaf_dim(i)),
+                   f, dtype=dt, device=device)
+        for i, (f, dt) in enumerate(zip(spec.fills, elem_dts)))
+
+
+def _fold_step(spec, layout, operands, carry, elem_dts, f):
+    """One fold position for every grid row at once — transform,
+    combine (the carry is the EARLIER operand), gated on the layout's
+    KV-extent liveness when bounds are on. Returns the new carry and the
+    liveness (``None`` without bounds): a skipped cell keeps its carry,
+    which is bitwise equal to folding in the monoid identity its
+    fully-masked transform would have produced."""
+    device = operands[0].device
+    ids = layout.block_ids(f, device)
+    elem = spec.transform(layout.op_tiles(operands, f), ids)
+    elem = tuple(e.to(dt) for e, dt in zip(elem, elem_dts))
+    new = spec.combine(carry, elem)
+    active = layout.fold_active(ids)
+    if active is None:
+        return new, None
+    active = torch.as_tensor(active, device=device).expand(
+        layout.batch_shape)[..., None, None]
+    return tuple(torch.where(active, n, c) for n, c in zip(new, carry)), \
+        active
+
+
+def _fold_outputs(spec, layout, final, out_dts):
+    outs = spec.finalize(final)
+    return tuple(layout.unchain_out(o).to(dt) for o, dt in zip(outs, out_dts))
+
+
+def fold_carry_plain(operands, spec, layout, count_cells=False):
+    """Plain ``fold_carry``: every grid row's carry walks the fold axis
+    left to right from the identity, vectorized over the rows (the
+    (head, q-block) pairs of ``KVBlocks``, the (kv head, KV block) pairs
+    of ``QBlocks``). Returns the outputs, and with ``count_cells`` the
+    int32 ``layout.count_shape`` counts of the cells that ran."""
+    layout.check_ops(len(operands))
+    elem_dts, out_dts = _fold_dtypes(spec, operands)
+    device = operands[0].device
+    carry = _fold_identity(spec, layout, elem_dts, device)
+    counts = torch.zeros(layout.batch_shape, dtype=torch.int32, device=device)
+    for f in range(layout.num_seq_blocks):
+        carry, active = _fold_step(spec, layout, operands, carry, elem_dts, f)
+        counts += 1 if active is None else active[..., 0, 0].to(torch.int32)
+    outs = _fold_outputs(spec, layout, carry, out_dts)
+    return (outs, counts) if count_cells else outs
+
+
+def fold_totals_plain(operands, spec, layout):
+    """Plain split-fold pass: each of ``layout.splits`` chunks of the fold
+    axis folds its blocks from the identity; returns one
+    ``layout.chain_shape_for(leaf)`` tensor per leaf."""
+    layout.check_ops(len(operands))
+    elem_dts, _ = _fold_dtypes(spec, operands)
+    device = operands[0].device
+    parts = []
+    for c in range(layout.splits):
+        carry = _fold_identity(spec, layout, elem_dts, device)
+        for s in range(layout.blocks_per_chunk):
+            carry, _ = _fold_step(spec, layout, operands, carry, elem_dts,
+                                  c * layout.blocks_per_chunk + s)
+        parts.append(carry)
+    return tuple(
+        torch.stack([p[i] for p in parts], dim=2).reshape(
+            layout.chain_shape_for(i))
+        for i in range(spec.n_leaves))
+
+
+def fold_finalize_plain(spec, layout, totals, out_dts):
+    """Plain ``fold_chain`` kernel: the inclusive chain over the chunk
+    axis, then the spec's finalize, cast to the output dtypes."""
+    return _fold_outputs(spec, layout, fold_chain(spec, totals), out_dts)
+
+
+def fold_decoupled_plain(operands, spec, layout):
+    """Plain ``fold_decoupled``: the split-fold pass, the chain, the
+    finalize."""
+    _, out_dts = _fold_dtypes(spec, operands)
+    return fold_finalize_plain(spec, layout,
+                               fold_totals_plain(operands, spec, layout),
+                               out_dts)
+
+
+def fold_carry(operands, spec, layout, *, count_cells=False):
+    """Single-pass accumulate of a carried-payload monoid (flash fwd).
+
+    ``count_cells=True`` appends an int32 ``layout.count_shape`` tensor
+    counting the fold cells that actually executed per grid row — the
+    instrumentation behind the causal-bound "runs ~half the cells"
+    assertion.
+    """
+    if _on_cuda(operands):
+        outs, counts = cuda_fold.fold(spec, operands, layout, count_cells)
+        return (outs, counts) if count_cells else outs
+    return fold_carry_plain(operands, spec, layout, count_cells)
+
+
+def fold_decoupled(operands, spec, layout):
+    """Split-KV fold: parallel chunk accumulates + a combine chain.
+
+    The flash-decoding organization: one launch runs the fold-carry body
+    over each of ``layout.splits`` chunks of the fold axis in parallel,
+    publishing one payload element per chunk; the chain kernel stitches
+    the chunks left to right (the carry chain's association at chunk
+    granularity) and finalizes.
+    """
+    if _on_cuda(operands):
+        totals = cuda_fold.fold_totals(spec, operands, layout)
+        return cuda_fold.chain(spec, totals, layout,
+                               _fold_dtypes(spec, operands)[1])
+    return fold_decoupled_plain(operands, spec, layout)
+
+
+# ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
 
@@ -380,6 +537,9 @@ def _launch_event(operands, spec: KernelSpec, layout, schedule: str,
     if not trace.enabled():
         return
     in_bytes = sum(o.numel() * o.element_size() for o in operands)
+    if spec.transform is not None:
+        _fold_launch_event(operands, spec, layout, schedule, in_bytes)
+        return
     tile_bytes = sum(math.prod(layout.block_shape) * o.element_size()
                      for o in operands)
     out_dts = spec.out_dtypes(tuple(o.dtype for o in operands))
@@ -395,8 +555,26 @@ def _launch_event(operands, spec: KernelSpec, layout, schedule: str,
         hbm_write_bytes_est=out_bytes)
 
 
+def _fold_launch_event(operands, spec, layout, schedule, in_bytes):
+    """The fold branch of ``_launch_event``: the split grid for the
+    decoupled fold, one cell's operand tiles, the data read once and the
+    outputs written once."""
+    split = schedule not in ("carry", "tree")
+    tile_bytes = sum(math.prod(layout.op_block_shape(kind)) * o.element_size()
+                     for kind, o in zip(layout.op_kinds, operands))
+    _, out_dts = _fold_dtypes(spec, operands)
+    out_bytes = sum(math.prod(layout.out_shape_for(i)) * dt.itemsize
+                    for i, dt in enumerate(out_dts))
+    trace.instant(
+        "kernel.launch", monoid=spec.name, schedule=schedule, fold=True,
+        grid=list(layout.split_grid if split else layout.grid),
+        vmem_block_bytes_est=tile_bytes, hbm_read_bytes_est=in_bytes,
+        hbm_write_bytes_est=out_bytes)
+
+
 def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
-         exclusive: bool = False, return_totals: bool = False):
+         exclusive: bool = False, return_totals: bool = False,
+         count_cells: bool = False):
     """Run ``spec``'s monoid scan over ``operands`` under one schedule.
 
     Returns a tuple of output tensors (every registration here emits
@@ -405,6 +583,14 @@ def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
     leaf, combined through chunk ``j``), bitwise equal under every
     schedule, so callers derive row aggregates in O(rows · chunks)
     instead of re-reducing the data.
+
+    Carried-payload monoids (``spec.transform``) run the fold forms of
+    the schedules; ``fused`` maps to the decoupled fold there (a fold has
+    no per-element writeback to chain a prefix into) and ``tree`` to the
+    carry fold (a fold consumes one macro element per block — there is no
+    in-block element axis for the tree sweep to reorganize).
+    ``count_cells=True`` (carry fold only) additionally returns the
+    executed-cell counts — the causal-bound instrumentation.
     """
     if schedule not in SCHEDULES:
         raise ValueError(
@@ -412,7 +598,18 @@ def scan(operands, spec: KernelSpec, layout, *, schedule: str = "carry",
     if exclusive and not spec.supports_exclusive:
         raise ValueError(
             f"monoid {spec.name!r} does not support exclusive mode")
+    if count_cells and (spec.transform is None or schedule != "carry"):
+        raise ValueError("count_cells instruments the carry fold only")
     _launch_event(operands, spec, layout, schedule, return_totals)
+    if spec.transform is not None:
+        if return_totals:
+            raise ValueError(
+                "return_totals is meaningless for carried-payload "
+                "monoids: the output IS the fold")
+        if schedule in ("carry", "tree"):
+            return fold_carry(tuple(operands), spec, layout,
+                              count_cells=count_cells)
+        return fold_decoupled(tuple(operands), spec, layout)
     fn = {"carry": scan_carry, "decoupled": scan_decoupled,
           "fused": scan_fused, "tree": scan_tree}[schedule]
     return fn(tuple(operands), spec, layout, exclusive=exclusive,

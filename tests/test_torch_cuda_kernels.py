@@ -1,4 +1,5 @@
-"""The CUDA kernels of ``csrc/scan_sum.cu`` against their plain versions.
+"""The CUDA kernels of ``csrc/scan_sum.cu`` and ``csrc/attn_fold.cu``
+against their plain versions.
 
 This file imports no JAX, so it runs on the machine with the card too:
 
@@ -12,7 +13,16 @@ PyTorch version (run here on CPU copies of the same inputs), the fused
 kernel must be one launch and bitwise equal to the decoupled kernels on
 grids far larger than the card holds at once, a gradient must launch the
 kernels, and the relational operators' kernel routes must equal their
-CPU results.
+CPU results. The attention fold kernels (fold_fwd, fold_dq, fold_dkv,
+and the chain of each spec) must agree with their plain versions within
+the reference tests' float32 tolerances (1e-5 forward and 1e-4
+gradients, tests/test_flash_engine.py:99 and
+tests/test_flash_backward.py:102: the dot products associate
+differently); in bfloat16 both sides take the same bf16 inputs and
+compute in float32, so they differ by the last rounding to bf16: atol
+1e-3, rtol two bf16 ulps (2^-6). They must be bitwise equal to
+themselves: bounds on and off, a page-permuted pool through
+``kv_block_map``, repeated runs.
 """
 
 import os
@@ -23,9 +33,13 @@ import torch
 
 from repro_torch import relational as rel
 from repro_torch.kernels import scan_engine
+from repro_torch.core.scan import assoc
 from repro_torch.kernels.compact import ops as kc_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_bwd_kernel, flash_attention_kernel)
 from repro_torch.kernels.scan_blocked import ops
-from repro_torch.kernels.scan_engine import cuda, monoids
+from repro_torch.kernels.scan_engine import cuda, cuda_fold, monoids
 from repro_torch.kernels.segscan import ops as seg_ops
 
 SCHEDULES4 = ("carry", "decoupled", "fused", "tree")
@@ -420,3 +434,210 @@ def test_cuda_affine_refuses_unsupported(cuda_device):
     ab = torch.ones((1, 16384, 32), device=cuda_device)
     with pytest.raises(ValueError, match="block 16384"):
         cuda.fused(monoids.AFFINE, (ab, ab), big)
+
+
+# ---------------------------------------------------------------------------
+# The attention fold kernels (csrc/attn_fold.cu)
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [
+    # (name, B, Hkv, group, Tq, Tk, D, causal, window, softcap, bq, bk)
+    ("causal_gqa2", 1, 2, 2, 256, 256, 32, True, None, None, 128, 128),
+    ("window_cap", 1, 2, 4, 256, 256, 16, True, 96, 20.0, 128, 64),
+    ("ragged_noncausal", 1, 1, 1, 200, 300, 16, False, None, None, 128,
+     128),
+    ("d256_softcap", 1, 2, 2, 256, 256, 256, True, 160, 50.0, 128, 128),
+    ("decode_d128", 2, 2, 4, 1, 1000, 128, False, None, None, 128, 128),
+]
+# (atol, rtol) of the forward and of the gradients, per dtype
+ATTN_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
+            torch.bfloat16: ((1e-3, 2 ** -6), (1e-3, 2 ** -6))}
+
+
+def _attn_inputs(case, dtype):
+    name, B, Hkv, g, Tq, Tk, D = case[:7]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype) for s in ((B, Hkv * g, Tq, D),
+                                         (B, Hkv, Tk, D), (B, Hkv, Tk, D),
+                                         (B, Hkv * g, Tq, D)))
+
+
+def _allclose(got, want, tol):
+    atol, rtol = tol
+    return torch.allclose(got.float().cpu(), want.float().cpu(), rtol=rtol,
+                          atol=atol)
+
+
+def test_fold_wrappers_refuse_cpu_and_unsupported_operands():
+    """The fold wrappers never fall back: a CPU tensor, float16 or a head
+    dim past 256 is refused before any build or launch."""
+    spec = assoc.softmax_pair_kernel_spec(scale=0.25)
+    lay = scan_engine.KVBlocks(bh=2, bh_kv=2, tq=128, tk=128, d=16, bq=128,
+                               bk=128)
+    x = torch.ones((2, 128, 16))
+    before = dict(cuda_fold.LAUNCHES)
+    for call in (lambda: cuda_fold.fold(spec, (x, x, x), lay),
+                 lambda: cuda_fold.fold_totals(spec, (x, x, x), lay)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    tot = tuple(torch.zeros(lay.chain_shape_for(i)) for i in range(3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_fold.chain(spec, tot, lay, (torch.float32,))
+    with pytest.raises(NotImplementedError):
+        cuda_fold.fold(monoids.SUM, (x,), lay)
+    qb = scan_engine.QBlocks(bh=2, bh_kv=2, tq=128, tk=128, d=16, bq=128,
+                             bk=128)
+    with pytest.raises(ValueError, match="KVBlocks"):
+        cuda_fold.fold(spec, (x,) * 7, qb)
+    assert cuda_fold.LAUNCHES == before
+
+
+def test_fold_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_fold, "_lib", None)
+    monkeypatch.setattr(cuda_fold, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_fold.build()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_cuda_flash_attention_vs_plain(cuda_device, case, schedule, dtype):
+    """Forward and gradients through the kernels (launch counts per
+    schedule) against the plain versions on CPU copies."""
+    q, k, v, go = _attn_inputs(case, dtype)
+    _, _, _, _, _, _, D, causal, window, softcap, bq, bk = case
+    kw = dict(scale=D ** -0.5, causal=causal, window=window,
+              softcap=softcap, block_q=bq, block_k=bk, schedule=schedule)
+    res = []
+    for device in ("cpu", cuda_device):
+        ts = [t.to(device).requires_grad_() for t in (q, k, v)]
+        cuda_fold.reset_launches()
+        out = fa_ops.flash_attention(*ts, **kw)
+        grads = torch.autograd.grad(out, ts, go.to(device))
+        res.append((out.detach(),) + grads)
+    torch.cuda.synchronize()
+    split = int(schedule == "decoupled")
+    assert cuda_fold.LAUNCHES == {"fold_fwd": 1, "fold_dq": 1,
+                                  "fold_dkv": 1, "fold_chain": split,
+                                  "fold_chain_sum": 2 * split}
+    fwd_tol, grad_tol = ATTN_TOL[dtype]
+    assert res[1][0].dtype == dtype and res[1][0].is_cuda
+    assert _allclose(res[1][0], res[0][0], fwd_tol)
+    for a, b in zip(res[1][1:], res[0][1:]):
+        assert a.dtype == dtype
+        assert _allclose(a, b, grad_tol)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+def test_cuda_fold_bitwise_invariants(cuda_device, schedule):
+    """Bounds on and off, a page-permuted pool through kv_block_map and a
+    repeated run give the same bits; count_cells equals the plain
+    version's."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device) for s in ((4, 256, 64), (2, 512, 64),
+                                          (2, 512, 64)))
+    kw = dict(group=2, scale=0.125, causal=True, window=96, kv_len=400,
+              block_q=64, block_k=128, schedule=schedule)
+    on = flash_attention_kernel(q, k, v, **kw)
+    assert torch.equal(on, flash_attention_kernel(q, k, v, **kw))
+    assert torch.equal(on, flash_attention_kernel(q, k, v,
+                                                  use_kv_bounds=False, **kw))
+    perm = torch.from_numpy(rng.permutation(4))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(4)
+    kp = k.view(2, 4, 128, 64)[:, inv.to(cuda_device)].reshape(2, 512, 64)
+    vp = v.view(2, 4, 128, 64)[:, inv.to(cuda_device)].reshape(2, 512, 64)
+    assert torch.equal(on, flash_attention_kernel(
+        q, kp, vp, kv_block_map=perm.tolist(), **kw))
+    out, m, l = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+    g = torch.from_numpy(rng.standard_normal((4, 256, 64)).astype(
+        np.float32)).to(cuda_device)
+    delta = (g * out).sum(-1, keepdim=True)
+    bwd = dict(kw, kv_len=400)
+    on_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta, **bwd)
+    off_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
+                                       use_kv_bounds=False, **bwd)
+    for a, b in zip(on_g, off_g):
+        assert torch.equal(a, b)
+    if schedule == "carry":
+        _, counts = flash_attention_kernel(q, k, v, count_cells=True, **kw)
+        _, want = flash_attention_kernel(q.cpu(), k.cpu(), v.cpu(),
+                                         count_cells=True, **kw)
+        assert torch.equal(counts.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("spec_name", ("softmax_pair", "softmax_bwd_dq",
+                                       "softmax_bwd_dkv"))
+def test_cuda_fold_chain_vs_plain(cuda_device, spec_name, dtype):
+    """The split pass and the chain of each spec against the plain
+    versions (``fold_totals_plain``, ``fold_finalize_plain``) on the same
+    inputs; each chain counted under its own kernel."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds, forward_fold)
+    from repro_torch.kernels.scan_engine import schedules
+    case = ATTN_CASES[1]
+    q, k, v, go = (t.to(cuda_device).to(dtype)
+                   for t in _attn_inputs(case, torch.float32))
+    _, _, _, g, _, _, D, causal, window, softcap, bq, bk = case
+    q, k, v, go = (t.flatten(0, 1).contiguous() for t in (q, k, v, go))
+    kw = dict(group=g, scale=D ** -0.5, causal=causal, window=window,
+              softcap=softcap, block_q=bq, block_k=bk, schedule="decoupled")
+    out, m, l = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+    delta = (go.float() * out.float()).sum(-1, keepdim=True)
+    if spec_name == "softmax_pair":
+        ops_ = (q, k, v)
+        spec, lay = forward_fold(q.shape, k.shape, return_stats=True, **kw)
+        out_dts = (dtype, torch.float32, torch.float32)
+    else:
+        ops_ = (q, k, v, go, m, l, delta)
+        dq, dkv = backward_folds(q.shape, k.shape, **kw)
+        spec, lay = dq if spec_name == "softmax_bwd_dq" else dkv
+        out_dts = (dtype,) * len(lay.out_dims)
+    assert lay.splits > 1
+    tot = cuda_fold.fold_totals(spec, ops_, lay)
+    want_tot = schedules.fold_totals_plain(tuple(t.cpu() for t in ops_),
+                                           spec, lay)
+    for a, b in zip(tot, want_tot):
+        assert _allclose(a, b, ATTN_TOL[torch.float32][1])
+    cuda_fold.reset_launches()
+    got = cuda_fold.chain(spec, tot, lay, out_dts)
+    torch.cuda.synchronize()
+    kernel = "fold_chain" if spec_name == "softmax_pair" else "fold_chain_sum"
+    assert cuda_fold.LAUNCHES[kernel] == 1
+    assert sum(cuda_fold.LAUNCHES.values()) == 1
+    want = schedules.fold_finalize_plain(spec, lay, tuple(
+        t.cpu() for t in tot), out_dts)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _allclose(a, b, ATTN_TOL[dtype][1])
+
+
+def test_cuda_fold_fully_masked_rows(cuda_device):
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, 16)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    kw = dict(scale=0.25, causal=True, window=32, kv_len=64, block_q=64,
+              block_k=64)
+    for schedule in ("carry", "decoupled"):
+        out, m, l = flash_attention_kernel(q, k, v, return_stats=True,
+                                           schedule=schedule, **kw)
+        g = torch.zeros_like(out)
+        g[:, 96:] = 1.0
+        delta = (g * out).sum(-1, keepdim=True)
+        grads = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
+                                           schedule=schedule, **kw)
+        assert not bool(out[:, 96:].any())
+        for t in grads:
+            assert bool(torch.isfinite(t).all()) and not bool(t.any())
+
+
+def test_cuda_fold_refuses_float16(cuda_device):
+    x = torch.ones((1, 2, 128, 32), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="no CUDA fold kernel"):
+        fa_ops.flash_attention(x, x, x)

@@ -46,6 +46,22 @@ AFFINE_MODULES = (
 )
 
 
+# The modules of the attention slice (the flash attention package and the
+# engine's fold pieces): each must be found by the import sweep and be
+# free of JAX and the reference on its own.
+ATTENTION_MODULES = (
+    "repro_torch.core.scan.assoc",
+    "repro_torch.core.scan.policy",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.flash_attention",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.scan_engine.cuda_fold",
+    "repro_torch.kernels.scan_engine.layouts",
+    "repro_torch.kernels.scan_engine.schedules",
+)
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -64,6 +80,7 @@ def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.kernels.scan_engine.schedules" in mods
     assert set(RELATIONAL_MODULES) <= set(mods)
+    assert set(ATTENTION_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -97,3 +114,27 @@ def test_affine_module_imports_no_jax(module):
     if not path.exists():
         path = (PKG.parent / rel).with_suffix(".py")
     assert FORBIDDEN.findall(path.read_text()) == []
+
+
+@pytest.mark.parametrize("module", ATTENTION_MODULES)
+def test_attention_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    assert FORBIDDEN.findall(path.read_text()) == []
+
+
+def test_flash_attention_package_mirrors_reference():
+    """Same module names and the same ``__all__`` as the reference's
+    ``kernels/flash_attention`` (read from its source: no JAX import)."""
+    ref_dir = ROOT / "src" / "repro" / "kernels" / "flash_attention"
+    port_dir = PKG / "kernels" / "flash_attention"
+    assert sorted(p.name for p in port_dir.glob("*.py")) == \
+        sorted(p.name for p in ref_dir.glob("*.py"))
+    all_re = re.compile(r"^__all__ = (\[[^\]]*\])", re.M | re.S)
+    for name in ("__init__.py", "flash_attention.py"):
+        want = all_re.search((ref_dir / name).read_text()).group(1)
+        got = all_re.search((port_dir / name).read_text()).group(1)
+        assert sorted(eval(got)) == sorted(eval(want)), name

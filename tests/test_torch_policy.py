@@ -86,3 +86,57 @@ def test_choice_inputs_excluded_from_equality():
     b = dataclasses.replace(a, inputs={})
     assert a == b
     assert a.inputs["n"] == 1 << 22 and "schedule" not in a.inputs
+
+
+# ---------------------------------------------------------------------------
+# The two-way attention fold rule
+# ---------------------------------------------------------------------------
+
+ROWS = (1, 2, 4, 7, 8, 9, 16, 63, 64, 65, 131, 132, 160, 1055, 1056, 1057,
+        4096)
+KV_LENS = (1, 128, 1024, 2048, 32767, 1 << 15, (1 << 15) + 1, 131072)
+
+
+@pytest.mark.parametrize("cores", CORES)
+@pytest.mark.parametrize("block_elems", [64, 128, 512])
+def test_explain_attention_schedule_matches_reference(block_elems, cores):
+    """Every branch of the reference's rule: idle cores with chunks to
+    spread, a long KV chain under the row cap, the carry default."""
+    for rows, kv in itertools.product(ROWS, KV_LENS):
+        got = policy.explain_attention_schedule(rows, kv, cores,
+                                                block_elems)
+        want = jpolicy.explain_attention_schedule(rows, kv, cores,
+                                                  block_elems)
+        _same_decision(got, want)
+        assert policy.choose_attention_schedule(
+            rows, kv, cores, block_elems) == want.value
+
+
+def test_attention_constants_and_cases_match_reference():
+    assert policy.SPLIT_KV_CHUNKS == jpolicy.SPLIT_KV_CHUNKS == 256
+    assert policy.SPLIT_KV_ROW_CAP == jpolicy.SPLIT_KV_ROW_CAP == 8
+    cores = policy.NUM_CORES
+    assert policy.choose_attention_schedule(cores // 2, 1 << 15) \
+        == "decoupled"
+    assert policy.choose_attention_schedule(4 * cores, 1 << 15) \
+        == "decoupled"
+    assert policy.choose_attention_schedule(
+        cores * policy.SPLIT_KV_ROW_CAP, 1 << 15) == "carry"
+    assert policy.choose_attention_schedule(cores * 4, 2048) == "carry"
+    # the H100 cells: phi3 decode (160 rows, 1024 chunks) splits KV,
+    # gemma2-9b training (16 heads x 64 q blocks) keeps the carry
+    assert policy.choose_attention_schedule(160, 131072, 132) == "decoupled"
+    assert policy.choose_attention_schedule(1024, 8192, 132) == "carry"
+
+
+def test_attention_decision_emits_trace_event():
+    tracer = trace.enable()
+    try:
+        tracer.clear()
+        policy.explain_attention_schedule(4, 1 << 15)
+        ev = next(e for e in tracer.events()
+                  if e["name"] == "policy.attention_schedule")
+        assert ev["args"]["value"] == "decoupled"
+        assert ev["args"]["batch_rows"] == 4
+    finally:
+        trace.disable()
