@@ -7,8 +7,10 @@ Phases, each of which passes or raises (the script exits non-zero on the
 first failure and prints no result):
 
   1. environment and build: the card's name and power limit, torch/CUDA/
-     nvcc versions, and the build of ``src/repro_torch/csrc/scan_sum.cu``
-     with ``nvcc`` for ``sm_90a`` (its seconds and ptxas report);
+     nvcc versions, and the builds of ``src/repro_torch/csrc/scan_sum.cu``,
+     ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
+     one process each, together (their seconds and ptxas reports; the
+     tensor-core kernels one by one, and none may spill);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -75,7 +77,9 @@ first failure and prints no result):
      a float64 sequential recurrence; then each affine kernel's time;
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
-     forms are counted apart as fold_chain and fold_chain_sum) through
+     forms are counted apart as fold_chain and fold_chain_sum; and
+     ``attn_fold_tc.cu``: fold_fwd_tc and fold_dkv_tc, the tensor-core
+     forms bf16 takes) through
      ``repro_torch.kernels.flash_attention.flash_attention`` and autograd,
      at two models' full attention widths with random bf16 inputs:
      (f) gemma2-9b training, B 1 x T 8192, 16 q / 8 kv heads of 256,
@@ -83,9 +87,11 @@ first failure and prints no result):
      auto (carry) and decoupled, forward and backward; (g) phi3-medium-14b
      decode, q (4, 40, 1, 128) against a 131,072-token cache of 10 kv
      heads (auto: decoupled, split-KV); (h) phi3-medium-14b causal
-     prefill, T 4096, forward and backward (auto: carry). The launch
-     counters are zeroed before and read after, and all five counters
-     must have moved. The folds' specs and layouts come from the entry
+     prefill, T 4096, forward and backward (auto: carry), and once more in
+     float32. The launch counters are zeroed before and read after, and
+     all seven counters must have moved: each bf16 call through the
+     tensor-core forms (and fold_dq), the float32 one through the SIMT
+     kernels. The folds' specs and layouts come from the entry
      points' own builders (``forward_fold``, ``backward_folds``,
      ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
      included, against its plain version in float32 at the (f), (g) and
@@ -99,7 +105,8 @@ first failure and prints no result):
      cells; fully masked rows exactly 0 with zero gradients; then each
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
-     ``scaled_dot_product_attention`` (not for gemma2's softcap).
+     ``scaled_dot_product_attention`` (not for gemma2's softcap); the
+     SIMT forward and dk/dv are timed in float32 at (h).
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -110,6 +117,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +128,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 CU_SOURCE = "src/repro_torch/csrc/scan_sum.cu"
 ATTN_SOURCE = "src/repro_torch/csrc/attn_fold.cu"
+ATTN_TC_SOURCE = "src/repro_torch/csrc/attn_fold_tc.cu"
 
 # Device-memory rate (bytes/s) and float32 non-tensor-core peak (ops/s)
 # of the H100 variants, from NVIDIA's data sheets.
@@ -330,22 +339,50 @@ def main() -> int:
                           text=True, check=True)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        for fut in [pool.submit(lib.build) for lib in (cuda, cuda_fold)]:
+    builds = (cuda.build, cuda_fold.build, cuda_fold.build_tc)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source
+        for fut in [pool.submit(b) for b in builds]:
             fut.result()
+    sources = (cuda.SOURCE, cuda_fold.SOURCE, cuda_fold.TC_SOURCE)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{os.path.relpath(cuda.SOURCE, ROOT)} and "
-          f"{os.path.relpath(cuda_fold.SOURCE, ROOT)} (in parallel)")
-    for lib in (cuda, cuda_fold):
-        log = lib.build_log.splitlines()
+          + ", ".join(os.path.relpath(src, ROOT) for src in sources)
+          + " (in parallel)")
+    logs = (cuda.build_log, cuda_fold.build_log, cuda_fold.build_log_tc)
+    for src, log in zip(sources, logs):
+        log = log.splitlines()
         regs = [int(line.split("Used")[1].split("registers")[0])
                 for line in log if "Used" in line and "registers" in line]
         spills = sum("spill stores" in line and not (
             "0 bytes spill stores" in line and "0 bytes spill loads" in line)
             for line in log)
         if regs:
-            print(f"  ptxas {lib.SOURCE.name}: {len(regs)} kernels, "
+            print(f"  ptxas {src.name}: {len(regs)} kernels, "
                   f"{min(regs)}-{max(regs)} registers, {spills} with spills")
+    # the tensor-core forms, kernel by kernel: registers, stack, spills
+    entry, tc_spills = None, 0
+    for line in cuda_fold.build_log_tc.splitlines():
+        if "Compiling entry function" in line:
+            # _ZN..fold_fwd_tc_kernelILi128ELi2EEEv.. -> fold_fwd_tc_kernel<128, 2>
+            found = re.search(r"(fold_\w+?_kernel)I(.*?)EEv", line)
+            entry = found and (found[1] + "<" + ", ".join(
+                re.findall(r"Li(\d+)E", found[2] + "E")) + ">")
+        elif entry and "spill stores" in line:
+            stack = line.strip()
+            tc_spills += not ("0 bytes spill stores" in line
+                              and "0 bytes spill loads" in line)
+        elif entry and "Used" in line and "registers" in line:
+            print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; "
+                  f"{stack}")
+            entry = None
+    print(f"  tensor-core forms' shared memory (cuda_fold.tc_tiling): "
+          + ", ".join(f"{form} d={d} bq={bq}: "
+                      f"{cuda_fold.tc_tiling(form, d, bq)['smem']} B"
+                      for form, d, bq in (
+                          ("fold_fwd_tc", 64, 128), ("fold_fwd_tc", 128, 128),
+                          ("fold_fwd_tc", 128, 8), ("fold_fwd_tc", 256, 128),
+                          ("fold_dkv_tc", 128, 128),
+                          ("fold_dkv_tc", 256, 128))))
+    check(tc_spills == 0, f"ptxas: {tc_spills} tensor-core kernels spill")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
     kernel = {"carry": schedules.scan_carry,
@@ -1189,6 +1226,9 @@ def main() -> int:
     kh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     vh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     goh = normals((1, p_hq, t_h, p_d), bf16)
+    # (h) in float32 too: a float32 caller takes the SIMT kernels
+    qh32, kh32, vh32 = (t.detach().float().requires_grad_()
+                        for t in (qh, kh, vh))
     routes = {
         "f": fa_ops.resolved_attention_schedule(qf.shape, g_t, cores=sms),
         "g": fa_ops.resolved_attention_schedule(qg.shape, cache, cores=sms),
@@ -1203,18 +1243,38 @@ def main() -> int:
     trace.enable()
     trace.get().clear()
     cuda_fold.reset_launches()
-    main = {}
+    main, used = {}, {}
+
+    def counted(what, fn):
+        """fn's result and host time; the fold launches it made go to
+        used[what]."""
+        before = dict(cuda_fold.LAUNCHES)
+        out = wall_ms(fn)
+        used[what] = {k for k, n in cuda_fold.LAUNCHES.items()
+                      if n > before[k]}
+        return out
+
     for layer, window in (("global", None), ("local", win)):
         for sched in ("auto", "decoupled"):
-            o, ms_f = wall_ms(lambda: fa_ops.flash_attention(
-                qf, kf, vf, softcap=cap, window=window, schedule=sched))
-            grads, ms_b = wall_ms(lambda: torch.autograd.grad(
-                o, (qf, kf, vf), gof))
+            o, ms_f = counted(f"(f) {layer} {sched} forward",
+                              lambda: fa_ops.flash_attention(
+                                  qf, kf, vf, softcap=cap, window=window,
+                                  schedule=sched))
+            grads, ms_b = counted(f"(f) {layer} {sched} backward",
+                                  lambda: torch.autograd.grad(
+                                      o, (qf, kf, vf), gof))
             main[layer, sched] = (o.detach(),) + grads, ms_f, ms_b
-    og, ms_g = wall_ms(lambda: fa_ops.flash_attention(qg, kg, vg,
-                                                      causal=False))
-    oh, ms_hf = wall_ms(lambda: fa_ops.flash_attention(qh, kh, vh))
-    gh, ms_hb = wall_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), goh))
+    og, ms_g = counted("(g) forward", lambda: fa_ops.flash_attention(
+        qg, kg, vg, causal=False))
+    oh, ms_hf = counted("(h) forward",
+                        lambda: fa_ops.flash_attention(qh, kh, vh))
+    gh, ms_hb = counted("(h) backward", lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), goh))
+    oh32, ms_h32f = counted("(h) float32 forward",
+                            lambda: fa_ops.flash_attention(qh32, kh32, vh32))
+    gh32, ms_h32b = counted("(h) float32 backward",
+                            lambda: torch.autograd.grad(
+                                oh32, (qh32, kh32, vh32), goh.float()))
     sync()
     attn_launches = dict(cuda_fold.LAUNCHES)
     attn_events = {}
@@ -1231,12 +1291,24 @@ def main() -> int:
     for k_ in cuda_fold.KERNELS:
         check(attn_launches[k_] > 0,
               f"kernel {k_} never launched on the attention path")
+    # bf16 calls run the tensor-core forms, float32 calls the SIMT kernels
+    for what, kernels in used.items():
+        f32 = "float32" in what
+        fwd, dkv = (("fold_fwd", "fold_dkv") if f32 else
+                    ("fold_fwd_tc", "fold_dkv_tc"))
+        want = {fwd} if "forward" in what else {dkv, "fold_dq"}
+        others = {"fold_fwd", "fold_dkv", "fold_fwd_tc", "fold_dkv_tc"}
+        check(want <= kernels and not (kernels & others) - want,
+              f"{what} launched {sorted(kernels)}, wants {sorted(want)}")
+    print("fold kernels by call: " + "; ".join(
+        f"{what} {'+'.join(sorted(k))}" for what, k in used.items()))
     for (layer, sched), (res, ms_f, ms_b) in main.items():
         print(f"(f) gemma2-9b {layer:6s} {sched:9s}: forward {ms_f:8.2f} ms,"
               f" backward {ms_b:8.2f} ms (host clock, one call)")
     print(f"(g) phi3 decode (4 x 40 heads vs 131072 keys), decoupled: "
           f"{ms_g:.2f} ms; (h) phi3 prefill 4096, carry: forward "
-          f"{ms_hf:.2f} ms, backward {ms_hb:.2f} ms")
+          f"{ms_hf:.2f} ms, backward {ms_hb:.2f} ms; in float32 forward "
+          f"{ms_h32f:.2f} ms, backward {ms_h32b:.2f} ms")
     for res, _, _ in main.values():
         check(all(bool(torch.isfinite(t).all()) for t in res),
               "(f) non-finite output or gradient")
@@ -1244,6 +1316,11 @@ def main() -> int:
           and bool(torch.isfinite(oh).all())
           and all(bool(torch.isfinite(t).all()) for t in gh),
           "(g)/(h) non-finite output")
+    _, e_h32 = allclose((oh,) + gh, (oh32,) + gh32, BF16_TOL)
+    print(f"(h) bf16 (tensor-core forms) vs float32 (SIMT) through "
+          f"flash_attention: max |diff| {e_h32:.3g} (not gated: the bf16 "
+          "inputs' rounding is in it)")
+    del oh32, gh32
     for layer in ("global", "local"):
         ok, err = allclose(main[layer, "decoupled"][0],
                            main[layer, "auto"][0], BF16_TOL)
@@ -1450,27 +1527,33 @@ def main() -> int:
                 return b.name
         return "not identified"
 
-    # each fold kernel's time at its main-path shape (bf16)
+    # each fold kernel's time at its main-path shape (bf16; float32 for
+    # the SIMT forward and dk/dv, which bf16 no longer reaches there)
     def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
-                 library, shape, reps=3):
+                 library, shape, reps=3, tol=BF16_TOL):
         got, want = flat(run()), flat(run_plain())
         sync()
-        ok, err = allclose(got, want, BF16_TOL)
+        ok, err = allclose(got, want, tol)
         check(ok, f"{rname}: kernel vs plain at the main-path shape: {err}")
         del got, want
         ms = time_ms(run, reps)
         plain_ms = time_ms(run_plain, 1, warmup=0)
         lib_ms = None if library is None else time_ms(library, reps)
-        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / bw * 1e3
+        # the peak of the products' type: bf16 on the tensor cores, float32
+        # (the SIMT kernels' type) on the CUDA cores
+        peak = f32_peak if tol != BF16_TOL else bf16_peak
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
         b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
             t_bytes, "bytes")
+        source = ATTN_TC_SOURCE if kernel in cuda_fold.TC_FORMS else \
+            ATTN_SOURCE
         rows.append({
-            "name": rname, "route": "cuda", "source": ATTN_SOURCE,
+            "name": rname, "route": "cuda", "source": source,
             "replaces": ATTN_REPLACES[replaces],
             "launches": attn_launches[kernel], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
-        print(f"kernel {rname:16s} {shape:30s}: {ms:9.3f} ms  plain "
+        print(f"kernel {rname:20s} {shape:30s}: {ms:9.3f} ms  plain "
               f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by}; float32 "
               f"non-tensor {flops / f32_peak * 1e3:.3f} ms)  library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
@@ -1514,11 +1597,11 @@ def main() -> int:
             out_b = 4 * lay.bh * lay.nq * splits * 128 * (g_d + 2)
             dq_b = 4 * lq.bh * lq.nq * splits * 128 * g_d
             dkv_b = 8 * lk.bh_kv * lk.nk * splits * 128 * g_d
-        attn_row(f"fold_fwd{tag}", "fold_fwd", which, *fwd,
+        attn_row(f"fold_fwd_tc{tag}", "fold_fwd_tc", which, *fwd,
                  nbytes(*ops_f) + out_b, 4 * cell * g_d * live, None, shape)
         attn_row(f"fold_dq{tag}", "fold_dq", which, *dq,
                  nbytes(*ops_bf) + dq_b, 6 * cell * g_d * live, None, shape)
-        attn_row(f"fold_dkv{tag}", "fold_dkv", which, *dkv,
+        attn_row(f"fold_dkv_tc{tag}", "fold_dkv_tc", which, *dkv,
                  nbytes(*ops_bf) + dkv_b, 8 * cell * g_d * live, None, shape)
         if splits > 1:   # the chain of the sum specs (fold_chain_sum)
             for rname, (sp, ly) in (("fold_chain_dq", (sq, lq)),
@@ -1557,7 +1640,7 @@ def main() -> int:
     backend_g = sdpa_backend(lambda: F.scaled_dot_product_attention(
         qg, kg, vg, enable_gqa=True))
     split_b = nbytes(*tot_g)
-    attn_row("fold_fwd_decode", "fold_fwd", "split",
+    attn_row("fold_fwd_tc_decode", "fold_fwd_tc", "split",
              lambda: cuda_fold.fold_totals(spec_g, ops_g, lay_g),
              lambda: schedules.fold_totals_plain(ops_g, spec_g, lay_g),
              nbytes(*ops_g) + split_b, 4 * nb_ * p_hq * cache * p_d, None,
@@ -1593,7 +1676,7 @@ def main() -> int:
         qh.detach(), kh.detach(), vh.detach(), is_causal=True,
         enable_gqa=True))
     shape = "(h) 40x4096x128 causal"
-    attn_row("fold_fwd_prefill", "fold_fwd", "carry",
+    attn_row("fold_fwd_tc_prefill", "fold_fwd_tc", "carry",
              lambda: cuda_fold.fold(spec_h, ops_h, lay_h)[0],
              lambda: schedules.fold_carry_plain(ops_h, spec_h, lay_h),
              nbytes(*ops_h, *outs_h), 4 * cell * p_d * live_h,
@@ -1602,7 +1685,7 @@ def main() -> int:
                  enable_gqa=True), shape, reps=5)
     for rname, kernel, (sp, ly), fl in (
             ("fold_dq_prefill", "fold_dq", (sq, lq), 6),
-            ("fold_dkv_prefill", "fold_dkv", (sk, lk), 8)):
+            ("fold_dkv_tc_prefill", "fold_dkv_tc", (sk, lk), 8)):
         outs_k = cuda_fold.fold(sp, ops_bh, ly)[0]
         attn_row(rname, kernel, "carry",
                  lambda: cuda_fold.fold(sp, ops_bh, ly)[0],
@@ -1614,9 +1697,34 @@ def main() -> int:
     print(f"(h) prefill: SDPA ({backend_h} backend) forward "
           f"{lib_hf:.3f} ms, backward (dq, dk, "
           f"dv together; the library time of the dq and dkv rows) "
-          f"{lib_hb:.3f} ms; fold_dq + fold_dkv "
+          f"{lib_hb:.3f} ms; fold_dq + fold_dkv_tc "
           f"{rows[-2]['ms'] + rows[-1]['ms']:.3f} ms")
-    del ops_h, outs_h, ops_bh, o_s, qs, ks, vs
+    del outs_h, ops_bh
+    # (h) in float32: the SIMT forward and dk/dv, SDPA in float32 beside
+    ops_h32 = tuple(t.float() for t in ops_h)
+    outs_h32, _ = cuda_fold.fold(spec_h, ops_h32, lay_h)
+    ops_bh32 = bwd_operands(*ops_h32, *outs_h32)
+    qs32, ks32, vs32 = (t.detach().requires_grad_() for t in (qh32, kh32,
+                                                              vh32))
+    o_s32 = F.scaled_dot_product_attention(qs32, ks32, vs32, is_causal=True,
+                                           enable_gqa=True)
+    shape = "(h) 40x4096x128 causal, f32"
+    attn_row("fold_fwd_f32_prefill", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_h, ops_h32, lay_h)[0],
+             lambda: schedules.fold_carry_plain(ops_h32, spec_h, lay_h),
+             nbytes(*ops_h32, *outs_h32), 4 * cell * p_d * live_h,
+             lambda: F.scaled_dot_product_attention(
+                 qh32.detach(), kh32.detach(), vh32.detach(), is_causal=True,
+                 enable_gqa=True), shape, tol=FWD_TOL)
+    outs_k = cuda_fold.fold(sk, ops_bh32, lk)[0]
+    attn_row("fold_dkv_f32_prefill", "fold_dkv", "carry",
+             lambda: cuda_fold.fold(sk, ops_bh32, lk)[0],
+             lambda: schedules.fold_carry_plain(ops_bh32, sk, lk),
+             nbytes(*ops_bh32, *outs_k), 8 * cell * p_d * live_h,
+             lambda: torch.autograd.grad(o_s32, (qs32, ks32, vs32),
+                                         goh.float(), retain_graph=True),
+             shape, tol=GRAD_TOL)
+    del ops_h, ops_h32, outs_h32, ops_bh32, outs_k, o_s, qs, ks, vs, o_s32
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -81,26 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The geometry and mask of one fold launch (cuda_fold.py's FoldArgs).
-struct FoldArgs {
-  int bh, bh_kv, tq, tk, d, bq, bk, group, nq, nk;
-  int splits, bpc;         // fold chunks and blocks per chunk
-  int pos_bq, pos_bk;      // the spec's block sizes: block ids -> positions
-  float scale, softcap;
-  int has_softcap, causal, has_window, window, has_kv_len, kv_len;
-  int bounds, b_causal, b_has_window, b_window, b_has_kv_len, b_kv_len;
-};
-
-// The tensors of one fold launch; NULL where absent.
-struct FoldPtrs {
-  const void *q, *k, *v, *dout;
-  const float *m, *l, *delta;   // backward row statistics
-  const int* kv_map;            // KVBlocks page map, or NULL
-  void *out0, *out1;            // out / dq / (dk, dv)
-  float *m_out, *l_out;         // forward statistics (with_stats)
-  int* counts;                  // count_cells, or NULL
-  float *c0, *c1, *c2;          // chain buffers (split pass), or NULL
-};
+#include "attn_fold.cuh"   // FoldArgs, FoldPtrs, kNegInf, cell_live
 
 namespace {
 
@@ -109,7 +90,6 @@ constexpr int kMaxBK = 128;   // KV rows of a cell the KVBlocks kernels take
 constexpr int kSub = 32;      // QBlocks: kv rows per block, q rows per chunk
 constexpr int kPLD = kMaxBK + 1;
 constexpr int kSLD = kSub + 1;
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -118,19 +98,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
-}
-
-// layouts.block_live: may the (q-block qi, kv-block kj) cell hold a live
-// entry? False proves every entry masked.
-__device__ __forceinline__ bool cell_live(const FoldArgs& a, int qi, int kj) {
-  if (!a.bounds) return true;
-  const long long c0 = (long long)kj * a.bk;
-  bool live = true;
-  if (a.b_has_kv_len) live = c0 < a.b_kv_len;
-  if (a.b_causal) live = live && c0 <= (long long)(qi + 1) * a.bq - 1;
-  if (a.b_has_window)
-    live = live && c0 + a.bk - 1 > (long long)qi * a.bq - a.b_window;
-  return live;
 }
 
 // assoc._attn_block_logits' mask at absolute (row, col).

@@ -1,0 +1,1205 @@
+// Tensor-core forms of two attention-fold kernels, CUDA C++ for Hopper
+// (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dk/dv fold
+// of the flash backward (fold_dkv_tc). They compute what fold_fwd_kernel
+// and fold_dkv_kernel of attn_fold.cu compute (the reference's
+// softmax_pair_kernel_spec, assoc.py:330, on KVBlocks, and
+// softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on QBlocks, under
+// fold_carry, kernels/scan_engine/schedules.py:722, and the split pass of
+// fold_decoupled, :778), on bf16 operands only; float32 keeps the SIMT
+// kernels, whose products stay in float32.
+//
+// Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 8·128·128·d
+// for dk/dv against 2·128·d bf16 elements of k and v, so at prefill and
+// training shapes the folds are bound by operations (989 TFLOP/s bf16 on
+// the tensor cores); a decode step is bound by reading the cache once.
+// What the design does about it:
+//   - every product is a wgmma (bf16 operands from shared memory, float32
+//     accumulators): s = q·kᵀ, then p·v; on the dk/dv side sᵀ = k·qᵀ and
+//     dpᵀ = v·dOᵀ, then dv += pᵀ·dO and dk += dsᵀ·q;
+//   - p (and pᵀ, dsᵀ) go to shared memory as two bf16 terms, hi = rn(p)
+//     and lo = rn(p - hi), and the second product reads both: a p rounded
+//     to bf16 alone (FlashAttention's choice) misses the bf16 bar against
+//     the plain versions wherever a sum cancels, hi + lo keeps ~16 bits;
+//   - tiles come into shared memory by TMA (cp.async.bulk.tensor, 128-byte
+//     swizzle, the layout the wgmma descriptors read) in a ring of stages
+//     with full / empty mbarriers, one thread keeping the loads in flight
+//     (the forward's producer warp, a dk/dv block's thread 128);
+//   - two consumer warpgroups share a block wherever registers allow, so
+//     that one warpgroup's products overlap the other's exp and softcap:
+//     a forward block holds two q tiles of 64 rows (bq = 128, d <= 128),
+//     reading each k/v tile once per q block, and its producer warpgroup
+//     hands registers to them (setmaxnreg 40 / 232); decode (bq < 64)
+//     packs the q rows of all heads of a GQA group into one 64-row tile,
+//     so a block reads its kv head's cache once for the whole group.
+//
+// Geometry. The layout's (bq, bk) cells stay the unit of liveness, of
+// count_cells and of the element the combine sees. The forward splits a
+// cell's bk = 128 kv rows into two 64-row ring slots of k and two of v.
+// A dk/dv block takes 64 kv rows and up to 128 columns of dk and dv and
+// walks each q block in chunks of 64 rows with two warpgroups: one forms
+// sᵀ, pᵀ and dv, and hands p·g (g = tanh' under softcap, else 1) through
+// shared memory to the other, which forms dpᵀ, dsᵀ and dk, so neither
+// product of a chunk is computed twice. Registers (ptxas must report no
+// spills): the forward's carry is 64·d / 128 floats a thread beside s (64,
+// or 32 live under the two-tile blocks' 232, the first k tile's logits
+// waiting in shared memory; p·v reuses s), and at d = 256 a block holds
+// one q tile so that a thread may use 255; a dk/dv warpgroup keeps its
+// carry and the cell's element (64 floats each) beside 32 q rows of sᵀ
+// or dpᵀ (16) at a time, in a block of 256 threads (255 registers; a
+// producer warpgroup would leave 240); divisions in the fold loops are a
+// reciprocal and a product (an IEEE division calls a slow path, which
+// costs registers).
+//
+// Association, as in attn_fold.cu: the cell's element (m_e, l_e, p·v) or
+// (dk_e, dv_e) is accumulated from zero, then combined into the carry with
+// __fmul_rn / __fadd_rn, so a skipped dead cell and a page-permuted pool
+// (kv_block_map) give the bits of folding the identity and of the
+// contiguous pool. expf and tanhf, never the fast intrinsics.
+//
+// Interface: plain C functions loaded with ctypes, as attn_fold.cu's; each
+// also takes the dynamic shared memory the caller computed for the launch
+// (cuda_fold.tc_tiling) and refuses a launch whose tiling disagrees.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "attn_fold.cuh"   // FoldArgs, FoldPtrs, kNegInf, cell_live
+
+// The TMA descriptors of one launch (kernel parameters, __grid_constant__).
+struct TcMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+namespace {
+
+// 64 rows of 64 bf16: 128 bytes a row, one row of the 128-byte swizzle
+constexpr int kPanelBytes = 64 * 128;
+
+// -- shared memory, mbarriers, TMA -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// mbarriers and TMA destinations by their shared-memory address.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait past
+// ~2^35 cycles (tens of seconds) can only be a fault of the ring: it traps,
+// so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 35)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16) from global memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// -- wgmma --------------------------------------------------------------------
+
+// A shared-memory matrix descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets, layout type 1 (SWIZZLE_128B).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A tile of 64 rows x d bf16 lies in shared memory as d / 64 panels of
+// [64 rows][64 columns], each row 128 bytes, swizzled as TMA writes it.
+// K-major operand (the contraction runs along the row): k-step kk covers
+// columns 16 kk .. 16 kk + 15, 32 bytes into the row of panel kk / 4.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand (the contraction runs down the rows, the columns are
+// the product's N): k-step kk covers rows 16 kk .. 16 kk + 15 (2048 bytes),
+// N starts at panel `pnl`, and the next 64 columns lie one panel further.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk,
+                                                 int pnl) {
+  return sw128_desc(tile + pnl * kPanelBytes + kk * 2048, kPanelBytes, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Orders every later use of the registers after the last wgmma wait (the
+// compiler does not know wgmma writes and reads them asynchronously).
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 32, f32) = [d +] A (64 x 16) * B (16 x 32), bf16 tiles in shared
+// memory (128-byte swizzle): A K-major, B K-major; scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 16) * B (16 x 64), bf16 tiles in shared
+// memory (128-byte swizzle): A K-major, B K-major; scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 16) * B (16 x 64), bf16 tiles in shared
+// memory (128-byte swizzle): A K-major, B MN-major (its N contiguous);
+// scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_n64_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) = [d +] A (64 x 16) * B (16 x 128), bf16 tiles in shared
+// memory (128-byte swizzle): A K-major, B MN-major (its N contiguous);
+// scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_n128_mn(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int NC>
+__device__ __forceinline__ void wgmma_mn(float (&d)[NC / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (NC == 64)
+    wgmma_n64_mn(d, da, db, scale_d);
+  else
+    wgmma_n128_mn(d, da, db, scale_d);
+}
+
+// The 128 threads of consumer warpgroup wg meet (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to wgmma's reads.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The two rows of a thread in a 64-row wgmma tile: warp w holds rows
+// 16 w .. 16 w + 15, lane l rows l / 4 and l / 4 + 8. Accumulator entry x
+// of a (64 x N) product lies at row i = (x >> 1) & 1 of those two and
+// column 8 (x >> 2) + 2 (l % 4) + (x & 1).
+__device__ __forceinline__ int tile_row(int tid, int i) {
+  return (tid / 32) * 16 + (tid % 32) / 4 + 8 * i;
+}
+
+// 1 / x for a finite x >= 1 (a softcap, a row's l): rcp.approx and one
+// Newton step, within an ulp of the IEEE quotient. An IEEE division
+// compiles to a call of a slow path for special operands, and a call in
+// the fold loop costs registers that the accumulators need.
+__device__ __forceinline__ float recip(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return __fmaf_rn(r, __fmaf_rn(-x, r, 1.f), r);
+}
+
+// attn_fold.cu's logit() with s / cap as s · (1 / cap).
+__device__ __forceinline__ float logit_tc(const FoldArgs& a, float dot,
+                                          float inv_cap) {
+  float s = dot * a.scale;
+  if (a.has_softcap) s = a.softcap * tanhf(s * inv_cap);
+  return s;
+}
+
+__device__ __forceinline__ int clamp_to(long long x, int n) {
+  return (int)(x < 0 ? 0 : x > n ? n : x);
+}
+
+// attn_fold.cu's elem_live along a row: entry (row, col0 + c) is live
+// iff lo <= c < hi, for c in [0, n).
+__device__ __forceinline__ int2 live_cols(const FoldArgs& a, long long row,
+                                          long long col0, int n) {
+  long long lo = 0, hi = n;
+  if (a.has_kv_len && a.kv_len - col0 < hi) hi = a.kv_len - col0;
+  if (a.causal && row + 1 - col0 < hi) hi = row + 1 - col0;
+  if (a.has_window && row - a.window + 1 - col0 > lo)
+    lo = row - a.window + 1 - col0;
+  return make_int2(clamp_to(lo, n), clamp_to(hi, n));
+}
+
+// elem_live down a column: entry (row0 + r, col) is live iff lo <= r < hi,
+// for r in [0, n).
+__device__ __forceinline__ int2 live_rows(const FoldArgs& a, long long col,
+                                          long long row0, int n) {
+  long long lo = 0, hi = n;
+  if (a.has_kv_len && col >= a.kv_len) hi = 0;
+  if (a.causal && col - row0 > lo) lo = col - row0;
+  if (a.has_window && col + a.window - row0 < hi) hi = col + a.window - row0;
+  return make_int2(clamp_to(lo, n), clamp_to(hi, n));
+}
+
+// The byte offset of a thread's entries x, x + 1 (x even) of a (64 x 64)
+// accumulator in a K-major panel of bf16 (64 rows of 128 bytes, swizzled
+// as TMA would write them).
+__device__ __forceinline__ uint32_t pair_offset(int x, int tid) {
+  const int r = tile_row(tid, (x >> 1) & 1);
+  return r * 128 + (((x >> 2) ^ (r & 7)) << 4) + 4 * (tid % 4);
+}
+
+// Entries x, x + 1 of a thread's accumulator, v0 and v1, as bf16 hi = rn(v)
+// into panel `hi` and lo = rn(v - hi) into panel `lo`: hi + lo keeps v to
+// about 16 bits, so the product that reads both keeps the float32
+// operand's precision (p and ds rounded to bf16 alone miss the bf16 bar
+// against the plain versions where sums cancel).
+__device__ __forceinline__ void store_pair(uint32_t hi, uint32_t lo, int x,
+                                           int tid, float v0, float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(v0, hf.x), __fsub_rn(v1, hf.y));
+  const uint32_t off = pair_offset(x, tid);
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(hi + off),
+               "r"(*reinterpret_cast<const uint32_t*>(&h))
+               : "memory");
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(lo + off),
+               "r"(*reinterpret_cast<const uint32_t*>(&l))
+               : "memory");
+}
+
+// The pair store_pair wrote, as hi + lo.
+__device__ __forceinline__ float2 load_pair(uint32_t hi, uint32_t lo, int x,
+                                            int tid) {
+  const uint32_t off = pair_offset(x, tid);
+  uint32_t h, l;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(h) : "r"(hi + off));
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(l) : "r"(lo + off));
+  const float2 hf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&h));
+  const float2 lf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&l));
+  return make_float2(__fadd_rn(hf.x, lf.x), __fadd_rn(hf.y, lf.y));
+}
+
+// A thread's 32 floats x to (store) or from shared memory, word e at
+// [e][thread] of the 8 KB regions a (e < 16) and b: thread-private, no
+// two threads of a warp on one bank.
+__device__ __forceinline__ void stash(uint32_t a, uint32_t b, float (&x)[32],
+                                      int tid, bool store) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const uint32_t addr = (e < 16 ? a : b) + ((e & 15) * 128 + tid) * 4;
+    if (store)
+      asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(x[e])
+                   : "memory");
+    else
+      asm volatile("ld.shared.f32 %0, [%1];" : "=f"(x[e]) : "r"(addr));
+  }
+}
+
+// Named barriers between consumer warpgroups (0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The mask and softcapped logits of a thread's 32 entries of a (64 x 64)
+// s tile whose column 8 (x >> 2) + (x & 1) is c0 + that (c0 holds the
+// thread's 2 (l % 4)), against the rows' live column ranges; m_e takes
+// the thread's share of their row max.
+__device__ __forceinline__ void mask_logits(const FoldArgs& a,
+                                            float (&s)[32], int c0,
+                                            const int2 (&live)[2],
+                                            float inv_cap, float (&m_e)[2]) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1, c = c0 + 8 * (x >> 2) + (x & 1);
+    const bool ok = c >= live[i].x && c < live[i].y;
+    s[x] = ok ? logit_tc(a, s[x], inv_cap) : kNegInf;
+    m_e[i] = fmaxf(m_e[i], s[x]);
+  }
+}
+
+// The row max over the four lanes that share a row.
+__device__ __forceinline__ void row_max(float (&m)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+  }
+}
+
+// p = exp(s - m_e) of a tile as mask_logits lays it out, masked entries
+// exactly 0, added into the thread's row sums l_e and stored as hi + lo
+// into the panels hi and lo.
+__device__ __forceinline__ void exp_store(const float (&s)[32], int c0,
+                                          const int2 (&live)[2],
+                                          const float (&m_e)[2],
+                                          float (&l_e)[2], uint32_t hi,
+                                          uint32_t lo, int tid) {
+#pragma unroll
+  for (int x = 0; x < 32; x += 2) {
+    const int i = (x >> 1) & 1, c = c0 + 8 * (x >> 2);
+    const float p0 =
+        c >= live[i].x && c < live[i].y ? expf(s[x] - m_e[i]) : 0.f;
+    const float p1 = c + 1 >= live[i].x && c + 1 < live[i].y
+                         ? expf(s[x + 1] - m_e[i]) : 0.f;
+    l_e[i] = __fadd_rn(__fadd_rn(l_e[i], p0), p1);
+    store_pair(hi, lo, x, tid, p0, p1);
+  }
+}
+
+// -- forward (softmax_pair) ---------------------------------------------------
+
+template <int D, int NWG>
+struct FwdTiles {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  // the ring of 64-row k / v tiles: a cell (bk = 128) takes four
+  static constexpr int kSlots = D == 256 ? 4 : NWG == 2 && D == 128 ? 6 : 8;
+  static constexpr int kNC = 64;   // p·v columns per product
+  static constexpr bool kStash = NWG == 2;   // see the consumer
+  // a warpgroup's p as hi and lo, each two 64-column panels (bk <= 128)
+  static constexpr int kPBytes = 4 * kPanelBytes;
+  // two consumer warpgroups take a producer warpgroup (setmaxnreg moves
+  // its registers to them); one takes a producer warp
+  static constexpr int kThreads = NWG == 2 ? 384 : 160;
+  static constexpr int kSmem = 1024 + NWG * (kTileBytes + kPBytes) +
+                               kSlots * kTileBytes + 8 * (2 * kSlots + 1);
+};
+
+// Block (kv head hk, q block qi, tile group bt), split y. The tiles of a
+// (kv head, q block): the group's q heads x bq rows, in that order, cut
+// into 64-row tiles; tile row r of tile t is q row (64 t + r) % bq of head
+// hk·group + (64 t + r) / bq (a row past the group is computed, never
+// stored). Warpgroup w < NWG owns tile bt·NWG + w; warpgroup NWG
+// produces.
+template <int D, int NWG>
+__global__ void __launch_bounds__(FwdTiles<D, NWG>::kThreads, 1)
+    fold_fwd_tc_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                       FoldPtrs p) {
+  using G = FwdTiles<D, NWG>;
+  constexpr int NC = G::kNC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);             // NWG q tiles
+  uint8_t* p_s = q_s + NWG * G::kTileBytes;       // NWG p tiles (hi, lo)
+  uint8_t* ring = p_s + NWG * G::kPBytes;         // kSlots k / v tiles
+  // mbarriers: full[kSlots], empty[kSlots], then the q tiles'
+  const uint32_t q_u = smem_u32(q_s), ring_u = smem_u32(ring);
+  const uint32_t full = ring_u + G::kSlots * G::kTileBytes;
+  const uint32_t empty = full + 8 * G::kSlots, qbar = empty + 8 * G::kSlots;
+
+  const int nb = (a.group * a.bq + 63) / 64 / NWG;  // blocks per (hk, qi)
+  const int bt = blockIdx.x % nb;
+  const int qi = (blockIdx.x / nb) % a.nq;
+  const int hk = blockIdx.x / nb / a.nq;
+  const int nsub = a.bk / 64;
+  const int f0 = blockIdx.y * a.bpc;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NWG * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {  // the producer: one thread issues every load
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == NWG * 128) {
+      mbar_expect_tx(qbar, NWG * G::kTileBytes);
+      for (int w = 0; w < NWG; ++w) {
+        const int vr = 64 * (bt * NWG + w);
+        for (int pn = 0; pn < G::kPanels; ++pn)
+          tma_load_3d(q_u + w * G::kTileBytes + pn * kPanelBytes, &maps.q,
+                      qbar, 64 * pn, qi * a.bq + vr % a.bq,
+                      hk * a.group + vr / a.bq);
+      }
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int f = f0; f < f0 + a.bpc; ++f) {
+        if (!cell_live(a, qi, f)) continue;
+        const int phys = p.kv_map ? p.kv_map[f] : f;
+        const int row = hk * a.tk + phys * a.bk;
+        for (int kv = 0; kv < 2; ++kv) {  // the cell's k tiles, then its v
+          for (int h = 0; h < nsub; ++h) {
+            mbar_wait(empty + 8 * slot, phase ^ 1);
+            mbar_expect_tx(full + 8 * slot, G::kTileBytes);
+            const uint32_t dst = ring_u + slot * G::kTileBytes;
+            for (int pn = 0; pn < G::kPanels; ++pn)
+              tma_load_2d(dst + pn * kPanelBytes, kv ? &maps.v : &maps.k,
+                          full + 8 * slot, 64 * pn, row + 64 * h);
+            if (++slot == G::kSlots) {
+              slot = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: one 64-row q tile
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int tid = threadIdx.x % 128, quad = tid % 4;
+    const int t = bt * NWG + wg;
+    int qr[2];   // the thread's rows within the q block
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qr[i] = (64 * t + tile_row(tid, i)) % a.bq;
+    float acc[D / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    float m_c[2] = {kNegInf, kNegInf}, l_c[2] = {0.f, 0.f};
+    const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+    int count = 0, slot = 0;
+    uint32_t phase = 0;
+    const uint32_t q_tile = q_u + wg * G::kTileBytes;
+    // p as hi (two panels), then lo
+    const uint32_t p_hi = smem_u32(p_s) + wg * G::kPBytes;
+    mbar_wait(qbar, 0);
+    __syncwarp();
+    for (int f = f0; f < f0 + a.bpc; ++f) {
+      if (!cell_live(a, qi, f)) continue;
+      ++count;
+      // s = q·kᵀ, one (64 x 64) product per 64-row k tile of the cell, the
+      // mask and softcapped logits, the cell's row max m_e; then p =
+      // exp(s - m_e) (a masked entry is zeroed, not left to underflow: in a
+      // fully masked row m_e = NEG_INF and exp(s - m_e) would be 1), its
+      // row sum l_e, and p into the panels as hi + lo, the A operand of p·v
+      const uint32_t ph = p_hi, pl = p_hi + 2 * kPanelBytes;
+      float s[2][32];
+      float m_e[2] = {kNegInf, kNegInf}, l_e[2] = {0.f, 0.f};
+      int2 live[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        live[i] = live_cols(a, (long long)qi * a.pos_bq + qr[i],
+                            (long long)f * a.pos_bk, 64 * nsub);
+      if constexpr (G::kStash) {
+        // under setmaxnreg's 232 registers, a tile at a time: the first
+        // tile's logits wait in the panels (hi 0, lo 0) while the second
+        // is formed, so that 32 of s are live, not 64
+        wg_sync(wg);   // every warp's last p·v has read the panels
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h >= nsub) break;
+          mbar_wait(full + 8 * slot, phase);
+          __syncwarp();
+          const uint32_t kt = ring_u + slot * G::kTileBytes;
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_n64(s[0], kmajor_desc(q_tile, kk), kmajor_desc(kt, kk),
+                      kk > 0);
+          wg_commit();
+          wg_wait();
+          keep(s[0]);
+          mbar_arrive(empty + 8 * slot);
+          if (++slot == G::kSlots) {
+            slot = 0;
+            phase ^= 1;
+          }
+          mask_logits(a, s[0], 64 * h + 2 * quad, live, inv_cap, m_e);
+          if (h + 1 < nsub) stash(ph, pl, s[0], tid, true);
+        }
+        row_max(m_e);
+#pragma unroll
+        for (int h = 1; h >= 0; --h) {   // the last tile first
+          if (h >= nsub) continue;
+          if (h + 1 < nsub) {
+            stash(ph, pl, s[0], tid, false);
+            wg_sync(wg);   // every stash is read before panel 0 is written
+          }
+          exp_store(s[0], 64 * h + 2 * quad, live, m_e, l_e,
+                    ph + h * kPanelBytes, pl + h * kPanelBytes, tid);
+        }
+      } else {
+        // both tiles at once
+        const int k0 = slot;   // the cell's k tiles fill slots k0, k0 + 1
+        wg_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < nsub) {
+            mbar_wait(full + 8 * slot, phase);
+            __syncwarp();
+            const uint32_t kt = ring_u + slot * G::kTileBytes;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              wgmma_n64(s[h], kmajor_desc(q_tile, kk), kmajor_desc(kt, kk),
+                        kk > 0);
+            if (++slot == G::kSlots) {
+              slot = 0;
+              phase ^= 1;
+            }
+          }
+        }
+        wg_commit();
+        wg_wait();
+        keep(s[0]);
+        keep(s[1]);
+        for (int h = 0; h < nsub; ++h)
+          mbar_arrive(empty + 8 * ((k0 + h) % G::kSlots));
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (h < nsub)
+            mask_logits(a, s[h], 64 * h + 2 * quad, live, inv_cap, m_e);
+        row_max(m_e);
+        wg_sync(wg);   // every warp's last p·v has read the panels
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (h < nsub)
+            exp_store(s[h], 64 * h + 2 * quad, live, m_e, l_e,
+                      ph + h * kPanelBytes, pl + h * kPanelBytes, tid);
+      }
+      fence_async();
+      wg_sync(wg);
+      float a1[2], a2[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_e[i] = __fadd_rn(l_e[i], __shfl_xor_sync(0xffffffffu, l_e[i], 1));
+        l_e[i] = __fadd_rn(l_e[i], __shfl_xor_sync(0xffffffffu, l_e[i], 2));
+        // the combine's scalars: carry (m_c, l_c) the earlier operand
+        const float mn = fmaxf(m_c[i], m_e[i]);
+        a1[i] = expf(m_c[i] - mn);
+        a2[i] = expf(m_e[i] - mn);
+        l_c[i] =
+            __fadd_rn(__fmul_rn(l_c[i], a1[i]), __fmul_rn(l_e[i], a2[i]));
+        m_c[i] = mn;
+      }
+
+      // the cell's p·v from zero, NC columns at a time, combined into acc
+      const int v0 = slot;   // and its v tiles v0, v0 + 1
+      for (int h = 0; h < nsub; ++h) {
+        mbar_wait(full + 8 * slot, phase);
+        if (++slot == G::kSlots) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < D / NC; ++c) {
+        float(&pv)[NC / 2] = s[0];   // p now lies in shared memory
+        wg_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < nsub) {
+            const uint32_t vt = ring_u + (v0 + h) % G::kSlots * G::kTileBytes;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t vd = mnmajor_desc(vt, kk, c * NC / 64);
+              wgmma_mn<NC>(pv, kmajor_desc(ph, 4 * h + kk), vd,
+                           (h | kk) != 0);
+              wgmma_mn<NC>(pv, kmajor_desc(pl, 4 * h + kk), vd, 1);
+            }
+          }
+        }
+        wg_commit();
+        wg_wait();
+        keep(pv);
+#pragma unroll
+        for (int x = 0; x < NC / 2; ++x) {
+          const int i = (x >> 1) & 1;
+          acc[c * NC / 2 + x] =
+              __fadd_rn(__fmul_rn(acc[c * NC / 2 + x], a1[i]),
+                        __fmul_rn(pv[x], a2[i]));
+        }
+      }
+      for (int h = 0; h < nsub; ++h)
+        mbar_arrive(empty + 8 * ((v0 + h) % G::kSlots));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int hj = (64 * t + tile_row(tid, i)) / a.bq;  // head in the group
+      if (hj >= a.group) continue;   // a row of the next group's heads
+      const long long h = (long long)hk * a.group + hj;
+      if (p.c0) {  // split pass: publish the chunk's (m, l, acc)
+        const long long cr =
+            ((h * a.nq + qi) * a.splits + blockIdx.y) * a.bq + qr[i];
+        if (quad == 0) {
+          p.c0[cr] = m_c[i];
+          p.c1[cr] = l_c[i];
+        }
+        float* dst = p.c2 + cr * D + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        continue;
+      }
+      // l == 0 marks a fully masked row (or an empty fold): acc is 0 there
+      const long long row = h * a.tq + (long long)qi * a.bq + qr[i];
+      const float inv = recip(l_c[i] == 0.f ? 1.f : l_c[i]);
+      __nv_bfloat16* dst =
+          static_cast<__nv_bfloat16*>(p.out0) + row * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                  acc[4 * j + 2 * i + 1] * inv);
+      if (p.m_out && quad == 0) {
+        p.m_out[row] = m_c[i];
+        p.l_out[row] = l_c[i];
+      }
+    }
+    if (p.counts && tid < 64) {   // one writer per head whose rows start here
+      const int vr = 64 * t + tid;
+      if (vr % a.bq == 0 && vr / a.bq < a.group)
+        p.counts[(long long)(hk * a.group + vr / a.bq) * a.nq + qi] = count;
+    }
+  }
+}
+
+// -- backward dk/dv (softmax_bwd_dkv) -----------------------------------------
+
+template <int D>
+struct DkvTiles {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  static constexpr int kDC = D < 128 ? D : 128;   // dk / dv columns a block
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // 64 rows of q and dO
+  // pᵀ as hi, lo (warpgroup 0's dv operand), then p·g and dsᵀ as hi, lo
+  static constexpr int kPBytes = 4 * kPanelBytes;
+  static constexpr int kStatBytes = 3 * 64 * 4;       // the rows' m, l, delta
+  static constexpr int kThreads = 256;
+  static constexpr int kSmem = 1024 + 2 * kTileBytes + kStages * kStageBytes +
+                               kPBytes + kStages * kStatBytes +
+                               8 * (2 * kStages + 1);
+};
+
+// Block (kv head hk, kv block jb, 64-row sub-block sub, kDC columns cp of
+// dk and dv), split y; folds the (group x q-block) axis as attn_fold.cu's
+// fold_dkv_kernel does. Warpgroup 0 forms pᵀ (sᵀ = k·qᵀ) and dv; it hands
+// p·g (g = tanh' under softcap, else 1) through shared memory to
+// warpgroup 1, which forms dsᵀ = p·g (dpᵀ - delta) (dpᵀ = v·dOᵀ) and dk.
+// Warpgroup 1's first thread also issues the loads, kStages chunks ahead
+// of the fold (a separate producer would leave the consumers 240
+// registers, fewer than the two accumulators of 128 columns and sᵀ need).
+// Named barriers: 1 + wg within a warpgroup, 3 "p·g of this chunk is
+// written", 4 "the panels of the last chunk are read".
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    fold_dkv_tc_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                       FoldPtrs p) {
+  using G = DkvTiles<D>;
+  constexpr int DC = G::kDC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);   // this block's 64 kv rows, whole d
+  const uint32_t k_u = smem_u32(k_s), v_u = k_u + G::kTileBytes;
+  const uint32_t stages_u = v_u + G::kTileBytes;
+  const uint32_t pt = stages_u + G::kStages * G::kStageBytes;
+  const uint32_t stats_u = pt + G::kPBytes;
+  const float* stats = reinterpret_cast<const float*>(
+      k_s + (stats_u - k_u));
+  // mbarriers: full[kStages], empty[kStages], then k and v's
+  const uint32_t full = stats_u + G::kStages * G::kStatBytes;
+  const uint32_t empty = full + 8 * G::kStages, kvbar = empty + 8 * G::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  constexpr int ncp = D / DC;
+  const int nsub = a.bk / 64;
+  const int cp = blockIdx.x % ncp;
+  const int sub = (blockIdx.x / ncp) % nsub;
+  const int jb = (blockIdx.x / ncp / nsub) % a.nk;
+  const int hk = blockIdx.x / ncp / nsub / a.nk;
+  const int nch = a.bq / 64;
+  const int f0 = blockIdx.y * a.bpc;
+  const int wg = threadIdx.x / 128;
+  const bool loader = threadIdx.x == 128;
+  // the loader's walk over the live chunks (lf, lc) of the fold
+  int lf = f0, lc = 0, lstage = 0;
+  uint32_t lphase = 0;
+  auto skip_dead = [&]() {
+    while (lf < f0 + a.bpc && !cell_live(a, lf % a.nq, jb)) ++lf;
+  };
+  auto load_next = [&]() {   // chunk (lf, lc) into stage lstage, then on
+    const uint32_t bar = full + 8 * lstage;
+    mbar_wait(empty + 8 * lstage, lphase ^ 1);
+    mbar_expect_tx(bar, G::kStageBytes + G::kStatBytes);
+    const uint32_t st = stages_u + lstage * G::kStageBytes;
+    const int qrow = (hk * a.group + lf / a.nq) * a.tq +
+                     (lf % a.nq) * a.bq + 64 * lc;
+    for (int pn = 0; pn < G::kPanels; ++pn) {
+      tma_load_2d(st + pn * kPanelBytes, &maps.q, bar, 64 * pn, qrow);
+      tma_load_2d(st + G::kTileBytes + pn * kPanelBytes, &maps.dout, bar,
+                  64 * pn, qrow);
+    }
+    const uint32_t sts = stats_u + lstage * G::kStatBytes;
+    bulk_load(sts, p.m + qrow, 256, bar);
+    bulk_load(sts + 256, p.l + qrow, 256, bar);
+    bulk_load(sts + 512, p.delta + qrow, 256, bar);
+    if (++lstage == G::kStages) {
+      lstage = 0;
+      lphase ^= 1;
+    }
+    if (++lc == nch) {
+      lc = 0;
+      ++lf;
+      skip_dead();
+    }
+  };
+  if (loader) {
+    const int kvrow = hk * a.tk + jb * a.bk + 64 * sub;
+    mbar_expect_tx(kvbar, 2 * G::kTileBytes);
+    for (int pn = 0; pn < G::kPanels; ++pn) {
+      tma_load_2d(k_u + pn * kPanelBytes, &maps.k, kvbar, 64 * pn, kvrow);
+      tma_load_2d(v_u + pn * kPanelBytes, &maps.v, kvbar, 64 * pn, kvrow);
+    }
+    skip_dead();
+    for (int k = 0; k < G::kStages && lf < f0 + a.bpc; ++k) load_next();
+  }
+  {  // warpgroup wg: 0 forms dv, 1 forms dk
+    const int tid = threadIdx.x % 128, quad = tid % 4;
+    float acc[DC / 2];   // the carry: dv (warpgroup 0) or dk (1)
+#pragma unroll
+    for (int x = 0; x < DC / 2; ++x) acc[x] = 0.f;
+    const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+    int count = 0, stage = 0, chunks = 0;
+    uint32_t phase = 0;
+    mbar_wait(kvbar, 0);
+    __syncwarp();
+    for (int f = f0; f < f0 + a.bpc; ++f) {
+      const int qi = f % a.nq;
+      if (!cell_live(a, qi, jb)) continue;
+      ++count;
+      float el[DC / 2];   // the cell's element: dv_e or dk_e
+      for (int c = 0; c < nch; ++c, ++chunks) {
+        mbar_wait(full + 8 * stage, phase);
+        __syncwarp();
+        const uint32_t qt = stages_u + stage * G::kStageBytes;
+        const uint32_t dt = qt + G::kTileBytes;
+        const float* sts = stats + stage * 192;
+        // pᵀ hi, lo, then p·g (later dsᵀ) hi, lo: one 64-column panel each
+        const uint32_t p_hi = pt, p_lo = pt + kPanelBytes;
+        const uint32_t g_hi = pt + 2 * kPanelBytes;
+        const uint32_t g_lo = pt + 3 * kPanelBytes;
+        if (chunks > 0) {   // the last chunk's panels are read
+          if (wg == 0)
+            bar_sync(4, 256);
+          else
+            bar_arrive(4, 256);
+        }
+        int2 live[2];   // warpgroup 0: the q rows of the chunk each kv row sees
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          live[i] = live_rows(
+              a, (long long)jb * a.pos_bk + 64 * sub + tile_row(tid, i),
+              (long long)qi * a.pos_bq + 64 * c, 64);
+        // sᵀ = k·qᵀ (warpgroup 0) or dpᵀ = v·dOᵀ (1): kv rows x the chunk's
+        // q rows 32 hs .. 32 hs + 31, one half at a time (s is 16 floats);
+        // entry x of a half is entry x + 16 hs of the chunk's (64 x 64) tile
+#pragma unroll
+        for (int hs = 0; hs < 2; ++hs) {
+          float s[16];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_n32(s, kmajor_desc(wg == 0 ? k_u : v_u, kk),
+                      kmajor_desc((wg == 0 ? qt : dt) + hs * 4096, kk),
+                      kk > 0);
+          wg_commit();
+          wg_wait();
+          keep(s);
+          if (wg == 0) {
+            // pᵀ = exp(s - m) / l, and p·g for warpgroup 1
+#pragma unroll
+            for (int x = 0; x < 16; x += 2) {
+              const int i = (x >> 1) & 1;
+              float pv[2], pg[2];
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int qc = 32 * hs + 8 * (x >> 2) + 2 * quad + u;
+                const bool ok = qc >= live[i].x && qc < live[i].y;
+                const float sv = logit_tc(a, s[x + u], inv_cap);
+                const float l = sts[64 + qc];
+                pv[u] = ok ? expf(sv - sts[qc]) * recip(l == 0.f ? 1.f : l)
+                           : 0.f;
+                pg[u] = pv[u];
+                if (a.has_softcap) {   // tanh' = 1 - (s / cap)^2
+                  const float t = sv * inv_cap;
+                  pg[u] = pv[u] * __fsub_rn(1.f, __fmul_rn(t, t));
+                }
+              }
+              store_pair(p_hi, p_lo, x + 16 * hs, tid, pv[0], pv[1]);
+              store_pair(g_hi, g_lo, x + 16 * hs, tid, pg[0], pg[1]);
+            }
+          } else {
+            // dsᵀ = p·g (dpᵀ - delta), over the p·g warpgroup 0 wrote
+            if (hs == 0) bar_sync(3, 256);
+#pragma unroll
+            for (int x = 0; x < 16; x += 2) {
+              const int qc = 32 * hs + 8 * (x >> 2) + 2 * quad;
+              const float2 pg = load_pair(g_hi, g_lo, x + 16 * hs, tid);
+              store_pair(g_hi, g_lo, x + 16 * hs, tid,
+                         __fmul_rn(pg.x, __fsub_rn(s[x], sts[128 + qc])),
+                         __fmul_rn(pg.y, __fsub_rn(s[x + 1], sts[129 + qc])));
+            }
+          }
+        }
+        fence_async();
+        if (wg == 0) bar_arrive(3, 256);   // p·g is written
+        wg_sync(wg);                       // and this warpgroup's operand
+        // the cell's dv_e += pᵀ·dO or dk_e += dsᵀ·q (columns DC cp ..),
+        // from zero at the first chunk
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bd = mnmajor_desc(wg == 0 ? dt : qt, kk,
+                                           cp * DC / 64);
+          wgmma_mn<DC>(el, kmajor_desc(wg == 0 ? p_hi : g_hi, kk), bd,
+                       (c | kk) != 0);
+          wgmma_mn<DC>(el, kmajor_desc(wg == 0 ? p_lo : g_lo, kk), bd, 1);
+        }
+        wg_commit();
+        wg_wait();
+        keep(el);
+        mbar_arrive(empty + 8 * stage);
+        if (++stage == G::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (loader && lf < f0 + a.bpc) load_next();   // kStages chunks ahead
+      }
+      const float sc = wg == 0 ? 1.f : a.scale;   // dk = dk + scale·dk_e
+#pragma unroll
+      for (int x = 0; x < DC / 2; ++x)
+        acc[x] = wg == 0 ? __fadd_rn(acc[x], el[x])
+                         : __fadd_rn(acc[x], __fmul_rn(el[x], sc));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kr = 64 * sub + tile_row(tid, i);   // kv row of the block
+      const int col = DC * cp + 2 * quad;
+      if (p.c0) {
+        float* dst = (wg == 0 ? p.c1 : p.c0) +
+                     (((long long)(hk * a.nk + jb) * a.splits + blockIdx.y) *
+                          a.bk + kr) * D + col;
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      } else {
+        __nv_bfloat16* dst =
+            static_cast<__nv_bfloat16*>(wg == 0 ? p.out1 : p.out0) +
+            ((long long)hk * a.tk + (long long)jb * a.bk + kr) * D + col;
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i],
+                                    acc[4 * j + 2 * i + 1]);
+      }
+    }
+    if (!p.c0 && p.counts && wg == 1 && sub == 0 && cp == 0 && tid == 0)
+      p.counts[hk * a.nk + jb] = count;
+  }
+}
+
+// -- launchers ----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, without linking libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with 64-column boxes (128 bytes, 128-byte swizzle) over
+// `rank` dims, innermost first; strides in bytes of dims 1...
+bool bf16_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc != nullptr &&
+         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (rows, d) row-major as boxes of 64 rows.
+bool rows_map(CUtensorMap* map, const void* base, int d, long long rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return bf16_map(map, base, 2, dims, strides, box);
+}
+
+// (heads, t, d) as boxes of `box_heads` heads x `box_rows` rows: one box
+// is a 64-row tile of the forward's q (box_rows x box_heads = 64).
+bool heads_map(CUtensorMap* map, const void* base, int d, int t, int heads,
+               int box_rows, int box_heads) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, (cuuint32_t)box_heads};
+  return bf16_map(map, base, 3, dims, strides, box);
+}
+
+template <typename K>
+cudaError_t launch(K kern, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, const TcMaps& maps, const FoldArgs& a,
+                   const FoldPtrs& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, stream>>>(maps, a, p);
+  return cudaGetLastError();
+}
+
+template <int D, int NWG>
+cudaError_t run_fwd(const FoldArgs& a, const FoldPtrs& p, int smem,
+                    cudaStream_t st) {
+  using G = FwdTiles<D, NWG>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  const int rows = a.bq < 64 ? a.bq : 64;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  if (!heads_map(&maps.q, p.q, D, a.tq, a.bh, rows, 64 / rows) ||
+      !rows_map(&maps.k, p.k, D, (long long)a.bh_kv * a.tk) ||
+      !rows_map(&maps.v, p.v, D, (long long)a.bh_kv * a.tk))
+    return cudaErrorInvalidPitchValue;
+  const int nb = (a.group * a.bq + 63) / 64 / NWG;
+  return launch(fold_fwd_tc_kernel<D, NWG>,
+                dim3((unsigned)(a.bh_kv * a.nq * nb), (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
+template <int D>
+cudaError_t run_dkv(const FoldArgs& a, const FoldPtrs& p, int smem,
+                    cudaStream_t st) {
+  using G = DkvTiles<D>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const long long q_rows = (long long)a.bh * a.tq;
+  const long long kv_rows = (long long)a.bh_kv * a.tk;
+  if (!rows_map(&maps.q, p.q, D, q_rows) ||
+      !rows_map(&maps.dout, p.dout, D, q_rows) ||
+      !rows_map(&maps.k, p.k, D, kv_rows) ||
+      !rows_map(&maps.v, p.v, D, kv_rows))
+    return cudaErrorInvalidPitchValue;
+  return launch(fold_dkv_tc_kernel<D>,
+                dim3((unsigned)(a.bh_kv * a.nk * (a.bk / 64) * (D / G::kDC)),
+                     (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward fold (softmax_pair) on KVBlocks, bf16: p->c0 set, the split
+// pass; else finalize into out0 (and m_out / l_out). Takes d in {64, 128,
+// 256}, bk in {64, 128}, bq = 128 or bq in {8, 16, 32, 64}; two q tiles
+// per block at bq = 128 and d <= 128, else one.
+int attn_fold_fwd_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bq_ok = a->bq == 128 || a->bq == 64 || a->bq == 32 ||
+                     a->bq == 16 || a->bq == 8;
+  if (!bq_ok || (a->bk != 64 && a->bk != 128)) return cudaErrorInvalidValue;
+  const bool two = a->bq == 128;
+  switch (a->d) {
+    case 64:
+      return two ? run_fwd<64, 2>(*a, *p, smem, st)
+                 : run_fwd<64, 1>(*a, *p, smem, st);
+    case 128:
+      return two ? run_fwd<128, 2>(*a, *p, smem, st)
+                 : run_fwd<128, 1>(*a, *p, smem, st);
+    case 256:
+      return run_fwd<256, 1>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward dk/dv fold on QBlocks, bf16: out0 = dk, out1 = dv, or the split
+// pass into c0 (dk) and c1 (dv). Takes d in {64, 128, 256}, bk and bq in
+// {64, 128}.
+int attn_fold_dkv_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+    return cudaErrorInvalidValue;
+  switch (a->d) {
+    case 64:
+      return run_dkv<64>(*a, *p, smem, st);
+    case 128:
+      return run_dkv<128>(*a, *p, smem, st);
+    case 256:
+      return run_dkv<256>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+const char* attn_tc_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -94,12 +94,15 @@ def _nvcc() -> str:
 
 def compile_library(source: Path, build_dir: Path) -> "tuple[Path, str]":
     """Compile ``source`` with ``nvcc`` into a shared library in
-    ``build_dir``, named by a hash of the source and flags, unless it is
-    there already. Returns the library's path and the compiler's output
-    ("" when the library was cached); raises with that output if nvcc
-    fails."""
+    ``build_dir``, named by a hash of the source, the headers beside it
+    (``*.cuh``) and the flags, unless it is there already. Returns the
+    library's path and the compiler's output ("" when the library was
+    cached); raises with that output if nvcc fails."""
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     so = build_dir / f"{source.stem}_{digest}.so"
     if so.exists():
         return so, ""

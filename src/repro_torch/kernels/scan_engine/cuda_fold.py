@@ -1,31 +1,39 @@
-"""Build, bind and launch the attention-fold kernels (``csrc/attn_fold.cu``).
+"""Build, bind and launch the attention-fold kernels (``csrc/attn_fold.cu``
+and ``csrc/attn_fold_tc.cu``).
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
+Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` (``cuda.compile_library``: a shared library with a plain C
-interface, cached under a hash of the source and flags) and loaded with
-``ctypes``.
+interface, cached under a hash of the source, its headers and the flags)
+and loaded with ``ctypes``.
 
-Four kernels serve the three carried-payload specs of the flash
-attention fold (``core/scan/assoc``):
+The kernels serve the three carried-payload specs of the flash attention
+fold (``core/scan/assoc``):
 
-  fold_fwd    ``softmax_pair`` on ``KVBlocks`` (the flash forward)
-  fold_dq     ``softmax_bwd_dq`` on ``KVBlocks``
-  fold_dkv    ``softmax_bwd_dkv`` on ``QBlocks``
-  fold_chain  the split-KV chain and finalize of any of the three: one
-              ``__global__`` function for the softmax pair (counted as
-              ``fold_chain``) and one for the sums of the two backward
-              specs (counted as ``fold_chain_sum``)
+  fold_fwd     ``softmax_pair`` on ``KVBlocks`` (the flash forward), SIMT
+  fold_fwd_tc  the same on the tensor cores (wgmma, TMA), bfloat16
+  fold_dq      ``softmax_bwd_dq`` on ``KVBlocks``, SIMT
+  fold_dkv     ``softmax_bwd_dkv`` on ``QBlocks``, SIMT
+  fold_dkv_tc  the same on the tensor cores, bfloat16
+  fold_chain   the split-KV chain and finalize of any of the three: one
+               ``__global__`` function for the softmax pair (counted as
+               ``fold_chain``) and one for the sums of the two backward
+               specs (counted as ``fold_chain_sum``)
 
-``fold`` runs the carry schedule (one launch that finalizes),
-``fold_totals`` the split pass of the decoupled schedule (each chunk of
-the fold axis publishes its payload) and ``chain`` its chain. Each
-wrapper checks device, dtype, contiguity and the layout's shapes, raises
-on anything the kernels do not take (float16, a head dim above 256, a
-KV block above 128 rows), allocates outputs and chain buffers with
-``torch.empty``, launches on PyTorch's current stream, raises if the
-launch returns an error, and adds one to its entry of ``LAUNCHES``. The
-plain PyTorch version of each kernel lives in ``schedules.py``
-(``fold_carry_plain``, ``fold_totals_plain``, ``fold_finalize_plain``).
+``fold_form`` chooses between the SIMT and tensor-core form of a fold
+from dtype, head dim and block sizes: float32 always takes SIMT (its
+products stay float32), bfloat16 the tensor-core form wherever that
+form's tiling takes the shape. ``fold`` runs the carry schedule (one
+launch that finalizes), ``fold_totals`` the split pass of the decoupled
+schedule (each chunk of the fold axis publishes its payload) and
+``chain`` its chain. Each wrapper checks device, dtype, contiguity and
+the layout's shapes, raises on anything the kernels do not take
+(float16, a head dim above 256, a KV block above 128 rows), allocates
+outputs and chain buffers with ``torch.empty``, launches the chosen
+kernel on PyTorch's current stream, raises if the launch returns an
+error (no other form is tried), and adds one to the kernel's entry of
+``LAUNCHES``. The plain PyTorch version of each kernel lives in
+``schedules.py`` (``fold_carry_plain``, ``fold_totals_plain``,
+``fold_finalize_plain``).
 """
 
 from __future__ import annotations
@@ -38,10 +46,12 @@ from repro_torch.kernels.scan_engine import cuda
 from repro_torch.kernels.scan_engine.layouts import KVBlocks, QBlocks
 
 SOURCE = cuda.SOURCE.parent / "attn_fold.cu"
+TC_SOURCE = cuda.SOURCE.parent / "attn_fold_tc.cu"
 BUILD_DIR = cuda.BUILD_DIR
 
-KERNELS = ("fold_fwd", "fold_dq", "fold_dkv", "fold_chain",
-           "fold_chain_sum")
+KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dkv", "fold_dkv_tc",
+           "fold_chain", "fold_chain_sum")
+TC_FORMS = ("fold_fwd_tc", "fold_dkv_tc")
 # spec name -> (kernel, layout type, operand kinds)
 BWD_KINDS = ("q", "kv", "kv", "q", "qstat", "qstat", "qstat")
 SPECS = {
@@ -53,12 +63,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256        # head dim: a cell's rows stay whole in shared memory
 MAX_BK = 128       # KV rows of a KVBlocks cell
 MAX_SPLITS = 65535  # grid.y
+# The tensor-core forms' range: head dims that are whole 64-column
+# (128-byte) TMA boxes, KV cells of one or two 64-row wgmma tiles, and q
+# blocks of two 64-row tiles or (forward) the rows of several heads
+# packed into one tile.
+TC_DIMS = (64, 128, 256)
+TC_BK = (64, 128)
+TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dkv": (64, 128)}
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use (227 KB)
+PANEL_BYTES = 64 * 128   # 64 rows of a 64-column bf16 box
 
 # Kernel launches since the last ``reset_launches()``, by kernel.
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _lib = None
-build_log = ""  # the compiler's output of the last build in this process
+_lib_tc = None
+# the compiler's output of the last build of each source in this process
+build_log = ""
+build_log_tc = ""
 
 
 class FoldArgs(ctypes.Structure):
@@ -87,42 +109,132 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+_FOLD_SIG = (ctypes.POINTER(FoldArgs), ctypes.POINTER(FoldPtrs),
+             ctypes.c_int, ctypes.c_void_p)
+
+
+def _bind(lib, names, error_string):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _FOLD_SIG
+        fn.restype = ctypes.c_int
+    fn = getattr(lib, error_string)
+    fn.argtypes = (ctypes.c_int,)
+    fn.restype = ctypes.c_char_p
+
+
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the SIMT kernel library."""
     global _lib, build_log
     if _lib is not None:
         return _lib
     so, log = cuda.compile_library(SOURCE, BUILD_DIR)
     build_log = log or build_log
     lib = ctypes.CDLL(str(so))
-    fold_sig = (ctypes.POINTER(FoldArgs), ctypes.POINTER(FoldPtrs),
-                ctypes.c_int, ctypes.c_void_p)
-    for name in ("attn_fold_fwd", "attn_fold_dq", "attn_fold_dkv"):
-        fn = getattr(lib, name)
-        fn.argtypes = fold_sig
-        fn.restype = ctypes.c_int
+    _bind(lib, ("attn_fold_fwd", "attn_fold_dq", "attn_fold_dkv"),
+          "attn_error_string")
     lib.attn_fold_chain.argtypes = (
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(FoldPtrs), ctypes.c_void_p)
     lib.attn_fold_chain.restype = ctypes.c_int
-    lib.attn_error_string.argtypes = (ctypes.c_int,)
-    lib.attn_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
 
-def _launch(kernel: str, fn, device, *args) -> None:
+def build_tc() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the tensor-core library."""
+    global _lib_tc, build_log_tc
+    if _lib_tc is not None:
+        return _lib_tc
+    so, log = cuda.compile_library(TC_SOURCE, BUILD_DIR)
+    build_log_tc = log or build_log_tc
+    lib = ctypes.CDLL(str(so))
+    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dkv_tc"),
+          "attn_tc_error_string")
+    _lib_tc = lib
+    return lib
+
+
+def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
+    """The kernel that runs fold ``kernel`` ("fold_fwd", "fold_dq" or
+    "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
+    ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
+    ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``, bk in ``TC_BK``
+    and bq in ``TC_BQ``, else the SIMT kernel (float32 always: its bars
+    against the plain versions, 1e-5 / 1e-4, rule out bf16 products).
+    Raises TypeError for a dtype no kernel takes and ValueError past the
+    kernels' range."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(
+            f"no CUDA fold kernel for {dtype}; supported: float32, "
+            "bfloat16")
+    if d > MAX_D or (kernel != "fold_dkv" and bk > MAX_BK):
+        raise ValueError(
+            f"the fold kernels take head dim <= {MAX_D} and KV blocks of "
+            f"<= {MAX_BK} rows, got d={d} bk={bk}")
+    if (dtype == torch.bfloat16 and kernel in TC_BQ and d in TC_DIMS
+            and bk in TC_BK and bq in TC_BQ[kernel]):
+        return kernel + "_tc"
+    return kernel
+
+
+def tc_tiling(form: str, d: int, bq: int) -> dict:
+    """The block of a tensor-core form as ``attn_fold_tc.cu`` lays it out
+    (``FwdTiles`` / ``DkvTiles``): consumer warpgroups (each a 64-row
+    wgmma tile), threads, the ring's stages and bytes per stage, and the
+    dynamic shared memory of the launch (1024 bytes of alignment slack,
+    the resident tiles, the ring and its mbarriers). A forward block adds
+    a producer warpgroup to two consumers (setmaxnreg hands its registers
+    over), else a producer warp; a forward stage is one 64-row k or v
+    tile, and each consumer keeps its q tile and its p as bf16 hi and lo
+    (four 64-column panels). A dk/dv block is two warpgroups, one of whose
+    threads issues the loads; a stage is a 64-row chunk of q and of dO
+    with its rows' (m, l, delta), beside the block's k and v rows and four
+    panels (pᵀ and p·g / dsᵀ as hi and lo)."""
+    tile = d // 64 * PANEL_BYTES
+    if form == "fold_fwd_tc":
+        wgs = 2 if bq == 128 and d <= 128 else 1
+        stages = 4 if d == 256 else 6 if wgs == 2 and d == 128 else 8
+        stage = tile
+        resident = wgs * (tile + 4 * PANEL_BYTES)
+        threads = 384 if wgs == 2 else 160
+    elif form == "fold_dkv_tc":
+        wgs, stages, stage = 2, (2 if d == 256 else 4), 2 * tile + 3 * 64 * 4
+        resident = 2 * tile + 4 * PANEL_BYTES
+        threads = 256
+    else:
+        raise ValueError(f"{form!r} is not a tensor-core form")
+    return dict(warpgroups=wgs, threads=threads, stages=stages,
+                stage_bytes=stage,
+                smem=1024 + resident + stages * stage + 8 * (2 * stages + 1))
+
+
+def tc_tile_rows(bq: int, group: int, tile: int):
+    """Tile ``tile`` of a (kv head, q block) in ``fold_fwd_tc``: the
+    group's q heads x ``bq`` rows, in that order, cut into 64-row tiles.
+    Returns, per tile row, (head within the group, q row within the q
+    block, stored): a decode step (bq = 8, group 4) packs its four heads
+    into rows 0..31 of one tile, and rows past the group are computed but
+    never stored."""
+    vr = 64 * tile + torch.arange(64)
+    return vr // bq, vr % bq, vr // bq < group
+
+
+def _launch(kernel: str, lib, fn, device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        msg = build().attn_error_string(err).decode()
+        err_str = (lib.attn_tc_error_string if kernel in TC_FORMS
+                   else lib.attn_error_string)
         raise RuntimeError(
-            f"attention fold kernel {kernel} launch failed: {msg} ({err})")
+            f"attention fold kernel {kernel} launch failed: "
+            f"{err_str(err).decode()} ({err})")
     LAUNCHES[kernel] += 1
 
 
 def _check(spec, operands, layout):
-    """The kernel of ``spec`` and the validated operands."""
+    """The kernel (``fold_form``) that runs ``spec`` on the validated
+    operands."""
     if spec.name not in SPECS or spec.attn is None:
         raise NotImplementedError(
             f"no CUDA fold kernel for the {spec.name!r} spec")
@@ -137,14 +249,7 @@ def _check(spec, operands, layout):
     if not x.is_cuda:
         raise ValueError(
             f"the CUDA fold kernels take CUDA tensors, got {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(
-            f"no CUDA fold kernel for {x.dtype}; supported: float32, "
-            "bfloat16")
-    if layout.d > MAX_D or (kernel != "fold_dkv" and layout.bk > MAX_BK):
-        raise ValueError(
-            f"the fold kernels take head dim <= {MAX_D} and KV blocks of "
-            f"<= {MAX_BK} rows, got d={layout.d} bk={layout.bk}")
+    form = fold_form(kernel, x.dtype, layout.d, layout.bq, layout.bk)
     if layout.splits > MAX_SPLITS:
         raise ValueError(f"{layout.splits} splits exceed one launch grid")
     shapes = {"q": (layout.bh, layout.tq, layout.d),
@@ -158,7 +263,11 @@ def _check(spec, operands, layout):
                 f"{kernel}: a {kind!r} operand must be contiguous {want} of "
                 f"shape {shapes[kind]} on {x.device}, got {o.dtype} "
                 f"{tuple(o.shape)} on {o.device}")
-    return kernel
+        if form in TC_FORMS and o.data_ptr() % 16:
+            raise ValueError(
+                f"{form} loads its operands by TMA: each must start on a "
+                "16-byte boundary")
+    return form
 
 
 def _args(spec, layout, splits, bpc):
@@ -199,8 +308,15 @@ def _operand_ptrs(operands, kv_map):
     return ptrs
 
 
-def _fold_fn(kernel):
-    return getattr(build(), f"attn_{kernel}")
+def _run(form, device, args, ptrs, dtype):
+    """Launch fold kernel ``form`` (a ``fold_form`` name)."""
+    if form in TC_FORMS:
+        lib = build_tc()
+        last = tc_tiling(form, args.d, args.bq)["smem"]
+    else:
+        lib, last = build(), DTYPE_CODES[dtype]
+    _launch(form, lib, getattr(lib, f"attn_{form}"), device,
+            ctypes.byref(args), ctypes.byref(ptrs), last)
 
 
 def fold(spec, operands, layout, count_cells=False):
@@ -208,28 +324,28 @@ def fold(spec, operands, layout, count_cells=False):
     the whole fold axis and writes the finalized outputs. Returns
     ``(outputs, counts or None)``: with ``count_cells`` an int32
     ``layout.count_shape`` tensor of the cells each row ran."""
-    kernel = _check(spec, operands, layout)
+    form = _check(spec, operands, layout)
+    dkv = spec.name == "softmax_bwd_dkv"
     x = operands[0]
     out_dts = spec.out_dtypes(tuple(o.dtype for o in operands))
     outs = tuple(torch.empty(layout.out_shape_for(i), dtype=dt,
                              device=x.device)
                  for i, dt in enumerate(out_dts))
-    if kernel == "fold_dkv" and outs[0].dtype != outs[1].dtype:
+    if dkv and outs[0].dtype != outs[1].dtype:
         raise TypeError("fold_dkv writes dk and dv in one dtype")
     counts = (torch.empty(layout.count_shape, dtype=torch.int32,
                           device=x.device) if count_cells else None)
     kv_map = _kv_map(layout, x.device)
     ptrs = _operand_ptrs(operands, kv_map)
     ptrs.out0 = outs[0].data_ptr()
-    if len(outs) > 1 and kernel == "fold_dkv":
+    if len(outs) > 1 and dkv:
         ptrs.out1 = outs[1].data_ptr()
     if len(outs) == 3:   # the forward's (m, l) statistics
         ptrs.m_out, ptrs.l_out = outs[1].data_ptr(), outs[2].data_ptr()
     ptrs.counts = cuda._ptr(counts)
     args = _args(spec, layout, 1, layout.num_seq_blocks)
     if outs[0].numel():
-        _launch(kernel, _fold_fn(kernel), x.device, ctypes.byref(args),
-                ctypes.byref(ptrs), DTYPE_CODES[x.dtype])
+        _run(form, x.device, args, ptrs, x.dtype)
     elif counts is not None:
         counts.zero_()
     return outs, counts
@@ -240,7 +356,7 @@ def fold_totals(spec, operands, layout):
     chunks of the fold axis folds its blocks from the identity and
     publishes its payload — one float32 ``layout.chain_shape_for(leaf)``
     tensor per leaf."""
-    kernel = _check(spec, operands, layout)
+    form = _check(spec, operands, layout)
     x = operands[0]
     totals = tuple(torch.empty(layout.chain_shape_for(i), dtype=torch.float32,
                                device=x.device)
@@ -251,8 +367,7 @@ def fold_totals(spec, operands, layout):
         setattr(ptrs, name, t.data_ptr())
     args = _args(spec, layout, layout.splits, layout.blocks_per_chunk)
     if totals[0].numel():
-        _launch(kernel, _fold_fn(kernel), x.device, ctypes.byref(args),
-                ctypes.byref(ptrs), DTYPE_CODES[x.dtype])
+        _run(form, x.device, args, ptrs, x.dtype)
     return totals
 
 
@@ -293,7 +408,7 @@ def chain(spec, totals, layout, out_dts):
         ptrs.out1 = outs[1].data_ptr()
     rows_blocks, splits, tile, _ = t0.shape
     if outs[0].numel():
-        _launch("fold_chain" if softmax else "fold_chain_sum",
+        _launch("fold_chain" if softmax else "fold_chain_sum", build(),
                 build().attn_fold_chain, t0.device,
                 0 if softmax else 1, DTYPE_CODES[out_dts[0]],
                 rows_blocks * tile, splits, tile, layout.d,

@@ -1,5 +1,5 @@
-"""The CUDA kernels of ``csrc/scan_sum.cu`` and ``csrc/attn_fold.cu``
-against their plain versions.
+"""The CUDA kernels of ``csrc/scan_sum.cu``, ``csrc/attn_fold.cu`` and
+``csrc/attn_fold_tc.cu`` against their plain versions.
 
 This file imports no JAX, so it runs on the machine with the card too:
 
@@ -22,7 +22,12 @@ differently); in bfloat16 both sides take the same bf16 inputs and
 compute in float32, so they differ by the last rounding to bf16: atol
 1e-3, rtol two bf16 ulps (2^-6). They must be bitwise equal to
 themselves: bounds on and off, a page-permuted pool through
-``kv_block_map``, repeated runs.
+``kv_block_map``, repeated runs. The tensor-core forms (fold_fwd_tc,
+fold_dkv_tc: bf16 operands, p and ds rounded to bf16 before their
+products, float32 accumulators) meet the same bf16 bar over head dims 64,
+128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups, both
+schedules and packed decode tiles, and the same bitwise invariants;
+float32 still takes the SIMT kernels.
 """
 
 import os
@@ -521,9 +526,12 @@ def test_cuda_flash_attention_vs_plain(cuda_device, case, schedule, dtype):
         res.append((out.detach(),) + grads)
     torch.cuda.synchronize()
     split = int(schedule == "decoupled")
-    assert cuda_fold.LAUNCHES == {"fold_fwd": 1, "fold_dq": 1,
-                                  "fold_dkv": 1, "fold_chain": split,
-                                  "fold_chain_sum": 2 * split}
+    tbq, tbk, _ = fa_ops._tiles(q.shape[2], k.shape[2], bq, bk)
+    want = dict.fromkeys(cuda_fold.KERNELS, 0)
+    for kernel in ("fold_fwd", "fold_dq", "fold_dkv"):
+        want[cuda_fold.fold_form(kernel, dtype, D, tbq, tbk)] += 1
+    want.update(fold_chain=split, fold_chain_sum=2 * split)
+    assert cuda_fold.LAUNCHES == want
     fwd_tol, grad_tol = ATTN_TOL[dtype]
     assert res[1][0].dtype == dtype and res[1][0].is_cuda
     assert _allclose(res[1][0], res[0][0], fwd_tol)
@@ -641,3 +649,201 @@ def test_cuda_fold_refuses_float16(cuda_device):
     x = torch.ones((1, 2, 128, 32), dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError, match="no CUDA fold kernel"):
         fa_ops.flash_attention(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core forms (csrc/attn_fold_tc.cu)
+# ---------------------------------------------------------------------------
+
+BF16_TOL = (1e-3, 2 ** -6)
+TC_CASES = [
+    # (name, Hkv, group, Tq, Tk, D, causal, window, kv_len, softcap, bq, bk)
+    ("d64_bk64_causal", 2, 1, 256, 256, 64, True, None, None, None, 128,
+     64),
+    ("d128_gqa2_kv_tail", 2, 2, 256, 384, 128, True, None, 300, None, 128,
+     128),
+    ("d256_window_softcap", 1, 2, 256, 256, 256, True, 96, None, 50.0, 128,
+     128),
+    ("d128_gqa4_bq64_bk64_cap", 1, 4, 192, 256, 128, False, None, 250,
+     30.0, 64, 64),
+    ("d64_gqa2_window", 2, 2, 256, 256, 64, True, 64, None, None, 128, 128),
+    ("d256_bk64_kv_tail", 1, 1, 128, 320, 256, True, None, 290, None, 128,
+     64),
+    # decode: the q rows of a GQA group packed into one 64-row tile
+    ("decode_d128_gqa4", 2, 4, 8, 1024, 128, False, None, 1000, None, 8,
+     128),
+    ("decode_d256_gqa2_bq16", 1, 2, 16, 512, 256, False, None, 500, 50.0,
+     16, 64),
+    ("decode_d64_gqa8_two_tiles", 1, 8, 16, 256, 64, False, None, None,
+     None, 16, 128),
+]
+
+
+def _tc_inputs(case):
+    name, hkv, g, tq, tk, d = case[:6]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16) for s in (
+            (hkv * g, tq, d), (hkv, tk, d), (hkv, tk, d), (hkv * g, tq, d)))
+
+
+def _tc_fold(spec, ops_, lay, schedule, out_dts):
+    """The kernel's carry fold, or its split pass (held to the plain
+    split pass) and chain."""
+    from repro_torch.kernels.scan_engine import schedules
+    if schedule == "carry":
+        return cuda_fold.fold(spec, ops_, lay)[0]
+    tot = cuda_fold.fold_totals(spec, ops_, lay)
+    want = schedules.fold_totals_plain(tuple(t.cpu() for t in ops_), spec,
+                                       lay)
+    for a, b in zip(tot, want):
+        assert _allclose(a, b, BF16_TOL)
+    return cuda_fold.chain(spec, tot, lay, out_dts)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TC_CASES, ids=[c[0] for c in TC_CASES])
+def test_cuda_tc_folds_vs_plain(cuda_device, case, schedule):
+    """fold_fwd_tc (and fold_dkv_tc where the q block is one or two
+    64-row tiles) against the plain folds on the same bf16 inputs, within
+    atol 1e-3, rtol 2^-6; each launch counted under its form."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds, forward_fold)
+    from repro_torch.kernels.scan_engine import schedules
+    name, hkv, g, tq, tk, d, causal, window, kv_len, cap, bq, bk = case
+    q, k, v, do = _tc_inputs(case)
+    kw = dict(group=g, scale=d ** -0.5, causal=causal, window=window,
+              softcap=cap, kv_len=kv_len, block_q=bq, block_k=bk,
+              schedule=schedule)
+    spec, lay = forward_fold(q.shape, k.shape, return_stats=True, **kw)
+    assert lay.splits > 1 or schedule == "carry"
+    dts = (torch.bfloat16, torch.float32, torch.float32)
+    cuda_fold.reset_launches()
+    got = _tc_fold(spec, tuple(t.to(cuda_device) for t in (q, k, v)), lay,
+                   schedule, dts)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
+    want = schedules.fold_carry_plain((q, k, v), spec, lay)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _allclose(a, b, BF16_TOL)
+    out, m, l = want
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ops_b = (q, k, v, do, m, l, delta)
+    _, (sk, lk) = backward_folds(q.shape, k.shape, **kw)
+    form = cuda_fold.fold_form("fold_dkv", torch.bfloat16, d, bq, bk)
+    assert (form == "fold_dkv_tc") == (bq >= 64)
+    cuda_fold.reset_launches()
+    got = _tc_fold(sk, tuple(t.to(cuda_device) for t in ops_b), lk,
+                   schedule, (torch.bfloat16,) * 2)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES[form] == 1
+    for a, b in zip(got, schedules.fold_carry_plain(ops_b, sk, lk)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _allclose(a, b, BF16_TOL)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+def test_cuda_tc_fold_bitwise_invariants(cuda_device, schedule):
+    """The tensor-core forms give the same bits with bounds on and off,
+    through a page-permuted pool (kv_block_map, also for a packed decode
+    tile) and on a repeated run; count_cells equals the plain version's."""
+    rng = np.random.default_rng(5)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16).to(cuda_device)
+
+    q, k, v = bf16(4, 256, 128), bf16(2, 512, 128), bf16(2, 512, 128)
+    kw = dict(group=2, scale=128 ** -0.5, causal=True, window=96,
+              kv_len=400, block_q=64, block_k=128, schedule=schedule)
+    cuda_fold.reset_launches()
+    on = flash_attention_kernel(q, k, v, **kw)
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+    assert torch.equal(on, flash_attention_kernel(q, k, v, **kw))
+    assert torch.equal(on, flash_attention_kernel(q, k, v,
+                                                  use_kv_bounds=False, **kw))
+    perm = torch.from_numpy(rng.permutation(4))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(4)
+
+    def permuted(t, pages, rows):
+        return t.view(t.shape[0], pages, rows, t.shape[2])[
+            :, inv.to(cuda_device)].reshape(t.shape)
+
+    assert torch.equal(on, flash_attention_kernel(
+        q, permuted(k, 4, 128), permuted(v, 4, 128),
+        kv_block_map=perm.tolist(), **kw))
+    out, m, l = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+    g = bf16(4, 256, 128)
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    cuda_fold.reset_launches()
+    on_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta, **kw)
+    assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 1
+    off_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
+                                       use_kv_bounds=False, **kw)
+    for a, b in zip(on_g, off_g):
+        assert torch.equal(a, b)
+    if schedule == "carry":
+        _, counts = flash_attention_kernel(q, k, v, count_cells=True, **kw)
+        _, want = flash_attention_kernel(q.cpu(), k.cpu(), v.cpu(),
+                                         count_cells=True, **kw)
+        assert torch.equal(counts.cpu(), want)
+    # decode: four heads' rows packed into one tile, a permuted cache
+    qd, kd, vd = bf16(8, 8, 128), bf16(2, 1024, 128), bf16(2, 1024, 128)
+    perm = torch.from_numpy(rng.permutation(8))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(8)
+    dk = dict(group=4, scale=128 ** -0.5, causal=False, kv_len=1000,
+              block_q=8, block_k=128, schedule=schedule)
+    cuda_fold.reset_launches()
+    od = flash_attention_kernel(qd, kd, vd, **dk)
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+    assert torch.equal(od, flash_attention_kernel(
+        qd, permuted(kd, 8, 128), permuted(vd, 8, 128),
+        kv_block_map=perm.tolist(), **dk))
+
+
+def test_cuda_tc_fully_masked_rows(cuda_device):
+    """Rows past kv_len + window: output exactly 0 and zero gradients
+    from the tensor-core forms, under both schedules."""
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, 64)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda_device) for _ in range(3))
+    kw = dict(scale=0.125, causal=True, window=32, kv_len=64, block_q=64,
+              block_k=64)
+    for schedule in ("carry", "decoupled"):
+        cuda_fold.reset_launches()
+        out, m, l = flash_attention_kernel(q, k, v, return_stats=True,
+                                           schedule=schedule, **kw)
+        g = torch.zeros_like(out)
+        g[:, 96:] = 1.0
+        delta = (g.float() * out.float()).sum(-1, keepdim=True)
+        grads = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
+                                           schedule=schedule, **kw)
+        assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+        assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 1
+        assert not bool(out[:, 96:].any()) and bool(out[:, :96].any())
+        for t in grads:
+            assert bool(torch.isfinite(t).all()) and not bool(t.any())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
+    """float32 runs the SIMT kernels, bfloat16 the tensor-core forms, at
+    the same d = 128 shape; float16 is refused."""
+    x = torch.ones((1, 2, 256, 128), dtype=dtype, device=cuda_device)
+    cuda_fold.reset_launches()
+    out = fa_ops.flash_attention(*(t.requires_grad_() for t in
+                                   (x.clone(), x.clone(), x.clone())))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == int(tc)
+    assert cuda_fold.LAUNCHES["fold_dkv_tc"] == int(tc)
+    assert cuda_fold.LAUNCHES["fold_fwd"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dkv"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dq"] == 1
+    with pytest.raises(TypeError, match="no CUDA fold kernel"):
+        fa_ops.flash_attention(x.half(), x.half(), x.half())
