@@ -10,7 +10,8 @@ first failure and prints no result):
      nvcc versions, and the builds of ``src/repro_torch/csrc/scan_sum.cu``,
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
-     tensor-core kernels one by one, and none may spill);
+     tensor-core kernels one by one, and none may spill: fold_dq_tc's
+     three instantiations, d = 64, 128 and 256, among them);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -58,7 +59,9 @@ first failure and prints no result):
      relative;
   5. times (CUDA events, median after warm-up) of each sum schedule on
      (a) and (b), and of every kernel at its main-path shape, beside the
-     device-memory bound, its plain version and, where one exists, the
+     device-memory bound (for the float chains, which fold on one thread,
+     also the latency floor of their dependent combines at the card's
+     maximum SM clock), its plain version and, where one exists, the
      one-call PyTorch function (a yardstick only: the port never calls
      it); before they are timed, the fused kernel at Q1's (4, ~59M)
      segmented sum and Q6's ~60M-row mask is held bitwise against
@@ -78,8 +81,8 @@ first failure and prints no result):
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
-     ``attn_fold_tc.cu``: fold_fwd_tc and fold_dkv_tc, the tensor-core
-     forms bf16 takes) through
+     ``attn_fold_tc.cu``: fold_fwd_tc, fold_dq_tc and fold_dkv_tc, the
+     tensor-core forms bf16 takes) through
      ``repro_torch.kernels.flash_attention.flash_attention`` and autograd,
      at two models' full attention widths with random bf16 inputs:
      (f) gemma2-9b training, B 1 x T 8192, 16 q / 8 kv heads of 256,
@@ -89,10 +92,10 @@ first failure and prints no result):
      heads (auto: decoupled, split-KV); (h) phi3-medium-14b causal
      prefill, T 4096, forward and backward (auto: carry), and once more in
      float32. The launch counters are zeroed before and read after, and
-     all seven counters must have moved: each bf16 call through the
-     tensor-core forms (and fold_dq), the float32 one through the SIMT
-     kernels. The folds' specs and layouts come from the entry
-     points' own builders (``forward_fold``, ``backward_folds``,
+     all eight counters must have moved: each bf16 call through the
+     tensor-core forms, the float32 one through the SIMT kernels. The
+     folds' specs and layouts come from the entry points' own builders
+     (``forward_fold``, ``backward_folds``,
      ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
      included, against its plain version in float32 at the (f), (g) and
      (h) shapes (1e-5 forward, 1e-4 gradients: the reference tests'
@@ -106,7 +109,7 @@ first failure and prints no result):
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
      ``scaled_dot_product_attention`` (not for gemma2's softcap); the
-     SIMT forward and dk/dv are timed in float32 at (h).
+     SIMT forward, dq and dk/dv are timed in float32 at (h).
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -311,6 +314,27 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def graph_ms(fn, calls=20, reps=5):
+        """The device time of one call of fn, replayed from a CUDA graph
+        that holds ``calls`` calls back to back: no host launch cost in
+        it (a single call's CUDA events also bracket the wrapper's host
+        time, which is most of a kernel of a few microseconds). None, with
+        the reason printed, where fn cannot be captured."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    fn()
+        except RuntimeError as e:
+            print(f"  graph capture failed: {str(e).splitlines()[0]}")
+            return None
+        return time_ms(graph.replay, reps) / calls
+
     def wall_ms(fn):
         sync()
         t0 = time.perf_counter()
@@ -332,6 +356,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    try:   # the dependent-combine floor of the float chains (phase 5)
+        sm_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    except ValueError:
+        sm_hz = None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  SMs {sms}")
@@ -359,11 +391,11 @@ def main() -> int:
             print(f"  ptxas {src.name}: {len(regs)} kernels, "
                   f"{min(regs)}-{max(regs)} registers, {spills} with spills")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
-    entry, tc_spills = None, 0
+    entry, tc_spills, tc_entries = None, 0, []
     for line in cuda_fold.build_log_tc.splitlines():
         if "Compiling entry function" in line:
             # _ZN..fold_fwd_tc_kernelILi128ELi2EEEv.. -> fold_fwd_tc_kernel<128, 2>
-            found = re.search(r"(fold_\w+?_kernel)I(.*?)EEv", line)
+            found = re.search(r"\d(fold_[a-z_]+?_kernel)I(.*?)EEv", line)
             entry = found and (found[1] + "<" + ", ".join(
                 re.findall(r"Li(\d+)E", found[2] + "E")) + ">")
         elif entry and "spill stores" in line:
@@ -373,6 +405,7 @@ def main() -> int:
         elif entry and "Used" in line and "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; "
                   f"{stack}")
+            tc_entries.append(entry)
             entry = None
     print(f"  tensor-core forms' shared memory (cuda_fold.tc_tiling): "
           + ", ".join(f"{form} d={d} bq={bq}: "
@@ -380,9 +413,19 @@ def main() -> int:
                       for form, d, bq in (
                           ("fold_fwd_tc", 64, 128), ("fold_fwd_tc", 128, 128),
                           ("fold_fwd_tc", 128, 8), ("fold_fwd_tc", 256, 128),
+                          ("fold_dq_tc", 64, 128), ("fold_dq_tc", 128, 128),
+                          ("fold_dq_tc", 256, 128),
                           ("fold_dkv_tc", 128, 128),
                           ("fold_dkv_tc", 256, 128))))
     check(tc_spills == 0, f"ptxas: {tc_spills} tensor-core kernels spill")
+    dq_entries = sorted(e for e in tc_entries if e.startswith("fold_dq_tc"))
+    if tc_entries:   # a cached build in build/ prints no report
+        check(dq_entries == ["fold_dq_tc_kernel<128>",
+                             "fold_dq_tc_kernel<256>",
+                             "fold_dq_tc_kernel<64>"],
+              f"ptxas reported fold_dq_tc as {dq_entries}")
+        print(f"  ptxas: {len(tc_entries)} tensor-core kernels, "
+              f"{', '.join(dq_entries)} among them, none spills")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
     kernel = {"carry": schedules.scan_carry,
@@ -625,12 +668,17 @@ def main() -> int:
 
     xi = randint(-4, 5, (na,))
     ref_i = torch.cumsum(xi.long(), 0)
+    cuda.reset_launches()
     for s in SCHEDULES:
         yi = api.cumsum(xi, algorithm="kernel", schedule=s)
         check(yi.dtype == torch.int32 and torch.equal(yi.long(), ref_i),
               f"int32 2^28 column not exact under {s}")
+    # the int32 chain (the parallel form) launched by decoupled here
+    int_launches = {"chain_int32": cuda.LAUNCHES["chain"]}
+    check(int_launches["chain_int32"] > 0, "int32 decoupled ran no chain")
     del xi, ref_i, yi
-    print("int32 2^28 column: all four schedules == torch.cumsum(int64)")
+    print("int32 2^28 column: all four schedules == torch.cumsum(int64); "
+          f"launches {dict(cuda.LAUNCHES)}")
 
     lay_g = Rows(1, ng, 1, 2048)
     (want,) = plain[sched_g]((torch.flip(g, (1,)),), SUM, lay_g, False)
@@ -846,8 +894,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def short(kname):
-        for k in ("carry_kernel", "totals_kernel", "chain_kernel",
-                  "apply_kernel", "fused_kernel", "tree_kernel"):
+        for k in ("carry_kernel", "totals_kernel", "chain_seq_kernel",
+                  "chain_scan_kernel", "apply_kernel", "fused_kernel",
+                  "tree_kernel"):
             if k in kname:
                 spec = ("segsum" if "SegSum" in kname else "mask"
                         if "Mask" in kname else "affine"
@@ -903,7 +952,13 @@ def main() -> int:
     rows = []
 
     def kernel_row(kname, run, run_plain, nbytes, ops, reps, library,
-                   shape, counts):
+                   shape, counts, floor_steps=None, graph=False):
+        """Time kernel ``kname`` against its plain version (bitwise
+        first); ``floor_steps``: the dependent combines of a chain that
+        folds on one thread, printed as a latency floor of ~4 SM cycles
+        each (a float add's) at the card's maximum SM clock; ``graph``:
+        also print the kernel's and the library call's times from CUDA
+        graph replays (``graph_ms``), for kernels of a few microseconds."""
         got, want = flat(run()), flat(run_plain())
         sync()
         check(all_same_bits(got, want), f"{kname}: kernel != plain at the "
@@ -915,15 +970,30 @@ def main() -> int:
         plain_ms = time_ms(run_plain, 1, warmup=0)
         lib_ms = None if library is None else time_ms(library, reps)
         b_ms, b_by = bound_ms(nbytes, ops)
-        base = kname.split("_")[-1]
+        base = "chain" if kname == "chain_int32" else kname.split("_")[-1]
         rows.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
             "replaces": REPLACES[base], "launches": counts[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        floor = ""
+        if floor_steps is not None:
+            floor = ("  latency floor not measured (no SM clock)"
+                     if sm_hz is None else
+                     f"  latency floor {4 * floor_steps / sm_hz * 1e3:.4f} ms "
+                     f"({floor_steps} dependent combines x 4 cycles at "
+                     f"{sm_hz / 1e6:.0f} MHz)")
         print(f"kernel {kname:14s} {shape:24s}: {ms:9.3f} ms  plain "
               f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by})  library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}{floor}")
+        if graph:
+            g_ms = graph_ms(run)
+            g_lib = None if library is None else graph_ms(library)
+            print(f"  {kname} from a CUDA graph replay (20 calls, no host "
+                  f"launch cost): kernel "
+                  f"{'not measured' if g_ms is None else f'{g_ms:.4f} ms'}"
+                  f", library "
+                  f"{'none' if g_lib is None else f'{g_lib:.4f} ms'} a call")
 
     # sum kernels at the prefix-sum main path's shapes
     lay_c = Rows(8192, 32768, 8, 8192)
@@ -942,7 +1012,16 @@ def main() -> int:
     kernel_row("chain", lambda: cuda.chain(SUM, (tot,))[0],
                lambda: schedules.exclusive_chain(SUM, (tot,)),
                8 * n_chunks, n_chunks, 5, lambda: torch.cumsum(tot, 1),
-               f"(1, {n_chunks}) totals", launches)
+               f"(1, {n_chunks}) totals", launches, floor_steps=n_chunks,
+               graph=True)
+    # the int32 chain (the parallel form) at the int32 column's totals:
+    # one (1, 2^28 / 2048) row of chunk sums of values in [-4, 5)
+    (tot_i,) = cuda.totals(SUM, (randint(-4, 5, (1, na)),), lay_a)
+    kernel_row("chain_int32", lambda: cuda.chain(SUM, (tot_i,))[0],
+               lambda: schedules.exclusive_chain(SUM, (tot_i,)),
+               8 * n_chunks, n_chunks, 5, lambda: torch.cumsum(tot_i, 1),
+               f"(1, {n_chunks}) int32 totals", int_launches, graph=True)
+    del tot_i
     kernel_row("apply", lambda: cuda.apply(SUM, (xa2,), (offs,), lay_a),
                lambda: schedules.apply_plain((xa2,), (offs,), SUM, lay_a),
                8 * na + 4 * n_chunks, na, 5, None,
@@ -974,7 +1053,7 @@ def main() -> int:
                lambda: (schedules.exclusive_chain(mspec, (mt,)),
                         (schedules.exclusive_chain(mspec, (mt,))[0] + mt,)),
                12 * c6, c6, 5, lambda: torch.cumsum(mt, 1),
-               f"(1, {c6}) totals", rel_launches)
+               f"(1, {c6}) totals", rel_launches, graph=True)
     kernel_row("mask_apply",
                lambda: cuda.apply(mspec, (m6,), (mo,), lay6),
                lambda: schedules.apply_plain((m6,), (mo,), mspec, lay6),
@@ -1027,7 +1106,7 @@ def main() -> int:
                lambda: cuda.chain(SEGSUM, (st_v, st_f))[0],
                lambda: schedules.exclusive_chain(SEGSUM, (st_v, st_f)),
                16 * c1, c1, 5, None, f"(4, {c1 // 4}) totals",
-               rel_launches)
+               rel_launches, floor_steps=c1 // 4, graph=True)
     kernel_row("segsum_apply",
                lambda: cuda.apply(SEGSUM, (sv, sflags), (so_v, so_f), lay1),
                lambda: schedules.apply_plain((sv, sflags), (so_v, so_f),
@@ -1294,10 +1373,11 @@ def main() -> int:
     # bf16 calls run the tensor-core forms, float32 calls the SIMT kernels
     for what, kernels in used.items():
         f32 = "float32" in what
-        fwd, dkv = (("fold_fwd", "fold_dkv") if f32 else
-                    ("fold_fwd_tc", "fold_dkv_tc"))
-        want = {fwd} if "forward" in what else {dkv, "fold_dq"}
-        others = {"fold_fwd", "fold_dkv", "fold_fwd_tc", "fold_dkv_tc"}
+        fwd, dq, dkv = (("fold_fwd", "fold_dq", "fold_dkv") if f32 else
+                        ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"))
+        want = {fwd} if "forward" in what else {dq, dkv}
+        others = {"fold_fwd", "fold_dq", "fold_dkv", "fold_fwd_tc",
+                  "fold_dq_tc", "fold_dkv_tc"}
         check(want <= kernels and not (kernels & others) - want,
               f"{what} launched {sorted(kernels)}, wants {sorted(want)}")
     print("fold kernels by call: " + "; ".join(
@@ -1528,7 +1608,7 @@ def main() -> int:
         return "not identified"
 
     # each fold kernel's time at its main-path shape (bf16; float32 for
-    # the SIMT forward and dk/dv, which bf16 no longer reaches there)
+    # the SIMT forward, dq and dk/dv, which bf16 no longer reaches there)
     def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
                  library, shape, reps=3, tol=BF16_TOL):
         got, want = flat(run()), flat(run_plain())
@@ -1599,7 +1679,7 @@ def main() -> int:
             dkv_b = 8 * lk.bh_kv * lk.nk * splits * 128 * g_d
         attn_row(f"fold_fwd_tc{tag}", "fold_fwd_tc", which, *fwd,
                  nbytes(*ops_f) + out_b, 4 * cell * g_d * live, None, shape)
-        attn_row(f"fold_dq{tag}", "fold_dq", which, *dq,
+        attn_row(f"fold_dq_tc{tag}", "fold_dq_tc", which, *dq,
                  nbytes(*ops_bf) + dq_b, 6 * cell * g_d * live, None, shape)
         attn_row(f"fold_dkv_tc{tag}", "fold_dkv_tc", which, *dkv,
                  nbytes(*ops_bf) + dkv_b, 8 * cell * g_d * live, None, shape)
@@ -1684,7 +1764,7 @@ def main() -> int:
                  qh.detach(), kh.detach(), vh.detach(), is_causal=True,
                  enable_gqa=True), shape, reps=5)
     for rname, kernel, (sp, ly), fl in (
-            ("fold_dq_prefill", "fold_dq", (sq, lq), 6),
+            ("fold_dq_tc_prefill", "fold_dq_tc", (sq, lq), 6),
             ("fold_dkv_tc_prefill", "fold_dkv_tc", (sk, lk), 8)):
         outs_k = cuda_fold.fold(sp, ops_bh, ly)[0]
         attn_row(rname, kernel, "carry",
@@ -1697,10 +1777,11 @@ def main() -> int:
     print(f"(h) prefill: SDPA ({backend_h} backend) forward "
           f"{lib_hf:.3f} ms, backward (dq, dk, "
           f"dv together; the library time of the dq and dkv rows) "
-          f"{lib_hb:.3f} ms; fold_dq + fold_dkv_tc "
+          f"{lib_hb:.3f} ms; fold_dq_tc + fold_dkv_tc "
           f"{rows[-2]['ms'] + rows[-1]['ms']:.3f} ms")
     del outs_h, ops_bh
-    # (h) in float32: the SIMT forward and dk/dv, SDPA in float32 beside
+    # (h) in float32: the SIMT forward, dq and dk/dv, SDPA in float32
+    # beside
     ops_h32 = tuple(t.float() for t in ops_h)
     outs_h32, _ = cuda_fold.fold(spec_h, ops_h32, lay_h)
     ops_bh32 = bwd_operands(*ops_h32, *outs_h32)
@@ -1716,6 +1797,13 @@ def main() -> int:
              lambda: F.scaled_dot_product_attention(
                  qh32.detach(), kh32.detach(), vh32.detach(), is_causal=True,
                  enable_gqa=True), shape, tol=FWD_TOL)
+    attn_row("fold_dq_f32_prefill", "fold_dq", "carry",
+             lambda: cuda_fold.fold(sq, ops_bh32, lq)[0],
+             lambda: schedules.fold_carry_plain(ops_bh32, sq, lq),
+             nbytes(*ops_bh32, ops_bh32[0]), 6 * cell * p_d * live_h,
+             lambda: torch.autograd.grad(o_s32, (qs32, ks32, vs32),
+                                         goh.float(), retain_graph=True),
+             shape, tol=GRAD_TOL)
     outs_k = cuda_fold.fold(sk, ops_bh32, lk)[0]
     attn_row("fold_dkv_f32_prefill", "fold_dkv", "carry",
              lambda: cuda_fold.fold(sk, ops_bh32, lk)[0],

@@ -32,6 +32,23 @@ import torch
 Pytree = Any
 
 
+def _absorb_first_vml_call() -> None:
+    """On the CPU, ``torch.exp`` and ``torch.tanh`` call MKL's vector math
+    library (VML) from every OpenMP thread. Its first multithreaded call in
+    a process now and then returns values off by ~1e-4: the first
+    ``torch.exp`` of the attention specs did so in 1 of 40 processes on an
+    H100 host's 8-core CPU and in 5 of 80 on an 8-core host running four
+    processes at once (``tools/torch_plain_first_call.py``). One discarded
+    call of each over a tensor that reaches every thread absorbs it, so
+    the plain versions below give the same bits in every process."""
+    x = torch.zeros(1 << 20)
+    torch.exp(x)
+    torch.tanh(x)
+
+
+_absorb_first_vml_call()
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over tensors nested in tuples/lists."""
     if isinstance(tree, (tuple, list)):

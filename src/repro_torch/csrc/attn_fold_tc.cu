@@ -1,42 +1,49 @@
-// Tensor-core forms of two attention-fold kernels, CUDA C++ for Hopper
-// (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dk/dv fold
-// of the flash backward (fold_dkv_tc). They compute what fold_fwd_kernel
-// and fold_dkv_kernel of attn_fold.cu compute (the reference's
-// softmax_pair_kernel_spec, assoc.py:330, on KVBlocks, and
-// softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on QBlocks, under
-// fold_carry, kernels/scan_engine/schedules.py:722, and the split pass of
-// fold_decoupled, :778), on bf16 operands only; float32 keeps the SIMT
-// kernels, whose products stay in float32.
+// Tensor-core forms of the three attention-fold kernels, CUDA C++ for
+// Hopper (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dq
+// and dk/dv folds of the flash backward (fold_dq_tc, fold_dkv_tc). They
+// compute what fold_fwd_kernel, fold_dq_kernel and fold_dkv_kernel of
+// attn_fold.cu compute (the reference's softmax_pair_kernel_spec,
+// assoc.py:330, and softmax_pair_bwd_dq_kernel_spec, assoc.py:443, on
+// KVBlocks, and softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on
+// QBlocks, under fold_carry, kernels/scan_engine/schedules.py:722, and the
+// split pass of fold_decoupled, :778), on bf16 operands only; float32
+// keeps the SIMT kernels, whose products stay in float32.
 //
-// Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 8·128·128·d
-// for dk/dv against 2·128·d bf16 elements of k and v, so at prefill and
-// training shapes the folds are bound by operations (989 TFLOP/s bf16 on
-// the tensor cores); a decode step is bound by reading the cache once.
-// What the design does about it:
+// Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 6·128·128·d
+// for dq, 8·128·128·d for dk/dv, against 2·128·d bf16 elements of k and v,
+// so at prefill and training shapes the folds are bound by operations
+// (989 TFLOP/s bf16 on the tensor cores); a decode step is bound by
+// reading the cache once. What the design does about it:
 //   - every product is a wgmma (bf16 operands from shared memory, float32
-//     accumulators): s = q·kᵀ, then p·v; on the dk/dv side sᵀ = k·qᵀ and
-//     dpᵀ = v·dOᵀ, then dv += pᵀ·dO and dk += dsᵀ·q;
-//   - p (and pᵀ, dsᵀ) go to shared memory as two bf16 terms, hi = rn(p)
-//     and lo = rn(p - hi), and the second product reads both: a p rounded
-//     to bf16 alone (FlashAttention's choice) misses the bf16 bar against
-//     the plain versions wherever a sum cancels, hi + lo keeps ~16 bits;
+//     accumulators): s = q·kᵀ, then p·v; for dq s = q·kᵀ and dp = dO·vᵀ,
+//     then dq += ds·k; on the dk/dv side sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, then
+//     dv += pᵀ·dO and dk += dsᵀ·q;
+//   - p (and p·g, ds, pᵀ, dsᵀ) go to shared memory as two bf16 terms,
+//     hi = rn(p) and lo = rn(p - hi), and the second product reads both:
+//     a p rounded to bf16 alone (FlashAttention's choice) misses the bf16
+//     bar against the plain versions wherever a sum cancels, hi + lo
+//     keeps ~16 bits;
 //   - tiles come into shared memory by TMA (cp.async.bulk.tensor, 128-byte
 //     swizzle, the layout the wgmma descriptors read) in a ring of stages
 //     with full / empty mbarriers, one thread keeping the loads in flight
-//     (the forward's producer warp, a dk/dv block's thread 128);
+//     (the forward's producer warp or warpgroup, a dq block's thread 0,
+//     a dk/dv block's thread 128);
 //   - two consumer warpgroups share a block wherever registers allow, so
 //     that one warpgroup's products overlap the other's exp and softcap:
 //     a forward block holds two q tiles of 64 rows (bq = 128, d <= 128),
 //     reading each k/v tile once per q block, and its producer warpgroup
 //     hands registers to them (setmaxnreg 40 / 232); decode (bq < 64)
 //     packs the q rows of all heads of a GQA group into one 64-row tile,
-//     so a block reads its kv head's cache once for the whole group.
+//     so a block reads its kv head's cache once for the whole group; a dq
+//     block splits one q tile's cell between a p·g warpgroup and a ds
+//     warpgroup, each then owning half of dq's columns.
 //
 // Geometry. The layout's (bq, bk) cells stay the unit of liveness, of
 // count_cells and of the element the combine sees. The forward splits a
-// cell's bk = 128 kv rows into two 64-row ring slots of k and two of v.
-// A dk/dv block takes 64 kv rows and up to 128 columns of dk and dv and
-// walks each q block in chunks of 64 rows with two warpgroups: one forms
+// cell's bk = 128 kv rows into two 64-row ring slots of k and two of v;
+// dq streams the cell's v slots, then its k slots. A dk/dv block takes 64
+// kv rows and up to 128 columns of dk and dv and walks each q block in
+// chunks of 64 rows with two warpgroups: one forms
 // sᵀ, pᵀ and dv, and hands p·g (g = tanh' under softcap, else 1) through
 // shared memory to the other, which forms dpᵀ, dsᵀ and dk, so neither
 // product of a chunk is computed twice. Registers (ptxas must report no
@@ -46,15 +53,19 @@
 // one q tile so that a thread may use 255; a dk/dv warpgroup keeps its
 // carry and the cell's element (64 floats each) beside 32 q rows of sᵀ
 // or dpᵀ (16) at a time, in a block of 256 threads (255 registers; a
-// producer warpgroup would leave 240); divisions in the fold loops are a
-// reciprocal and a product (an IEEE division calls a slow path, which
-// costs registers).
+// producer warpgroup would leave 240); a dq warpgroup keeps its carry over
+// its dq columns (64 floats at d = 256) beside one 64-column tile of s, dp
+// or the cell's element (32 each), in a block of 256 threads (255
+// registers; a producer warp's ninth warp would share a quarter of the
+// register file with two others and leave 168, under which the d = 256
+// form spilled); divisions in the fold loops are a reciprocal and a
+// product (an IEEE division calls a slow path, which costs registers).
 //
-// Association, as in attn_fold.cu: the cell's element (m_e, l_e, p·v) or
-// (dk_e, dv_e) is accumulated from zero, then combined into the carry with
-// __fmul_rn / __fadd_rn, so a skipped dead cell and a page-permuted pool
-// (kv_block_map) give the bits of folding the identity and of the
-// contiguous pool. expf and tanhf, never the fast intrinsics.
+// Association, as in attn_fold.cu: the cell's element (m_e, l_e, p·v),
+// dq_e or (dk_e, dv_e) is accumulated from zero, then combined into the
+// carry with __fmul_rn / __fadd_rn, so a skipped dead cell and a
+// page-permuted pool (kv_block_map) give the bits of folding the identity
+// and of the contiguous pool. expf and tanhf, never the fast intrinsics.
 //
 // Interface: plain C functions loaded with ctypes, as attn_fold.cu's; each
 // also takes the dynamic shared memory the caller computed for the launch
@@ -124,6 +135,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - start > (1ll << 35)) __trap();
   } while (!done);
+}
+
+// Has the phase of parity `parity` completed? Does not wait.
+__device__ __forceinline__ bool mbar_ready(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,
@@ -1037,6 +1061,324 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
+// -- backward dq (softmax_bwd_dq) ---------------------------------------------
+
+template <int D>
+struct DqTiles {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  // dq columns a warpgroup owns: both own half of d >= 128; at d = 64 the
+  // first owns all 64 (a 32-column MN-major operand has no 128-byte
+  // swizzle atom)
+  static constexpr int kDC = D < 128 ? 64 : D / 2;
+  static constexpr int kParts = D / kDC;
+  // the ring of 64-row k / v tiles: a cell (bk = 128) takes four
+  static constexpr int kSlots = D == 256 ? 4 : 8;
+  // p·g, then ds, as hi (two 64-column panels) and lo
+  static constexpr int kPBytes = 4 * kPanelBytes;
+  // two consumer warpgroups; thread 0 also issues the loads (a producer
+  // warp or warpgroup would leave a thread 168 registers, and the d = 256
+  // form spilled)
+  static constexpr int kThreads = 256;
+  static constexpr int kSmem = 1024 + 2 * kTileBytes + kPBytes +
+                               kSlots * kTileBytes + 8 * (2 * kSlots + 1);
+};
+
+// Block (q head h, q block qi, 64-row q tile sub), split y; folds the KV
+// blocks as attn_fold.cu's fold_dq_kernel does. The q and dO tiles stay in
+// shared memory; each live cell's v tiles, then its k tiles, stream
+// through the ring. Warpgroup 0 forms s = q·kᵀ and p·g (p = exp(s - m) / l,
+// g = tanh' under softcap, else 1) into the panels as hi + lo; warpgroup 1
+// forms dp = dO·vᵀ and overwrites the panels with ds = p·g (dp - delta);
+// then each warpgroup that owns dq columns forms its columns of the cell's
+// dq_e = ds·k from zero (ds as hi + lo) and folds it into its carry,
+// dq = dq + scale·dq_e. Thread 0 issues the loads: before the fold, then,
+// without waiting, into the v slots warpgroup 1 has released, and at each
+// cell's end, waiting where it must, every tile of the next live cell (it
+// would wait there anyway: warpgroup 1 releases the k slots as it starts
+// the next cell).
+// Named barriers: 1 + wg within a warpgroup, 3 "p·g is written", 4 "ds
+// is written", 5 "the last cell's ds is read".
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    fold_dq_tc_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                      FoldPtrs p) {
+  using G = DqTiles<D>;
+  constexpr int DC = G::kDC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_u = smem_u32(align1024(smem_raw));
+  const uint32_t do_u = q_u + G::kTileBytes;
+  const uint32_t g_hi = do_u + G::kTileBytes, g_lo = g_hi + 2 * kPanelBytes;
+  const uint32_t ring_u = g_hi + G::kPBytes;
+  // mbarriers: full[kSlots], empty[kSlots], then the q and dO tiles'
+  const uint32_t full = ring_u + G::kSlots * G::kTileBytes;
+  const uint32_t empty = full + 8 * G::kSlots, qbar = empty + 8 * G::kSlots;
+
+  const int nt = a.bq / 64;   // 64-row tiles of a q block
+  const int sub = blockIdx.x % nt;
+  const int qi = (blockIdx.x / nt) % a.nq;
+  const int h = blockIdx.x / nt / a.nq;
+  const int hk = h / a.group;
+  const int nsub = a.bk / 64;
+  const int f0 = blockIdx.y * a.bpc;
+  const long long qrow0 = (long long)h * a.tq + (long long)qi * a.bq + 64 * sub;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  {  // both warpgroups consume; thread 0 also issues the loads
+    const int tid = threadIdx.x % 128, quad = tid % 4;
+    const bool owns = wg < G::kParts;   // owns dq columns DC wg ..
+    float acc[DC / 2];
+#pragma unroll
+    for (int x = 0; x < DC / 2; ++x) acc[x] = 0.f;
+    const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+    // the thread's rows: position, and the forward's m, 1 / l (l == 0
+    // marks a fully masked row: 1), delta
+    long long qpos[2];
+    float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long g = qrow0 + tile_row(tid, i);
+      qpos[i] = (long long)qi * a.pos_bq + 64 * sub + tile_row(tid, i);
+      m_r[i] = p.m[g];
+      const float l = p.l[g];
+      il_r[i] = recip(l == 0.f ? 1.f : l);
+      dl_r[i] = p.delta[g];
+    }
+    int count = 0, slot = 0, cells = 0;
+    uint32_t phase = 0;
+    // tile j of the cell (its v tiles, then its k tiles): slot and parity
+    auto at = [&](int j, uint32_t& ph) {
+      int s = slot + j;
+      ph = phase;
+      if (s >= G::kSlots) {
+        s -= G::kSlots;
+        ph ^= 1;
+      }
+      return s;
+    };
+    // the loader's walk over the live cells' tiles: cell lf, tile lj (its
+    // v tiles, then its k tiles), into ring slot lslot
+    const bool loader = threadIdx.x == 0;
+    int lf = f0, lj = 0, lslot = 0;
+    uint32_t lphase = 0;
+    auto skip_dead = [&]() {
+      while (lf < f0 + a.bpc && !cell_live(a, qi, lf)) ++lf;
+    };
+    auto load_one = [&]() {
+      mbar_wait(empty + 8 * lslot, lphase ^ 1);
+      mbar_expect_tx(full + 8 * lslot, G::kTileBytes);
+      const int phys = p.kv_map ? p.kv_map[lf] : lf;
+      const int row = hk * a.tk + phys * a.bk + 64 * (lj % nsub);
+      const uint32_t dst = ring_u + lslot * G::kTileBytes;
+      for (int pn = 0; pn < G::kPanels; ++pn)
+        tma_load_2d(dst + pn * kPanelBytes, lj < nsub ? &maps.v : &maps.k,
+                    full + 8 * lslot, 64 * pn, row);
+      if (++lslot == G::kSlots) {
+        lslot = 0;
+        lphase ^= 1;
+      }
+      if (++lj == 2 * nsub) {
+        lj = 0;
+        ++lf;
+        skip_dead();
+      }
+    };
+    // every tile of the cells up to `through`, waiting for their slots,
+    // then those of later cells whose slots are free already
+    auto pump = [&](int through) {
+      while (lf < f0 + a.bpc &&
+             (lf <= through || mbar_ready(empty + 8 * lslot, lphase ^ 1)))
+        load_one();
+    };
+    if (loader) {
+      mbar_expect_tx(qbar, 2 * G::kTileBytes);
+      for (int pn = 0; pn < G::kPanels; ++pn) {
+        tma_load_2d(q_u + pn * kPanelBytes, &maps.q, qbar, 64 * pn,
+                    (int)qrow0);
+        tma_load_2d(do_u + pn * kPanelBytes, &maps.dout, qbar, 64 * pn,
+                    (int)qrow0);
+      }
+      skip_dead();
+      pump(lf);
+    }
+    mbar_wait(qbar, 0);
+    __syncwarp();
+    for (int f = f0; f < f0 + a.bpc; ++f) {
+      if (!cell_live(a, qi, f)) continue;
+      ++count;
+      // the tiles' addresses afresh each cell, so that the wgmma
+      // descriptors are formed where they are used, not held in registers
+      // across the fold
+      uint32_t qb = q_u, db = do_u, gh = g_hi, rb = ring_u;
+      asm volatile("" : "+r"(qb), "+r"(db), "+r"(gh), "+r"(rb));
+      const uint32_t gl = gh + 2 * kPanelBytes;
+      uint32_t ph;
+      if (wg == 0) {
+        if (cells > 0) bar_sync(5, 256);   // the last cell's ds is read
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (t >= nsub) break;
+          const int ks = at(nsub + t, ph);
+          mbar_wait(full + 8 * ks, ph);
+          __syncwarp();
+          const uint32_t kt = rb + ks * G::kTileBytes;
+          float s[32];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_n64(s, kmajor_desc(qb, kk), kmajor_desc(kt, kk), kk > 0);
+          wg_commit();
+          wg_wait();
+          keep(s);
+          // p·g on the live entries; a masked entry is 0, not left to
+          // underflow (a fully masked row has m = NEG_INF)
+          int2 live[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            live[i] = live_cols(a, qpos[i], (long long)f * a.pos_bk + 64 * t,
+                                64);
+#pragma unroll
+          for (int x = 0; x < 32; x += 2) {
+            const int i = (x >> 1) & 1, c = 8 * (x >> 2) + 2 * quad;
+            float pg[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const bool ok = c + u >= live[i].x && c + u < live[i].y;
+              const float sv = logit_tc(a, s[x + u], inv_cap);
+              pg[u] = ok ? expf(sv - m_r[i]) * il_r[i] : 0.f;
+              if (a.has_softcap) {   // tanh' = 1 - (s / cap)^2
+                const float tc = sv * inv_cap;
+                pg[u] = pg[u] * __fsub_rn(1.f, __fmul_rn(tc, tc));
+              }
+            }
+            store_pair(gh + t * kPanelBytes, gl + t * kPanelBytes, x, tid,
+                       pg[0], pg[1]);
+          }
+        }
+        bar_arrive(3, 256);   // p·g is written
+        bar_sync(4, 256);     // ds is written (warpgroup 1 has read v)
+        for (int t = 0; t < nsub; ++t) mbar_arrive(empty + 8 * at(t, ph));
+        if (loader) pump(-1);   // the next tiles, into the v slots now free
+      } else {
+        if (cells > 0) bar_arrive(5, 256);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (t >= nsub) break;
+          const int vs = at(t, ph);
+          mbar_wait(full + 8 * vs, ph);
+          __syncwarp();
+          const uint32_t vt = rb + vs * G::kTileBytes;
+          float dp[32];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_n64(dp, kmajor_desc(db, kk), kmajor_desc(vt, kk), kk > 0);
+          wg_commit();
+          wg_wait();
+          keep(dp);
+          mbar_arrive(empty + 8 * vs);
+          if (t == 0) bar_sync(3, 256);   // p·g is written
+          // ds = p·g (dp - delta), over the p·g warpgroup 0 wrote
+#pragma unroll
+          for (int x = 0; x < 32; x += 2) {
+            const int i = (x >> 1) & 1;
+            const float2 pg = load_pair(gh + t * kPanelBytes,
+                                        gl + t * kPanelBytes, x, tid);
+            store_pair(gh + t * kPanelBytes, gl + t * kPanelBytes, x, tid,
+                       __fmul_rn(pg.x, __fsub_rn(dp[x], dl_r[i])),
+                       __fmul_rn(pg.y, __fsub_rn(dp[x + 1], dl_r[i])));
+          }
+        }
+        fence_async();
+        bar_arrive(4, 256);   // ds is written
+        wg_sync(wg);          // and visible to this warpgroup's wgmma
+      }
+      if (owns) {
+        // the cell's dq_e = ds·k for columns DC wg .., 64 at a time, each
+        // from zero over the cell's kv rows, then dq = dq + scale·dq_e
+        for (int t = 0; t < nsub; ++t) {
+          const int ks = at(nsub + t, ph);
+          mbar_wait(full + 8 * ks, ph);
+        }
+#pragma unroll
+        for (int c = 0; c < DC / 64; ++c) {
+          float e[32];
+          wg_fence();
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            if (t < nsub) {
+              const uint32_t kt = rb + at(nsub + t, ph) * G::kTileBytes;
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const uint64_t bd = mnmajor_desc(kt, kk, wg * DC / 64 + c);
+                wgmma_n64_mn(e, kmajor_desc(gh, 4 * t + kk), bd,
+                             (t | kk) != 0);
+                wgmma_n64_mn(e, kmajor_desc(gl, 4 * t + kk), bd, 1);
+              }
+            }
+          }
+          wg_commit();
+          wg_wait();
+          keep(e);
+#pragma unroll
+          for (int x = 0; x < 32; ++x)
+            acc[32 * c + x] =
+                __fadd_rn(acc[32 * c + x], __fmul_rn(e[x], a.scale));
+        }
+      }
+      for (int t = 0; t < nsub; ++t)
+        mbar_arrive(empty + 8 * at(nsub + t, ph));
+      for (int t = 0; t < 2 * nsub; ++t)
+        if (++slot == G::kSlots) {
+          slot = 0;
+          phase ^= 1;
+        }
+      ++cells;
+      if (loader) {   // every tile of the next live cell is in flight
+        int next = f + 1;
+        while (next < f0 + a.bpc && !cell_live(a, qi, next)) ++next;
+        pump(next);
+      }
+    }
+
+    if (owns) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = 64 * sub + tile_row(tid, i);   // row of the q block
+        const int col = DC * wg + 2 * quad;
+        if (p.c0) {  // split pass: publish the chunk's dq
+          float* dst =
+              p.c0 + ((((long long)h * a.nq + qi) * a.splits + blockIdx.y) *
+                          a.bq + r) * D + col;
+#pragma unroll
+          for (int j = 0; j < DC / 8; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        } else {
+          __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out0) +
+                               (qrow0 + tile_row(tid, i)) * D + col;
+#pragma unroll
+          for (int j = 0; j < DC / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * i],
+                                      acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+    if (!p.c0 && p.counts && sub == 0 && wg == 0 && tid == 0)
+      p.counts[(long long)h * a.nq + qi] = count;
+  }
+}
+
 // -- launchers ----------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1149,6 +1491,27 @@ cudaError_t run_dkv(const FoldArgs& a, const FoldPtrs& p, int smem,
                 G::kThreads, G::kSmem, st, maps, a, p);
 }
 
+template <int D>
+cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
+                   cudaStream_t st) {
+  using G = DqTiles<D>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const long long q_rows = (long long)a.bh * a.tq;
+  const long long kv_rows = (long long)a.bh_kv * a.tk;
+  if (!rows_map(&maps.q, p.q, D, q_rows) ||
+      !rows_map(&maps.dout, p.dout, D, q_rows) ||
+      !rows_map(&maps.k, p.k, D, kv_rows) ||
+      !rows_map(&maps.v, p.v, D, kv_rows))
+    return cudaErrorInvalidPitchValue;
+  return launch(fold_dq_tc_kernel<D>,
+                dim3((unsigned)(a.bh * a.nq * (a.bq / 64)),
+                     (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1193,6 +1556,25 @@ int attn_fold_dkv_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
       return run_dkv<128>(*a, *p, smem, st);
     case 256:
       return run_dkv<256>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward dq fold on KVBlocks, bf16: out0 = dq, or the split pass into
+// c0. Takes d in {64, 128, 256}, bk and bq in {64, 128}.
+int attn_fold_dq_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+    return cudaErrorInvalidValue;
+  switch (a->d) {
+    case 64:
+      return run_dq<64>(*a, *p, smem, st);
+    case 128:
+      return run_dq<128>(*a, *p, smem, st);
+    case 256:
+      return run_dq<256>(*a, *p, smem, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -25,10 +25,16 @@
 //                  with its optional running chunk totals (return_totals)
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
 //                  (body _totals_body :361)
-//   chain_kernel   exclusive_chain :248, the sequential lax.scan over the
+//   chain_seq_kernel, chain_scan_kernel
+//                  exclusive_chain :248, the sequential lax.scan over the
 //                  chunk totals between decoupled's two launches; it also
 //                  writes offsets + totals, decoupled's running totals
-//                  (schedules.py:418). chain_chan_kernel: the same chain
+//                  (schedules.py:418). On Rows, float specs fold left to
+//                  right on one thread (chain_seq_kernel: its bound is the
+//                  latency of a dependent combine, ~4 cycles a chunk for a
+//                  float add, not bytes), integer specs, whose uint32
+//                  combines associate exactly, scan in parallel
+//                  (chain_scan_kernel). chain_chan_kernel: the same chain
 //                  for Channels, one thread per (batch, channel)
 //   apply_kernel   scan_decoupled, apply pallas_call at :405
 //                  (body _apply_body :371)
@@ -100,12 +106,18 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 512;      // threads of every tile kernel
 constexpr int kLanes = 128;        // the reference's lane width (LANES)
-constexpr int kChainStage = 1024;  // totals staged per chain iteration
+constexpr int kChainStage = 1024;  // totals staged per sequential chain step
+constexpr int kChainThreads = 256; // the sequential chain: a folder, 7 movers
+constexpr int kChainWindow = 16;   // totals the folder holds in registers
+constexpr int kScanThreads = 1024; // the parallel (integer) chain, at most
 constexpr int kMaxWidth = 32;      // channels of one Channels strip
 
 template <typename T> struct Acc { using type = float; };
@@ -225,6 +237,8 @@ struct SumSpec {
   __device__ static void put(const Leaves& g, int64_t i, E e) {
     static_cast<A*>(g.v)[i] = e.v;
   }
+  // uint32 sums wrap: associative bit for bit, so the chain may scan
+  static constexpr bool kExact = std::is_same<A, uint32_t>::value;
   static constexpr bool kPack = true;
   __device__ static uint64_t pack(E e) {
     return static_cast<uint64_t>(to_bits(e.v)) << 32;
@@ -281,6 +295,7 @@ struct SegSumSpec {
     static_cast<A*>(g.v)[i] = e.v;
     static_cast<int32_t*>(g.f)[i] = static_cast<int32_t>(e.f);
   }
+  static constexpr bool kExact = std::is_same<A, uint32_t>::value;
   static constexpr bool kPack = true;  // the value, and the flag in bit 2
   __device__ static uint64_t pack(E e) {
     return (static_cast<uint64_t>(to_bits(e.v)) << 32) |
@@ -346,6 +361,7 @@ struct AffineSpec {
     static_cast<float*>(g.v)[i] = e.a;
     static_cast<float*>(g.f)[i] = e.b;
   }
+  static constexpr bool kExact = false;
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
   __device__ static E unpack(uint64_t) { return identity(); }
@@ -553,52 +569,212 @@ totals_kernel(Tensors t, Leaves totals, Geom g) {
     S::put(totals, chain + c, net.last(s, c));
 }
 
-// chain (Rows): one warp per row stages totals through shared memory with
-// coalesced loads and stores; lane 0 alone runs the sequential exclusive
-// chain, left to right from the identity, in lax.scan's order. With
-// running != nullptr the warp also writes offset (+) total, the running
-// totals: the same combine of the same operands as lane 0's step, so the
-// same bits, taken off lane 0's sequential path.
+// 16-byte shared-memory copies of a run of elements between shared memory
+// and registers (dst or src 16-byte aligned): a quarter or half of the
+// instructions of element-wise accesses.
+template <typename E, int N>
+__device__ __forceinline__ void lds_vec(E (&dst)[N], const E* src) {
+  static_assert(N * sizeof(E) % 16 == 0, "whole 16-byte words");
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(N * sizeof(E) / 16); ++k) {
+    const uint4 w = reinterpret_cast<const uint4*>(src)[k];
+    memcpy(reinterpret_cast<char*>(dst) + 16 * k, &w, 16);
+  }
+}
+template <typename E, int N>
+__device__ __forceinline__ void sts_vec(E* dst, const E (&src)[N]) {
+  static_assert(N * sizeof(E) % 16 == 0, "whole 16-byte words");
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(N * sizeof(E) / 16); ++k) {
+    uint4 w;
+    memcpy(&w, reinterpret_cast<const char*>(src) + 16 * k, 16);
+    reinterpret_cast<uint4*>(dst)[k] = w;
+  }
+}
+
+// chain (Rows), for specs whose combine is not associative bit for bit
+// (float sums, the affine pair): one block per row. Thread 0 alone runs
+// the sequential exclusive chain, left to right from the identity, in
+// lax.scan's order; the block's other warps bring the totals into shared
+// memory a stage ahead of it and write the offsets and running totals a
+// stage behind it, so that it waits on nothing but its own combines: it
+// reads the totals kChainWindow ahead into registers (past the latency of
+// shared memory; the stage buffer has kChainWindow elements of slack, so
+// the reads past a stage's end need no test) and moves them 16 bytes an
+// instruction. It keeps the inclusive carries inc: offset j is inc[j - 1]
+// (the stage's incoming carry at j = 0) and the running total j is
+// inc[j], the very combine offset (+) total that made it, so the same
+// bits.
 template <typename S>
-__global__ void chain_kernel(Leaves totals, Leaves offsets, Leaves running,
-                             int64_t chunks) {
+__device__ __forceinline__ void fold_stage(const typename S::E* t,
+                                           typename S::E* inc, int w,
+                                           typename S::E& acc) {
   using E = typename S::E;
-  __shared__ E tot[kChainStage];
-  __shared__ E off[kChainStage];
+  E win[kChainWindow];
+  lds_vec(win, t);
+  int i = 0;
+  for (; i + kChainWindow <= w; i += kChainWindow) {
+    E next[kChainWindow], out[kChainWindow];
+    lds_vec(next, t + i + kChainWindow);
+#pragma unroll
+    for (int j = 0; j < kChainWindow; ++j) {
+      acc = S::combine(acc, win[j]);
+      out[j] = acc;
+    }
+    sts_vec(inc + i, out);
+#pragma unroll
+    for (int j = 0; j < kChainWindow; ++j) win[j] = next[j];
+  }
+  for (; i < w; ++i) {
+    acc = S::combine(acc, t[i]);
+    inc[i] = acc;
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kChainThreads)
+chain_seq_kernel(Leaves totals, Leaves offsets, Leaves running,
+                 int64_t chunks) {
+  using E = typename S::E;
+  __shared__ __align__(16) E tot[2][kChainStage + kChainWindow];
+  __shared__ __align__(16) E inc[2][kChainStage];
+  __shared__ E carry_in[2];   // each stage's incoming carry
+  constexpr int kMovers = kChainThreads - 32;
+  const int mover = static_cast<int>(threadIdx.x) - 32;   // warps 1..
   const int64_t row = static_cast<int64_t>(blockIdx.x) * chunks;
+  const int64_t stages = (chunks + kChainStage - 1) / kChainStage;
+  auto width = [&](int64_t st) {
+    const int64_t left = chunks - st * kChainStage;
+    return static_cast<int>(left < kChainStage ? left : kChainStage);
+  };
   E acc = S::identity();
-  for (int64_t c0 = 0; c0 < chunks; c0 += kChainStage) {
-    const int w = static_cast<int>(
-        chunks - c0 < kChainStage ? chunks - c0 : kChainStage);
-    for (int i = threadIdx.x; i < w; i += blockDim.x)
-      tot[i] = S::get(totals, row + c0 + i);
-    __syncwarp();
-    if (threadIdx.x == 0) {
-      // Eight totals are read ahead into registers, so each step of the
-      // chain waits on its combine alone, not on a shared-memory load.
-      int i = 0;
-      for (; i + 8 <= w; i += 8) {
-        E v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = tot[i + j];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          off[i + j] = acc;
-          acc = S::combine(acc, v[j]);
+  // step k: thread 0 folds stage k - 1 while the movers load stage k and
+  // write stage k - 2; then the block meets
+  for (int64_t k = 0; k < stages + 2; ++k) {
+    if (threadIdx.x == 0 && k >= 1 && k <= stages) {
+      const int b = (k - 1) & 1;
+      carry_in[b] = acc;
+      fold_stage<S>(tot[b], inc[b], width(k - 1), acc);
+    } else if (mover >= 0) {
+      if (k < stages) {
+        const int w = width(k);
+        const int64_t c0 = row + k * kChainStage;
+        for (int i = mover; i < w; i += kMovers)
+          tot[k & 1][i] = S::get(totals, c0 + i);
+      }
+      if (k >= 2) {
+        const int b = k & 1, w = width(k - 2);
+        const int64_t c0 = row + (k - 2) * kChainStage;
+        for (int i = mover; i < w; i += kMovers) {
+          S::put(offsets, c0 + i, i > 0 ? inc[b][i - 1] : carry_in[b]);
+          if (running.v != nullptr) S::put(running, c0 + i, inc[b][i]);
         }
       }
-      for (; i < w; ++i) {
-        off[i] = acc;
-        acc = S::combine(acc, tot[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// A shuffle of an element, word by word.
+template <typename E>
+__device__ __forceinline__ E shfl_up_e(E x, int k) {
+  static_assert(sizeof(E) % 4 == 0, "an element is whole 32-bit words");
+  uint32_t w[sizeof(E) / 4];
+  memcpy(w, &x, sizeof(E));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
+    w[i] = __shfl_up_sync(0xffffffffu, w[i], k);
+  memcpy(&x, w, sizeof(E));
+  return x;
+}
+
+// Inclusive scan across a warp's lanes (Hillis-Steele by shuffles), the
+// lower lane the left operand.
+template <typename S>
+__device__ __forceinline__ typename S::E warp_scan(typename S::E x,
+                                                   int lane) {
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const typename S::E y = shfl_up_e(x, k);
+    if (lane >= k) x = S::combine(y, x);
+  }
+  return x;
+}
+
+// chain (Rows), for specs whose combine is associative bit for bit (the
+// integer sums and the mask, in wrapping uint32, and the integer
+// segmented sum): any order of combines gives the left fold's bits, so
+// one block per row scans kItems * blockDim.x totals a step (32 bytes of
+// them a thread): each thread its kItems consecutive totals, a warp scan
+// of the threads' totals, a scan of the warps', and the block's carry
+// from the steps before. Device memory is read and written coalesced,
+// element r * blockDim.x + thread, through a shared-memory buffer (one
+// word of padding every 32 elements, so that a thread's run of kItems
+// meets no bank conflict), and the next step's totals are loaded into
+// registers while this step is scanned.
+template <typename S>
+__global__ void __launch_bounds__(kScanThreads)
+chain_scan_kernel(Leaves totals, Leaves offsets, Leaves running,
+                  int64_t chunks) {
+  using E = typename S::E;
+  constexpr int kItems = 32 / sizeof(E);
+  __shared__ E buf[kItems * kScanThreads + kItems * kScanThreads / 32];
+  __shared__ E part[2][32];   // the warps' inclusive totals, then scanned
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n = blockDim.x, warps = n / 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * chunks;
+  const int64_t step = static_cast<int64_t>(kItems) * n;
+  auto at = [](int e) { return e + e / 32; };
+  auto load = [&](int64_t g0, E (&x)[kItems]) {   // coalesced
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const int64_t c = g0 + r * n + threadIdx.x;
+      x[r] = c < chunks ? S::get(totals, row + c) : S::identity();
+    }
+  };
+  E next[kItems];
+  load(0, next);
+  E carry = S::identity();
+  int b = 0;
+  for (int64_t g0 = 0; g0 < chunks; g0 += step) {
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) buf[at(r * n + threadIdx.x)] = next[r];
+    if (g0 + step < chunks) load(g0 + step, next);
+    __syncthreads();
+    E x[kItems];   // the thread's totals, then their inclusive scan
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) x[j] = buf[at(kItems * threadIdx.x + j)];
+#pragma unroll
+    for (int j = 1; j < kItems; ++j) x[j] = S::combine(x[j - 1], x[j]);
+    const E inc = warp_scan<S>(x[kItems - 1], lane);
+    if (lane == 31) part[b][warp] = inc;
+    __syncthreads();   // buf is read, part written
+    if (warp == 0)
+      part[b][lane] = warp_scan<S>(
+          lane < warps ? part[b][lane] : S::identity(), lane);
+    __syncthreads();
+    // every total of the row before this thread's first
+    E exc = shfl_up_e(inc, 1);
+    if (lane == 0) exc = S::identity();
+    const E pre = warp > 0 ? part[b][warp - 1] : S::identity();
+    const E before = S::combine(carry, S::combine(pre, exc));
+    carry = S::combine(carry, part[b][warps - 1]);
+    b ^= 1;   // every read of this part precedes the next step's barrier
+    for (int out = 0; out < (running.v != nullptr ? 2 : 1); ++out) {
+      const Leaves& dst = out == 0 ? offsets : running;
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        buf[at(kItems * threadIdx.x + j)] =
+            out == 0 ? (j > 0 ? S::combine(before, x[j - 1]) : before)
+                     : S::combine(before, x[j]);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kItems; ++r) {
+        const int64_t c = g0 + r * n + threadIdx.x;
+        if (c < chunks) S::put(dst, row + c, buf[at(r * n + threadIdx.x)]);
       }
+      __syncthreads();   // buf is free again
     }
-    __syncwarp();
-    for (int i = threadIdx.x; i < w; i += blockDim.x) {
-      S::put(offsets, row + c0 + i, off[i]);
-      if (running.v != nullptr)
-        S::put(running, row + c0 + i, S::combine(off[i], tot[i]));
-    }
-    __syncwarp();
   }
 }
 
@@ -964,9 +1140,17 @@ int launch_chain(Leaves totals, Leaves offsets, Leaves running, long long b,
     const long long lanes = b * d;
     chain_chan_kernel<S><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0,
                            stream>>>(totals, offsets, running, b, chunks, d);
-  } else {
-    chain_kernel<S><<<static_cast<unsigned>(b), 32, 0, stream>>>(
+  } else if constexpr (S::kExact) {
+    // whole warps, enough to give each thread 32 bytes of totals a step
+    constexpr long long items = 32 / sizeof(typename S::E);
+    const long long per = (chunks + items - 1) / items;
+    const int threads = static_cast<int>(
+        per >= kScanThreads ? kScanThreads : (per + 31) / 32 * 32);
+    chain_scan_kernel<S><<<static_cast<unsigned>(b), threads, 0, stream>>>(
         totals, offsets, running, chunks);
+  } else {
+    chain_seq_kernel<S><<<static_cast<unsigned>(b), kChainThreads, 0,
+                          stream>>>(totals, offsets, running, chunks);
   }
   return cudaGetLastError();
 }

@@ -12,6 +12,7 @@ fold (``core/scan/assoc``):
   fold_fwd     ``softmax_pair`` on ``KVBlocks`` (the flash forward), SIMT
   fold_fwd_tc  the same on the tensor cores (wgmma, TMA), bfloat16
   fold_dq      ``softmax_bwd_dq`` on ``KVBlocks``, SIMT
+  fold_dq_tc   the same on the tensor cores, bfloat16
   fold_dkv     ``softmax_bwd_dkv`` on ``QBlocks``, SIMT
   fold_dkv_tc  the same on the tensor cores, bfloat16
   fold_chain   the split-KV chain and finalize of any of the three: one
@@ -49,9 +50,9 @@ SOURCE = cuda.SOURCE.parent / "attn_fold.cu"
 TC_SOURCE = cuda.SOURCE.parent / "attn_fold_tc.cu"
 BUILD_DIR = cuda.BUILD_DIR
 
-KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dkv", "fold_dkv_tc",
-           "fold_chain", "fold_chain_sum")
-TC_FORMS = ("fold_fwd_tc", "fold_dkv_tc")
+KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dq_tc", "fold_dkv",
+           "fold_dkv_tc", "fold_chain", "fold_chain_sum")
+TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc")
 # spec name -> (kernel, layout type, operand kinds)
 BWD_KINDS = ("q", "kv", "kv", "q", "qstat", "qstat", "qstat")
 SPECS = {
@@ -69,7 +70,8 @@ MAX_SPLITS = 65535  # grid.y
 # packed into one tile.
 TC_DIMS = (64, 128, 256)
 TC_BK = (64, 128)
-TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dkv": (64, 128)}
+TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
+         "fold_dkv": (64, 128)}
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use (227 KB)
 PANEL_BYTES = 64 * 128   # 64 rows of a 64-column bf16 box
 
@@ -149,7 +151,7 @@ def build_tc() -> ctypes.CDLL:
     so, log = cuda.compile_library(TC_SOURCE, BUILD_DIR)
     build_log_tc = log or build_log_tc
     lib = ctypes.CDLL(str(so))
-    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dkv_tc"),
+    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dkv_tc"),
           "attn_tc_error_string")
     _lib_tc = lib
     return lib
@@ -159,11 +161,11 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     """The kernel that runs fold ``kernel`` ("fold_fwd", "fold_dq" or
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
-    ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``, bk in ``TC_BK``
-    and bq in ``TC_BQ``, else the SIMT kernel (float32 always: its bars
-    against the plain versions, 1e-5 / 1e-4, rule out bf16 products).
-    Raises TypeError for a dtype no kernel takes and ValueError past the
-    kernels' range."""
+    ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``,
+    bk in ``TC_BK`` and bq in ``TC_BQ``, else the SIMT kernel (float32
+    always: its bars against the plain versions, 1e-5 / 1e-4, rule out
+    bf16 products). Raises TypeError for a dtype no kernel takes and
+    ValueError past the kernels' range."""
     if dtype not in DTYPE_CODES:
         raise TypeError(
             f"no CUDA fold kernel for {dtype}; supported: float32, "
@@ -180,17 +182,21 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
 
 def tc_tiling(form: str, d: int, bq: int) -> dict:
     """The block of a tensor-core form as ``attn_fold_tc.cu`` lays it out
-    (``FwdTiles`` / ``DkvTiles``): consumer warpgroups (each a 64-row
-    wgmma tile), threads, the ring's stages and bytes per stage, and the
-    dynamic shared memory of the launch (1024 bytes of alignment slack,
-    the resident tiles, the ring and its mbarriers). A forward block adds
-    a producer warpgroup to two consumers (setmaxnreg hands its registers
-    over), else a producer warp; a forward stage is one 64-row k or v
-    tile, and each consumer keeps its q tile and its p as bf16 hi and lo
-    (four 64-column panels). A dk/dv block is two warpgroups, one of whose
-    threads issues the loads; a stage is a 64-row chunk of q and of dO
-    with its rows' (m, l, delta), beside the block's k and v rows and four
-    panels (pᵀ and p·g / dsᵀ as hi and lo)."""
+    (``FwdTiles`` / ``DqTiles`` / ``DkvTiles``): consumer warpgroups
+    (each a 64-row wgmma tile), threads, the ring's stages and bytes per
+    stage, and the dynamic shared memory of the launch (1024 bytes of
+    alignment slack, the resident tiles, the ring and its mbarriers). A
+    forward block adds a producer warpgroup to two consumers (setmaxnreg
+    hands its registers over), else a producer warp; a forward stage is
+    one 64-row k or v tile, and each consumer keeps its q tile and its p
+    as bf16 hi and lo (four 64-column panels). A dq block is two
+    warpgroups over one 64-row q tile, one of whose threads issues the
+    loads: the q and dO tiles stay resident beside four
+    panels (p·g, then ds, as hi and lo), and a stage is one 64-row k or v
+    tile. A dk/dv block is two warpgroups, one of whose threads issues
+    the loads; a stage is a 64-row chunk of q and of dO with its rows'
+    (m, l, delta), beside the block's k and v rows and four panels (pᵀ
+    and p·g / dsᵀ as hi and lo)."""
     tile = d // 64 * PANEL_BYTES
     if form == "fold_fwd_tc":
         wgs = 2 if bq == 128 and d <= 128 else 1
@@ -198,6 +204,10 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
         stage = tile
         resident = wgs * (tile + 4 * PANEL_BYTES)
         threads = 384 if wgs == 2 else 160
+    elif form == "fold_dq_tc":
+        wgs, stages, stage = 2, (4 if d == 256 else 8), tile
+        resident = 2 * tile + 4 * PANEL_BYTES
+        threads = 256
     elif form == "fold_dkv_tc":
         wgs, stages, stage = 2, (2 if d == 256 else 4), 2 * tile + 3 * 64 * 4
         resident = 2 * tile + 4 * PANEL_BYTES

@@ -23,13 +23,16 @@ compute in float32, so they differ by the last rounding to bf16: atol
 1e-3, rtol two bf16 ulps (2^-6). They must be bitwise equal to
 themselves: bounds on and off, a page-permuted pool through
 ``kv_block_map``, repeated runs. The tensor-core forms (fold_fwd_tc,
-fold_dkv_tc: bf16 operands, p and ds rounded to bf16 before their
-products, float32 accumulators) meet the same bf16 bar over head dims 64,
-128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups, both
-schedules and packed decode tiles, and the same bitwise invariants;
-float32 still takes the SIMT kernels.
+fold_dq_tc, fold_dkv_tc: bf16 operands, p and ds as bf16 hi + lo before
+their products, float32 accumulators) meet the same bf16 bar over head
+dims 64, 128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups,
+both schedules and packed decode tiles, and the same bitwise invariants;
+float32 still takes the SIMT kernels. The chain over chunk totals (a
+folding thread for float specs, a parallel scan for integer ones) must
+give ``exclusive_chain``'s bits.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -335,6 +338,89 @@ def test_cuda_fused_bitwise_vs_decoupled_and_plain(cuda_device, case, layout):
         assert _same_bits(got.cpu(), want), exclusive
 
 
+# The chain over chunk totals: float specs fold on one thread (the
+# sequential form), integer specs scan in parallel (their uint32 combines
+# associate exactly); both must give exclusive_chain's bits.
+CHAIN_CASES = [
+    # (name, spec, totals dtype, (rows, chunks), running totals)
+    ("sum_f32_long_row", "sum", torch.float32, (1, 131072), True),
+    ("sum_f32_rows", "sum", torch.float32, (3, 5000), False),
+    ("sum_f32_short_row", "sum", torch.float32, (2, 700), True),
+    ("sum_i32_wraps", "sum", torch.int32, (2, 70000), True),
+    ("mask_running", "mask", torch.int32, (1, 29292), True),
+    ("segsum_f32_pair", "segsum", torch.float32, (4, 28879), True),
+    ("segsum_i32_pair", "segsum", torch.int32, (3, 9000), True),
+]
+
+
+def _chain_totals(rng, spec_name, dtype, shape):
+    """Chunk totals as a chain sees them: float32 sums, int32 sums near
+    the int32 range (their running sums wrap), 0/1-heavy mask counts,
+    and segmented pairs whose flags are any nonzero int32."""
+    if spec_name == "mask":
+        return (torch.from_numpy(rng.integers(0, 2049, shape)
+                                 .astype(np.int32)),)
+    if dtype == torch.int32:
+        v = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                          dtype=np.int64).astype(np.int32))
+    else:
+        v = torch.from_numpy(
+            (rng.standard_normal(shape) * 100).astype(np.float32))
+    if spec_name == "segsum":
+        f = np.where(rng.random(shape) < 0.01, rng.choice([-3, 1, 2], shape),
+                     0).astype(np.int32)
+        return (v, torch.from_numpy(f))
+    return (v,)
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=[c[0] for c in CHAIN_CASES])
+def test_cuda_chain_bitwise_vs_exclusive_chain(cuda_device, case):
+    """The chain kernel's offsets and running totals against the plain
+    ``exclusive_chain`` (and offset ⊕ total) bitwise, one launch, and the
+    same bits on a repeated launch."""
+    name, spec_name, dtype, shape, with_running = case
+    spec = _spec(spec_name, shape[1])
+    rng = np.random.default_rng(sum(map(ord, name)))
+    cpu = _chain_totals(rng, spec_name, dtype, shape)
+    gpu = tuple(t.to(cuda_device) for t in cpu)
+    cuda.reset_launches()
+    offs, run = cuda.chain(spec, gpu, with_running)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES[cuda.kernel_name(spec.name, "chain")] == 1
+    assert sum(cuda.LAUNCHES.values()) == 1
+    want = scan_engine.schedules.exclusive_chain(spec, cpu)
+    for a, b in zip(offs, want):
+        assert _same_bits(a.cpu(), b), name
+    if with_running:
+        for a, b in zip(run, spec.combine(want, cpu)):
+            assert _same_bits(a.cpu(), b.to(a.dtype)), name
+    again, _ = cuda.chain(spec, gpu, with_running)
+    for a, b in zip(offs, again):
+        assert _same_bits(a, b), name
+
+
+@pytest.mark.parametrize("spec_name,dtype", [
+    ("sum", torch.float32), ("sum", torch.int32), ("mask", torch.int32),
+    ("segsum", torch.float32)], ids=["sum-f32", "sum-i32", "mask",
+                                     "segsum-f32"])
+def test_cuda_long_row_carry_decoupled_fused_bitwise(cuda_device, spec_name,
+                                                     dtype):
+    """A long row of small tiles (16,384 chunks: sixteen chain stages):
+    carry, decoupled (totals, chain, apply) and fused give the same bits,
+    and decoupled the plain version's."""
+    lay = scan_engine.Rows(1, 1 << 21, 1, 128)
+    spec = _spec(spec_name, lay.shape[-1])
+    rng = np.random.default_rng(15)
+    cpu = _spec_operands(rng, spec_name, lay.shape, dtype)
+    gpu = tuple(o.to(cuda_device) for o in cpu)
+    got = {s: scan_engine.scan(gpu, spec, lay, schedule=s)[0]
+           for s in ("carry", "decoupled", "fused")}
+    assert _same_bits(got["decoupled"], got["carry"])
+    assert _same_bits(got["fused"], got["carry"])
+    (want,) = scan_engine.schedules.scan_decoupled(cpu, spec, lay)
+    assert _same_bits(got["decoupled"].cpu(), want)
+
+
 AFFINE_SHAPES = [(1, 1024, 512), (2, 1000, 48), (3, 300, 4096)]
 
 
@@ -453,6 +539,13 @@ ATTN_CASES = [
      128),
     ("d256_softcap", 1, 2, 2, 256, 256, 256, True, 160, 50.0, 128, 128),
     ("decode_d128", 2, 2, 4, 1, 1000, 128, False, None, None, 128, 128),
+    # bf16 reaches the tensor-core forms here (fold_dq_tc among them)
+    ("d64_gqa2_window_cap", 1, 2, 2, 256, 256, 64, True, 64, 30.0, 128,
+     128),
+    ("d128_gqa4_bq64_ragged_cap", 1, 2, 4, 200, 300, 128, False, None, 20.0,
+     64, 64),
+    ("d256_gqa2_window_cap", 1, 1, 2, 256, 384, 256, True, 96, 50.0, 128,
+     128),
 ]
 # (atol, rtol) of the forward and of the gradients, per dtype
 ATTN_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
@@ -538,6 +631,38 @@ def test_cuda_flash_attention_vs_plain(cuda_device, case, schedule, dtype):
     for a, b in zip(res[1][1:], res[0][1:]):
         assert a.dtype == dtype
         assert _allclose(a, b, grad_tol)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+def test_cuda_flash_attention_repeats_bitwise(cuda_device, schedule):
+    """The float32 causal_gqa2 case, forward and gradients, 50 times on
+    freshly allocated outputs whose memory held NaN: every repeat gives
+    the first one's bits, within the 1e-5 / 1e-4 bars of the CPU plain
+    version (an output element left unwritten, or a read of memory no one
+    wrote, would show as other bits)."""
+    q, k, v, go = _attn_inputs(ATTN_CASES[0], torch.float32)
+    _, _, _, _, _, _, D, causal, window, softcap, bq, bk = ATTN_CASES[0]
+    kw = dict(scale=D ** -0.5, causal=causal, window=window,
+              softcap=softcap, block_q=bq, block_k=bk, schedule=schedule)
+
+    def run(device):
+        ts = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = fa_ops.flash_attention(*ts, **kw)
+        return (out.detach(),) + torch.autograd.grad(out, ts, go.to(device))
+
+    want = run("cpu")
+    first = None
+    for _ in range(50):
+        junk = [torch.full((n,), float("nan"), device=cuda_device)
+                for n in (1 << 10, 1 << 13, 1 << 15, 1 << 18)
+                for _ in range(8)]
+        del junk
+        got = [t.cpu() for t in run(cuda_device)]
+        first = first or got
+        for a, b in zip(got, first):
+            assert _same_bits(a, b)
+    for i, (a, b) in enumerate(zip(first, want)):
+        assert _allclose(a, b, ATTN_TOL[torch.float32][int(i > 0)])
 
 
 @pytest.mark.parametrize("schedule", ("carry", "decoupled"))
@@ -704,9 +829,10 @@ def _tc_fold(spec, ops_, lay, schedule, out_dts):
 @pytest.mark.parametrize("schedule", ("carry", "decoupled"))
 @pytest.mark.parametrize("case", TC_CASES, ids=[c[0] for c in TC_CASES])
 def test_cuda_tc_folds_vs_plain(cuda_device, case, schedule):
-    """fold_fwd_tc (and fold_dkv_tc where the q block is one or two
-    64-row tiles) against the plain folds on the same bf16 inputs, within
-    atol 1e-3, rtol 2^-6; each launch counted under its form."""
+    """fold_fwd_tc (and fold_dq_tc and fold_dkv_tc where the q block is
+    one or two 64-row tiles) against the plain folds on the same bf16
+    inputs, within atol 1e-3, rtol 2^-6; each launch counted under its
+    form."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         backward_folds, forward_fold)
     from repro_torch.kernels.scan_engine import schedules
@@ -731,24 +857,28 @@ def test_cuda_tc_folds_vs_plain(cuda_device, case, schedule):
     out, m, l = want
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     ops_b = (q, k, v, do, m, l, delta)
-    _, (sk, lk) = backward_folds(q.shape, k.shape, **kw)
-    form = cuda_fold.fold_form("fold_dkv", torch.bfloat16, d, bq, bk)
-    assert (form == "fold_dkv_tc") == (bq >= 64)
-    cuda_fold.reset_launches()
-    got = _tc_fold(sk, tuple(t.to(cuda_device) for t in ops_b), lk,
-                   schedule, (torch.bfloat16,) * 2)
-    torch.cuda.synchronize()
-    assert cuda_fold.LAUNCHES[form] == 1
-    for a, b in zip(got, schedules.fold_carry_plain(ops_b, sk, lk)):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        assert _allclose(a, b, BF16_TOL)
+    for kernel, (sp, ly) in zip(("fold_dq", "fold_dkv"),
+                                backward_folds(q.shape, k.shape, **kw)):
+        form = cuda_fold.fold_form(kernel, torch.bfloat16, d, bq, bk)
+        assert (form == kernel + "_tc") == (bq >= 64)
+        cuda_fold.reset_launches()
+        got = _tc_fold(sp, tuple(t.to(cuda_device) for t in ops_b), ly,
+                       schedule, (torch.bfloat16,) * len(ly.out_dims))
+        torch.cuda.synchronize()
+        assert cuda_fold.LAUNCHES[form] == 1
+        for a, b in zip(got, schedules.fold_carry_plain(ops_b, sp, ly)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _allclose(a, b, BF16_TOL)
 
 
 @pytest.mark.parametrize("schedule", ("carry", "decoupled"))
 def test_cuda_tc_fold_bitwise_invariants(cuda_device, schedule):
     """The tensor-core forms give the same bits with bounds on and off,
     through a page-permuted pool (kv_block_map, also for a packed decode
-    tile) and on a repeated run; count_cells equals the plain version's."""
+    tile and for the dq fold) and on a repeated run, forward and
+    backward; count_cells equals the plain version's."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
     rng = np.random.default_rng(5)
 
     def bf16(*shape):
@@ -781,10 +911,30 @@ def test_cuda_tc_fold_bitwise_invariants(cuda_device, schedule):
     cuda_fold.reset_launches()
     on_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta, **kw)
     assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq"] == 0
     off_g = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
                                        use_kv_bounds=False, **kw)
-    for a, b in zip(on_g, off_g):
-        assert torch.equal(a, b)
+    again = flash_attention_bwd_kernel(q, k, v, g, m, l, delta, **kw)
+    for a, b, c in zip(on_g, off_g, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # the dq fold through a page-permuted pool (its KVBlocks layout takes
+    # kv_block_map as the forward's does)
+    (sq, lq), _ = backward_folds(q.shape, k.shape, **kw)
+    lq_p = dataclasses.replace(lq, kv_block_map=perm.to(torch.int32).to(
+        cuda_device))
+    ops_b = (q, k, v, g, m, l, delta)
+    ops_p = (q, permuted(k, 4, 128), permuted(v, 4, 128), g, m, l, delta)
+    cuda_fold.reset_launches()
+    if schedule == "carry":
+        dq_p = cuda_fold.fold(sq, ops_p, lq_p)[0][0]
+        assert torch.equal(dq_p, cuda_fold.fold(sq, ops_b, lq)[0][0])
+    else:
+        tot_p = cuda_fold.fold_totals(sq, ops_p, lq_p)
+        assert torch.equal(tot_p[0], cuda_fold.fold_totals(sq, ops_b, lq)[0])
+    assert cuda_fold.LAUNCHES["fold_dq_tc"] == 2
+    assert torch.equal(on_g[0], flash_attention_bwd_kernel(
+        q, k, v, g, m, l, delta, **kw)[0])
     if schedule == "carry":
         _, counts = flash_attention_kernel(q, k, v, count_cells=True, **kw)
         _, want = flash_attention_kernel(q.cpu(), k.cpu(), v.cpu(),
@@ -823,6 +973,7 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
         grads = flash_attention_bwd_kernel(q, k, v, g, m, l, delta,
                                            schedule=schedule, **kw)
         assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+        assert cuda_fold.LAUNCHES["fold_dq_tc"] == 1
         assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 1
         assert not bool(out[:, 96:].any()) and bool(out[:, :96].any())
         for t in grads:
@@ -842,8 +993,9 @@ def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
     tc = dtype == torch.bfloat16
     assert cuda_fold.LAUNCHES["fold_fwd_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_dkv_tc"] == int(tc)
+    assert cuda_fold.LAUNCHES["fold_dq_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_fwd"] == int(not tc)
     assert cuda_fold.LAUNCHES["fold_dkv"] == int(not tc)
-    assert cuda_fold.LAUNCHES["fold_dq"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq"] == int(not tc)
     with pytest.raises(TypeError, match="no CUDA fold kernel"):
         fa_ops.flash_attention(x.half(), x.half(), x.half())

@@ -30,7 +30,12 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_dkv", BF16, 64, 64, 64, "fold_dkv_tc"),
     ("fold_fwd", F32, 128, 128, 128, "fold_fwd"),       # float32: SIMT
     ("fold_dkv", F32, 256, 128, 128, "fold_dkv"),
-    ("fold_dq", BF16, 128, 128, 128, "fold_dq"),        # dq has no tc form
+    ("fold_dq", BF16, 128, 128, 128, "fold_dq_tc"),
+    ("fold_dq", BF16, 64, 128, 128, "fold_dq_tc"),
+    ("fold_dq", BF16, 256, 128, 128, "fold_dq_tc"),
+    ("fold_dq", BF16, 128, 64, 64, "fold_dq_tc"),
+    ("fold_dq", F32, 128, 128, 128, "fold_dq"),         # float32: SIMT
+    ("fold_dq", BF16, 128, 8, 128, "fold_dq"),          # dq: bq 64/128
     ("fold_fwd", BF16, 32, 128, 128, "fold_fwd"),       # d not 64/128/256
     ("fold_fwd", BF16, 128, 128, 32, "fold_fwd"),       # bk not 64/128
     ("fold_fwd", BF16, 128, 104, 128, "fold_fwd"),      # bq 104
@@ -58,6 +63,7 @@ def test_fold_form_refuses_float16():
 def _accepted():
     """Every (form, d, bq, bk) the tensor-core forms take."""
     for kernel, form in (("fold_fwd", "fold_fwd_tc"),
+                         ("fold_dq", "fold_dq_tc"),
                          ("fold_dkv", "fold_dkv_tc")):
         for d in cuda_fold.TC_DIMS:
             for bk in cuda_fold.TC_BK:
@@ -74,8 +80,9 @@ def test_tc_tiling_fits_shared_memory(form, d, bq, bk):
     assert t["smem"] <= cuda_fold.SMEM_LIMIT
     # the forward: a producer warp beside one consumer warpgroup, a
     # producer warpgroup (whose registers setmaxnreg hands over) beside
-    # two; dk/dv: two warpgroups, one thread of which loads
+    # two; dq and dk/dv: two warpgroups, one thread of which loads
     assert t["threads"] == {("fold_fwd_tc", 1): 160, ("fold_fwd_tc", 2): 384,
+                            ("fold_dq_tc", 2): 256,
                             ("fold_dkv_tc", 2): 256}[form, t["warpgroups"]]
     tile = d // 64 * cuda_fold.PANEL_BYTES       # 64 rows x d bf16
     assert tile == 64 * d * 2
@@ -84,6 +91,14 @@ def test_tc_tiling_fits_shared_memory(form, d, bq, bk):
         assert t["stages"] >= 2 * bk // 64
         assert t["stage_bytes"] == tile
         assert t["warpgroups"] == (2 if bq == 128 and d <= 128 else 1)
+    elif form == "fold_dq_tc":
+        # one warpgroup forms p·g, the other ds, over one 64-row q tile:
+        # its q and dO stay resident, a cell's v and k tiles fit the ring
+        assert t["warpgroups"] == 2
+        assert t["stages"] >= 2 * bk // 64
+        assert t["stage_bytes"] == tile
+        assert t["smem"] == (1024 + 2 * tile + 4 * cuda_fold.PANEL_BYTES
+                             + t["stages"] * tile + 8 * (2 * t["stages"] + 1))
     else:
         # one warpgroup forms dv, the other dk, over one ring of q / dO
         # chunks and their rows' (m, l, delta)
@@ -93,7 +108,7 @@ def test_tc_tiling_fits_shared_memory(form, d, bq, bk):
 
 def test_tc_tiling_refuses_other_kernels():
     with pytest.raises(ValueError, match="tensor-core"):
-        cuda_fold.tc_tiling("fold_dq", 128, 128)
+        cuda_fold.tc_tiling("fold_chain", 128, 128)
 
 
 def _tiles(bq, group):
