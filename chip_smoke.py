@@ -24,7 +24,14 @@ first failure and prints no result):
      them; messy flags (negative, fractional, leading) through
      ``segmented_cumsum``; and the affine kernels on Channels (f32, bf16,
      f16; 1- to 32-channel strips; time tiles 64 to 8192), every schedule,
-     inclusive and exclusive, outputs and running totals;
+     inclusive and exclusive, outputs and running totals; the sum's and
+     the mask's Rows totals (``totals_reduce_kernel``: the network's last
+     element built as its tree, no scan) bitwise against ``totals_plain``
+     and ``totals_tree_plain`` at block_n 128, 2048, 2176 and 16384 for
+     the six sum dtypes and the mask, signed zeros at tile starts, from an
+     aligned base and one element off; and, by the profiler's kernel
+     names, that those launch it while the segmented sum, and every
+     Channels launch, take the network's ``totals_kernel``;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -63,7 +70,9 @@ first failure and prints no result):
      also the latency floor of their dependent combines at the card's
      maximum SM clock), its plain version and, where one exists, the
      one-call PyTorch function (a yardstick only: the port never calls
-     it); before they are timed, the fused kernel at Q1's (4, ~59M)
+     it), the chains and the sum and mask totals also from CUDA graph
+     replays (printed: no host launch cost in them); before they are
+     timed, the fused kernel at Q1's (4, ~59M)
      segmented sum and Q6's ~60M-row mask is held bitwise against
      decoupled and ``fused_plain`` (the segmented sum exclusive at
      block_n 16384 too), as every kernel is against its plain version;
@@ -390,6 +399,24 @@ def main() -> int:
         if regs:
             print(f"  ptxas {src.name}: {len(regs)} kernels, "
                   f"{min(regs)}-{max(regs)} registers, {spills} with spills")
+    # the sum's and the mask's totals reduction, by spec: registers, spills
+    entry, red, red_spills = None, [], 0
+    for line in cuda.build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"totals_reduce_kernelI(.+?)EEvPKv", line)
+            entry = found and re.sub(r"NS_\d+|E+$", "", found[1])
+        elif entry and "spill stores" in line:
+            red_spills += not ("0 bytes spill stores" in line
+                               and "0 bytes spill loads" in line)
+        elif entry and "Used" in line and "registers" in line:
+            red.append(f"{entry} "
+                       f"{line.split('Used')[1].split('registers')[0].strip()}")
+            entry = None
+    if red:   # a cached build in build/ prints no report
+        print(f"  ptxas totals_reduce_kernel registers: {', '.join(red)}; "
+              f"{red_spills} with spills")
+        check(len(red) == 7 and red_spills == 0,
+              f"ptxas: totals_reduce_kernel {red}, {red_spills} spill")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
     entry, tc_spills, tc_entries = None, 0, []
     for line in cuda_fold.build_log_tc.splitlines():
@@ -543,6 +570,86 @@ def main() -> int:
     print(f"phase 2 (segsum, mask): {n_seg} + {n_mask} schedule runs, "
           "outputs and running totals bitwise equal to the plain versions; "
           "messy flags (negative, fractional, leading) equal to the CPU")
+
+    # the sum's and the mask's Rows totals (totals_reduce_kernel): bitwise
+    # against the network's last element and its tree, every dtype, signed
+    # zeros at tile starts, cancelling pairs and subnormals, from an
+    # aligned base and one element off (a generator of its own, so the
+    # later phases' data stay as they were)
+    g_red = torch.Generator(device=dev)
+    g_red.manual_seed(args.seed + 1)
+    n_red = 0
+    for bn in (128, 2048, 2176, 16384):
+        n = -(-(1 << 20) // bn) * bn
+        for kind in ("float32", "bfloat16", "float16", "int32", "int16",
+                     "int8", "mask"):
+            if kind == "mask":
+                x = torch.randint(0, 2, (1, n), device=dev, generator=g_red,
+                                  dtype=torch.int32)
+            elif kind.startswith("int"):
+                info = torch.iinfo(getattr(torch, kind))
+                x = torch.randint(info.min, info.max + 1, (1, n), device=dev,
+                                  generator=g_red).to(getattr(torch, kind))
+            else:
+                x = torch.randn((1, n), device=dev, generator=g_red) * 4
+                x[:, 1::97] = 1e-40 if kind != "float16" else 1e-6
+                x[:, 5::89] = 3e4
+                x[:, 6::89] = -3e4
+                x[:, ::bn] = -0.0
+                x[:, bn::2 * bn] = 0.0
+                x[:, :bn] = -0.0
+                x = x.to(getattr(torch, kind))
+            spec = monoids.mask(n) if kind == "mask" else SUM
+            lay = Rows(1, n, 1, bn)
+            (want,) = schedules.totals_plain((x,), spec, lay)
+            (tree,) = schedules.totals_tree_plain((x,), spec, lay)
+            check(same_bits(tree, want), f"totals_tree_plain != totals_plain"
+                  f": {kind} bn={bn}")
+            for offset in (0, 1):
+                buf = torch.empty(n + offset, dtype=x.dtype, device=dev)
+                xo = buf[offset:].view(1, n)
+                xo.copy_(x)
+                cuda.reset_launches()
+                (got,) = cuda.totals(spec, (xo,), lay)
+                sync()
+                check(launched() == {cuda.kernel_name(spec.name, "totals")},
+                      f"{kind} totals launched {launched()}")
+                check(same_bits(got, want), f"totals_reduce_kernel != "
+                      f"totals_plain: {kind} bn={bn} offset {offset}")
+                n_red += 1
+            del x, buf, xo, want, tree, got
+    print(f"phase 2 (totals_reduce_kernel): {n_red} launches (bn 128, 2048, "
+          "2176, 16384 x 6 sum dtypes and the mask x base aligned / one "
+          "element off) bitwise equal to totals_plain and totals_tree_plain")
+    # which kernel each spec's totals launch, by the profiler's names
+    from torch.profiler import ProfilerActivity, profile
+    ones = torch.ones((2, 4096), device=dev)
+    zeros_i = torch.zeros((2, 4096), dtype=torch.int32, device=dev)
+    chan = Channels(2, 1024, 8, 256, 8)
+    ones_c = torch.ones(chan.shape, device=dev)
+    for spec, ops, lay, want in (
+            (SUM, (ones,), Rows(2, 4096, 1, 2048), "totals_reduce_kernel"),
+            (SUM, (zeros_i.to(torch.int8),), Rows(2, 4096, 1, 2048),
+             "totals_reduce_kernel"),
+            (monoids.mask(4096), (zeros_i,), Rows(2, 4096, 1, 2048),
+             "totals_reduce_kernel"),
+            (SEGSUM, (ones, zeros_i), Rows(2, 4096, 1, 2048),
+             "totals_kernel"),
+            (SUM, (ones_c,), chan, "totals_kernel"),
+            (AFFINE, (ones_c, ones_c), chan, "totals_kernel")):
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cuda.totals(spec, ops, lay)
+            sync()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "totals" in e.key]
+        check(len(names) == 1 and want + "<" in names[0],
+              f"{spec.name} {type(lay).__name__} totals launched {names}")
+    print("totals kernels by the profiler: sum (f32, int8) and mask on Rows "
+          "-> totals_reduce_kernel; segsum on Rows, sum and affine on "
+          "Channels -> totals_kernel")
+    del ones, zeros_i, ones_c
 
     n_aff = 0
     for shape, bt in (((2, 4096, 48), 64), ((1, 8192, 1024), 256),
@@ -891,17 +998,16 @@ def main() -> int:
           "fused mask compaction exact")
 
     # where each operator's device time goes (one profiled call each)
-    from torch.profiler import ProfilerActivity, profile
-
     def short(kname):
-        for k in ("carry_kernel", "totals_kernel", "chain_seq_kernel",
-                  "chain_scan_kernel", "apply_kernel", "fused_kernel",
-                  "tree_kernel"):
+        for k in ("carry_kernel", "totals_kernel", "totals_reduce_kernel",
+                  "chain_seq_kernel", "chain_scan_kernel", "apply_kernel",
+                  "fused_kernel", "tree_kernel"):
             if k in kname:
                 spec = ("segsum" if "SegSum" in kname else "mask"
                         if "Mask" in kname else "affine"
                         if "Affine" in kname else "sum")
-                return f"{spec}.{k[:-7]}"
+                # the reduction is decoupled's totals pass too
+                return f"{spec}.{'totals' if 'totals' in k else k[:-7]}"
         return kname[:40]
 
     for label, fn in (
@@ -1008,7 +1114,7 @@ def main() -> int:
                lambda: schedules.totals_plain((xa2,), SUM, lay_a),
                4 * na + 4 * n_chunks, na, 5,
                lambda: xa2.view(1, n_chunks, 2048).sum(-1),
-               "(1, 2^28) bn 2048", launches)
+               "(1, 2^28) bn 2048", launches, graph=True)
     kernel_row("chain", lambda: cuda.chain(SUM, (tot,))[0],
                lambda: schedules.exclusive_chain(SUM, (tot,)),
                8 * n_chunks, n_chunks, 5, lambda: torch.cumsum(tot, 1),
@@ -1048,7 +1154,7 @@ def main() -> int:
                lambda: schedules.totals_plain((m6,), mspec, lay6),
                4 * (T + pad) + 4 * c6, T + pad, 5,
                lambda: m6.view(1, c6, 2048).sum(-1, dtype=torch.int32),
-               f"(1, {T + pad}) bn 2048", rel_launches)
+               f"(1, {T + pad}) bn 2048", rel_launches, graph=True)
     kernel_row("mask_chain", lambda: cuda.chain(mspec, (mt,), True),
                lambda: (schedules.exclusive_chain(mspec, (mt,)),
                         (schedules.exclusive_chain(mspec, (mt,))[0] + mt,)),

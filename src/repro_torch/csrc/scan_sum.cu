@@ -24,7 +24,12 @@
 //   carry_kernel   scan_carry, pallas_call at :335 (body _carry_body :298),
 //                  with its optional running chunk totals (return_totals)
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
-//                  (body _totals_body :361)
+//                  (body _totals_body :361): the segmented sum, the
+//                  affine pair and every Channels launch
+//   totals_reduce_kernel
+//                  the same pallas_call for Rows tiles of the sum (every
+//                  dtype) and the mask: the network's last element built
+//                  as its tree, from registers, without the scan
 //   chain_seq_kernel, chain_scan_kernel
 //                  exclusive_chain :248, the sequential lax.scan over the
 //                  chunk totals between decoupled's two launches; it also
@@ -54,8 +59,9 @@
 // (read n + write n); decoupled reads the data twice (totals, then apply)
 // to spread one lane over every SM; fused spreads it in one pass (read n +
 // write n). The mask's select re-reads its element at the writeback (an
-// L1/L2 hit: the tile was just loaded). The tiles are not yet pipelined
-// (no cp.async or TMA), so a block waits for each tile's load.
+// L1/L2 hit: the tile was just loaded). The network's tiles are not yet
+// pipelined (no cp.async or TMA), so a block waits for each tile's load;
+// totals_reduce_kernel keeps a warp's loads in flight instead.
 //
 // Association order. Every kernel reproduces the reference's order of
 // combines exactly, so its results are bitwise equal to the reference's
@@ -207,6 +213,7 @@ struct Leaves {
 // SUM: one leaf, the running sum.
 template <typename T>
 struct SumSpec {
+  using In = T;
   using A = typename Acc<T>::type;
   struct E { A v; };
   struct Buf {
@@ -239,6 +246,8 @@ struct SumSpec {
   }
   // uint32 sums wrap: associative bit for bit, so the chain may scan
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
+  // Rows totals take totals_reduce_kernel (one value a tile, no scan)
+  static constexpr bool kReduce = true;
   static constexpr bool kPack = true;
   __device__ static uint64_t pack(E e) {
     return static_cast<uint64_t>(to_bits(e.v)) << 32;
@@ -296,6 +305,7 @@ struct SegSumSpec {
     static_cast<int32_t*>(g.f)[i] = static_cast<int32_t>(e.f);
   }
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
+  static constexpr bool kReduce = false;
   static constexpr bool kPack = true;  // the value, and the flag in bit 2
   __device__ static uint64_t pack(E e) {
     return (static_cast<uint64_t>(to_bits(e.v)) << 32) |
@@ -362,6 +372,7 @@ struct AffineSpec {
     static_cast<float*>(g.f)[i] = e.b;
   }
   static constexpr bool kExact = false;
+  static constexpr bool kReduce = false;
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
   __device__ static E unpack(uint64_t) { return identity(); }
@@ -567,6 +578,277 @@ totals_kernel(Tensors t, Leaves totals, Geom g) {
   const typename S::Buf s = net.scan();
   for (int c = threadIdx.x; c < w; c += blockDim.x)
     S::put(totals, chain + c, net.last(s, c));
+}
+
+// totals, reduced: Rows tiles of the sum (every dtype) and the mask. The
+// same totals as totals_kernel's, without the scan: the last element of
+// tile_scan is a fixed tree of the tile's elements, so it is built
+// directly, from registers.
+//   bn > 128 and bn % 128 == 0: each 128-element segment's total t_q is
+//     the balanced tree over its elements (Hillis-Steele's last element of
+//     a power-of-two run never meets the identity); the tile's total is
+//     the Hillis-Steele value at r - 2 over the r segment totals -- the
+//     balanced tree over the 2^ceil(log2 r) slots ending at t_{r-2}, the
+//     identity in the slots below t_0 -- combined with t_{r-1} on the
+//     right (the broadcast combine of the last segment);
+//   otherwise: the balanced tree over the 2^ceil(log2 bn) slots ending
+//     at element bn - 1, identity-padded below element 0.
+// An identity slot gives the network's bits: I (+) I = I, and I (+) y is
+// the network's own identity combine (0.0f + -0.0f is +0.0f). Float
+// addition is commutative bit for bit, so an xor-shuffle butterfly builds
+// the balanced tree over the lanes in order, whichever lane of a pair
+// adds; a lane's run of 4 elements (one 16-byte float or 8-byte half
+// load) is its own subtree. A tree above 128 slots (the segment totals,
+// or 128-slot groups) is built the same way once each total is moved to
+// the lane that holds its slot (SlotTree). Integer totals wrap in uint32,
+// which is associative bit for bit: any order gives the bits, so 16-byte
+// loads (a scalar head and tail around them) and __reduce_add_sync.
+// Bound: device-memory bytes, read n and write one value a tile. One warp
+// reduces a tile, tiles strided over a grid that fills the card; a lane
+// issues the loads of kReduceBatch segments (float; 8 KB a warp at bn
+// 2048) or kReduceVecs 16-byte words (integer) before it combines any,
+// with evict-first hints (each byte is read once). The 16 segments of a
+// batch share one halving butterfly: 16 shuffles for 16 totals, not 80.
+// No shared memory, no block barrier.
+constexpr int kReduceThreads = 256;  // 8 warps, a tile each at a time
+constexpr int kReduceBatch = 16;     // float segments loaded ahead
+constexpr int kReduceVecs = 16;      // integer 16-byte loads ahead
+
+// Four consecutive elements as float32: one 16-byte (float) or 8-byte
+// (bf16, f16) load, evict-first, when kVec (p aligned to it).
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  if constexpr (kVec) {
+    const float4 w = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = p[j];
+  }
+}
+__device__ __forceinline__ float half_bits(const __nv_bfloat16*, uint32_t b) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(b)));
+}
+__device__ __forceinline__ float half_bits(const __half*, uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+template <bool kVec, typename H>
+__device__ __forceinline__ void load4(const H* p, float (&v)[4]) {
+  if constexpr (kVec) {
+    const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = half_bits(p, w.x & 0xffffu); v[1] = half_bits(p, w.x >> 16);
+    v[2] = half_bits(p, w.y & 0xffffu); v[3] = half_bits(p, w.y >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
+  }
+}
+template <typename T>
+__device__ __forceinline__ bool aligned4(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// The balanced tree over a lane's k (1, 2 or 4) slots.
+__device__ __forceinline__ float run_tree(const float (&v)[4], int k) {
+  return k == 4 ? (v[0] + v[1]) + (v[2] + v[3]) : k == 2 ? v[0] + v[1] : v[0];
+}
+
+// The balanced tree over the first `lanes` (a power of two) lanes' values,
+// in each of them: at offset o, lane l combines with lane l ^ o.
+__device__ __forceinline__ float lanes_tree(float v, int lanes) {
+  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One step of the batch butterfly: lanes at offset 8 / kHalf exchange
+// halves of their kHalf * 2 partial totals; the lower lane keeps the lower
+// half, the upper lane the upper, each combined with the partner's copy.
+template <int kHalf>
+__device__ __forceinline__ void halve(float (&a)[kReduceBatch], int lane) {
+  const bool up = lane & (8 / kHalf);
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = up ? a[i] : a[i + kHalf];
+    const float keep = up ? a[i + kHalf] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8 / kHalf);
+  }
+}
+
+// The lane (and that lane + 16) where batch_tree leaves segment u's total.
+__device__ __forceinline__ int batch_lane(int u) {
+  return __brev(static_cast<unsigned>(u)) >> 28;
+}
+
+// The totals of a batch of 16 segments, segment u in lane batch_lane(u):
+// each 4-element run's tree, then the halving butterfly at offsets 1, 2,
+// 4 and 8 and a last combine at offset 16 -- the tree over each segment's
+// 32 runs in order.
+__device__ __forceinline__ float batch_tree(const float (&v)[kReduceBatch][4],
+                                            int lane) {
+  float a[kReduceBatch];
+#pragma unroll
+  for (int u = 0; u < kReduceBatch; ++u) a[u] = run_tree(v[u], 4);
+  halve<8>(a, lane);
+  halve<4>(a, lane);
+  halve<2>(a, lane);
+  halve<1>(a, lane);
+  return a[0] + __shfl_xor_sync(0xffffffffu, a[0], 16);
+}
+
+// A window of up to 128 slots (a power of two) over the warp, in order:
+// lane l holds slots [l k, l k + k) (k = 1, 2 or 4) of the first `lanes`
+// lanes; a slot never set holds the identity. total() is the balanced
+// tree over the window, in lane 0.
+struct SlotTree {
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int lanes, k, first;
+  __device__ SlotTree(int window, int lane)
+      : lanes(window < 32 ? window : 32), k(window / lanes), first(lane * k) {}
+  __device__ void set(int s, float t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < k && s == first + j) v[j] = t;
+  }
+  __device__ float total() const { return lanes_tree(run_tree(v, k), lanes); }
+};
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int m = 1;
+  while (m < n) m <<= 1;
+  return m;
+}
+
+// A lane-divisible tile's total, in lane 0: r segments from p, their
+// totals t_0 .. t_{r-2} into the slots pad .. of the window tree, t_{r-1}
+// kept apart.
+template <bool kVec, typename T>
+__device__ __forceinline__ float segmented_total(const T* p, int r, int lane) {
+  const int window = pow2_at_least(r), pad = window - (r - 1);
+  SlotTree upper(window, lane);
+  float last = 0.0f;
+  for (int q0 = 0; q0 < r; q0 += kReduceBatch) {
+    float v[kReduceBatch][4];
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) {
+      if (q0 + u < r) {
+        load4<kVec>(p + (q0 + u) * kLanes + 4 * lane, v[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[u][j] = 0.0f;
+      }
+    }
+    const float t = batch_tree(v, lane);
+    // the segments of this batch whose slots this lane holds
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < upper.k) {   // uniform: every lane shuffles
+        const int q = upper.first + j - pad;
+        const float tq = __shfl_sync(0xffffffffu, t, batch_lane((q - q0) & 15));
+        if (q >= q0 && q < q0 + kReduceBatch && q < r - 1) upper.set(q + pad, tq);
+      }
+    }
+    if (r - 1 < q0 + kReduceBatch)
+      last = __shfl_sync(0xffffffffu, t, batch_lane((r - 1 - q0) & 15));
+  }
+  return upper.total() + last;
+}
+
+// A float tile's total, in lane 0 (see above).
+template <typename T>
+__device__ float tile_total_float(const T* p, int bn, int lane) {
+  if (bn > kLanes && bn % kLanes == 0) {
+    const int r = bn / kLanes;
+    return aligned4(p) ? segmented_total<true>(p, r, lane)
+                       : segmented_total<false>(p, r, lane);
+  }
+  // groups of up to 128 slots, k slots a lane over `lanes` lanes, and the
+  // window tree over the groups' totals
+  const int window = pow2_at_least(bn), pad = window - bn;
+  const int group = window < kLanes ? window : kLanes;
+  const int lanes = group < 32 ? group : 32, k = group / lanes;
+  SlotTree upper(window / group, lane);
+  for (int g0 = 0; g0 < window; g0 += group) {  // uniform: every lane shuffles
+    float v[4];
+    const int e0 = g0 + lane * k - pad;  // the element of the lane's first slot
+    if (lane < lanes && k == 4 && e0 >= 0) {
+      if (aligned4(p + e0)) load4<true>(p + e0, v);
+      else load4<false>(p + e0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = lane < lanes && j < k && e0 + j >= 0 ? load_acc(p + e0 + j)
+                                                    : 0.0f;
+    }
+    upper.set(g0 / group, lanes_tree(run_tree(v, k), lanes));
+  }
+  return upper.total();
+}
+
+// The sign-extended sum of the elements of a 16-byte word, wrapping.
+template <typename T> __device__ __forceinline__ uint32_t word_sum(uint32_t w);
+template <> __device__ __forceinline__ uint32_t word_sum<int32_t>(uint32_t w) {
+  return w;
+}
+template <> __device__ __forceinline__ uint32_t word_sum<int16_t>(uint32_t w) {
+  return static_cast<uint32_t>(static_cast<int32_t>(w << 16) >> 16) +
+         static_cast<uint32_t>(static_cast<int32_t>(w) >> 16);
+}
+template <> __device__ __forceinline__ uint32_t word_sum<int8_t>(uint32_t w) {
+  const int32_t s = static_cast<int32_t>(w);
+  return static_cast<uint32_t>((s << 24) >> 24) +
+         static_cast<uint32_t>((s << 16) >> 24) +
+         static_cast<uint32_t>((s << 8) >> 24) + static_cast<uint32_t>(s >> 24);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t vec_sum(uint4 w) {
+  return word_sum<T>(w.x) + word_sum<T>(w.y) + word_sum<T>(w.z) +
+         word_sum<T>(w.w);
+}
+
+// An integer tile's total, in every lane: scalar loads up to the first
+// 16-byte boundary and after the last, 16-byte loads between.
+template <typename T>
+__device__ uint32_t tile_total_int(const T* p, int bn, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15) /
+                  static_cast<int>(sizeof(T));
+  const int head = min(bn, (V - mis) % V);
+  const int nvec = (bn - head) / V;
+  const int tail = head + nvec * V;
+  uint32_t acc = 0u;
+  if (lane < head) acc += load_acc(p + lane);
+  if (lane < bn - tail) acc += load_acc(p + tail + lane);
+  const uint4* w = reinterpret_cast<const uint4*>(p + head);
+  int i = lane;
+  // whole rounds of kReduceVecs loads, unpredicated, so all are in flight
+  for (; i + 32 * (kReduceVecs - 1) < nvec; i += 32 * kReduceVecs) {
+    uint4 v[kReduceVecs];
+#pragma unroll
+    for (int u = 0; u < kReduceVecs; ++u) v[u] = __ldcs(w + i + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kReduceVecs; ++u) acc += vec_sum<T>(v[u]);
+  }
+  for (; i < nvec; i += 32) acc += vec_sum<T>(__ldcs(w + i));
+  return __reduce_add_sync(0xffffffffu, acc);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kReduceThreads)
+totals_reduce_kernel(const void* x, Leaves totals, int64_t tiles, int bn) {
+  using T = typename S::In;
+  constexpr int kWarps = kReduceThreads / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
+       tile < tiles; tile += stride) {
+    const T* p = static_cast<const T*>(x) + tile * bn;
+    typename S::E total;
+    if constexpr (std::is_same<typename S::A, float>::value)
+      total.v = tile_total_float(p, bn, lane);
+    else
+      total.v = tile_total_int(p, bn, lane);
+    if (lane == 0) S::put(totals, tile, total);
+  }
 }
 
 // 16-byte shared-memory copies of a run of elements between shared memory
@@ -1120,17 +1402,47 @@ int launch_carry(Tensors t, Leaves running, long long b, long long n,
   return cudaGetLastError();
 }
 
+// A grid of as many blocks as the card holds at once (each warp strides
+// over the tiles), fewer where there are fewer tiles.
+template <typename S>
+int launch_totals_reduce(const void* x, Leaves totals, long long tiles,
+                         int bn, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks per SM, once per instantiation
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, totals_reduce_kernel<S>, kReduceThreads, 0);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long warps = kReduceThreads / 32;
+  const long long need = (tiles + warps - 1) / warps;
+  const long long fill = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  totals_reduce_kernel<S><<<static_cast<unsigned>(need < fill ? need : fill),
+                            kReduceThreads, 0, stream>>>(x, totals, tiles, bn);
+  return cudaGetLastError();
+}
+
+// Rows tiles of the sum and the mask take totals_reduce_kernel; the
+// segmented sum, the affine pair and every Channels launch take the
+// network's totals_kernel.
 template <typename S, bool kChan>
 int launch_totals(Tensors t, Leaves totals, long long b, long long n,
                   long long d, int width, int bn, cudaStream_t stream) {
-  const Geom g = make_geom(kChan, n, d, width, bn);
-  const size_t smem = network_bytes<S>(bn, g.width);
-  cudaError_t err = allow_smem(totals_kernel<S, kChan>, smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
-  totals_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
-                            stream>>>(t, totals, g);
-  return cudaGetLastError();
+  if constexpr (!kChan && S::kReduce) {
+    return launch_totals_reduce<S>(t.x, totals, b * (n / bn), bn, stream);
+  } else {
+    const Geom g = make_geom(kChan, n, d, width, bn);
+    const size_t smem = network_bytes<S>(bn, g.width);
+    cudaError_t err = allow_smem(totals_kernel<S, kChan>, smem);
+    if (err != cudaSuccess) return err;
+    const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
+    totals_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
+                              stream>>>(t, totals, g);
+    return cudaGetLastError();
+  }
 }
 
 template <typename S, bool kChan>

@@ -11,7 +11,11 @@ once over a spec and a geometry and instantiated for the four specs with
 a CUDA kernel — the sum, the segmented sum (values and int32 flags), the
 compact mask (int32 mask, int32 destinations) and the affine recurrence
 (gates a and offsets b of one float dtype) — on ``Rows`` (2-D) and
-``Channels`` (3-D) layouts. Each wrapper below takes the spec and its
+``Channels`` (3-D) layouts. ``totals`` of the sum and the mask on
+``Rows`` launch ``totals_reduce_kernel`` (the network's last element
+built as its tree, without the scan; counted under the same keys); every
+other ``totals`` launches the network's ``totals_kernel``. Each wrapper
+below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
 the layout's shape, raises on anything the kernel does not take,
 allocates the outputs and scratch with ``torch.empty``/``torch.zeros``,

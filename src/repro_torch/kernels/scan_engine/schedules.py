@@ -254,6 +254,54 @@ def totals_plain(operands, spec, layout):
     return _last(tile_scan(spec, _tiles(spec, operands, layout), _POS))
 
 
+def _window_tree(spec, leaves, axis, slots):
+    """The balanced tree over ``slots`` (a power of two) slots along
+    ``axis``: the identity in the first, the leaves in the rest. Over the
+    2^ceil(log2 n) slots ending at position n - 1 it is the last element
+    of ``log_scan`` without the scan (an identity slot gives the network's
+    bits: I ⊕ I = I, and I ⊕ y is the network's own identity combine).
+    Returns the leaves with ``axis`` removed."""
+    axis %= leaves[0].dim()
+    pad = slots - leaves[0].shape[axis]
+    if pad:
+        head = list(leaves[0].shape)
+        head[axis] = pad
+        leaves = tuple(torch.cat([torch.full(head, f, dtype=x.dtype,
+                                             device=x.device), x], axis)
+                       for x, f in zip(leaves, spec.fills))
+    while leaves[0].shape[axis] > 1:
+        pairs = tuple(x.unflatten(axis, (-1, 2)) for x in leaves)
+        leaves = spec.combine(tuple(p.select(axis + 1, 0) for p in pairs),
+                              tuple(p.select(axis + 1, 1) for p in pairs))
+    return tuple(x.squeeze(axis) for x in leaves)
+
+
+def _pow2_at_least(n):
+    return 1 << (n - 1).bit_length()
+
+
+def totals_tree_plain(operands, spec, layout):
+    """``totals_plain``'s bits without the scan: the tree of combines that
+    makes the last element of ``tile_scan``, the association the CUDA
+    ``totals_reduce_kernel`` builds. On a lane-divisible tile (the last
+    axis, a multiple of 128 longer than 128): each 128-segment's total,
+    then the Hillis–Steele value at r − 2 over the r segment totals (the
+    tree over the 2^ceil(log2 r) slots ending at segment r − 2), ⊕ the
+    last segment's total; otherwise the tree over the 2^ceil(log2 n)
+    slots ending at the tile's last element. Tests use it; the schedules
+    never do."""
+    elems = _tiles(spec, operands, layout)
+    n = elems[0].shape[_POS]
+    if _POS == elems[0].dim() - 1 and n > LANES and n % LANES == 0:
+        r = n // LANES
+        segs = tuple(x.unflatten(_POS, (r, LANES)) for x in elems)
+        tot = _window_tree(spec, segs, -1, LANES)
+        head = _window_tree(spec, tuple(t[..., :-1] for t in tot), -1,
+                            _pow2_at_least(r))
+        return spec.combine(head, tuple(t[..., -1] for t in tot))
+    return _window_tree(spec, elems, _POS, _pow2_at_least(n))
+
+
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
     elems = _tiles(spec, operands, layout)

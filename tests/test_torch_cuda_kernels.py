@@ -29,7 +29,10 @@ dims 64, 128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups,
 both schedules and packed decode tiles, and the same bitwise invariants;
 float32 still takes the SIMT kernels. The chain over chunk totals (a
 folding thread for float specs, a parallel scan for integer ones) must
-give ``exclusive_chain``'s bits.
+give ``exclusive_chain``'s bits. The sum's and the mask's Rows totals
+(``totals_reduce_kernel``, the network's last element built as its tree)
+must give ``totals_plain``'s and ``totals_tree_plain``'s bits on
+adversarial data, at any block size and base alignment.
 """
 
 import dataclasses
@@ -39,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_totals_data as totals_data
 from repro_torch import relational as rel
 from repro_torch.kernels import scan_engine
 from repro_torch.core.scan import assoc
@@ -397,6 +401,77 @@ def test_cuda_chain_bitwise_vs_exclusive_chain(cuda_device, case):
     again, _ = cuda.chain(spec, gpu, with_running)
     for a, b in zip(offs, again):
         assert _same_bits(a, b), name
+
+
+@pytest.mark.parametrize("bn", totals_data.BLOCKS)
+@pytest.mark.parametrize("kind", totals_data.KINDS)
+def test_cuda_totals_reduce_bitwise_vs_plain(cuda_device, kind, bn):
+    """``totals_reduce_kernel`` (Rows totals of the sum and the mask)
+    against ``totals_plain`` and ``totals_tree_plain`` bitwise (NaN as
+    NaN) on adversarial data — signed zeros at tile starts, subnormals,
+    cancelling pairs, infinities — from an aligned base and from a base
+    one element off (a view into a larger buffer), one launch each."""
+    n = 3 * bn
+    cpu = totals_data.operands(kind, 2, n, bn, 73)
+    spec = monoids.mask(n) if kind == "mask" else monoids.SUM
+    lay = scan_engine.Rows(2, n, 1, bn)
+    (want,) = scan_engine.schedules.totals_plain((cpu,), spec, lay)
+    (tree,) = scan_engine.schedules.totals_tree_plain((cpu,), spec, lay)
+    assert totals_data.same_bits(tree, want)
+    for offset in (0, 1):
+        buf = torch.empty(cpu.numel() + offset, dtype=cpu.dtype,
+                          device=cuda_device)
+        x = buf[offset:].view(cpu.shape)
+        x.copy_(cpu)
+        assert x.is_contiguous()
+        cuda.reset_launches()
+        (got,) = cuda.totals(spec, (x,), lay)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES == {**{k: 0 for k in cuda.LAUNCHES},
+                                 cuda.kernel_name(spec.name, "totals"): 1}
+        assert totals_data.same_bits(got.cpu(), want), f"offset {offset}"
+
+
+def _kernel_names(fn):
+    """The CUDA kernels one call of fn launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
+    """SUM (every dtype) and MASK on Rows launch ``totals_reduce_kernel``
+    and never the network's ``totals_kernel``; SEGSUM and AFFINE on Rows
+    or Channels, and SUM on Channels, launch ``totals_kernel``. The launch
+    counters keep their keys."""
+    rows = scan_engine.Rows(2, 4096, 1, 2048)
+    chan = scan_engine.Channels(2, 1024, 8, 256, 8)
+    ones = torch.ones(rows.shape, device=cuda_device)
+    flags = torch.zeros(rows.shape, dtype=torch.int32, device=cuda_device)
+    calls = [(monoids.SUM, (ones.to(dt),), rows, "totals_reduce_kernel")
+             for dt in cuda.DTYPE_CODES]
+    calls += [
+        (monoids.mask(4096), (flags,), rows, "totals_reduce_kernel"),
+        (monoids.SEGMENTED_SUM, (ones, flags), rows, "totals_kernel"),
+        (monoids.SUM, (torch.ones(chan.shape, device=cuda_device),), chan,
+         "totals_kernel"),
+        (monoids.AFFINE, (torch.ones(chan.shape, device=cuda_device),) * 2,
+         chan, "totals_kernel"),
+    ]
+    spec_type = {"sum": "SumSpec", "mask": "MaskSpec",
+                 "segsum": "SegSumSpec", "affine": "AffineSpec"}
+    for spec, ops, lay, kernel in calls:
+        cuda.reset_launches()
+        names = _kernel_names(lambda: cuda.totals(spec, ops, lay))
+        assert cuda.LAUNCHES[cuda.kernel_name(spec.name, "totals")] == 1
+        hits = [k for k in names if "totals" in k]
+        assert len(hits) == 1 and kernel + "<" in hits[0], (
+            spec.name, ops[0].dtype, type(lay).__name__, names)
+        assert spec_type[spec.name] in hits[0]
 
 
 @pytest.mark.parametrize("spec_name,dtype", [
