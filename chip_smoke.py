@@ -11,7 +11,9 @@ first failure and prints no result):
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
      tensor-core kernels one by one, and none may spill: fold_dq_tc's
-     three instantiations, d = 64, 128 and 256, among them);
+     three instantiations, d = 64, 128 and 256, among them; the 52
+     kernels of the register network, carry_reg_kernel and
+     fused_reg_kernel by spec and vector form, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -31,7 +33,17 @@ first failure and prints no result):
      the six sum dtypes and the mask, signed zeros at tile starts, from an
      aligned base and one element off; and, by the profiler's kernel
      names, that those launch it while the segmented sum, and every
-     Channels launch, take the network's ``totals_kernel``;
+     Channels launch, take the network's ``totals_kernel``; carry and
+     fused on Rows in the register network (``carry_reg_kernel``,
+     ``fused_reg_kernel``: a warp a 128-element segment, Hillis-Steele
+     by warp shuffles) at block_n 128, 2048, 2176 and 16384 for the six
+     sum dtypes, the segmented sum (f32, bf16, int32) and the mask,
+     outputs and carry's running totals bitwise equal to the plain
+     versions and to decoupled, inclusive and exclusive, aligned and one
+     element off, on signed zeros at every segment start, subnormals and
+     cancelling pairs; and, by the profiler's names, that each of those
+     launches the register kernels while block_n 200 and Channels launch
+     ``carry_kernel`` / ``fused_kernel`` (tile_scan in shared memory);
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -70,8 +82,9 @@ first failure and prints no result):
      also the latency floor of their dependent combines at the card's
      maximum SM clock), its plain version and, where one exists, the
      one-call PyTorch function (a yardstick only: the port never calls
-     it), the chains and the sum and mask totals also from CUDA graph
-     replays (printed: no host launch cost in them); before they are
+     it), the chains, the sum and mask totals and the (a) fused and (b)
+     carry kernels also from CUDA graph replays (printed: no host launch
+     cost in them); before they are
      timed, the fused kernel at Q1's (4, ~59M)
      segmented sum and Q6's ~60M-row mask is held bitwise against
      decoupled and ``fused_plain`` (the segmented sum exclusive at
@@ -213,6 +226,15 @@ ATTN_REPLACES = {
 
 class SmokeFailure(AssertionError):
     pass
+
+
+def spilled(line):
+    """Whether a ptxas "N bytes spill stores, M bytes spill loads" line
+    reports a spill (a test for the whole numbers: "40 bytes spill stores"
+    contains "0 bytes spill stores")."""
+    found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+    return bool(found) and (int(found[1]) > 0 or int(found[2]) > 0)
 
 
 def check(cond, what):
@@ -393,9 +415,7 @@ def main() -> int:
         log = log.splitlines()
         regs = [int(line.split("Used")[1].split("registers")[0])
                 for line in log if "Used" in line and "registers" in line]
-        spills = sum("spill stores" in line and not (
-            "0 bytes spill stores" in line and "0 bytes spill loads" in line)
-            for line in log)
+        spills = sum(spilled(line) for line in log)
         if regs:
             print(f"  ptxas {src.name}: {len(regs)} kernels, "
                   f"{min(regs)}-{max(regs)} registers, {spills} with spills")
@@ -406,8 +426,7 @@ def main() -> int:
             found = re.search(r"totals_reduce_kernelI(.+?)EEvPKv", line)
             entry = found and re.sub(r"NS_\d+|E+$", "", found[1])
         elif entry and "spill stores" in line:
-            red_spills += not ("0 bytes spill stores" in line
-                               and "0 bytes spill loads" in line)
+            red_spills += spilled(line)
         elif entry and "Used" in line and "registers" in line:
             red.append(f"{entry} "
                        f"{line.split('Used')[1].split('registers')[0].strip()}")
@@ -417,6 +436,37 @@ def main() -> int:
               f"{red_spills} with spills")
         check(len(red) == 7 and red_spills == 0,
               f"ptxas: totals_reduce_kernel {red}, {red_spills} spill")
+    # the register network (carry_reg_kernel, fused_reg_kernel) by spec and
+    # vector form (1: vector accesses): registers, then stack frame and
+    # spill bytes where not 0
+    entry, regk, reg_spills, frame = None, [], [], ""
+    for line in cuda.build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"(carry|fused)_reg_kernelI(.+?)ELb([01])E+v",
+                              line)
+            if found:
+                spec_of = re.sub(r"NS_\d+|E+$", "", found[2])
+                entry = f"{found[1]}<{spec_of}, {found[3]}>"
+            else:
+                entry = None
+        elif entry and "spill stores" in line:
+            if spilled(line):
+                reg_spills.append(entry)
+            frame = "" if line.strip().startswith("0 bytes stack frame, 0 "
+                                                  "bytes spill stores, 0 "
+                                                  "bytes spill loads") \
+                else f" ({line.strip()})"
+        elif entry and "Used" in line and "registers" in line:
+            regk.append(f"{entry} "
+                        f"{line.split('Used')[1].split('registers')[0].strip()}"
+                        f"{frame}")
+            entry, frame = None, ""
+    if regk:   # a cached build in build/ prints no report
+        print(f"  ptxas register network ({len(regk)} kernels): "
+              f"{', '.join(regk)}; with spills: {reg_spills or 'none'}")
+        check(len(regk) == 52 and not reg_spills,
+              f"ptxas: register network {len(regk)} kernels, spills in "
+              f"{reg_spills}")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
     entry, tc_spills, tc_entries = None, 0, []
     for line in cuda_fold.build_log_tc.splitlines():
@@ -427,8 +477,7 @@ def main() -> int:
                 re.findall(r"Li(\d+)E", found[2] + "E")) + ">")
         elif entry and "spill stores" in line:
             stack = line.strip()
-            tc_spills += not ("0 bytes spill stores" in line
-                              and "0 bytes spill loads" in line)
+            tc_spills += spilled(line)
         elif entry and "Used" in line and "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; "
                   f"{stack}")
@@ -649,6 +698,133 @@ def main() -> int:
     print("totals kernels by the profiler: sum (f32, int8) and mask on Rows "
           "-> totals_reduce_kernel; segsum on Rows, sum and affine on "
           "Channels -> totals_kernel")
+
+    # carry and fused on Rows: the register network (carry_reg_kernel,
+    # fused_reg_kernel) on every tile of 128 r elements, bitwise against
+    # carry_plain / fused_plain (outputs and carry's running totals) and
+    # against decoupled (whose apply_kernel runs the shared-memory
+    # network), inclusive and exclusive, from an aligned base and one
+    # element off, on data with a signed zero at every segment start, a
+    # first tile of -0.0, subnormals and cancelling pairs (g_red's
+    # generator); the profiler's kernel names show which network each
+    # (spec, block_n) launched
+    def reg_operands(kind, n, bn):
+        if kind == "mask":
+            return monoids.mask(n), (torch.randint(
+                0, 2, (2, n), device=dev, generator=g_red, dtype=torch.int32),)
+        dt = getattr(torch, kind.split("-")[-1])
+        if not dt.is_floating_point:
+            info = torch.iinfo(dt)
+            x = torch.randint(info.min, info.max + 1, (2, n), device=dev,
+                              generator=g_red).to(dt)
+        else:
+            x = torch.randn((2, n), device=dev, generator=g_red) * 4
+            x[:, 1::97] = 1e-40 if dt != torch.float16 else 1e-6
+            x[:, 5::89] = 3e4
+            x[:, 6::89] = -3e4
+            x[:, ::128] = -0.0
+            x[:, bn::2 * bn] = 0.0
+            x[:, :bn] = -0.0
+            x = x.to(dt)
+        if not kind.startswith("segsum"):
+            return SUM, (x,)
+        fl = torch.randint(0, 100, (2, n), device=dev, generator=g_red)
+        fl = torch.where(fl == 0, -3, torch.where(fl == 1, 2, 0))
+        return SEGSUM, (x, fl.to(torch.int32))
+
+    def offset_view(t, offset):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def launched_names(calls):
+        """The carry and fused kernels the calls launch, by the profiler:
+        {kernel: its launches}. A profile that recorded fewer launches
+        than the calls made (CUPTI drops a record now and then) is taken
+        again, three times at most."""
+        for _ in range(3):
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for spec, ops_, lay in calls:
+                    cuda.carry(spec, ops_, lay)
+                    cuda.fused(spec, ops_, lay)
+                sync()
+            names = {}
+            for e in prof.key_averages():
+                found = re.search(r"((carry|fused)(_reg)?_kernel)<", e.key)
+                if e.device_type == torch.autograd.DeviceType.CUDA and found:
+                    names[found[1]] = names.get(found[1], 0) + e.count
+            if sum(names.values()) >= 2 * len(calls):
+                break
+        return names
+
+    n_reg = 0
+    reg_kinds = ("float32", "bfloat16", "float16", "int32", "int16", "int8",
+                 "segsum-float32", "segsum-bfloat16", "segsum-int32", "mask")
+    for bn in (128, 2048, 2176, 16384):
+        n = -(-(1 << 18) // bn) * bn
+        lay = Rows(2, n, 1, bn)
+        check(cuda.tile_network(SUM, lay) == "register",
+              f"tile_network at bn={bn}")
+        calls = []
+        for kind in reg_kinds:
+            spec, ops_r = reg_operands(kind, n, bn)
+            calls.append((spec, ops_r, lay))
+            what = f"{kind} bn={bn}"
+            for exclusive in ((False, True) if spec.supports_exclusive
+                              else (False,)):
+                (w_out,), w_run = schedules.carry_plain(
+                    ops_r, spec, lay, exclusive, return_totals=True)
+                (w_fused,) = schedules.fused_plain(ops_r, spec, lay,
+                                                   exclusive)
+                for offset in (0, 1):
+                    ops_o = tuple(offset_view(o, offset) for o in ops_r)
+                    cuda.reset_launches()
+                    (got,), run = cuda.carry(spec, ops_o, lay, exclusive, True)
+                    (fo,) = cuda.fused(spec, ops_o, lay, exclusive)
+                    sync()
+                    check(launched() == {cuda.kernel_name(spec.name, k)
+                                         for k in ("carry", "fused")},
+                          f"register network {what} launched {launched()}")
+                    (dec,) = schedules.scan_decoupled(ops_o, spec, lay,
+                                                      exclusive=exclusive)
+                    sync()
+                    mode = f"{what} excl={exclusive} offset {offset}"
+                    check(same_bits(got, w_out)
+                          and all_same_bits(run, w_run),
+                          f"carry_reg_kernel != carry_plain: {mode}")
+                    check(same_bits(fo, w_fused),
+                          f"fused_reg_kernel != fused_plain: {mode}")
+                    check(same_bits(dec, got) and same_bits(fo, got),
+                          f"carry / decoupled / fused differ: {mode}")
+                    n_reg += 1
+                    del ops_o, got, run, fo, dec
+            del ops_r, w_out, w_run, w_fused
+        names = launched_names(calls)
+        want = {"carry_reg_kernel": len(reg_kinds),
+                "fused_reg_kernel": len(reg_kinds)}
+        check(names == want, f"bn={bn}: carry and fused of the {len(calls)} "
+              f"kinds launched {names}, not {want}")
+        del calls
+        print(f"register network bn={bn}: carry (outputs, running totals) "
+              f"and fused == plain == decoupled bitwise, 6 sum dtypes, "
+              f"segsum (3 dtypes), mask; by the profiler {names}")
+    calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
+             (SEGSUM, (ones[:, :600].contiguous(),
+                       zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
+             (SUM, (ones_c,), chan), (AFFINE, (ones_c, ones_c), chan))
+    for spec, _, lay in calls:
+        check(cuda.tile_network(spec, lay) == "shared",
+              f"tile_network {spec.name} {lay}")
+    names = launched_names(calls)
+    check(names == {"carry_kernel": len(calls), "fused_kernel": len(calls)},
+          f"bn 200 and Channels launched {names}")
+    print(f"phase 2 (register network): {n_reg} carry + fused launch pairs "
+          "(bn 128, 2048, 2176, 16384; aligned and one element off) bitwise "
+          "equal to the plain versions and decoupled; by the profiler, bn "
+          "200 on Rows (sum, segsum) and Channels (sum, affine) launch "
+          "carry_kernel / fused_kernel (tile_scan in shared memory)")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -999,9 +1175,10 @@ def main() -> int:
 
     # where each operator's device time goes (one profiled call each)
     def short(kname):
-        for k in ("carry_kernel", "totals_kernel", "totals_reduce_kernel",
-                  "chain_seq_kernel", "chain_scan_kernel", "apply_kernel",
-                  "fused_kernel", "tree_kernel"):
+        for k in ("carry_kernel", "carry_reg_kernel", "totals_kernel",
+                  "totals_reduce_kernel", "chain_seq_kernel",
+                  "chain_scan_kernel", "apply_kernel", "fused_kernel",
+                  "fused_reg_kernel", "tree_kernel"):
             if k in kname:
                 spec = ("segsum" if "SegSum" in kname else "mask"
                         if "Mask" in kname else "affine"
@@ -1109,7 +1286,7 @@ def main() -> int:
     kernel_row("carry", lambda: cuda.carry(SUM, (xb,), lay_b)[0],
                lambda: schedules.carry_plain((xb,), SUM, lay_b),
                8 * nb, nb, 5, lambda: torch.cumsum(xb, 1),
-               "(8192, 32768) bn 2048", launches)
+               "(8192, 32768) bn 2048", launches, graph=True)
     kernel_row("totals", lambda: cuda.totals(SUM, (xa2,), lay_a),
                lambda: schedules.totals_plain((xa2,), SUM, lay_a),
                4 * na + 4 * n_chunks, na, 5,
@@ -1139,7 +1316,7 @@ def main() -> int:
     kernel_row("fused", lambda: cuda.fused(SUM, (xa2,), lay_a),
                lambda: schedules.fused_plain((xa2,), SUM, lay_a),
                8 * na, na, 5, lambda: torch.cumsum(xa, 0),
-               "(1, 2^28) bn 2048", launches)
+               "(1, 2^28) bn 2048", launches, graph=True)
     del xa, xb, xa2, tot, offs
 
     # mask kernels: decoupled and fused at Q6's column (m6, built in

@@ -21,8 +21,13 @@
 //
 // What each kernel replaces (Pallas TPU kernels of the reference package,
 // src/repro/kernels/scan_engine/schedules.py):
-//   carry_kernel   scan_carry, pallas_call at :335 (body _carry_body :298),
-//                  with its optional running chunk totals (return_totals)
+//   carry_reg_kernel
+//                  scan_carry, pallas_call at :335 (body _carry_body :298),
+//                  with its optional running chunk totals (return_totals),
+//                  for Rows tiles of 128 r elements of the sum, segmented
+//                  sum and mask: the in-tile network in registers (below)
+//   carry_kernel   the same pallas_call for every other tile: Channels
+//                  strips, Rows tiles of other lengths, the affine pair
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
 //                  (body _totals_body :361): the segmented sum, the
 //                  affine pair and every Channels launch
@@ -43,8 +48,11 @@
 //                  for Channels, one thread per (batch, channel)
 //   apply_kernel   scan_decoupled, apply pallas_call at :405
 //                  (body _apply_body :371)
-//   fused_kernel   scan_fused, pallas_call at :527 (body _fused_body :453):
-//                  decoupled in one launch, through a look-back (below)
+//   fused_reg_kernel, fused_kernel
+//                  scan_fused, pallas_call at :527 (body _fused_body :453):
+//                  decoupled in one launch, through a look-back (below);
+//                  the register network on the tiles carry_reg_kernel
+//                  takes, the shared-memory one on the rest
 //   tree_kernel    scan_tree, pallas_call at :605 (body _tree_body :557,
 //                  tree_scan :224, _blelloch :178)
 //
@@ -59,9 +67,15 @@
 // (read n + write n); decoupled reads the data twice (totals, then apply)
 // to spread one lane over every SM; fused spreads it in one pass (read n +
 // write n). The mask's select re-reads its element at the writeback (an
-// L1/L2 hit: the tile was just loaded). The network's tiles are not yet
-// pipelined (no cp.async or TMA), so a block waits for each tile's load;
-// totals_reduce_kernel keeps a warp's loads in flight instead.
+// L1/L2 hit: the tile was just loaded). On Rows tiles of 128 r elements
+// carry and fused run the same network in registers instead, from 16-byte
+// loads (carry_reg_kernel, fused_reg_kernel: one block barrier a round of
+// segments for carry, two a tile for fused, no shared-memory pass over
+// the elements), and carry keeps its next rounds' loads in flight while
+// it scans the current one; totals_reduce_kernel keeps a warp's loads in
+// flight too. The shared-memory tiles of apply, tree and the other carry
+// and fused launches are not pipelined (no cp.async or TMA): a block
+// waits for each tile's load.
 //
 // Association order. Every kernel reproduces the reference's order of
 // combines exactly, so its results are bitwise equal to the reference's
@@ -75,7 +89,11 @@
 //                 the lane axis) Hillis-Steele over the whole tile, each
 //                 channel on its own. Step k computes x[i] = x[i-k] (+)
 //                 x[i], and identity (+) x[i] below k, as the reference
-//                 pads its shift with the identity.
+//                 pads its shift with the identity. The register network
+//                 runs the same steps, element for element, the value from
+//                 below always the left operand (warp_hs4), the identity
+//                 combine done (0.0f + -0.0f is +0.0f), and the broadcast
+//                 combine only when a tile has more than one segment.
 //   tree        = schedules._blelloch: up-sweep left (+) right, down-sweep
 //                 (parent, parent (+) old_left), padded to a power of two
 //                 with the identity; inclusive = excl (+) elems.
@@ -165,6 +183,139 @@ __device__ __forceinline__ void store(int8_t* p, uint32_t v) {
   *p = static_cast<int8_t>(v);
 }
 
+// Four consecutive elements as float32: one 16-byte (float) or 8-byte
+// (bf16, f16) load, evict-first, when kVec (p aligned to it).
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  if constexpr (kVec) {
+    const float4 w = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = p[j];
+  }
+}
+__device__ __forceinline__ float half_bits(const __nv_bfloat16*, uint32_t b) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(b)));
+}
+__device__ __forceinline__ float half_bits(const __half*, uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+template <bool kVec, typename H>
+__device__ __forceinline__ void load4(const H* p, float (&v)[4]) {
+  if constexpr (kVec) {
+    const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = half_bits(p, w.x & 0xffffu); v[1] = half_bits(p, w.x >> 16);
+    v[2] = half_bits(p, w.y & 0xffffu); v[3] = half_bits(p, w.y >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
+  }
+}
+template <typename T>
+__device__ __forceinline__ bool aligned4(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// Four consecutive integers, sign-extended to uint32: one 16-byte (int32),
+// 8-byte (int16) or 4-byte (int8) evict-first load when kVec.
+__device__ __forceinline__ uint32_t sext16(uint32_t b) {
+  return static_cast<uint32_t>(static_cast<int32_t>(b << 16) >> 16);
+}
+__device__ __forceinline__ uint32_t sext8(uint32_t w, int j) {
+  return static_cast<uint32_t>(static_cast<int32_t>(w << (24 - 8 * j)) >> 24);
+}
+template <bool kVec>
+__device__ __forceinline__ void load4(const int32_t* p, uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    const uint4 w = __ldcs(reinterpret_cast<const uint4*>(p));
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void load4(const int16_t* p, uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = sext16(w.x); v[1] = sext16(w.x >> 16);
+    v[2] = sext16(w.y); v[3] = sext16(w.y >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void load4(const int8_t* p, uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    const uint32_t w = __ldcs(reinterpret_cast<const unsigned int*>(p));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = sext8(w, j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
+  }
+}
+
+// Four consecutive results, rounded to the output type as store() rounds
+// them: one 16-, 8- or 4-byte store when kVec (p aligned to it).
+__device__ __forceinline__ uint32_t half_of(const __nv_bfloat16*, float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+__device__ __forceinline__ uint32_t half_of(const __half*, float v) {
+  return __half_as_ushort(__float2half(v));
+}
+template <bool kVec>
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = v[j];
+  }
+}
+template <bool kVec, typename H>
+__device__ __forceinline__ void store4(H* p, const float (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(half_of(p, v[0]) | half_of(p, v[1]) << 16,
+                   half_of(p, v[2]) | half_of(p, v[3]) << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store(p + j, v[j]);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void store4(int32_t* p, const uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store(p + j, v[j]);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void store4(int16_t* p, const uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2((v[0] & 0xffffu) | v[1] << 16,
+                                              (v[2] & 0xffffu) | v[3] << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store(p + j, v[j]);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void store4(int8_t* p, const uint32_t (&v)[4]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint32_t*>(p) = (v[0] & 0xffu) | (v[1] & 0xffu) << 8 |
+                                      (v[2] & 0xffu) << 16 | v[3] << 24;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store(p + j, v[j]);
+  }
+}
+
 // A chain-leaf load; kCg reads through L2 (ld.global.cg), past an L1 that
 // may hold a stale line of a prefix another block has since published.
 template <bool kCg, typename T>
@@ -237,6 +388,24 @@ struct SumSpec {
   __device__ static void emit(const Tensors& t, int64_t i, E c) {
     store(static_cast<T*>(t.out) + i, c.v);
   }
+  // Four consecutive elements from i, and their results emitted (the
+  // register network; m: the elements as loaded). kVec: one vector access
+  // a leaf.
+  template <bool kVec>
+  __device__ static void load_run(const Tensors& t, int64_t i, E (&e)[4]) {
+    A v[4];
+    load4<kVec>(static_cast<const T*>(t.x) + i, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j].v = v[j];
+  }
+  template <bool kVec>
+  __device__ static void emit_run(const Tensors& t, int64_t i, const E (&c)[4],
+                                  const E (&)[4]) {
+    A v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = c[j].v;
+    store4<kVec>(static_cast<T*>(t.out) + i, v);
+  }
   template <bool kCg = false>
   __device__ static E get(const Leaves& g, int64_t i) {
     return {ld<kCg>(static_cast<const A*>(g.v) + i)};
@@ -248,6 +417,8 @@ struct SumSpec {
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
   // Rows totals take totals_reduce_kernel (one value a tile, no scan)
   static constexpr bool kReduce = true;
+  // Rows tiles of 128 r elements take the register network
+  static constexpr bool kReg = true;
   static constexpr bool kPack = true;
   __device__ static uint64_t pack(E e) {
     return static_cast<uint64_t>(to_bits(e.v)) << 32;
@@ -261,6 +432,7 @@ struct SumSpec {
 // flags combine as an OR of != 0.
 template <typename T>
 struct SegSumSpec {
+  using In = T;
   using A = typename Acc<T>::type;
   struct E { A v; uint32_t f; };
   struct Buf {
@@ -295,6 +467,23 @@ struct SegSumSpec {
   __device__ static void emit(const Tensors& t, int64_t i, E c) {
     store(static_cast<T*>(t.out) + i, c.v);
   }
+  template <bool kVec>
+  __device__ static void load_run(const Tensors& t, int64_t i, E (&e)[4]) {
+    A v[4];
+    uint32_t f[4];
+    load4<kVec>(static_cast<const T*>(t.x) + i, v);
+    load4<kVec>(static_cast<const int32_t*>(t.y) + i, f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j] = {v[j], f[j] != 0u ? 1u : 0u};
+  }
+  template <bool kVec>
+  __device__ static void emit_run(const Tensors& t, int64_t i, const E (&c)[4],
+                                  const E (&)[4]) {
+    A v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = c[j].v;
+    store4<kVec>(static_cast<T*>(t.out) + i, v);
+  }
   template <bool kCg = false>
   __device__ static E get(const Leaves& g, int64_t i) {
     return {ld<kCg>(static_cast<const A*>(g.v) + i),
@@ -306,6 +495,7 @@ struct SegSumSpec {
   }
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
   static constexpr bool kReduce = false;
+  static constexpr bool kReg = true;
   static constexpr bool kPack = true;  // the value, and the flag in bit 2
   __device__ static uint64_t pack(E e) {
     return (static_cast<uint64_t>(to_bits(e.v)) << 32) |
@@ -323,6 +513,15 @@ struct MaskSpec : SumSpec<int32_t> {
     const int32_t m = static_cast<const int32_t*>(t.x)[i];
     static_cast<int32_t*>(t.out)[i] =
         m != 0 ? static_cast<int32_t>(c.v - static_cast<uint32_t>(m)) : t.sentinel;
+  }
+  template <bool kVec>
+  __device__ static void emit_run(const Tensors& t, int64_t i, const E (&c)[4],
+                                  const E (&m)[4]) {
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = m[j].v != 0u ? c[j].v - m[j].v : static_cast<uint32_t>(t.sentinel);
+    store4<kVec>(static_cast<int32_t*>(t.out) + i, v);
   }
 };
 
@@ -373,6 +572,7 @@ struct AffineSpec {
   }
   static constexpr bool kExact = false;
   static constexpr bool kReduce = false;
+  static constexpr bool kReg = false;   // its wrappers lay it out on Channels
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
   __device__ static E unpack(uint64_t) { return identity(); }
@@ -481,7 +681,9 @@ __device__ typename S::Buf tile_scan(typename S::Buf x, typename S::Buf y,
 }
 
 // Shared memory of one tile network: two tile buffers, two totals buffers
-// and one element per channel of the strip (the carry or the offset).
+// and one element per channel of the strip (the carry or the offset). The
+// register network takes none of it: its segment totals and fused's
+// look-back stack are static shared memory, at most 6 KB.
 template <typename S>
 size_t network_bytes(int bn, int w) {
   return 2 * S::buf_bytes(bn * w) + 2 * S::buf_bytes(bn / kLanes + 1) +
@@ -613,40 +815,6 @@ totals_kernel(Tensors t, Leaves totals, Geom g) {
 constexpr int kReduceThreads = 256;  // 8 warps, a tile each at a time
 constexpr int kReduceBatch = 16;     // float segments loaded ahead
 constexpr int kReduceVecs = 16;      // integer 16-byte loads ahead
-
-// Four consecutive elements as float32: one 16-byte (float) or 8-byte
-// (bf16, f16) load, evict-first, when kVec (p aligned to it).
-template <bool kVec>
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  if constexpr (kVec) {
-    const float4 w = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = p[j];
-  }
-}
-__device__ __forceinline__ float half_bits(const __nv_bfloat16*, uint32_t b) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(b)));
-}
-__device__ __forceinline__ float half_bits(const __half*, uint32_t b) {
-  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
-}
-template <bool kVec, typename H>
-__device__ __forceinline__ void load4(const H* p, float (&v)[4]) {
-  if constexpr (kVec) {
-    const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
-    v[0] = half_bits(p, w.x & 0xffffu); v[1] = half_bits(p, w.x >> 16);
-    v[2] = half_bits(p, w.y & 0xffffu); v[3] = half_bits(p, w.y >> 16);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = load_acc(p + j);
-  }
-}
-template <typename T>
-__device__ __forceinline__ bool aligned4(const T* p) {
-  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
-}
 
 // The balanced tree over a lane's k (1, 2 or 4) slots.
 __device__ __forceinline__ float run_tree(const float (&v)[4], int k) {
@@ -970,17 +1138,17 @@ __device__ __forceinline__ E shfl_up_e(E x, int k) {
   return x;
 }
 
-// Inclusive scan across a warp's lanes (Hillis-Steele by shuffles), the
-// lower lane the left operand.
+// Hillis-Steele across a warp's lanes, one slot a lane, steps k = 1, 2,
+// 4, ... below n: lane l takes x[l - k] (+) x[l], identity (+) x[l] below
+// k, the lower lane the left operand.
 template <typename S>
-__device__ __forceinline__ typename S::E warp_scan(typename S::E x,
-                                                   int lane) {
+__device__ __forceinline__ void warp_hs1(typename S::E& x, int lane, int n) {
 #pragma unroll
-  for (int k = 1; k < 32; k <<= 1) {
-    const typename S::E y = shfl_up_e(x, k);
-    if (lane >= k) x = S::combine(y, x);
+  for (int d = 1; d < 32; d <<= 1) {
+    if (d >= n) break;
+    const typename S::E u = shfl_up_e(x, d);
+    x = S::combine(lane >= d ? u : S::identity(), x);
   }
-  return x;
 }
 
 // chain (Rows), for specs whose combine is associative bit for bit (the
@@ -1028,12 +1196,15 @@ chain_scan_kernel(Leaves totals, Leaves offsets, Leaves running,
     for (int j = 0; j < kItems; ++j) x[j] = buf[at(kItems * threadIdx.x + j)];
 #pragma unroll
     for (int j = 1; j < kItems; ++j) x[j] = S::combine(x[j - 1], x[j]);
-    const E inc = warp_scan<S>(x[kItems - 1], lane);
+    E inc = x[kItems - 1];
+    warp_hs1<S>(inc, lane, 32);
     if (lane == 31) part[b][warp] = inc;
     __syncthreads();   // buf is read, part written
-    if (warp == 0)
-      part[b][lane] = warp_scan<S>(
-          lane < warps ? part[b][lane] : S::identity(), lane);
+    if (warp == 0) {
+      E w = lane < warps ? part[b][lane] : S::identity();
+      warp_hs1<S>(w, lane, 32);
+      part[b][lane] = w;
+    }
     __syncthreads();
     // every total of the row before this thread's first
     E exc = shfl_up_e(inc, 1);
@@ -1302,6 +1473,327 @@ fused_kernel(Tensors t, uint64_t* state, Leaves agg, Leaves incl, Geom g,
   store_tile<S, kChan>(t, g, tile, s, net.lane, g.bn, w, exclusive);
 }
 
+// The register network: carry and fused on Rows tiles of bn = 128 r
+// elements (SUM in its six dtypes, SEGSUM, MASK; kReg). tile_scan's
+// association, element for element, without shared-memory passes:
+//   * a warp holds whole 128-element segments, lane l elements 4l .. 4l + 3
+//     of each in registers (one 16-byte load for float32 and int32, 8
+//     bytes for the 16-bit types, 4 for int8, a leaf at a time);
+//     Hillis-Steele step k takes x[p - k] (+) x[p], and identity (+) x[p]
+//     for p < k, counted from the segment's start: steps 1 and 2 take the
+//     lane below's last one or two elements by shuffle, steps 4 .. 64
+//     shuffle each register from k / 4 lanes below (warp_hs4); 23
+//     shuffles a lane a segment (a 32-bit word each; the segmented pair's
+//     flag is a second word), a warp's segments interleaved;
+//   * each segment total (lane 31's last element) goes to shared memory;
+//     after one block barrier every warp runs Hillis-Steele over the r
+//     totals itself (a slot a lane up to 32 totals, four above: Upper),
+//     identity-padded the same way, and takes each segment's exclusive
+//     offset (the slot before it) by shuffle; the broadcast combine
+//     (offset on the LEFT, segment 0 too, none at r = 1), then the carry
+//     or look-back offset on the LEFT, as store_tile does, and the
+//     exclusive form's neighbour by one shuffle;
+//   * carry: a block of kRegWarps warps holding kCarrySegs consecutive
+//     segments each walks a row in rounds of that many segments (round
+//     s's offsets need only the totals up to its own: slot p of
+//     Hillis-Steele depends on slots <= p and on r, which fixes the
+//     steps), one barrier a round, the carry in every thread's registers,
+//     and kRegAhead rounds' loads in flight in a register ring, unrolled
+//     so that no register waits on a move;
+//   * fused: a block a tile in ticket order, with fused_kernel's
+//     look-back (lookback_packed) and publication, the aggregate (the
+//     network's last element) published as soon as the totals are in; a
+//     warp holds fused_segs segments, so a small block keeps a whole
+//     2048-element tile in registers and an SM holds many tiles, each
+//     waiting on its look-back; the segments of a longer tile past the
+//     first kFusedWarps * fused_segs are read again (from L2, mostly) for
+//     their output.
+// Loads and stores take vectors when the operands' bases are aligned to
+// four elements (every run then is: bn and n are multiples of 128), else
+// four scalar accesses a lane (kVec false), the same organization. The
+// constants below were chosen by tools/network_variants.py (PERF.md).
+constexpr int kRegWarps = 8;    // carry: warps of a block at most
+constexpr int kCarrySegs = 2;   // carry: segments a warp holds a round
+constexpr int kRegAhead = 2;    // carry: items whose loads are in flight
+constexpr int kFusedWarps = 4;  // fused: warps of a block at most
+constexpr int kFusedWords = 8;  // fused: 32-bit words of an element a lane
+                                // holds, over its segments
+
+// fused: segments a warp holds, 8 of a one-word element, 4 of the
+// segmented (value, flag) pair
+template <typename S>
+__host__ __device__ constexpr int fused_segs() {
+  return kFusedWords * 4 / static_cast<int>(sizeof(typename S::E));
+}
+
+template <typename E>
+__device__ __forceinline__ E shfl_e(E x, int src) {
+  uint32_t w[sizeof(E) / 4];
+  memcpy(w, &x, sizeof(E));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
+    w[i] = __shfl_sync(0xffffffffu, w[i], src);
+  memcpy(&x, w, sizeof(E));
+  return x;
+}
+
+// Hillis-Steele over the warp's 128 slots, lane l holding slots 4l .. 4l + 3
+// in x[0 .. 3], steps k = 1, 2, 4, ... below n: slot p takes x[p - k] (+)
+// x[p], identity (+) x[p] below k. Every new value of a step is computed
+// from the old ones.
+template <typename S>
+__device__ __forceinline__ void warp_hs4(typename S::E (&x)[4], int lane,
+                                         int n) {
+  using E = typename S::E;
+  const E id = S::identity();
+  if (n > 1) {   // k = 1: slot 4l's neighbour is the lane below's slot 3
+    const E u = shfl_up_e(x[3], 1);
+    x[3] = S::combine(x[2], x[3]);
+    x[2] = S::combine(x[1], x[2]);
+    x[1] = S::combine(x[0], x[1]);
+    x[0] = S::combine(lane >= 1 ? u : id, x[0]);
+  }
+  if (n > 2) {   // k = 2: slots 4l and 4l + 1 take the lane below's 2 and 3
+    const E u2 = shfl_up_e(x[2], 1), u3 = shfl_up_e(x[3], 1);
+    x[3] = S::combine(x[1], x[3]);
+    x[2] = S::combine(x[0], x[2]);
+    x[1] = S::combine(lane >= 1 ? u3 : id, x[1]);
+    x[0] = S::combine(lane >= 1 ? u2 : id, x[0]);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {   // k = 4d: d lanes below, same slot
+    if (4 * d >= n) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const E u = shfl_up_e(x[j], d);
+      x[j] = S::combine(lane >= d ? u : id, x[j]);
+    }
+  }
+}
+
+// Hillis-Steele over a tile's r segment totals t[0, r), of which the
+// first `known` are written (identity above: no slot below them reads
+// them), in every warp; slot(p) is the result at p, in every lane.
+template <typename S>
+struct Upper {
+  using E = typename S::E;
+  E x[4];
+  bool one;   // r <= 32: a slot a lane
+  __device__ Upper(const E* t, int known, int r, int lane) : one(r <= 32) {
+    if (one) {
+      x[0] = lane < known ? t[lane] : S::identity();
+      warp_hs1<S>(x[0], lane, r);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[j] = 4 * lane + j < known ? t[4 * lane + j] : S::identity();
+      warp_hs4<S>(x, lane, r);
+    }
+  }
+  __device__ E slot(int p) const {   // p warp-uniform
+    if (one) return shfl_e(x[0], p);
+    const int j = p & 3;
+    return shfl_e(j == 0 ? x[0] : j == 1 ? x[1] : j == 2 ? x[2] : x[3], p >> 2);
+  }
+  // the tile's last element: the broadcast combine of the last segment
+  __device__ E last(const E* t, int r) const {
+    return r > 1 ? S::combine(slot(r - 2), t[r - 1]) : t[0];
+  }
+};
+
+// Emits segment q of a tile from lane element i0 on: seg holds its
+// in-segment scan, m the elements as loaded; left is the carry or the
+// look-back offset.
+template <typename S, bool kVec>
+__device__ __forceinline__ void emit_segment(
+    const Tensors& t, int64_t i0, const typename S::E (&m)[4],
+    const typename S::E (&seg)[4], typename S::E left, const Upper<S>& up,
+    const typename S::E* tot, int q, int r, int lane, int exclusive) {
+  using E = typename S::E;
+  E full[4];
+  if (r > 1) {
+    const E off = q > 0 ? up.slot(q - 1) : S::identity();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) full[j] = S::combine(off, seg[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) full[j] = seg[j];
+  }
+  E out[4];
+  if (exclusive) {
+    // the element before the lane's first: the lane below's last, or for
+    // lane 0 the previous segment's last (the identity at the tile start)
+    E prev = S::identity();
+    if (r > 1 && q > 0)
+      prev = S::combine(q > 1 ? up.slot(q - 2) : S::identity(), tot[q - 1]);
+    const E u = shfl_up_e(full[3], 1);
+    out[0] = S::combine(left, lane >= 1 ? u : prev);
+#pragma unroll
+    for (int j = 1; j < 4; ++j) out[j] = S::combine(left, full[j - 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = S::combine(left, full[j]);
+  }
+  S::template emit_run<kVec>(t, i0, out, m);
+}
+
+// A block is 32 * kRegWarps threads; the bound of kThreads caps a thread
+// at 128 registers, so that an SM holds two blocks.
+template <typename S, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+carry_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using E = typename S::E;
+  constexpr int K = kCarrySegs;
+  __shared__ E tot[2][kLanes];   // segment totals, by the tile's parity
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32, r = g.bn / kLanes;
+  const int per = warps * K;     // segments a round
+  const int rounds = (r + per - 1) / per;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * g.n;
+  // items (chunk, round), in order, the warp's K consecutive segments of
+  // each; the ring's loads run kRegAhead items ahead
+  E ring[kRegAhead + 1][K][4];
+  int64_t lj = 0;
+  int ls = 0;
+  auto prefetch = [&](E (&dst)[K][4]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = ls * per + warp * K + k;
+      if (lj < g.chunks && q < r)
+        S::template load_run<kVec>(t, row + lj * g.bn + q * kLanes + 4 * lane,
+                                   dst[k]);
+    }
+    if (++ls == rounds) {
+      ls = 0;
+      ++lj;
+    }
+  };
+  E carry = S::identity();
+  int64_t j = 0;
+  int s = 0, par = 0;
+  auto process = [&](const E (&m)[K][4]) {
+    E seg[K][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = s * per + warp * K + k;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) seg[k][e] = m[k][e];
+      if (q < r) {
+        warp_hs4<S>(seg[k], lane, kLanes);
+        if (lane == 31) tot[par][q] = seg[k][3];
+      }
+    }
+    __syncthreads();
+    const Upper<S> up(tot[par], min(r, (s + 1) * per), r, lane);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = s * per + warp * K + k;
+      if (q < r)
+        emit_segment<S, kVec>(t, row + j * g.bn + q * kLanes + 4 * lane, m[k],
+                              seg[k], carry, up, tot[par], q, r, lane,
+                              exclusive);
+    }
+    if (++s == rounds) {
+      carry = S::combine(carry, up.last(tot[par], r));
+      if (running.v != nullptr && threadIdx.x == 0)
+        S::put(running, static_cast<int64_t>(blockIdx.x) * g.chunks + j, carry);
+      s = 0;
+      ++j;
+      par ^= 1;
+    }
+  };
+#pragma unroll
+  for (int a = 0; a < kRegAhead; ++a) prefetch(ring[a]);
+  const int64_t items = g.chunks * rounds;
+  for (int64_t it = 0; it < items; it += kRegAhead + 1) {
+#pragma unroll
+    for (int u = 0; u <= kRegAhead; ++u) {   // no register moves between items
+      if (it + u < items) {
+        prefetch(ring[(u + kRegAhead) % (kRegAhead + 1)]);
+        process(ring[u]);
+      }
+    }
+  }
+}
+
+// fused on the register network: a block a tile, in ticket order as
+// fused_kernel; a warp holds fused_segs<S>() consecutive segments, so that
+// a small block keeps a whole 2048-element tile in registers (more tiles
+// in flight on an SM, each waiting on its look-back) and its segments'
+// scans interleave. Segments past the first kFusedWarps * fused_segs<S>()
+// publish their totals, then are read again (from L2, mostly) for their
+// output.
+template <typename S, bool kVec>
+__global__ void __launch_bounds__(32 * kFusedWarps)
+fused_reg_kernel(Tensors t, uint64_t* state, Geom g, int exclusive) {
+  using E = typename S::E;
+  constexpr int K = fused_segs<S>();
+  __shared__ uint32_t ticket;
+  __shared__ uint64_t stack[kStackWindows * 32];
+  __shared__ E tot[kLanes];
+  __shared__ E pre_s;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32, r = g.bn / kLanes;
+  const int held = warps * K;   // segments held in registers
+  if (threadIdx.x == 0) ticket = atomicAdd(reinterpret_cast<unsigned*>(state), 1u);
+  __syncthreads();
+  const uint32_t j = ticket % static_cast<uint32_t>(g.chunks);
+  const int64_t tile = static_cast<int64_t>(ticket) * g.bn + 4 * lane;
+  uint64_t* st = state + 1 + (ticket - j);       // the row's tile states
+  const bool publish = j + 1 < g.chunks;         // a successor reads it
+  E m[K][4], sg[K][4];   // the warp's segments as loaded, and scanned
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r) S::template load_run<kVec>(t, tile + q * kLanes, m[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sg[k][e] = m[k][e];
+      warp_hs4<S>(sg[k], lane, kLanes);
+      if (lane == 31) tot[q] = sg[k][3];
+    }
+  }
+  for (int q = held + warp; q < r; q += warps) {   // later segments
+    E x[4];
+    S::template load_run<kVec>(t, tile + q * kLanes, x);
+    warp_hs4<S>(x, lane, kLanes);
+    if (lane == 31) tot[q] = x[3];
+  }
+  __syncthreads();
+  const Upper<S> up(tot, r, r, lane);
+  if (warp == 0) {
+    const E agg = up.last(tot, r);
+    if (j > 0 && publish && lane == 0) st_relaxed(st + j, S::pack(agg) | kAggregate);
+    const E pre = j > 0 ? lookback_packed<S>(st, j, stack) : S::identity();
+    if (lane == 0) {
+      if (publish) st_relaxed(st + j, S::pack(S::combine(pre, agg)) | kInclusive);
+      pre_s = pre;
+    }
+  }
+  __syncthreads();
+  const E pre = pre_s;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r)
+      emit_segment<S, kVec>(t, tile + q * kLanes, m[k], sg[k], pre, up, tot, q,
+                            r, lane, exclusive);
+  }
+  for (int q = held + warp; q < r; q += warps) {   // read again
+    E mq[4], x[4];
+    S::template load_run<kVec>(t, tile + q * kLanes, mq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = mq[e];
+    warp_hs4<S>(x, lane, kLanes);
+    emit_segment<S, kVec>(t, tile + q * kLanes, mq, x, pre, up, tot, q, r,
+                          lane, exclusive);
+  }
+}
+
 // tree: carry's lane walk with an in-place Blelloch sweep over the tile
 // padded to m (a power of two) positions with the identity, each channel
 // on its own. e keeps the elements for the inclusive form.
@@ -1389,10 +1881,47 @@ long long lanes_of(int chan, long long b, long long d, int width) {
   return chan ? b * (d / width) : b;
 }
 
+// The register network's operands: bases aligned to four elements (the
+// segmented flags to four int32) take vector accesses.
+template <typename S>
+bool runs_aligned(const Tensors& t) {
+  constexpr uintptr_t v = 4 * sizeof(typename S::In) - 1;
+  return (reinterpret_cast<uintptr_t>(t.x) & v) == 0 &&
+         (reinterpret_cast<uintptr_t>(t.out) & v) == 0 &&
+         (t.y == nullptr || (reinterpret_cast<uintptr_t>(t.y) & 15) == 0);
+}
+
+// A block of the register network: a warp per `segs` segments of the
+// tile, at most `warps` warps.
+int reg_threads(int bn, int segs, int warps) {
+  const int need = (bn / kLanes + segs - 1) / segs;
+  return 32 * (need < warps ? need : warps);
+}
+
+// net: the in-tile network the wrapper chose by shape (cuda.tile_network):
+// 1 the register network, for Rows tiles of 128 r elements of a kReg spec
+// (anything else is refused), 0 tile_scan in shared memory.
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
-                 long long d, int width, int bn, int exclusive,
+                 long long d, int width, int bn, int exclusive, int net,
                  cudaStream_t stream) {
+  if (net) {
+    if constexpr (!kChan && S::kReg) {
+      if (bn % kLanes != 0) return cudaErrorInvalidValue;
+      const Geom g = make_geom(false, n, 1, 1, bn);
+      if (runs_aligned<S>(t))
+        carry_reg_kernel<S, true><<<static_cast<unsigned>(b),
+                                    reg_threads(bn, kCarrySegs, kRegWarps), 0,
+                                    stream>>>(t, running, g, exclusive);
+      else
+        carry_reg_kernel<S, false><<<static_cast<unsigned>(b),
+                                     reg_threads(bn, kCarrySegs, kRegWarps), 0,
+                                     stream>>>(t, running, g, exclusive);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   const Geom g = make_geom(kChan, n, d, width, bn);
   const size_t smem = network_bytes<S>(bn, g.width);
   cudaError_t err = allow_smem(carry_kernel<S, kChan>, smem);
@@ -1484,7 +2013,24 @@ int launch_apply(Tensors t, Leaves offsets, long long b, long long n,
 template <typename S, bool kChan>
 int launch_fused(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
                  long long b, long long n, long long d, int width, int bn,
-                 int exclusive, cudaStream_t stream) {
+                 int exclusive, int net, cudaStream_t stream) {
+  if (net) {
+    if constexpr (!kChan && S::kReg) {
+      if (bn % kLanes != 0) return cudaErrorInvalidValue;
+      const Geom g = make_geom(false, n, 1, 1, bn);
+      const unsigned tiles = static_cast<unsigned>(b * (n / bn));
+      const int threads = reg_threads(bn, fused_segs<S>(), kFusedWarps);
+      if (runs_aligned<S>(t))
+        fused_reg_kernel<S, true><<<tiles, threads, 0, stream>>>(t, state, g,
+                                                                 exclusive);
+      else
+        fused_reg_kernel<S, false><<<tiles, threads, 0, stream>>>(t, state, g,
+                                                                  exclusive);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   const Geom g = make_geom(kChan, n, d, width, bn);
   const size_t smem = network_bytes<S>(bn, g.width);
   cudaError_t err = allow_smem(fused_kernel<S, kChan>, smem);
@@ -1544,14 +2090,16 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 
 extern "C" {
 
+// net: 1 the register network (Rows tiles of 128 r elements, no affine),
+// 0 the shared-memory tile_scan.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,
                long long d, int width, int bn, int exclusive, int sentinel,
-               void* stream) {
+               int net, void* stream) {
   const Tensors t{x, y, out, sentinel};
   const Leaves running{run_v, run_f};
   SCAN_DISPATCH(chan, spec, dtype, launch_carry, t, running, b, n, d, width,
-                bn, exclusive, static_cast<cudaStream_t>(stream));
+                bn, exclusive, net, static_cast<cudaStream_t>(stream));
 }
 
 int scan_totals(int spec, int dtype, int chan, const void* x, const void* y,
@@ -1592,13 +2140,13 @@ int scan_apply(int spec, int dtype, int chan, const void* x, const void* y,
 int scan_fused(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* state, void* agg_v, void* agg_f, void* inc_v,
                void* inc_f, long long b, long long n, long long d, int width,
-               int bn, int exclusive, int sentinel, void* stream) {
+               int bn, int exclusive, int sentinel, int net, void* stream) {
   const Tensors t{x, y, out, sentinel};
   const Leaves agg{agg_v, agg_f};
   const Leaves incl{inc_v, inc_f};
   SCAN_DISPATCH(chan, spec, dtype, launch_fused, t,
                 static_cast<uint64_t*>(state), agg, incl, b, n, d, width, bn,
-                exclusive, static_cast<cudaStream_t>(stream));
+                exclusive, net, static_cast<cudaStream_t>(stream));
 }
 
 int scan_tree(int spec, int dtype, int chan, const void* x, const void* y,

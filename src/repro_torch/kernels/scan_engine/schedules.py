@@ -302,6 +302,91 @@ def totals_tree_plain(operands, spec, layout):
     return _window_tree(spec, elems, _POS, _pow2_at_least(n))
 
 
+def _lanes_up(spec, leaves, d):
+    """Each leaf (..., lanes, regs) shifted d lanes up, the identity in
+    the d lanes at the bottom: ``__shfl_up_sync`` with the padding."""
+    return tuple(_shift(x, d, f, axis=-2) for x, f in zip(leaves, spec.fills))
+
+
+def _warp_hs4(spec, x, n):
+    """Hillis–Steele over a warp's 128 slots (..., 32 lanes, 4 registers),
+    lane l holding slots 4l .. 4l + 3, steps k = 1, 2, 4, ... below n:
+    the CUDA ``warp_hs4``. Steps 1 and 2 take the lane below's last one or
+    two registers, steps 4d the same register d lanes below."""
+    def cat(a, b):
+        return tuple(torch.cat([p, q], -1) for p, q in zip(a, b))
+    if n > 1:
+        x = spec.combine(cat(_lanes_up(spec, tuple(v[..., 3:] for v in x), 1),
+                             tuple(v[..., :3] for v in x)), x)
+    if n > 2:
+        x = spec.combine(cat(_lanes_up(spec, tuple(v[..., 2:] for v in x), 1),
+                             tuple(v[..., :2] for v in x)), x)
+    d = 1
+    while d < 32 and 4 * d < n:
+        x = spec.combine(_lanes_up(spec, x, d), x)
+        d *= 2
+    return x
+
+
+def _upper(spec, tot, known, r):
+    """The CUDA ``Upper``: Hillis–Steele over a tile's r segment totals
+    (..., r), of which the first ``known`` are in (the rest identity), a
+    slot a lane up to 32 totals and four a lane above. Returns the slots
+    (..., r)."""
+    slots = 32 if r <= 32 else 128
+    pad = tuple(torch.cat([t[..., :known], torch.full(
+        t.shape[:-1] + (slots - known,), f, dtype=t.dtype,
+        device=t.device)], -1) for t, f in zip(tot, spec.fills))
+    if r <= 32:
+        x = tuple(p[..., None] for p in pad)        # (..., 32 lanes, 1)
+        d = 1
+        while d < r:
+            x = spec.combine(_lanes_up(spec, x, d), x)
+            d *= 2
+    else:
+        x = _warp_hs4(spec, tuple(p.unflatten(-1, (32, 4)) for p in pad), r)
+    return tuple(v.flatten(-2)[..., :r] for v in x)
+
+
+def tile_scan_warps(spec, leaves, exclusive=False, round_segs=16):
+    """``tile_scan`` over the last axis (a multiple of 128) as the CUDA
+    register network organizes it (``carry_reg_kernel``,
+    ``fused_reg_kernel``): segments as (segment, lane, register), the
+    in-segment Hillis–Steele by shifts across lanes (``_warp_hs4``), the
+    segment totals' Hillis–Steele in rounds of ``round_segs`` segments (a
+    block's warps times the segments each holds), each round seeing only
+    the totals up to its own, the broadcast combine with the segment's
+    exclusive offset on the left (none for one segment), and the exclusive
+    form's neighbour from the lane below or the previous segment. Returns the inclusive network, or its exclusive shift.
+    Tests use it; the schedules never do."""
+    n = leaves[0].shape[-1]
+    r = n // LANES
+    seg = _warp_hs4(spec, tuple(x.unflatten(-1, (r, 32, 4)) for x in leaves),
+                    LANES)
+    tot = tuple(v[..., 31, 3] for v in seg)                      # (..., r)
+    offs, prevs = [], []
+    for s in range(-(-r // round_segs)):
+        up = _upper(spec, tot, min(r, (s + 1) * round_segs), r)
+        ident = tuple(torch.full_like(u[..., 0], f)
+                      for u, f in zip(up, spec.fills))
+        for q in range(s * round_segs, min(r, (s + 1) * round_segs)):
+            offs.append(tuple(u[..., q - 1] for u in up) if q else ident)
+            prevs.append(spec.combine(
+                tuple(u[..., q - 2] for u in up) if q > 1 else ident,
+                tuple(t[..., q - 1] for t in tot)) if q and r > 1 else ident)
+
+    def per_segment(xs):    # (..., r, 1, 1) per leaf
+        return tuple(torch.stack([x[i] for x in xs], -1)[..., None, None]
+                     for i in range(len(leaves)))
+    full = spec.combine(per_segment(offs), seg) if r > 1 else seg
+    if exclusive:   # lane l's first takes lane l - 1's last, lane 0 prev
+        below = tuple(torch.cat([p, v[..., :-1, 3:]], -2)
+                      for p, v in zip(per_segment(prevs), full))
+        full = tuple(torch.cat([b, v[..., :3]], -1)
+                     for b, v in zip(below, full))
+    return tuple(v.flatten(-3) for v in full)
+
+
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
     elems = _tiles(spec, operands, layout)

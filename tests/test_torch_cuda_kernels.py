@@ -32,7 +32,12 @@ folding thread for float specs, a parallel scan for integer ones) must
 give ``exclusive_chain``'s bits. The sum's and the mask's Rows totals
 (``totals_reduce_kernel``, the network's last element built as its tree)
 must give ``totals_plain``'s and ``totals_tree_plain``'s bits on
-adversarial data, at any block size and base alignment.
+adversarial data, at any block size and base alignment, and so must carry
+and fused on ``Rows`` (``carry_reg_kernel`` and ``fused_reg_kernel`` on
+tiles of 128·r elements, the shared-memory network on others): outputs
+and running totals bitwise equal to ``carry_plain`` / ``fused_plain`` and
+to decoupled, with the profiler's kernel names showing which network
+each shape launches.
 """
 
 import dataclasses
@@ -472,6 +477,107 @@ def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
         assert len(hits) == 1 and kernel + "<" in hits[0], (
             spec.name, ops[0].dtype, type(lay).__name__, names)
         assert spec_type[spec.name] in hits[0]
+
+
+# carry and fused on Rows: the register network (carry_reg_kernel,
+# fused_reg_kernel) on tiles of 128·r elements, the shared-memory network
+# on the rest of totals_data.BLOCKS.
+REG_KINDS = totals_data.KINDS[:6] + ("segsum", "mask")
+
+
+def _reg_operands(kind, n, bn, seed):
+    """(spec, CPU operands) of two rows: adversarial values (signed zeros
+    at tile starts, subnormals, cancelling pairs, infinities); segmented
+    flags that are negative or not 0/1."""
+    if kind == "segsum":
+        v = totals_data.operands("float32", 2, n, bn, seed)
+        rng = np.random.default_rng(seed + 1)
+        f = np.where(rng.random((2, n)) < 0.03, rng.choice([-3, 1, 2], (2, n)),
+                     0).astype(np.int32)
+        return monoids.SEGMENTED_SUM, (v, torch.from_numpy(f))
+    spec = monoids.mask(n) if kind == "mask" else monoids.SUM
+    return spec, (totals_data.operands(kind, 2, n, bn, seed),)
+
+
+@pytest.mark.parametrize("bn", totals_data.BLOCKS)
+@pytest.mark.parametrize("kind", REG_KINDS)
+def test_cuda_carry_fused_rows_bitwise_vs_plain(cuda_device, kind, bn):
+    """carry (outputs and running totals) and fused, one launch each,
+    bitwise against ``carry_plain`` / ``fused_plain`` (NaN as NaN),
+    carry == decoupled == fused, inclusive and exclusive, from aligned
+    bases and from bases one element off (views into larger buffers)."""
+    n = 3 * bn
+    spec, cpu = _reg_operands(kind, n, bn, 74)
+    lay = scan_engine.Rows(2, n, 1, bn)
+    same = totals_data.same_bits
+    for offset in (0, 1):
+        gpu = []
+        for o in cpu:
+            buf = torch.empty(o.numel() + offset, dtype=o.dtype,
+                              device=cuda_device)
+            gpu.append(buf[offset:].view(o.shape))
+            gpu[-1].copy_(o)
+        gpu = tuple(gpu)
+        for exclusive in ((False, True) if spec.supports_exclusive
+                          else (False,)):
+            what = (offset, exclusive)
+            cuda.reset_launches()
+            (got,), run = cuda.carry(spec, gpu, lay, exclusive, True)
+            (fo,) = cuda.fused(spec, gpu, lay, exclusive)
+            torch.cuda.synchronize()
+            assert cuda.LAUNCHES == {**{k: 0 for k in cuda.LAUNCHES},
+                                     cuda.kernel_name(spec.name, "carry"): 1,
+                                     cuda.kernel_name(spec.name, "fused"): 1}
+            (want,), w_run = scan_engine.schedules.carry_plain(
+                cpu, spec, lay, exclusive, return_totals=True)
+            assert same(got.cpu(), want), what
+            for a, b in zip(run, w_run):
+                assert same(a.cpu(), b), what
+            (w_fused,) = scan_engine.schedules.fused_plain(cpu, spec, lay,
+                                                           exclusive)
+            assert same(fo.cpu(), w_fused), what
+            (dec,) = scan_engine.scan(gpu, spec, lay, schedule="decoupled",
+                                      exclusive=exclusive)
+            assert same(dec, got) and same(fo, got), what
+
+
+def test_cuda_carry_fused_network_by_shape(cuda_device):
+    """By the profiler's kernel names: carry and fused on Rows tiles of
+    128·r elements launch the register network for the sum (every dtype),
+    the segmented sum and the mask, at block_n 128 to 16384; other tile
+    lengths, the affine pair and Channels launch the shared-memory
+    network. ``cuda.tile_network`` names the same choice, and the launch
+    counters keep their keys."""
+    ones = torch.ones((2, 32768), device=cuda_device)
+    flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
+    chan = scan_engine.Channels(2, 1024, 8, 256, 8)
+    ones_c = torch.ones(chan.shape, device=cuda_device)
+    calls = [(monoids.SUM, (ones.to(dt),), scan_engine.Rows(2, 32768, 1, bn))
+             for dt in cuda.DTYPE_CODES for bn in (128, 2048, 16384)]
+    calls += [
+        (monoids.SEGMENTED_SUM, (ones, flags), scan_engine.Rows(2, 32768, 1, 2048)),
+        (monoids.SEGMENTED_SUM, (ones, flags), scan_engine.Rows(2, 32768, 1, 16384)),
+        (monoids.mask(32768), (flags,), scan_engine.Rows(2, 32768, 1, 2048)),
+        (monoids.SUM, (ones[:, :600],), scan_engine.Rows(2, 600, 1, 200)),
+        (monoids.SEGMENTED_SUM, (ones[:, :600], flags[:, :600]),
+         scan_engine.Rows(2, 600, 1, 200)),
+        (monoids.AFFINE, (ones[:, :512], ones[:, :512]),
+         scan_engine.Rows(2, 512, 1, 256)),
+        (monoids.SUM, (ones_c,), chan),
+        (monoids.AFFINE, (ones_c, ones_c), chan),
+    ]
+    for spec, ops_, lay in calls:
+        ops_ = tuple(o.contiguous() for o in ops_)
+        reg = cuda.tile_network(spec, lay) == "register"
+        for kernel in ("carry", "fused"):
+            fn = getattr(cuda, kernel)
+            cuda.reset_launches()
+            names = _kernel_names(lambda: fn(spec, ops_, lay))
+            assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
+            hits = [k for k in names if kernel in k]
+            want = f"{kernel}_reg_kernel<" if reg else f"{kernel}_kernel<"
+            assert len(hits) == 1 and want in hits[0], (
+                spec.name, ops_[0].dtype, lay, names)
 
 
 @pytest.mark.parametrize("spec_name,dtype", [
