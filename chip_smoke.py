@@ -11,9 +11,10 @@ first failure and prints no result):
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
      tensor-core kernels one by one, and none may spill: fold_dq_tc's
-     three instantiations, d = 64, 128 and 256, among them; the 52
-     kernels of the register network, carry_reg_kernel and
-     fused_reg_kernel by spec and vector form, none may spill either);
+     three instantiations, d = 64, 128 and 256, among them; the 104
+     kernels of the register network, carry_reg_kernel,
+     apply_reg_kernel, fused_reg_kernel and tree_reg_kernel by spec and
+     vector form, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -33,17 +34,21 @@ first failure and prints no result):
      the six sum dtypes and the mask, signed zeros at tile starts, from an
      aligned base and one element off; and, by the profiler's kernel
      names, that those launch it while the segmented sum, and every
-     Channels launch, take the network's ``totals_kernel``; carry and
-     fused on Rows in the register network (``carry_reg_kernel``,
-     ``fused_reg_kernel``: a warp a 128-element segment, Hillis-Steele
-     by warp shuffles) at block_n 128, 2048, 2176 and 16384 for the six
-     sum dtypes, the segmented sum (f32, bf16, int32) and the mask,
-     outputs and carry's running totals bitwise equal to the plain
-     versions and to decoupled, inclusive and exclusive, aligned and one
-     element off, on signed zeros at every segment start, subnormals and
-     cancelling pairs; and, by the profiler's names, that each of those
-     launches the register kernels while block_n 200 and Channels launch
-     ``carry_kernel`` / ``fused_kernel`` (tile_scan in shared memory);
+     Channels launch, take the network's ``totals_kernel``; carry,
+     apply, fused and tree on Rows in the register network
+     (``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel``,
+     ``tree_reg_kernel``: a warp a 128-element segment, Hillis-Steele or
+     the Blelloch sweep by warp shuffles) at block_n 128, 2048, 2176 and
+     16384 for the six sum dtypes, the segmented sum (f32, bf16, int32)
+     and the mask, outputs and carry's and tree's running totals bitwise
+     equal to the plain versions, decoupled == carry == fused, inclusive
+     and exclusive, aligned and one element off, on signed zeros at every
+     segment start, subnormals and cancelling pairs; every schedule at
+     block_n 200 bitwise equal to the plain versions; and, by the
+     profiler's names, that each of the register shapes launches the
+     register kernels while block_n 200 and Channels launch
+     ``carry_kernel`` / ``apply_kernel`` / ``fused_kernel`` /
+     ``tree_kernel`` (the networks in shared memory);
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -82,9 +87,9 @@ first failure and prints no result):
      also the latency floor of their dependent combines at the card's
      maximum SM clock), its plain version and, where one exists, the
      one-call PyTorch function (a yardstick only: the port never calls
-     it), the chains, the sum and mask totals and the (a) fused and (b)
-     carry kernels also from CUDA graph replays (printed: no host launch
-     cost in them); before they are
+     it), the chains, the sum and mask totals, every apply and tree row
+     and the (a) fused and (b) carry kernels also from CUDA graph replays
+     (printed: no host launch cost in them); before they are
      timed, the fused kernel at Q1's (4, ~59M)
      segmented sum and Q6's ~60M-row mask is held bitwise against
      decoupled and ``fused_plain`` (the segmented sum exclusive at
@@ -436,14 +441,14 @@ def main() -> int:
               f"{red_spills} with spills")
         check(len(red) == 7 and red_spills == 0,
               f"ptxas: totals_reduce_kernel {red}, {red_spills} spill")
-    # the register network (carry_reg_kernel, fused_reg_kernel) by spec and
-    # vector form (1: vector accesses): registers, then stack frame and
-    # spill bytes where not 0
+    # the register network (carry_reg_kernel, apply_reg_kernel,
+    # fused_reg_kernel, tree_reg_kernel) by spec and vector form (1: vector
+    # accesses): registers, then stack frame and spill bytes where not 0
     entry, regk, reg_spills, frame = None, [], [], ""
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"(carry|fused)_reg_kernelI(.+?)ELb([01])E+v",
-                              line)
+            found = re.search(
+                r"(carry|apply|fused|tree)_reg_kernelI(.+?)ELb([01])E+v", line)
             if found:
                 spec_of = re.sub(r"NS_\d+|E+$", "", found[2])
                 entry = f"{found[1]}<{spec_of}, {found[3]}>"
@@ -464,7 +469,7 @@ def main() -> int:
     if regk:   # a cached build in build/ prints no report
         print(f"  ptxas register network ({len(regk)} kernels): "
               f"{', '.join(regk)}; with spills: {reg_spills or 'none'}")
-        check(len(regk) == 52 and not reg_spills,
+        check(len(regk) == 104 and not reg_spills,
               f"ptxas: register network {len(regk)} kernels, spills in "
               f"{reg_spills}")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
@@ -699,15 +704,16 @@ def main() -> int:
           "-> totals_reduce_kernel; segsum on Rows, sum and affine on "
           "Channels -> totals_kernel")
 
-    # carry and fused on Rows: the register network (carry_reg_kernel,
-    # fused_reg_kernel) on every tile of 128 r elements, bitwise against
-    # carry_plain / fused_plain (outputs and carry's running totals) and
-    # against decoupled (whose apply_kernel runs the shared-memory
-    # network), inclusive and exclusive, from an aligned base and one
-    # element off, on data with a signed zero at every segment start, a
-    # first tile of -0.0, subnormals and cancelling pairs (g_red's
-    # generator); the profiler's kernel names show which network each
-    # (spec, block_n) launched
+    # carry, apply, fused and tree on Rows: the register network
+    # (carry_reg_kernel, apply_reg_kernel, fused_reg_kernel,
+    # tree_reg_kernel) on every tile of 128 r elements, bitwise against
+    # carry_plain / fused_plain / tree_plain (outputs and carry's and
+    # tree's running totals) and decoupled (totals, chain and
+    # apply_reg_kernel) == carry == fused, inclusive and exclusive, from an
+    # aligned base and one element off, on data with a signed zero at every
+    # segment start, a first tile of -0.0, subnormals and cancelling pairs
+    # (g_red's generator); the profiler's kernel names show which network
+    # each (spec, block_n) launched
     def reg_operands(kind, n, bn):
         if kind == "mask":
             return monoids.mask(n), (torch.randint(
@@ -738,24 +744,34 @@ def main() -> int:
         view.copy_(t)
         return view
 
+    NET_KERNELS = ("carry", "apply", "fused", "tree")
+
     def launched_names(calls):
-        """The carry and fused kernels the calls launch, by the profiler:
-        {kernel: its launches}. A profile that recorded fewer launches
-        than the calls made (CUPTI drops a record now and then) is taken
+        """The carry, apply, fused and tree kernels the calls launch (apply
+        through decoupled), by the profiler: {kernel: its launches}. The
+        window opens with a kernel that is not counted (the first launch
+        after the profiler starts went unrecorded at block_n 128, three
+        profiles in a row); a profile that recorded fewer launches than
+        the calls made (CUPTI drops a record now and then) is taken
         again, three times at most."""
         for _ in range(3):
             sync()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device=dev).add_(1)
+                sync()
                 for spec, ops_, lay in calls:
                     cuda.carry(spec, ops_, lay)
                     cuda.fused(spec, ops_, lay)
+                    schedules.scan_decoupled(ops_, spec, lay)
+                    cuda.tree(spec, ops_, lay)
                 sync()
             names = {}
             for e in prof.key_averages():
-                found = re.search(r"((carry|fused)(_reg)?_kernel)<", e.key)
+                found = re.search(r"((carry|apply|fused|tree)(_reg)?_kernel)<",
+                                  e.key)
                 if e.device_type == torch.autograd.DeviceType.CUDA and found:
                     names[found[1]] = names.get(found[1], 0) + e.count
-            if sum(names.values()) >= 2 * len(calls):
+            if sum(names.values()) >= len(NET_KERNELS) * len(calls):
                 break
         return names
 
@@ -778,18 +794,25 @@ def main() -> int:
                     ops_r, spec, lay, exclusive, return_totals=True)
                 (w_fused,) = schedules.fused_plain(ops_r, spec, lay,
                                                    exclusive)
+                (w_tree,), w_trun = schedules.tree_plain(
+                    ops_r, spec, lay, exclusive, return_totals=True)
                 for offset in (0, 1):
                     ops_o = tuple(offset_view(o, offset) for o in ops_r)
                     cuda.reset_launches()
                     (got,), run = cuda.carry(spec, ops_o, lay, exclusive, True)
                     (fo,) = cuda.fused(spec, ops_o, lay, exclusive)
+                    (tr,), trun = cuda.tree(spec, ops_o, lay, exclusive, True)
                     sync()
                     check(launched() == {cuda.kernel_name(spec.name, k)
-                                         for k in ("carry", "fused")},
+                                         for k in ("carry", "fused", "tree")},
                           f"register network {what} launched {launched()}")
+                    cuda.reset_launches()
                     (dec,) = schedules.scan_decoupled(ops_o, spec, lay,
                                                       exclusive=exclusive)
                     sync()
+                    check(launched() == {cuda.kernel_name(spec.name, k)
+                                         for k in USES["decoupled"]},
+                          f"decoupled {what} launched {launched()}")
                     mode = f"{what} excl={exclusive} offset {offset}"
                     check(same_bits(got, w_out)
                           and all_same_bits(run, w_run),
@@ -797,19 +820,26 @@ def main() -> int:
                     check(same_bits(fo, w_fused),
                           f"fused_reg_kernel != fused_plain: {mode}")
                     check(same_bits(dec, got) and same_bits(fo, got),
-                          f"carry / decoupled / fused differ: {mode}")
+                          f"carry / decoupled (apply_reg_kernel) / fused "
+                          f"differ: {mode}")
+                    check(same_bits(tr, w_tree)
+                          and all_same_bits(trun, w_trun),
+                          f"tree_reg_kernel != tree_plain: {mode}")
                     n_reg += 1
-                    del ops_o, got, run, fo, dec
-            del ops_r, w_out, w_run, w_fused
+                    del ops_o, got, run, fo, dec, tr, trun
+            del ops_r, w_out, w_run, w_fused, w_tree, w_trun
         names = launched_names(calls)
-        want = {"carry_reg_kernel": len(reg_kinds),
-                "fused_reg_kernel": len(reg_kinds)}
-        check(names == want, f"bn={bn}: carry and fused of the {len(calls)} "
-              f"kinds launched {names}, not {want}")
+        want = {f"{k}_reg_kernel": len(reg_kinds) for k in NET_KERNELS}
+        check(names == want, f"bn={bn}: carry, apply, fused and tree of the "
+              f"{len(calls)} kinds launched {names}, not {want}")
         del calls
-        print(f"register network bn={bn}: carry (outputs, running totals) "
-              f"and fused == plain == decoupled bitwise, 6 sum dtypes, "
-              f"segsum (3 dtypes), mask; by the profiler {names}")
+        print(f"register network bn={bn}: carry and tree (outputs, running "
+              f"totals), fused and decoupled (apply) == plain bitwise, "
+              f"carry == decoupled == fused, 6 sum dtypes, segsum (3 "
+              f"dtypes), mask; by the profiler {names}")
+    # the shared-memory kernels: Rows tiles of 200 elements bitwise against
+    # the plain versions (every schedule), and by the profiler's names with
+    # Channels (the affine pair's kernels are held bitwise below)
     calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
              (SEGSUM, (ones[:, :600].contiguous(),
                        zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
@@ -817,14 +847,26 @@ def main() -> int:
     for spec, _, lay in calls:
         check(cuda.tile_network(spec, lay) == "shared",
               f"tile_network {spec.name} {lay}")
+    lay200 = Rows(2, 600, 1, 200)
+    for exclusive in (False, True):
+        x200 = torch.randn((2, 600), device=dev, generator=g_red)
+        x200[:, ::200] = -0.0
+        f200 = (torch.rand((2, 600), device=dev, generator=g_red)
+                < 0.05).to(torch.int32)
+        n_reg += spec_sweep(SUM, (x200,), lay200, f"bn 200 excl={exclusive}",
+                            exclusive)
+        n_reg += spec_sweep(SEGSUM, (x200, f200), lay200,
+                            f"bn 200 excl={exclusive}", exclusive)
     names = launched_names(calls)
-    check(names == {"carry_kernel": len(calls), "fused_kernel": len(calls)},
+    check(names == {f"{k}_kernel": len(calls) for k in NET_KERNELS},
           f"bn 200 and Channels launched {names}")
-    print(f"phase 2 (register network): {n_reg} carry + fused launch pairs "
-          "(bn 128, 2048, 2176, 16384; aligned and one element off) bitwise "
-          "equal to the plain versions and decoupled; by the profiler, bn "
-          "200 on Rows (sum, segsum) and Channels (sum, affine) launch "
-          "carry_kernel / fused_kernel (tile_scan in shared memory)")
+    print(f"phase 2 (register network): {n_reg} checks (carry + fused + "
+          "tree + decoupled launch sets at bn 128, 2048, 2176, 16384, "
+          "aligned and one element off; every schedule at bn 200) bitwise "
+          "equal to the plain versions, carry == decoupled == fused; by the "
+          "profiler, bn 200 on Rows (sum, segsum) and Channels (sum, affine) "
+          "launch carry_kernel / apply_kernel / fused_kernel / tree_kernel "
+          "(the networks in shared memory)")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -1177,8 +1219,9 @@ def main() -> int:
     def short(kname):
         for k in ("carry_kernel", "carry_reg_kernel", "totals_kernel",
                   "totals_reduce_kernel", "chain_seq_kernel",
-                  "chain_scan_kernel", "apply_kernel", "fused_kernel",
-                  "fused_reg_kernel", "tree_kernel"):
+                  "chain_scan_kernel", "apply_kernel", "apply_reg_kernel",
+                  "fused_kernel", "fused_reg_kernel", "tree_kernel",
+                  "tree_reg_kernel"):
             if k in kname:
                 spec = ("segsum" if "SegSum" in kname else "mask"
                         if "Mask" in kname else "affine"
@@ -1308,11 +1351,11 @@ def main() -> int:
     kernel_row("apply", lambda: cuda.apply(SUM, (xa2,), (offs,), lay_a),
                lambda: schedules.apply_plain((xa2,), (offs,), SUM, lay_a),
                8 * na + 4 * n_chunks, na, 5, None,
-               "(1, 2^28) bn 2048", launches)
+               "(1, 2^28) bn 2048", launches, graph=True)
     kernel_row("tree", lambda: cuda.tree(SUM, (xb,), lay_c)[0],
                lambda: schedules.tree_plain((xb,), SUM, lay_c),
                8 * nb, nb, 5, lambda: torch.cumsum(xb, 1),
-               "(8192, 32768) bn 8192", launches)
+               "(8192, 32768) bn 8192", launches, graph=True)
     kernel_row("fused", lambda: cuda.fused(SUM, (xa2,), lay_a),
                lambda: schedules.fused_plain((xa2,), SUM, lay_a),
                8 * na, na, 5, lambda: torch.cumsum(xa, 0),
@@ -1341,7 +1384,7 @@ def main() -> int:
                lambda: cuda.apply(mspec, (m6,), (mo,), lay6),
                lambda: schedules.apply_plain((m6,), (mo,), mspec, lay6),
                8 * (T + pad) + 4 * c6, T + pad, 5, None,
-               f"(1, {T + pad}) bn 2048", rel_launches)
+               f"(1, {T + pad}) bn 2048", rel_launches, graph=True)
     (md,) = cuda.apply(mspec, (m6,), (mo,), lay6)
     check(same_bits(cuda.fused(mspec, (m6,), lay6)[0], md),
           "Q6 mask: fused kernel != decoupled")
@@ -1361,7 +1404,7 @@ def main() -> int:
                    lambda: fn(rspec, (rg,), lay, return_totals=True),
                    lambda: plain_fn((rg,), rspec, lay, return_totals=True),
                    8 * nrg + 4 * R * (ROW_GROUP // bn), nrg, 5, None,
-                   f"({R}, {ROW_GROUP}) bn {bn}", rel_launches)
+                   f"({R}, {ROW_GROUP}) bn {bn}", rel_launches, graph=True)
     del m6, mt, mo, rg
     print(f"mask decoupled at ({T + pad},): bound "
           f"{12 * (T + pad) / bw * 1e3:.4f} ms (12 B per element)")
@@ -1395,7 +1438,7 @@ def main() -> int:
                lambda: schedules.apply_plain((sv, sflags), (so_v, so_f),
                                              SEGSUM, lay1),
                12 * n1 + 8 * c1, n1, 5, None,
-               f"(4, {T1 + pad}) bn 2048", rel_launches)
+               f"(4, {T1 + pad}) bn 2048", rel_launches, graph=True)
     (sd,) = cuda.apply(SEGSUM, (sv, sflags), (so_v, so_f), lay1)
     check(same_bits(cuda.fused(SEGSUM, (sv, sflags), lay1)[0], sd),
           "Q1 segsum: fused kernel != decoupled")
@@ -1429,7 +1472,7 @@ def main() -> int:
         kernel_row(kname, lambda: fn(SEGSUM, (price_rows, wf), lay)[0],
                    lambda: plain_fn((price_rows, wf), SEGSUM, lay),
                    12 * nrg, nrg, 5, None, f"({R}, {ROW_GROUP}) bn {bn}",
-                   rel_launches)
+                   rel_launches, graph=True)
     del (price_rows, wf, win, win_t, pred_rows, q1_vals, v1, ids1, rev,
          disc_price)
     torch.cuda.empty_cache()

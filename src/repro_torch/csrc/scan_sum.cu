@@ -46,36 +46,46 @@
 //                  combines associate exactly, scan in parallel
 //                  (chain_scan_kernel). chain_chan_kernel: the same chain
 //                  for Channels, one thread per (batch, channel)
-//   apply_kernel   scan_decoupled, apply pallas_call at :405
-//                  (body _apply_body :371)
+//   apply_reg_kernel, apply_kernel
+//                  scan_decoupled, apply pallas_call at :405 (body
+//                  _apply_body :371): the register network on the tiles
+//                  carry_reg_kernel takes, the shared-memory one on the
+//                  rest
 //   fused_reg_kernel, fused_kernel
 //                  scan_fused, pallas_call at :527 (body _fused_body :453):
 //                  decoupled in one launch, through a look-back (below);
 //                  the register network on the tiles carry_reg_kernel
 //                  takes, the shared-memory one on the rest
-//   tree_kernel    scan_tree, pallas_call at :605 (body _tree_body :557,
-//                  tree_scan :224, _blelloch :178)
+//   tree_reg_kernel, tree_kernel
+//                  scan_tree, pallas_call at :605 (body _tree_body :557,
+//                  tree_scan :224, _blelloch :178): the Blelloch sweep in
+//                  registers by warp shuffles on the tiles carry_reg_kernel
+//                  takes, in shared memory on the rest
 //
 // Bound: device-memory bytes. A scan does one combine per element (the
 // affine one three flops), so on an H100 (3.35 TB/s, 67 TFLOP/s float32
 // outside the tensor cores) moving an element in and out takes ~25-100x
 // longer than combining it. The design therefore touches device memory
-// once per pass: each block reads a whole tile with coalesced loads into
-// shared memory (for Channels, `width` adjacent channels per time step),
-// runs the in-tile network there, and writes each result once. carry and
-// tree keep the running carry on chip while one block walks its lane
+// once per pass, with coalesced loads, and writes each result once. carry
+// and tree keep the running carry on chip while one block walks its lane
 // (read n + write n); decoupled reads the data twice (totals, then apply)
 // to spread one lane over every SM; fused spreads it in one pass (read n +
-// write n). The mask's select re-reads its element at the writeback (an
-// L1/L2 hit: the tile was just loaded). On Rows tiles of 128 r elements
-// carry and fused run the same network in registers instead, from 16-byte
-// loads (carry_reg_kernel, fused_reg_kernel: one block barrier a round of
-// segments for carry, two a tile for fused, no shared-memory pass over
-// the elements), and carry keeps its next rounds' loads in flight while
-// it scans the current one; totals_reduce_kernel keeps a warp's loads in
-// flight too. The shared-memory tiles of apply, tree and the other carry
-// and fused launches are not pipelined (no cp.async or TMA): a block
-// waits for each tile's load.
+// write n). On Rows tiles of 128 r elements of every spec but the affine
+// pair, carry, apply, fused and tree run their in-tile network in
+// registers from 16-byte loads (carry_reg_kernel, apply_reg_kernel,
+// fused_reg_kernel, tree_reg_kernel: a warp a 128-element segment, one
+// block barrier a round of segments for carry and tree, one a tile for
+// apply, two for fused, no shared-memory pass over the elements); carry
+// and tree keep their next rounds' loads in flight while they scan the
+// current one, apply and fused keep a whole 2048-element tile's loads in
+// flight in a small block; totals_reduce_kernel keeps a warp's loads in
+// flight too. The other launches (Channels strips, other tile lengths,
+// the affine pair) read a whole tile into shared memory (for Channels,
+// `width` adjacent channels per time step) and run the network there,
+// not pipelined (no cp.async or TMA): a block waits for each tile's load.
+// The mask's select re-reads its element at the writeback (an L1/L2 hit:
+// the tile was just loaded) in shared-memory kernels; the register ones
+// keep the loaded elements.
 //
 // Association order. Every kernel reproduces the reference's order of
 // combines exactly, so its results are bitwise equal to the reference's
@@ -96,7 +106,10 @@
 //                 combine only when a tile has more than one segment.
 //   tree        = schedules._blelloch: up-sweep left (+) right, down-sweep
 //                 (parent, parent (+) old_left), padded to a power of two
-//                 with the identity; inclusive = excl (+) elems.
+//                 with the identity; inclusive = excl (+) elems. The
+//                 register sweep does the same combines on the same
+//                 operands, the padded slots' included, from the identity
+//                 at the root (tree_reg_kernel).
 //   carry/chain = the carry enters every tile as the LEFT operand, and
 //                 advances left to right from the identity:
 //                 carry = carry (+) total.
@@ -1473,8 +1486,9 @@ fused_kernel(Tensors t, uint64_t* state, Leaves agg, Leaves incl, Geom g,
   store_tile<S, kChan>(t, g, tile, s, net.lane, g.bn, w, exclusive);
 }
 
-// The register network: carry and fused on Rows tiles of bn = 128 r
-// elements (SUM in its six dtypes, SEGSUM, MASK; kReg). tile_scan's
+// The register network: carry, apply and fused on Rows tiles of bn = 128 r
+// elements (SUM in its six dtypes, SEGSUM, MASK; kReg), and tree's
+// Blelloch sweep on the same tiles (tree_reg_kernel, below). tile_scan's
 // association, element for element, without shared-memory passes:
 //   * a warp holds whole 128-element segments, lane l elements 4l .. 4l + 3
 //     of each in registers (one 16-byte load for float32 and int32, 8
@@ -1507,7 +1521,9 @@ fused_kernel(Tensors t, uint64_t* state, Leaves agg, Leaves incl, Geom g,
 //     2048-element tile in registers and an SM holds many tiles, each
 //     waiting on its look-back; the segments of a longer tile past the
 //     first kFusedWarps * fused_segs are read again (from L2, mostly) for
-//     their output.
+//     their output;
+//   * apply: fused's block a tile without the ticket and the look-back,
+//     its offset read from the chain's offsets.
 // Loads and stores take vectors when the operands' bases are aligned to
 // four elements (every run then is: bn and n are multiples of 128), else
 // four scalar accesses a lane (kVec false), the same organization. The
@@ -1637,21 +1653,23 @@ __device__ __forceinline__ void emit_segment(
   S::template emit_run<kVec>(t, i0, out, m);
 }
 
-// A block is 32 * kRegWarps threads; the bound of kThreads caps a thread
-// at 128 registers, so that an SM holds two blocks.
-template <typename S, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-carry_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+// The row walk of carry and tree: a block of 32 * kRegWarps threads at
+// most (the bound of kThreads caps a thread at 128 registers, so that an
+// SM holds two blocks), each warp holding kCarrySegs consecutive segments
+// a round, walks row blockIdx.x tile after tile in rounds of the block's
+// segments. Items (chunk, round) come in order, and the ring's loads run
+// kRegAhead items ahead, unrolled so that no register waits on a move.
+// process(m) takes the next item, m the warp's segments as loaded, and
+// keeps its own (chunk, round).
+template <typename S, bool kVec, typename P>
+__device__ __forceinline__ void walk_row(const Tensors& t, const Geom& g,
+                                         P& process) {
   using E = typename S::E;
   constexpr int K = kCarrySegs;
-  __shared__ E tot[2][kLanes];   // segment totals, by the tile's parity
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int warps = blockDim.x / 32, r = g.bn / kLanes;
-  const int per = warps * K;     // segments a round
+  const int r = g.bn / kLanes, per = blockDim.x / 32 * K;
   const int rounds = (r + per - 1) / per;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * g.n;
-  // items (chunk, round), in order, the warp's K consecutive segments of
-  // each; the ring's loads run kRegAhead items ahead
   E ring[kRegAhead + 1][K][4];
   int64_t lj = 0;
   int ls = 0;
@@ -1668,6 +1686,30 @@ carry_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
       ++lj;
     }
   };
+#pragma unroll
+  for (int a = 0; a < kRegAhead; ++a) prefetch(ring[a]);
+  const int64_t items = g.chunks * rounds;
+  for (int64_t it = 0; it < items; it += kRegAhead + 1) {
+#pragma unroll
+    for (int u = 0; u <= kRegAhead; ++u) {   // no register moves between items
+      if (it + u < items) {
+        prefetch(ring[(u + kRegAhead) % (kRegAhead + 1)]);
+        process(ring[u]);
+      }
+    }
+  }
+}
+
+template <typename S, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+carry_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using E = typename S::E;
+  constexpr int K = kCarrySegs;
+  __shared__ E tot[2][kLanes];   // segment totals, by the tile's parity
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r = g.bn / kLanes, per = blockDim.x / 32 * K;
+  const int rounds = (r + per - 1) / per;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * g.n;
   E carry = S::identity();
   int64_t j = 0;
   int s = 0, par = 0;
@@ -1702,18 +1744,7 @@ carry_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
       par ^= 1;
     }
   };
-#pragma unroll
-  for (int a = 0; a < kRegAhead; ++a) prefetch(ring[a]);
-  const int64_t items = g.chunks * rounds;
-  for (int64_t it = 0; it < items; it += kRegAhead + 1) {
-#pragma unroll
-    for (int u = 0; u <= kRegAhead; ++u) {   // no register moves between items
-      if (it + u < items) {
-        prefetch(ring[(u + kRegAhead) % (kRegAhead + 1)]);
-        process(ring[u]);
-      }
-    }
-  }
+  walk_row<S, kVec>(t, g, process);
 }
 
 // fused on the register network: a block a tile, in ticket order as
@@ -1776,6 +1807,65 @@ fused_reg_kernel(Tensors t, uint64_t* state, Geom g, int exclusive) {
   }
   __syncthreads();
   const E pre = pre_s;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r)
+      emit_segment<S, kVec>(t, tile + q * kLanes, m[k], sg[k], pre, up, tot, q,
+                            r, lane, exclusive);
+  }
+  for (int q = held + warp; q < r; q += warps) {   // read again
+    E mq[4], x[4];
+    S::template load_run<kVec>(t, tile + q * kLanes, mq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = mq[e];
+    warp_hs4<S>(x, lane, kLanes);
+    emit_segment<S, kVec>(t, tile + q * kLanes, mq, x, pre, up, tot, q, r,
+                          lane, exclusive);
+  }
+}
+
+// apply on the register network: fused_reg_kernel without the ticket and
+// the look-back. A block a tile (blockIdx), its offset read from the
+// chain's offsets while the tile's loads are in flight; the same block
+// shape, so a small block keeps a whole 2048-element tile in registers.
+// Its own copy of fused's body: the two written as one held-tile object
+// gave the same bits and apply's time, but fused took 3x as long.
+template <typename S, bool kVec>
+__global__ void __launch_bounds__(32 * kFusedWarps)
+apply_reg_kernel(Tensors t, Leaves offsets, Geom g, int exclusive) {
+  using E = typename S::E;
+  constexpr int K = fused_segs<S>();
+  __shared__ E tot[kLanes];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32, r = g.bn / kLanes;
+  const int held = warps * K;   // segments held in registers
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * g.bn + 4 * lane;
+  E m[K][4], sg[K][4];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r) S::template load_run<kVec>(t, tile + q * kLanes, m[k]);
+  }
+  const E pre = S::get(offsets, blockIdx.x);   // Rows: chain entry = tile
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = warp * K + k;
+    if (q < r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sg[k][e] = m[k][e];
+      warp_hs4<S>(sg[k], lane, kLanes);
+      if (lane == 31) tot[q] = sg[k][3];
+    }
+  }
+  for (int q = held + warp; q < r; q += warps) {   // later segments
+    E x[4];
+    S::template load_run<kVec>(t, tile + q * kLanes, x);
+    warp_hs4<S>(x, lane, kLanes);
+    if (lane == 31) tot[q] = x[3];
+  }
+  __syncthreads();
+  const Upper<S> up(tot, r, r, lane);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int q = warp * K + k;
@@ -1861,6 +1951,170 @@ tree_kernel(Tensors t, Leaves running, Geom g, int m, int exclusive) {
   }
 }
 
+// tree on the register network: Rows tiles of bn = 128 r elements (kReg
+// specs), the Blelloch tree of tree_kernel bit for bit. The tile padded to
+// 128 pow2(r) slots is one balanced tree whose lower 7 levels are the
+// 128-element segments' trees and whose upper levels are the tree over the
+// segment roots padded with identity roots (a segment of identities has
+// the identity as its root, combine(I, I) = I, so those segments are never
+// loaded); every combine of that upper tree over the padded slots is done.
+// Slot p's exclusive value is the left fold, from the identity, of the
+// totals of the left-sibling subtrees on the path from the root to p,
+// largest first, so a round of segments needs only the roots to its left.
+//   * a warp holds a segment, lane l slots 4l .. 4l + 3: levels 1 and 2 of
+//     the up-sweep in the lane's registers, levels 3 .. 7 across lanes by
+//     an xor shuffle (the right lane of a pair, (l + 1) mod 2d = 0, takes
+//     combine(left, right)), the classic in-place sweep, so a lane keeps
+//     only x0 (+) x1 and its own subtree value; 10 shuffles a segment a
+//     32-bit word, up and down;
+//   * the segment roots go to shared memory; after one block barrier every
+//     warp runs the same 128-slot tree over the roots known so far
+//     (RootTree), the identity in the other slots, and takes each of its
+//     segments' exclusive values by shuffle; the tile's root is the
+//     up-sweep's value at level log2 pow2(r) (not above it: x (+) I turns
+//     -0.0 into +0.0);
+//   * the down-sweep starts from the segment's exclusive value at lane 31
+//     and runs back across lanes and into registers; the output is
+//     carry (+) excl, or carry (+) (excl (+) x) for the inclusive form;
+//   * carry_reg_kernel's walk (walk_row): a block of kRegWarps warps
+//     holding kCarrySegs segments each walks a row in rounds, one barrier
+//     a round, kRegAhead rounds' loads in flight, the carry in every
+//     thread.
+template <typename E>
+__device__ __forceinline__ E shfl_xor_e(E x, int mask) {
+  uint32_t w[sizeof(E) / 4];
+  memcpy(w, &x, sizeof(E));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
+    w[i] = __shfl_xor_sync(0xffffffffu, w[i], mask);
+  memcpy(&x, w, sizeof(E));
+  return x;
+}
+
+// The up-sweep over a warp's 128 slots (lane l: slots 4l .. 4l + 3 in x):
+// pairs (2i, 2i + 1) give combine(even, odd), level by level. Leaves the
+// in-place values of slots 4l + 1 (x0 (+) x1) in a1 and 4l + 3 in u;
+// returns, in lane max(n / 4 - 1, 0), the total of slots [0, n) (n a power
+// of two up to 128).
+template <typename S>
+__device__ __forceinline__ typename S::E tree_up(const typename S::E (&x)[4],
+                                                 int lane, int n,
+                                                 typename S::E& a1,
+                                                 typename S::E& u) {
+  using E = typename S::E;
+  a1 = S::combine(x[0], x[1]);
+  u = S::combine(a1, S::combine(x[2], x[3]));
+  E top = n == 1 ? x[0] : n == 2 ? a1 : u;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {   // the subtree of 2d lanes ending at l
+    const E v = shfl_xor_e(u, d);
+    if ((lane & (2 * d - 1)) == 2 * d - 1) u = S::combine(v, u);
+    if (8 * d == n) top = u;
+  }
+  return top;
+}
+
+// The down-sweep from `top`, the exclusive value of the 128 slots' root:
+// at stride d the right lane takes combine(parent, left subtree's total),
+// the left lane the parent's value; then the lane's two pairs and four
+// slots. e: the exclusive values of slots 4l .. 4l + 3.
+template <typename S>
+__device__ __forceinline__ void tree_down(const typename S::E (&x)[4],
+                                          typename S::E a1, typename S::E u,
+                                          typename S::E top, int lane,
+                                          typename S::E (&e)[4]) {
+  using E = typename S::E;
+  if (lane == 31) u = top;
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+    const E v = shfl_xor_e(u, d);
+    const int k = (lane + 1) & (2 * d - 1);
+    if (k == 0) u = S::combine(u, v);
+    else if (k == d) u = v;
+  }
+  const E e23 = S::combine(u, a1);
+  e[0] = u;
+  e[1] = S::combine(u, x[0]);
+  e[2] = e23;
+  e[3] = S::combine(e23, x[2]);
+}
+
+// The upper tree of a tile: the Blelloch tree over the segment roots
+// t[0, r) padded with the identity to `slots` = pow2(r), of which the
+// first `known` are written, in every warp (4 slots a lane over 128: the
+// levels above `slots` leave the exclusive values of slots below it as
+// they are). root: the tree's total, in every lane (all r known).
+template <typename S>
+struct RootTree {
+  using E = typename S::E;
+  E e[4];
+  E root;
+  __device__ RootTree(const E* t, int known, int slots, int lane) {
+    E x[4], a1, u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = 4 * lane + j < known ? t[4 * lane + j] : S::identity();
+    root = shfl_e(tree_up<S>(x, lane, slots, a1, u),
+                  slots >= 8 ? slots / 4 - 1 : 0);
+    tree_down<S>(x, a1, u, S::identity(), lane, e);
+  }
+  __device__ E excl(int q) const {   // q warp-uniform
+    const int j = q & 3;
+    return shfl_e(j == 0 ? e[0] : j == 1 ? e[1] : j == 2 ? e[2] : e[3], q >> 2);
+  }
+};
+
+template <typename S, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+tree_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using E = typename S::E;
+  constexpr int K = kCarrySegs;
+  __shared__ E tot[2][kLanes];   // segment roots, by the tile's parity
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r = g.bn / kLanes, per = blockDim.x / 32 * K;
+  const int rounds = (r + per - 1) / per;
+  const int slots = pow2_at_least(r);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * g.n;
+  E carry = S::identity();
+  int64_t j = 0;
+  int s = 0, par = 0;
+  auto process = [&](const E (&m)[K][4]) {
+    E a1[K], u[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = s * per + warp * K + k;
+      if (q < r) {
+        tree_up<S>(m[k], lane, kLanes, a1[k], u[k]);
+        if (lane == 31) tot[par][q] = u[k];
+      }
+    }
+    __syncthreads();
+    const RootTree<S> up(tot[par], min(r, (s + 1) * per), slots, lane);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int q = s * per + warp * K + k;
+      if (q < r) {
+        E e[4], out[4];
+        tree_down<S>(m[k], a1[k], u[k], up.excl(q), lane, e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[i] = S::combine(carry, exclusive ? e[i] : S::combine(e[i], m[k][i]));
+        S::template emit_run<kVec>(t, row + j * g.bn + q * kLanes + 4 * lane,
+                                   out, m[k]);
+      }
+    }
+    if (++s == rounds) {
+      carry = S::combine(carry, up.root);
+      if (running.v != nullptr && threadIdx.x == 0)
+        S::put(running, static_cast<int64_t>(blockIdx.x) * g.chunks + j, carry);
+      s = 0;
+      ++j;
+      par ^= 1;
+    }
+  };
+  walk_row<S, kVec>(t, g, process);
+}
+
 // Opts in to more than 48 KB of shared memory, static included (fused
 // adds up to 4 KB of its own).
 template <typename K>
@@ -1898,9 +2152,10 @@ int reg_threads(int bn, int segs, int warps) {
   return 32 * (need < warps ? need : warps);
 }
 
-// net: the in-tile network the wrapper chose by shape (cuda.tile_network):
-// 1 the register network, for Rows tiles of 128 r elements of a kReg spec
-// (anything else is refused), 0 tile_scan in shared memory.
+// net: the in-tile network the wrapper chose by shape (cuda.tile_network),
+// for carry, apply, fused and tree alike: 1 the register network, for Rows
+// tiles of 128 r elements of a kReg spec (anything else is refused), 0 the
+// network in shared memory (tile_scan, or tree_kernel's sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
                  long long d, int width, int bn, int exclusive, int net,
@@ -1998,8 +2253,25 @@ int launch_chain(Leaves totals, Leaves offsets, Leaves running, long long b,
 
 template <typename S, bool kChan>
 int launch_apply(Tensors t, Leaves offsets, long long b, long long n,
-                 long long d, int width, int bn, int exclusive,
+                 long long d, int width, int bn, int exclusive, int net,
                  cudaStream_t stream) {
+  if (net) {
+    if constexpr (!kChan && S::kReg) {
+      if (bn % kLanes != 0) return cudaErrorInvalidValue;
+      const Geom g = make_geom(false, n, 1, 1, bn);
+      const unsigned tiles = static_cast<unsigned>(b * (n / bn));
+      const int threads = reg_threads(bn, fused_segs<S>(), kFusedWarps);
+      if (runs_aligned<S>(t))
+        apply_reg_kernel<S, true><<<tiles, threads, 0, stream>>>(t, offsets, g,
+                                                                 exclusive);
+      else
+        apply_reg_kernel<S, false><<<tiles, threads, 0, stream>>>(t, offsets, g,
+                                                                  exclusive);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   const Geom g = make_geom(kChan, n, d, width, bn);
   const size_t smem = network_bytes<S>(bn, g.width);
   cudaError_t err = allow_smem(apply_kernel<S, kChan>, smem);
@@ -2043,8 +2315,25 @@ int launch_fused(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
 
 template <typename S, bool kChan>
 int launch_tree(Tensors t, Leaves running, long long b, long long n,
-                long long d, int width, int bn, int exclusive,
+                long long d, int width, int bn, int exclusive, int net,
                 cudaStream_t stream) {
+  if (net) {
+    if constexpr (!kChan && S::kReg) {
+      if (bn % kLanes != 0) return cudaErrorInvalidValue;
+      const Geom g = make_geom(false, n, 1, 1, bn);
+      if (runs_aligned<S>(t))
+        tree_reg_kernel<S, true><<<static_cast<unsigned>(b),
+                                   reg_threads(bn, kCarrySegs, kRegWarps), 0,
+                                   stream>>>(t, running, g, exclusive);
+      else
+        tree_reg_kernel<S, false><<<static_cast<unsigned>(b),
+                                    reg_threads(bn, kCarrySegs, kRegWarps), 0,
+                                    stream>>>(t, running, g, exclusive);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   const Geom g = make_geom(kChan, n, d, width, bn);
   int m = 1;
   while (m < bn) m <<= 1;
@@ -2090,8 +2379,8 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 
 extern "C" {
 
-// net: 1 the register network (Rows tiles of 128 r elements, no affine),
-// 0 the shared-memory tile_scan.
+// net (carry, apply, fused, tree): 1 the register network (Rows tiles of
+// 128 r elements, no affine), 0 the shared-memory network.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,
                long long d, int width, int bn, int exclusive, int sentinel,
@@ -2128,11 +2417,11 @@ int scan_chain(int spec, int dtype, int chan, const void* tot_v,
 int scan_apply(int spec, int dtype, int chan, const void* x, const void* y,
                const void* off_v, const void* off_f, void* out, long long b,
                long long n, long long d, int width, int bn, int exclusive,
-               int sentinel, void* stream) {
+               int sentinel, int net, void* stream) {
   const Tensors t{x, y, out, sentinel};
   const Leaves offsets{const_cast<void*>(off_v), const_cast<void*>(off_f)};
   SCAN_DISPATCH(chan, spec, dtype, launch_apply, t, offsets, b, n, d, width,
-                bn, exclusive, static_cast<cudaStream_t>(stream));
+                bn, exclusive, net, static_cast<cudaStream_t>(stream));
 }
 
 // state: 1 + tiles zeroed 64-bit words; agg/inc: chain_shape leaves (not
@@ -2152,11 +2441,11 @@ int scan_fused(int spec, int dtype, int chan, const void* x, const void* y,
 int scan_tree(int spec, int dtype, int chan, const void* x, const void* y,
               void* out, void* run_v, void* run_f, long long b, long long n,
               long long d, int width, int bn, int exclusive, int sentinel,
-              void* stream) {
+              int net, void* stream) {
   const Tensors t{x, y, out, sentinel};
   const Leaves running{run_v, run_f};
   SCAN_DISPATCH(chan, spec, dtype, launch_tree, t, running, b, n, d, width,
-                bn, exclusive, static_cast<cudaStream_t>(stream));
+                bn, exclusive, net, static_cast<cudaStream_t>(stream));
 }
 
 const char* scan_error_string(int err) {

@@ -14,12 +14,14 @@ compact mask (int32 mask, int32 destinations) and the affine recurrence
 ``Channels`` (3-D) layouts. ``totals`` of the sum and the mask on
 ``Rows`` launch ``totals_reduce_kernel`` (the network's last element
 built as its tree, without the scan; counted under the same keys); every
-other ``totals`` launches the network's ``totals_kernel``. ``carry`` and
-``fused`` run the in-tile network that ``tile_network`` chooses by shape:
-``carry_reg_kernel`` / ``fused_reg_kernel`` (registers and warp shuffles)
-on ``Rows`` tiles of 128·r elements, ``carry_kernel`` / ``fused_kernel``
-(shared memory) otherwise; both count under ``carry`` and ``fused``.
-Each wrapper below takes the spec and its
+other ``totals`` launches the network's ``totals_kernel``. ``carry``,
+``apply``, ``fused`` and ``tree`` run the in-tile network that
+``tile_network`` chooses by shape: ``carry_reg_kernel``,
+``apply_reg_kernel``, ``fused_reg_kernel`` and ``tree_reg_kernel``
+(registers and warp shuffles) on ``Rows`` tiles of 128·r elements,
+``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and ``tree_kernel``
+(shared memory) otherwise; both forms count under the same keys. Each
+wrapper below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
 the layout's shape, raises on anything the kernel does not take,
 allocates the outputs and scratch with ``torch.empty``/``torch.zeros``,
@@ -142,9 +144,9 @@ def build() -> ctypes.CDLL:
         "scan_carry": tile + (p, p, p) + geom + (i, i, i, p),
         "scan_totals": tile + (p, p) + geom + (p,),
         "scan_chain": (i, i, i, p, p, p, p, p, p, ll, ll, ll, p),
-        "scan_apply": tile + (p, p, p) + geom + (i, i, p),
+        "scan_apply": tile + (p, p, p) + geom + (i, i, i, p),
         "scan_fused": tile + (p, p, p, p, p, p) + geom + (i, i, i, p),
-        "scan_tree": tile + (p, p, p) + geom + (i, i, p),
+        "scan_tree": tile + (p, p, p) + geom + (i, i, i, p),
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -181,15 +183,18 @@ def channel_width(layout: Channels) -> int:
 
 
 def tile_network(spec, layout) -> str:
-    """The in-tile network a ``carry`` or ``fused`` launch runs, chosen
-    here by shape and nowhere else: ``"register"`` (``carry_reg_kernel``,
-    ``fused_reg_kernel``: a warp a 128-element segment, Hillis–Steele by
-    warp shuffles) for ``Rows`` tiles whose length is a multiple of 128, of
-    every spec but the affine pair (its wrappers lay it out on
-    ``Channels``); ``"shared"`` (``carry_kernel``, ``fused_kernel``: the
-    network in shared memory) for ``Channels``, for other tile lengths and
-    for the affine pair. Both give ``schedules.tile_scan``'s bits; the
-    kernel refuses a register launch of any other shape."""
+    """The in-tile network a ``carry``, ``apply``, ``fused`` or ``tree``
+    launch runs, chosen here by shape and nowhere else: ``"register"``
+    (``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel``,
+    ``tree_reg_kernel``: a warp a 128-element segment, Hillis–Steele or
+    the Blelloch sweep by warp shuffles) for ``Rows`` tiles whose length is
+    a multiple of 128, of every spec but the affine pair (its wrappers lay
+    it out on ``Channels``); ``"shared"`` (``carry_kernel``,
+    ``apply_kernel``, ``fused_kernel``, ``tree_kernel``: the network in
+    shared memory) for ``Channels``, for other tile lengths and for the
+    affine pair. Both give the bits of ``schedules.tile_scan`` (carry,
+    apply, fused) or ``schedules.tree_scan`` (tree); the kernel refuses a
+    register launch of any other shape, and nothing falls back."""
     if (not isinstance(layout, Channels) and layout.bn % 128 == 0
             and spec.name != "affine"):
         return "register"
@@ -372,7 +377,8 @@ def apply(spec, operands, offsets, layout, exclusive=False):
         _launch(spec, "apply", build().scan_apply, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 *_ptrs(offsets), out.data_ptr(), *geo[1:], int(exclusive),
-                spec.sentinel or 0)
+                spec.sentinel or 0,
+                int(tile_network(spec, layout) == "register"))
     return (out,)
 
 
@@ -411,5 +417,6 @@ def tree(spec, operands, layout, exclusive=False, return_totals=False):
         _launch(spec, "tree", build().scan_tree, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
-                spec.sentinel or 0)
+                spec.sentinel or 0,
+                int(tile_network(spec, layout) == "register"))
     return (out,), running

@@ -387,6 +387,96 @@ def tile_scan_warps(spec, leaves, exclusive=False, round_segs=16):
     return tuple(v.flatten(-3) for v in full)
 
 
+_LANE = torch.arange(32)
+
+
+def _where(mask, a, b):
+    return tuple(torch.where(mask, p, q) for p, q in zip(a, b))
+
+
+def _lanes_xor(leaves, d):
+    """Each leaf (..., 32 lanes) read from lane l ^ d: ``__shfl_xor_sync``."""
+    return tuple(x.index_select(-1, _LANE ^ d) for x in leaves)
+
+
+def _tree_up(spec, x, n):
+    """The CUDA ``tree_up`` on leaves (..., 32 lanes, 4 registers), lane l
+    holding slots 4l .. 4l + 3 of 128: the Blelloch up-sweep, levels 1 and
+    2 in the lane, then across lanes (the right lane of each pair takes
+    ``combine(left, right)``). Returns the in-place values of slots 4l + 1
+    and 4l + 3 (``a1``, ``u``: (..., 32) per leaf) and the total of slots
+    [0, n) (n a power of two up to 128)."""
+    xs = [tuple(v[..., j] for v in x) for j in range(4)]
+    a1 = spec.combine(xs[0], xs[1])
+    u = spec.combine(a1, spec.combine(xs[2], xs[3]))
+    top = xs[0] if n == 1 else a1 if n == 2 else u
+    d = 1
+    while d < 32:
+        u = _where((_LANE & (2 * d - 1)) == 2 * d - 1,
+                   spec.combine(_lanes_xor(u, d), u), u)
+        if 8 * d == n:
+            top = u
+        d *= 2
+    root = tuple(t[..., n // 4 - 1 if n >= 8 else 0] for t in top)
+    return a1, u, root
+
+
+def _tree_down(spec, x, a1, u, top):
+    """The CUDA ``tree_down``: from ``top`` (the exclusive value of the 128
+    slots' root, one per leading index) at lane 31, each right lane takes
+    ``combine(parent, left total)`` and each left lane the parent's value,
+    stride 16 down to 1; then the lane's pairs and slots. Returns the
+    exclusive values (..., 32, 4) per leaf."""
+    u = _where(_LANE == 31, tuple(t[..., None] for t in top), u)
+    d = 16
+    while d >= 1:
+        v = _lanes_xor(u, d)
+        k = (_LANE + 1) & (2 * d - 1)
+        u = _where(k == 0, spec.combine(u, v), _where(k == d, v, u))
+        d //= 2
+    x0, x2 = (tuple(v[..., j] for v in x) for j in (0, 2))
+    e23 = spec.combine(u, a1)
+    e = (u, spec.combine(u, x0), e23, spec.combine(e23, x2))
+    return tuple(torch.stack([ej[i] for ej in e], -1) for i in range(len(x)))
+
+
+def tree_scan_warps(spec, leaves, round_segs=16):
+    """``tree_scan`` over the last axis (a multiple of 128) as the CUDA
+    ``tree_reg_kernel`` organizes it: the tile padded to 128·pow2(r) slots
+    is one Blelloch tree whose lower levels are the 128-element segments'
+    trees, a segment as (lane, register) with the levels above the lane by
+    shifts across lanes (``_tree_up`` / ``_tree_down``), and whose upper
+    levels are the tree over the segment roots padded with identity roots
+    to pow2(r) slots, run in rounds of ``round_segs`` segments (a block's
+    warps times the segments each holds), each round seeing only the roots
+    up to its own. Returns ``(exclusive scan, total)`` as ``tree_scan``
+    does. Tests use it; the schedules never do."""
+    n = leaves[0].shape[-1]
+    r = n // LANES
+    segs = tuple(x.unflatten(-1, (r, 32, 4)) for x in leaves)
+    a1, u, _ = _tree_up(spec, segs, LANES)
+    roots = tuple(v[..., 31] for v in u)                     # (..., r)
+    slots = _pow2_at_least(r)
+    ident = tuple(torch.full_like(t[..., 0], f)
+                  for t, f in zip(roots, spec.fills))
+    tops = []
+    for s in range(-(-r // round_segs)):
+        known = min(r, (s + 1) * round_segs)
+        xs = tuple(torch.cat([t[..., :known], torch.full(
+            t.shape[:-1] + (LANES - known,), f, dtype=t.dtype,
+            device=t.device)], -1).unflatten(-1, (32, 4))
+            for t, f in zip(roots, spec.fills))
+        ra1, ru, total = _tree_up(spec, xs, slots)
+        excl = _tree_down(spec, xs, ra1, ru, ident)
+        tops += [tuple(e.flatten(-2)[..., q] for e in excl)
+                 for q in range(s * round_segs, known)]
+    top = tuple(torch.stack([t[i] for t in tops], -1)
+                for i in range(len(leaves)))                 # (..., r)
+    excl = _tree_down(spec, segs, a1, u, top)
+    return (tuple(e.flatten(-3) for e in excl),
+            tuple(t[..., None] for t in total))
+
+
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
     elems = _tiles(spec, operands, layout)

@@ -32,12 +32,13 @@ folding thread for float specs, a parallel scan for integer ones) must
 give ``exclusive_chain``'s bits. The sum's and the mask's Rows totals
 (``totals_reduce_kernel``, the network's last element built as its tree)
 must give ``totals_plain``'s and ``totals_tree_plain``'s bits on
-adversarial data, at any block size and base alignment, and so must carry
-and fused on ``Rows`` (``carry_reg_kernel`` and ``fused_reg_kernel`` on
-tiles of 128·r elements, the shared-memory network on others): outputs
-and running totals bitwise equal to ``carry_plain`` / ``fused_plain`` and
-to decoupled, with the profiler's kernel names showing which network
-each shape launches.
+adversarial data, at any block size and base alignment, and so must
+carry, apply, fused and tree on ``Rows`` (``carry_reg_kernel``,
+``apply_reg_kernel``, ``fused_reg_kernel`` and ``tree_reg_kernel`` on
+tiles of 128·r elements, the shared-memory kernels on others): outputs
+and running totals bitwise equal to ``carry_plain``, ``apply_plain``,
+``fused_plain`` and ``tree_plain``, decoupled == carry == fused, with the
+profiler's kernel names showing which network each shape launches.
 """
 
 import dataclasses
@@ -573,6 +574,100 @@ def test_cuda_carry_fused_network_by_shape(cuda_device):
             fn = getattr(cuda, kernel)
             cuda.reset_launches()
             names = _kernel_names(lambda: fn(spec, ops_, lay))
+            assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
+            hits = [k for k in names if kernel in k]
+            want = f"{kernel}_reg_kernel<" if reg else f"{kernel}_kernel<"
+            assert len(hits) == 1 and want in hits[0], (
+                spec.name, ops_[0].dtype, lay, names)
+
+
+@pytest.mark.parametrize("bn", totals_data.BLOCKS)
+@pytest.mark.parametrize("kind", REG_KINDS)
+def test_cuda_apply_tree_rows_bitwise_vs_plain(cuda_device, kind, bn):
+    """apply (given the plain chain's offsets) and tree (outputs and
+    running totals), one launch each, bitwise against ``apply_plain`` /
+    ``tree_plain`` (NaN as NaN), and decoupled == carry == fused ==
+    apply, inclusive and exclusive, from aligned bases and from bases one
+    element off, with -0.0 at every segment start besides the tile
+    starts' signed zeros."""
+    n = 3 * bn
+    spec, cpu = _reg_operands(kind, n, bn, 75)
+    if cpu[0].dtype.is_floating_point:
+        seg = torch.zeros(n, dtype=torch.bool)
+        seg[::128] = True
+        seg[::bn] = False
+        cpu[0][:, seg] = -0.0
+    lay = scan_engine.Rows(2, n, 1, bn)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    offsets = sched.exclusive_chain(spec, sched.totals_plain(cpu, spec, lay))
+    offs = tuple(o.to(cuda_device) for o in offsets)
+    for offset in (0, 1):
+        gpu = []
+        for o in cpu:
+            buf = torch.empty(o.numel() + offset, dtype=o.dtype,
+                              device=cuda_device)
+            gpu.append(buf[offset:].view(o.shape))
+            gpu[-1].copy_(o)
+        gpu = tuple(gpu)
+        for exclusive in ((False, True) if spec.supports_exclusive
+                          else (False,)):
+            what = (offset, exclusive)
+            cuda.reset_launches()
+            (ap,) = cuda.apply(spec, gpu, offs, lay, exclusive)
+            (tr,), run = cuda.tree(spec, gpu, lay, exclusive, True)
+            torch.cuda.synchronize()
+            assert cuda.LAUNCHES == {**{k: 0 for k in cuda.LAUNCHES},
+                                     cuda.kernel_name(spec.name, "apply"): 1,
+                                     cuda.kernel_name(spec.name, "tree"): 1}
+            (want,) = sched.apply_plain(cpu, offsets, spec, lay, exclusive)
+            assert same(ap.cpu(), want), what
+            (w_tree,), w_run = sched.tree_plain(cpu, spec, lay, exclusive,
+                                                return_totals=True)
+            assert same(tr.cpu(), w_tree), what
+            for a, b in zip(run, w_run):
+                assert same(a.cpu(), b), what
+            (dec,) = scan_engine.scan(gpu, spec, lay, schedule="decoupled",
+                                      exclusive=exclusive)
+            (car,), _ = cuda.carry(spec, gpu, lay, exclusive)
+            (fo,) = cuda.fused(spec, gpu, lay, exclusive)
+            assert same(dec, ap) and same(car, ap) and same(fo, ap), what
+
+
+def test_cuda_apply_tree_network_by_shape(cuda_device):
+    """By the profiler's kernel names: apply and tree on Rows tiles of
+    128·r elements launch ``apply_reg_kernel`` / ``tree_reg_kernel`` for
+    the sum (every dtype), the segmented sum and the mask, at block_n 128
+    to 16384; other tile lengths, the affine pair and Channels launch
+    ``apply_kernel`` / ``tree_kernel``. ``cuda.tile_network`` names the
+    same choice, and the launch counters keep their keys."""
+    ones = torch.ones((2, 32768), device=cuda_device)
+    flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
+    chan = scan_engine.Channels(2, 1024, 8, 256, 8)
+    ones_c = torch.ones(chan.shape, device=cuda_device)
+    calls = [(monoids.SUM, (ones.to(dt),), scan_engine.Rows(2, 32768, 1, bn))
+             for dt in cuda.DTYPE_CODES for bn in (128, 2048, 16384)]
+    calls += [
+        (monoids.SEGMENTED_SUM, (ones, flags), scan_engine.Rows(2, 32768, 1, 2048)),
+        (monoids.SEGMENTED_SUM, (ones, flags), scan_engine.Rows(2, 32768, 1, 16384)),
+        (monoids.mask(32768), (flags,), scan_engine.Rows(2, 32768, 1, 2048)),
+        (monoids.mask(32768), (flags,), scan_engine.Rows(2, 32768, 1, 8192)),
+        (monoids.SUM, (ones[:, :600],), scan_engine.Rows(2, 600, 1, 200)),
+        (monoids.SEGMENTED_SUM, (ones[:, :600], flags[:, :600]),
+         scan_engine.Rows(2, 600, 1, 200)),
+        (monoids.AFFINE, (ones[:, :512], ones[:, :512]),
+         scan_engine.Rows(2, 512, 1, 256)),
+        (monoids.SUM, (ones_c,), chan),
+        (monoids.AFFINE, (ones_c, ones_c), chan),
+    ]
+    for spec, ops_, lay in calls:
+        ops_ = tuple(o.contiguous() for o in ops_)
+        reg = cuda.tile_network(spec, lay) == "register"
+        offs, _ = cuda.chain(spec, cuda.totals(spec, ops_, lay))
+        for kernel, fn in (("apply", lambda: cuda.apply(spec, ops_, offs, lay)),
+                           ("tree", lambda: cuda.tree(spec, ops_, lay))):
+            cuda.reset_launches()
+            names = _kernel_names(fn)
             assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
             hits = [k for k in names if kernel in k]
             want = f"{kernel}_reg_kernel<" if reg else f"{kernel}_kernel<"

@@ -14,8 +14,9 @@ reference's ``tile_scan``. XLA's CPU runtime flushes subnormals, so the
 comparison with the reference runs torch in flush mode on one thread, as
 ``test_torch_totals_tree.py`` does. The kernels themselves are held
 against the plain versions on the card in
-``tests/test_torch_cuda_kernels.py``; which network a launch takes is
-chosen by shape in ``cuda.tile_network``, tested here.
+``tests/test_torch_cuda_kernels.py``; which network a launch of carry,
+apply (``apply_reg_kernel``: one round over the whole tile), fused or
+tree takes is chosen by shape in ``cuda.tile_network``, tested here.
 """
 
 import jax
@@ -90,6 +91,36 @@ def test_tile_scan_warps_rounds_give_the_same_bits(bn, round_segs):
             schedules.shift_one(spec, want)), kind
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("bn", (2176, 16384))
+def test_tile_scan_warps_apply_round(kind, bn):
+    """``apply_reg_kernel``'s organization: one round over all r segment
+    totals (a block a tile), then each chunk offset on the LEFT, gives
+    ``apply_plain``'s outputs, inclusive and exclusive."""
+    spec, _, leaves = _leaves(kind, bn, 83)
+    r = bn // 128
+    want = schedules.tile_scan(spec, leaves)
+    assert _all_same(schedules.tile_scan_warps(spec, leaves, round_segs=r),
+                     want)
+    n = 2 * bn
+    x = operands("float32" if kind == "segsum" else kind, 2, n, bn, 83)
+    ops = (x,) if kind != "segsum" else (x, (torch.arange(n) % 301 == 7)
+                                         .to(torch.int32).expand(2, n))
+    lay = scan_engine.Rows(2, n, 1, bn)
+    elems = schedules._tiles(spec, ops, lay)
+    offsets = schedules.exclusive_chain(spec,
+                                        schedules.totals_plain(ops, spec, lay))
+    for exclusive in ((False, True) if spec.supports_exclusive else (False,)):
+        sel = schedules.tile_scan_warps(
+            spec, tuple(t.reshape(-1, bn) for t in elems), exclusive,
+            round_segs=r)
+        sel = tuple(t.reshape(elems[0].shape) for t in sel)
+        got = schedules._emit(spec, ops, lay, elems,
+                              schedules._offset(spec, offsets, sel))
+        want = schedules.apply_plain(ops, offsets, spec, lay, exclusive)
+        assert _all_same(got, want), exclusive
+
+
 @pytest.fixture
 def flush_denormals():
     """torch's CPU ops in XLA's CPU mode: subnormals read and written as
@@ -147,6 +178,42 @@ def test_tile_network_by_shape(name, spec, layout, network):
     spec but the affine pair; Channels and other tile lengths keep the
     shared-memory ``tile_scan``."""
     assert cuda.tile_network(spec, layout) == network
+
+
+def _wrapper_operands(spec, layout):
+    """CPU operands of ``layout.shape`` that the wrappers' checks take."""
+    x = torch.ones(layout.shape)
+    if spec.name == "mask":
+        return (x.to(torch.int32),)
+    if spec.name == "segsum":
+        return (x, torch.zeros(layout.shape, dtype=torch.int32))
+    return (x, x) if spec.name == "affine" else (x,)
+
+
+@pytest.mark.parametrize("kernel", ("carry", "apply", "fused", "tree"))
+@pytest.mark.parametrize("name,spec,layout,network", NETWORKS,
+                         ids=[c[0] for c in NETWORKS])
+def test_wrappers_launch_the_tile_network(monkeypatch, kernel, name, spec,
+                                          layout, network):
+    """Each of carry, apply, fused and tree passes the kernel the network
+    ``tile_network`` chose (the C interface's last argument before the
+    stream: 1 register, 0 shared), and chooses it nowhere else. The launch
+    is intercepted, so this runs on CPU tensors."""
+    nets = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: nets.append(
+                            (k, args[-1])))
+    ops_ = _wrapper_operands(spec, layout)
+    if kernel == "apply":
+        code, x, y = cuda._operands(spec, ops_, layout)
+        offsets = cuda._new_leaves(spec, x, y, layout.chain_shape)
+        cuda.apply(spec, ops_, offsets, layout)
+    else:
+        getattr(cuda, kernel)(spec, ops_, layout)
+    assert nets == [(kernel, int(network == "register"))]
 
 
 def test_tile_network_follows_the_wrappers_tiling():

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time carry and fused on ``Rows`` under variants of the register network,
-on one card, in one process.
+"""Time carry, apply, fused and tree on ``Rows`` under variants of the
+register network, on one card, in one process.
 
     PYTHONPATH=src python3 tools/network_variants.py
 
 Each variant is ``csrc/scan_sum.cu`` with a few text edits of the
 register network's constants: carry's block (``kRegWarps`` warps holding
 ``kCarrySegs`` segments each a round: 8 x 2, 16 x 1) and loads in flight
-(``kRegAhead`` items ahead: 2 or 1), fused's segments a warp
-(``kFusedWords``, the 32-bit words of an element a lane holds over them:
-4, 8 or 16, so 4, 8 or 16 segments of the sum and half as many of the
-segmented pair; at block_n 2048, 4, 2 or 1 warps of the sum);
+(``kRegAhead`` items ahead: 2 or 1), which tree's walk shares, fused's
+segments a warp (``kFusedWords``, the 32-bit words of an element a lane
+holds over them: 4, 8 or 16, so 4, 8 or 16 segments of the sum and half
+as many of the segmented pair; at block_n 2048, 4, 2 or 1 warps of the
+sum), which apply's block shares;
 the look-back's stack (``kStackWindows`` 32 windows of 32 tiles, not 16);
 two diagnostics, wrong bits and timed only, to show what the look-back
 costs: ``nolookback``, whose fused tiles skip it (their offsets the
@@ -18,7 +19,7 @@ identity), and ``nofold``, whose tiles wait as before but take the
 inclusive prefix they find as their offset, without folding the
 aggregates after it; and
 ``shared``, the same library with every launch sent to the shared-memory
-network that carry and fused ran before (what
+network that carry, apply, fused and tree ran before (what
 ``cuda.tile_network`` chooses is replaced for it). All are compiled with
 ``nvcc`` together, into ``build/variants/<name>/``, then timed in turns
 (each variant, then again in reverse order) at chip_smoke's shapes: (a)
@@ -26,10 +27,13 @@ fused over one (1, 2^28) float32 row, (b) carry over (8192, 32768)
 float32, the row groups' carry of the segmented sum and of the mask
 (228 x 2^18) and an int32 one-hot's carry (256 x 2^21: the join's
 partition has 256 rows), the mask's fused at (1, 59990016) and the
-segmented sum's at (4, 2^24), all at block_n 2048, each one call between
-CUDA events (median of 20), beside ``torch.cumsum`` where it computes the
-same function. Every variant's
-outputs are checked bitwise against the plain versions first.
+segmented sum's at (4, 2^24), decoupled's apply (given the plain chain's
+offsets) at (a), the mask's and the segmented sum's columns, all at
+block_n 2048, and tree over (b) at block_n 8192 and 2048 and over the row
+groups' segmented sum and mask at 8192, each one call between CUDA events
+(median of 20), beside ``torch.cumsum`` where it computes the same
+function. Every variant's outputs are checked bitwise against the plain
+versions first.
 """
 
 from __future__ import annotations
@@ -126,8 +130,8 @@ def main() -> int:
         regs, spills, kernel = {}, [], None
         for line in logs[d].splitlines():
             if "Compiling entry function" in line:
-                found = re.search(r"(carry|fused)_reg_kernelI(.+?)ELb([01])",
-                                  line)
+                found = re.search(
+                    r"(carry|apply|fused|tree)_reg_kernelI(.+?)ELb([01])", line)
                 kernel = found and f"{found[1]}<{found[2]}, {found[3]}>"
             elif kernel and "spill stores" in line:
                 found = re.search(r"(\d+) bytes stack frame, (\d+) bytes "
@@ -165,25 +169,64 @@ def main() -> int:
     t6 = 59990016
     m6 = (torch.rand((1, t6), device=dev, generator=gen) < 0.02).to(
         torch.int32)
-    cases = [  # (name, kernel, spec, operands, layout, library)
-        ("(a) fused", cuda.fused, SUM, (xa,), Rows(1, 1 << 28, 1, 2048),
+    t8 = Rows(8192, 32768, 1, 8192)
+    lay_a = Rows(1, 1 << 28, 1, 2048)
+    lay6 = Rows(1, t6, 1, 2048)
+    lay4 = Rows(4, 1 << 24, 1, 2048)
+    mspec = monoids.mask(t6)
+    # the chain's offsets of decoupled's apply, from the plain versions
+    off_a = schedules.exclusive_chain(SUM, schedules.totals_plain(
+        (xa,), SUM, lay_a))
+    off6 = schedules.exclusive_chain(mspec, schedules.totals_plain(
+        (m6,), mspec, lay6))
+    off4 = schedules.exclusive_chain(SEG, schedules.totals_plain(
+        (v4, f4), SEG, lay4))
+
+    def first(out):
+        return out[0][0] if isinstance(out[0], tuple) else out[0]
+
+    cases = [  # (name, kernel launch, plain version, library)
+        ("(a) fused", lambda: cuda.fused(SUM, (xa,), lay_a),
+         lambda: schedules.fused_plain((xa,), SUM, lay_a),
          lambda: torch.cumsum(xa, 1)),
-        ("(b) carry", cuda.carry, SUM, (xb,), Rows(8192, 32768, 1, 2048),
+        ("(b) carry", lambda: cuda.carry(SUM, (xb,), Rows(8192, 32768, 1, 2048)),
+         lambda: schedules.carry_plain((xb,), SUM, Rows(8192, 32768, 1, 2048)),
          lambda: torch.cumsum(xb, 1)),
-        ("segsum carry", cuda.carry, SEG, (v, f), Rows(*rg, 1, 2048), None),
-        ("mask carry", cuda.carry, monoids.mask(rg[1]), (m,),
-         Rows(*rg, 1, 2048), None),
-        ("one-hot carry", cuda.carry, SUM, (onehot,),
-         Rows(256, 1 << 21, 1, 2048), lambda: torch.cumsum(onehot, 1)),
-        ("mask fused", cuda.fused, monoids.mask(t6), (m6,), Rows(1, t6, 1, 2048),
+        ("segsum carry", lambda: cuda.carry(SEG, (v, f), Rows(*rg, 1, 2048)),
+         lambda: schedules.carry_plain((v, f), SEG, Rows(*rg, 1, 2048)), None),
+        ("mask carry", lambda: cuda.carry(monoids.mask(rg[1]), (m,),
+                                          Rows(*rg, 1, 2048)),
+         lambda: schedules.carry_plain((m,), monoids.mask(rg[1]),
+                                       Rows(*rg, 1, 2048)), None),
+        ("one-hot carry", lambda: cuda.carry(SUM, (onehot,),
+                                             Rows(256, 1 << 21, 1, 2048)),
+         lambda: schedules.carry_plain((onehot,), SUM,
+                                       Rows(256, 1 << 21, 1, 2048)),
+         lambda: torch.cumsum(onehot, 1)),
+        ("mask fused", lambda: cuda.fused(mspec, (m6,), lay6),
+         lambda: schedules.fused_plain((m6,), mspec, lay6), None),
+        ("segsum fused", lambda: cuda.fused(SEG, (v4, f4), lay4),
+         lambda: schedules.fused_plain((v4, f4), SEG, lay4), None),
+        ("(a) apply", lambda: cuda.apply(SUM, (xa,), off_a, lay_a),
+         lambda: schedules.apply_plain((xa,), off_a, SUM, lay_a), None),
+        ("mask apply", lambda: cuda.apply(mspec, (m6,), off6, lay6),
+         lambda: schedules.apply_plain((m6,), off6, mspec, lay6), None),
+        ("segsum apply", lambda: cuda.apply(SEG, (v4, f4), off4, lay4),
+         lambda: schedules.apply_plain((v4, f4), off4, SEG, lay4), None),
+        ("(b) tree 8192", lambda: cuda.tree(SUM, (xb,), t8),
+         lambda: schedules.tree_plain((xb,), SUM, t8), None),
+        ("(b) tree 2048", lambda: cuda.tree(SUM, (xb,), Rows(8192, 32768, 1,
+                                                             2048)),
+         lambda: schedules.tree_plain((xb,), SUM, Rows(8192, 32768, 1, 2048)),
          None),
-        ("segsum fused", cuda.fused, SEG, (v4, f4), Rows(4, 1 << 24, 1, 2048),
-         None),
+        ("segsum tree", lambda: cuda.tree(SEG, (v, f), Rows(*rg, 1, 8192)),
+         lambda: schedules.tree_plain((v, f), SEG, Rows(*rg, 1, 8192)), None),
+        ("mask tree", lambda: cuda.tree(monoids.mask(rg[1]), (m,),
+                                        Rows(*rg, 1, 8192)),
+         lambda: schedules.tree_plain((m,), monoids.mask(rg[1]),
+                                      Rows(*rg, 1, 8192)), None),
     ]
-    plain = {"carry": schedules.carry_plain, "fused": schedules.fused_plain}
-    want = {}
-    for name, fn, spec, ops, lay, _ in cases:
-        want[name] = plain[fn.__name__](ops, spec, lay)[0]
+    want = {name: first(plain()) for name, _, plain, _ in cases}
     print("library (torch.cumsum): " + "  ".join(
         f"{name} {time_ms(lib):.4f}" for name, *_, lib in cases if lib) + " ms")
     tile_network = cuda.tile_network
@@ -195,13 +238,12 @@ def main() -> int:
             else tile_network
         cuda.build()
         row = []
-        for name, fn, spec, ops, lay, _ in cases:
-            out = fn(spec, ops, lay)
-            out = out[0][0] if fn is cuda.carry else out[0]
-            if vname not in DIAGNOSTIC and not same_bits(out, want[name]):
+        for name, run, _, _ in cases:
+            if vname not in DIAGNOSTIC and not same_bits(first(run()),
+                                                         want[name]):
                 raise SystemExit(f"variant {vname}: {name} differs from the "
                                  "plain version")
-            row.append(f"{name} {time_ms(lambda: fn(spec, ops, lay)):.4f}")
+            row.append(f"{name} {time_ms(run):.4f}")
         print(f"{vname:9s} " + "  ".join(row) + " ms"
               + (" (diagnostic: bits not checked)" if vname in DIAGNOSTIC
                  else ""))
