@@ -11,10 +11,12 @@ first failure and prints no result):
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
      tensor-core kernels one by one, and none may spill: fold_dq_tc's
-     three instantiations, d = 64, 128 and 256, among them; the 104
-     kernels of the register network, carry_reg_kernel,
-     apply_reg_kernel, fused_reg_kernel and tree_reg_kernel by spec and
-     vector form, none may spill either);
+     three instantiations, d = 64, 128 and 256, and fold_dkv_tf32's two,
+     d = 64 and 128, among them; the 104 kernels of the register network,
+     carry_reg_kernel, apply_reg_kernel, fused_reg_kernel and
+     tree_reg_kernel by spec and vector form, and the 18 of the affine
+     carry on Channels, carry_chan_reg_kernel, by dtype, tile and vector
+     form, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -48,7 +50,12 @@ first failure and prints no result):
      profiler's names, that each of the register shapes launches the
      register kernels while block_n 200 and Channels launch
      ``carry_kernel`` / ``apply_kernel`` / ``fused_kernel`` /
-     ``tree_kernel`` (the networks in shared memory);
+     ``tree_kernel`` (the networks in shared memory), but the affine
+     carry on Channels, which launches ``carry_chan_reg_kernel``; and
+     that kernel at time tiles of 128, 256 and 512 steps over three
+     shapes and three dtypes, outputs and running totals bitwise equal to
+     ``carry_plain``, decoupled == carry == fused, inclusive and
+     exclusive, aligned and one element off;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -104,7 +111,10 @@ first failure and prints no result):
      launch counters are zeroed before and read after, and every affine
      kernel must have launched. Each schedule's output and the gradients
      are bitwise equal to the plain versions, the forward within 2e-4 of
-     a float64 sequential recurrence; then each affine kernel's time;
+     a float64 sequential recurrence; then each affine kernel's time
+     (the carry, ``carry_chan_reg_kernel``, also from a CUDA graph replay,
+     beside the shared-memory ``carry_kernel`` it replaced, timed at the
+     same shape in the same run and held bitwise against it);
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
@@ -118,9 +128,12 @@ first failure and prints no result):
      decode, q (4, 40, 1, 128) against a 131,072-token cache of 10 kv
      heads (auto: decoupled, split-KV); (h) phi3-medium-14b causal
      prefill, T 4096, forward and backward (auto: carry), and once more in
-     float32. The launch counters are zeroed before and read after, and
-     all eight counters must have moved: each bf16 call through the
-     tensor-core forms, the float32 one through the SIMT kernels. The
+     float32, and (f)'s global layer once more in float32. The launch
+     counters are zeroed before and read after, and all nine counters
+     must have moved: each bf16 call through the tensor-core forms, the
+     float32 ones through the SIMT forward and dq and, for dk/dv, the
+     3xTF32 ``fold_dkv_tf32`` at (h) (d = 128) and the SIMT kernel at
+     (f) (d = 256). The
      folds' specs and layouts come from the entry points' own builders
      (``forward_fold``, ``backward_folds``,
      ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
@@ -136,7 +149,12 @@ first failure and prints no result):
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
      ``scaled_dot_product_attention`` (not for gemma2's softcap); the
-     SIMT forward, dq and dk/dv are timed in float32 at (h).
+     SIMT forward and dq and ``fold_dkv_tf32`` are timed in float32 at
+     (h), the last also from a CUDA graph replay and beside the SIMT
+     dk/dv at the same shape in the same run, and the SIMT dk/dv at its
+     main-path shape, (f) in float32; one ``torch.profiler`` trace (host
+     and device) of the (h) bf16 forward call shows where its host time
+     goes beyond ``fold_fwd_tc``.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -164,9 +182,10 @@ ATTN_TC_SOURCE = "src/repro_torch/csrc/attn_fold_tc.cu"
 # of the H100 variants, from NVIDIA's data sheets.
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
 F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
-# Dense bf16 tensor-core peak (ops/s), the data sheets' rate without
-# sparsity.
+# Dense bf16 and TF32 tensor-core peaks (ops/s), the data sheets' rates
+# without sparsity.
 BF16_RATE = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12}
+TF32_RATE = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12, "H100": 495e12}
 
 SCHEDULES = ("carry", "decoupled", "fused", "tree")
 KERNELS = ("carry", "totals", "chain", "apply", "fused", "tree")
@@ -301,7 +320,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     bw, f32_peak = rate(MEM_RATE, name), rate(F32_RATE, name)
-    bf16_peak = rate(BF16_RATE, name)
+    bf16_peak, tf32_peak = rate(BF16_RATE, name), rate(TF32_RATE, name)
     SUM, SEGSUM, AFFINE = monoids.SUM, monoids.SEGMENTED_SUM, monoids.AFFINE
 
     def sync():
@@ -472,12 +491,35 @@ def main() -> int:
         check(len(regk) == 104 and not reg_spills,
               f"ptxas: register network {len(regk)} kernels, spills in "
               f"{reg_spills}")
+    # the affine carry on Channels in registers (carry_chan_reg_kernel) by
+    # dtype, slots a lane (bt / 32) and vector form: registers, spills
+    entry, chan, chan_spills = None, [], []
+    for line in cuda.build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"carry_chan_reg_kernelI(f|13__nv_bfloat16|"
+                              r"6__half)Li(\d+)ELb([01])E", line)
+            dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+            entry = found and f"<{dt[found[1]]}, {found[2]}, {found[3]}>"
+        elif entry and "spill stores" in line:
+            if spilled(line):
+                chan_spills.append(entry)
+        elif entry and "Used" in line and "registers" in line:
+            chan.append(f"{entry} "
+                        f"{line.split('Used')[1].split('registers')[0].strip()}")
+            entry = None
+    if chan:   # a cached build in build/ prints no report
+        print(f"  ptxas carry_chan_reg_kernel ({len(chan)} kernels: dtype, "
+              f"bt / 32, vector form): {', '.join(chan)}; with spills: "
+              f"{chan_spills or 'none'}")
+        check(len(chan) == 18 and not chan_spills,
+              f"ptxas: carry_chan_reg_kernel {len(chan)} kernels, spills in "
+              f"{chan_spills}")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
     entry, tc_spills, tc_entries = None, 0, []
     for line in cuda_fold.build_log_tc.splitlines():
         if "Compiling entry function" in line:
             # _ZN..fold_fwd_tc_kernelILi128ELi2EEEv.. -> fold_fwd_tc_kernel<128, 2>
-            found = re.search(r"\d(fold_[a-z_]+?_kernel)I(.*?)EEv", line)
+            found = re.search(r"\d(fold_[a-z0-9_]+?_kernel)I(.*?)EEv", line)
             entry = found and (found[1] + "<" + ", ".join(
                 re.findall(r"Li(\d+)E", found[2] + "E")) + ">")
         elif entry and "spill stores" in line:
@@ -497,7 +539,9 @@ def main() -> int:
                           ("fold_dq_tc", 64, 128), ("fold_dq_tc", 128, 128),
                           ("fold_dq_tc", 256, 128),
                           ("fold_dkv_tc", 128, 128),
-                          ("fold_dkv_tc", 256, 128))))
+                          ("fold_dkv_tc", 256, 128),
+                          ("fold_dkv_tf32", 64, 128),
+                          ("fold_dkv_tf32", 128, 128))))
     check(tc_spills == 0, f"ptxas: {tc_spills} tensor-core kernels spill")
     dq_entries = sorted(e for e in tc_entries if e.startswith("fold_dq_tc"))
     if tc_entries:   # a cached build in build/ prints no report
@@ -505,8 +549,14 @@ def main() -> int:
                              "fold_dq_tc_kernel<256>",
                              "fold_dq_tc_kernel<64>"],
               f"ptxas reported fold_dq_tc as {dq_entries}")
+        tf32_entries = sorted(e for e in tc_entries
+                              if e.startswith("fold_dkv_tf32"))
+        check(tf32_entries == ["fold_dkv_tf32_kernel<128>",
+                               "fold_dkv_tf32_kernel<64>"],
+              f"ptxas reported fold_dkv_tf32 as {tf32_entries}")
         print(f"  ptxas: {len(tc_entries)} tensor-core kernels, "
-              f"{', '.join(dq_entries)} among them, none spills")
+              f"{', '.join(dq_entries + tf32_entries)} among them, none "
+              "spills")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
     kernel = {"carry": schedules.scan_carry,
@@ -767,8 +817,9 @@ def main() -> int:
                 sync()
             names = {}
             for e in prof.key_averages():
-                found = re.search(r"((carry|apply|fused|tree)(_reg)?_kernel)<",
-                                  e.key)
+                found = re.search(
+                    r"((carry_chan|carry|apply|fused|tree)(_reg)?_kernel)<",
+                    e.key)
                 if e.device_type == torch.autograd.DeviceType.CUDA and found:
                     names[found[1]] = names.get(found[1], 0) + e.count
             if sum(names.values()) >= len(NET_KERNELS) * len(calls):
@@ -781,7 +832,8 @@ def main() -> int:
     for bn in (128, 2048, 2176, 16384):
         n = -(-(1 << 18) // bn) * bn
         lay = Rows(2, n, 1, bn)
-        check(cuda.tile_network(SUM, lay) == "register",
+        check(all(cuda.tile_network(SUM, lay, k) == "register"
+                  for k in ("carry", "apply", "fused", "tree")),
               f"tile_network at bn={bn}")
         calls = []
         for kind in reg_kinds:
@@ -839,14 +891,19 @@ def main() -> int:
               f"dtypes), mask; by the profiler {names}")
     # the shared-memory kernels: Rows tiles of 200 elements bitwise against
     # the plain versions (every schedule), and by the profiler's names with
-    # Channels (the affine pair's kernels are held bitwise below)
+    # Channels (the affine pair's kernels are held bitwise below): every
+    # Channels launch but the affine carry, which takes
+    # carry_chan_reg_kernel
     calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
              (SEGSUM, (ones[:, :600].contiguous(),
                        zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
              (SUM, (ones_c,), chan), (AFFINE, (ones_c, ones_c), chan))
     for spec, _, lay in calls:
-        check(cuda.tile_network(spec, lay) == "shared",
-              f"tile_network {spec.name} {lay}")
+        for k in NET_KERNELS:
+            net = ("register" if spec is AFFINE and k == "carry"
+                   else "shared")
+            check(cuda.tile_network(spec, lay, k) == net,
+                  f"tile_network {spec.name} {lay} {k}")
     lay200 = Rows(2, 600, 1, 200)
     for exclusive in (False, True):
         x200 = torch.randn((2, 600), device=dev, generator=g_red)
@@ -858,15 +915,17 @@ def main() -> int:
         n_reg += spec_sweep(SEGSUM, (x200, f200), lay200,
                             f"bn 200 excl={exclusive}", exclusive)
     names = launched_names(calls)
-    check(names == {f"{k}_kernel": len(calls) for k in NET_KERNELS},
-          f"bn 200 and Channels launched {names}")
+    want = {f"{k}_kernel": len(calls) for k in NET_KERNELS}
+    want.update(carry_kernel=len(calls) - 1, carry_chan_reg_kernel=1)
+    check(names == want, f"bn 200 and Channels launched {names}, not {want}")
     print(f"phase 2 (register network): {n_reg} checks (carry + fused + "
           "tree + decoupled launch sets at bn 128, 2048, 2176, 16384, "
           "aligned and one element off; every schedule at bn 200) bitwise "
           "equal to the plain versions, carry == decoupled == fused; by the "
           "profiler, bn 200 on Rows (sum, segsum) and Channels (sum, affine) "
           "launch carry_kernel / apply_kernel / fused_kernel / tree_kernel "
-          "(the networks in shared memory)")
+          "(the networks in shared memory), but the affine carry on "
+          "Channels, carry_chan_reg_kernel")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -886,6 +945,66 @@ def main() -> int:
               f"{cuda.channel_width(lay)}-channel strips")
     print(f"phase 2 (affine): {n_aff} schedule runs, outputs and running "
           "totals bitwise equal to the plain versions")
+
+    # the affine carry on Channels in registers (carry_chan_reg_kernel) at
+    # time tiles of 128, 256 and 512 steps: outputs and running totals
+    # bitwise equal to carry_plain, and decoupled == carry == fused,
+    # inclusive and exclusive, from aligned bases and one element off, on
+    # gates with negative and signed-zero values and offsets with -0.0 at
+    # every tile start (g_red's generator); the profiler names the kernel
+    n_chan = 0
+    for bt in cuda.CHAN_REG_TILES:
+        for shape in ((2, 8 * bt, 48), (1, 4 * bt, 1024), (1, 2 * bt, 4)):
+            lay = Channels(*shape, bt, shape[2])
+            check(cuda.tile_network(AFFINE, lay, "carry") == "register",
+                  f"tile_network affine carry {lay}")
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                a = 0.6 + 0.4 * torch.rand(shape, device=dev, generator=g_red)
+                a[torch.rand(shape, device=dev, generator=g_red) < 0.05] *= -1
+                a[torch.rand(shape, device=dev, generator=g_red) < 0.01] = -0.0
+                b = torch.randn(shape, device=dev, generator=g_red)
+                b[torch.rand(shape, device=dev, generator=g_red) < 0.05] = -0.0
+                b[:, ::bt] = -0.0
+                a, b = a.to(dtype), b.to(dtype)
+                for exclusive in (False, True):
+                    (w_out,), w_run = schedules.carry_plain(
+                        (a, b), AFFINE, lay, exclusive, return_totals=True)
+                    for offset in (0, 1):
+                        ops_o = (offset_view(a, offset),
+                                 offset_view(b, offset))
+                        what = (f"{dtype} {shape} bt={bt} excl={exclusive} "
+                                f"offset {offset}")
+                        cuda.reset_launches()
+                        (got,), run = cuda.carry(AFFINE, ops_o, lay,
+                                                 exclusive, True)
+                        (fo,) = cuda.fused(AFFINE, ops_o, lay, exclusive)
+                        (dec,) = schedules.scan_decoupled(
+                            ops_o, AFFINE, lay, exclusive=exclusive)
+                        sync()
+                        check(cuda.LAUNCHES["affine_carry"] == 1,
+                              f"affine carry {what}: {launched()}")
+                        check(same_bits(got, w_out)
+                              and all_same_bits(run, w_run),
+                              f"carry_chan_reg_kernel != carry_plain: {what}")
+                        check(same_bits(fo, got) and same_bits(dec, got),
+                              f"affine carry / decoupled / fused differ: "
+                              f"{what}")
+                        n_chan += 1
+                        del ops_o, got, run, fo, dec
+                    del w_out, w_run
+        names = launched_names(((AFFINE, (a, b), lay),))
+        check(names.get("carry_chan_reg_kernel") == 1,
+              f"affine carry bt={bt} launched {names}")
+        widths = [cuda.chan_reg_width(Channels(*sh, bt, sh[2]))
+                  for sh in ((2, 8 * bt, 48), (1, 4 * bt, 1024),
+                             (1, 2 * bt, 4))]
+        print(f"affine carry on Channels bt={bt} (carry_chan_reg_kernel by "
+              f"the profiler; strips of {widths} channels): == carry_plain "
+              "bitwise, carry == decoupled == fused")
+    print(f"phase 2 (affine register carry): {n_chan} checks (bt 128, 256, "
+          "512 x 3 shapes x 3 dtypes x inclusive / exclusive x aligned / "
+          "one element off), outputs and running totals bitwise equal to "
+          "carry_plain")
 
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
@@ -1284,7 +1403,8 @@ def main() -> int:
         folds on one thread, printed as a latency floor of ~4 SM cycles
         each (a float add's) at the card's maximum SM clock; ``graph``:
         also print the kernel's and the library call's times from CUDA
-        graph replays (``graph_ms``), for kernels of a few microseconds."""
+        graph replays (``graph_ms``), for kernels of a few microseconds (an
+        int: the calls a graph holds, 20 for True)."""
         got, want = flat(run()), flat(run_plain())
         sync()
         check(all_same_bits(got, want), f"{kname}: kernel != plain at the "
@@ -1313,10 +1433,11 @@ def main() -> int:
               f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by})  library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}{floor}")
         if graph:
-            g_ms = graph_ms(run)
-            g_lib = None if library is None else graph_ms(library)
-            print(f"  {kname} from a CUDA graph replay (20 calls, no host "
-                  f"launch cost): kernel "
+            calls = 20 if graph is True else graph
+            g_ms = graph_ms(run, calls)
+            g_lib = None if library is None else graph_ms(library, calls)
+            print(f"  {kname} from a CUDA graph replay ({calls} calls, no "
+                  f"host launch cost): kernel "
                   f"{'not measured' if g_ms is None else f'{g_ms:.4f} ms'}"
                   f", library "
                   f"{'none' if g_lib is None else f'{g_lib:.4f} ms'} a call")
@@ -1492,8 +1613,10 @@ def main() -> int:
     route_ssd = ssm_ops.resolved_schedule(SSD_SHAPE, cores=sms)
     lay_s = Channels(*SSD_SHAPE, 256, 512)
     print(f"SSD carry {SSD_SHAPE} float32 ({4 * n_ssd / 1e9:.2f} GB per "
-          f"operand): auto -> {route_ssd}; {cuda.channel_width(lay_s)}-"
-          "channel strips, time tiles of 256")
+          f"operand): auto -> {route_ssd}; time tiles of 256, the carry in "
+          f"{cuda.chan_reg_width(lay_s)}-channel strips "
+          "(carry_chan_reg_kernel), the other affine kernels in "
+          f"{cuda.channel_width(lay_s)}-channel strips")
     check(route_ssd == "carry", "zamba2 SSD carry should route to carry")
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1567,10 +1690,31 @@ def main() -> int:
     (at_, bt_) = cuda.totals(AFFINE, (a, b), lay_s)
     (ao, bo), _ = cuda.chain(AFFINE, (at_, bt_))
     n_sc = at_.numel()
+    check(cuda.tile_network(AFFINE, lay_s, "carry") == "register",
+          "the SSD carry should take carry_chan_reg_kernel")
     kernel_row("affine_carry", lambda: cuda.carry(AFFINE, (a, b), lay_s)[0],
                lambda: schedules.carry_plain((a, b), AFFINE, lay_s),
                12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
-               aff_launches)
+               aff_launches, graph=5)
+    # the shared-memory carry_kernel it replaced, at the same shape in the
+    # same run (a comparison: these launches come after the main path's)
+    (sh,), sh_run = cuda.carry(AFFINE, (a, b), lay_s, return_totals=True,
+                               network="shared")
+    (rg,), rg_run = cuda.carry(AFFINE, (a, b), lay_s, return_totals=True)
+    check(same_bits(sh, rg) and all_same_bits(sh_run, rg_run),
+          "SSD carry: register != shared network")
+    del sh, sh_run, rg, rg_run
+    sh_ms = [time_ms(lambda: cuda.carry(AFFINE, (a, b), lay_s,
+                                        network="shared"), 5),
+             time_ms(lambda: cuda.carry(AFFINE, (a, b), lay_s), 5)]
+    sh_g = graph_ms(lambda: cuda.carry(AFFINE, (a, b), lay_s,
+                                       network="shared"), calls=5)
+    print(f"  affine_carry at {SSD_SHAPE} bt 256 in the same run: "
+          f"carry_chan_reg_kernel {rows[-1]['ms']:.3f} / {sh_ms[1]:.3f} ms, "
+          f"shared-memory carry_kernel {sh_ms[0]:.3f} ms (graph replay "
+          f"{'not measured' if sh_g is None else f'{sh_g:.4f} ms'}); bound "
+          f"{rows[-1]['bound_ms']:.4f} ms; the two bitwise equal, outputs "
+          "and running totals")
     kernel_row("affine_totals", lambda: cuda.totals(AFFINE, (a, b), lay_s),
                lambda: schedules.totals_plain((a, b), AFFINE, lay_s),
                8 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
@@ -1631,9 +1775,13 @@ def main() -> int:
     kh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     vh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     goh = normals((1, p_hq, t_h, p_d), bf16)
-    # (h) in float32 too: a float32 caller takes the SIMT kernels
+    # (h) in float32 too: a float32 caller takes the SIMT forward and dq
+    # and the 3xTF32 dk/dv (fold_dkv_tf32); (f)'s global layer in float32
+    # keeps the SIMT dk/dv (d = 256)
     qh32, kh32, vh32 = (t.detach().float().requires_grad_()
                         for t in (qh, kh, vh))
+    qf32m, kf32m, vf32m = (t.detach().float().requires_grad_()
+                           for t in (qf, kf, vf))
     routes = {
         "f": fa_ops.resolved_attention_schedule(qf.shape, g_t, cores=sms),
         "g": fa_ops.resolved_attention_schedule(qg.shape, cache, cores=sms),
@@ -1680,6 +1828,12 @@ def main() -> int:
     gh32, ms_h32b = counted("(h) float32 backward",
                             lambda: torch.autograd.grad(
                                 oh32, (qh32, kh32, vh32), goh.float()))
+    of32, ms_f32f = counted("(f) global float32 forward",
+                            lambda: fa_ops.flash_attention(
+                                qf32m, kf32m, vf32m, softcap=cap))
+    gf32, ms_f32b = counted("(f) global float32 backward",
+                            lambda: torch.autograd.grad(
+                                of32, (qf32m, kf32m, vf32m), gof.float()))
     sync()
     attn_launches = dict(cuda_fold.LAUNCHES)
     attn_events = {}
@@ -1696,25 +1850,75 @@ def main() -> int:
     for k_ in cuda_fold.KERNELS:
         check(attn_launches[k_] > 0,
               f"kernel {k_} never launched on the attention path")
-    # bf16 calls run the tensor-core forms, float32 calls the SIMT kernels
+    # bf16 calls run the tensor-core forms, float32 calls the SIMT forward
+    # and dq, and the 3xTF32 dk/dv at d = 128 (the SIMT one at d = 256)
     for what, kernels in used.items():
         f32 = "float32" in what
-        fwd, dq, dkv = (("fold_fwd", "fold_dq", "fold_dkv") if f32 else
+        fwd, dq, dkv = (("fold_fwd", "fold_dq", "fold_dkv_tf32") if f32 else
                         ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"))
+        if f32 and what.startswith("(f)"):
+            dkv = "fold_dkv"
         want = {fwd} if "forward" in what else {dq, dkv}
         others = {"fold_fwd", "fold_dq", "fold_dkv", "fold_fwd_tc",
-                  "fold_dq_tc", "fold_dkv_tc"}
+                  "fold_dq_tc", "fold_dkv_tc", "fold_dkv_tf32"}
         check(want <= kernels and not (kernels & others) - want,
               f"{what} launched {sorted(kernels)}, wants {sorted(want)}")
     print("fold kernels by call: " + "; ".join(
         f"{what} {'+'.join(sorted(k))}" for what, k in used.items()))
+    # the (h) bf16 forward call on the host clock: the main path's call,
+    # three calls more, and one under torch.profiler (host and device),
+    # before any other attention call of this phase: where the time beyond
+    # fold_fwd_tc goes (its CUDA-event median is the fold_fwd_tc_prefill
+    # row below)
+    again = [wall_ms(lambda: fa_ops.flash_attention(qh, kh, vh))[1]
+             for _ in range(3)]
+    nograd = [wall_ms(lambda: fa_ops.flash_attention(
+        qh.detach(), kh.detach(), vh.detach()))[1] for _ in range(3)]
+    sync()
+    # the window opens with a spin kernel of its own, left out: the
+    # profiler has missed the first launch of its window
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        sync()
+        _, traced = wall_ms(lambda: fa_ops.flash_attention(qh, kh, vh))
+    host, kern = [], []
+    for ev in prof.key_averages():
+        if "spin" in ev.key or "_sleep" in ev.key:
+            continue
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            kern.append((dev_us / 1e3, ev.key[:48], ev.count))
+        else:
+            host.append((ev.self_cpu_time_total / 1e3, ev.key[:48],
+                         ev.count))
+    busy = sum(k[0] for k in kern)
+    print(f"(h) bf16 forward on the host clock: main path {ms_hf:.2f} ms, "
+          f"then {', '.join(f'{t:.2f}' for t in again)} ms; without "
+          f"autograd {', '.join(f'{t:.2f}' for t in nograd)} ms; under the "
+          f"profiler {traced:.2f} ms, device busy {busy:.3f} ms (kernels: "
+          + ", ".join(f"{n} {t:.3f} ms x{c}" for t, n, c in
+                      sorted(kern, reverse=True)[:4])
+          + "); host self time by op: "
+          + ", ".join(f"{n} {t:.3f} ms x{c}" for t, n, c in
+                      sorted(host, reverse=True)[:8]))
     for (layer, sched), (res, ms_f, ms_b) in main.items():
         print(f"(f) gemma2-9b {layer:6s} {sched:9s}: forward {ms_f:8.2f} ms,"
               f" backward {ms_b:8.2f} ms (host clock, one call)")
     print(f"(g) phi3 decode (4 x 40 heads vs 131072 keys), decoupled: "
           f"{ms_g:.2f} ms; (h) phi3 prefill 4096, carry: forward "
           f"{ms_hf:.2f} ms, backward {ms_hb:.2f} ms; in float32 forward "
-          f"{ms_h32f:.2f} ms, backward {ms_h32b:.2f} ms")
+          f"{ms_h32f:.2f} ms, backward {ms_h32b:.2f} ms; (f) global in "
+          f"float32 forward {ms_f32f:.2f} ms, backward {ms_f32b:.2f} ms")
+    check(all(bool(torch.isfinite(t).all()) for t in (of32,) + gf32),
+          "(f) float32 non-finite output or gradient")
+    _, e_f32 = allclose(main["global", "auto"][0], (of32,) + gf32, BF16_TOL)
+    print(f"(f) global bf16 (tensor-core forms) vs float32 (SIMT) through "
+          f"flash_attention: max |diff| {e_f32:.3g} (not gated: the bf16 "
+          "inputs' rounding is in it)")
+    del of32, gf32, qf32m, kf32m, vf32m
     for res, _, _ in main.values():
         check(all(bool(torch.isfinite(t).all()) for t in res),
               "(f) non-finite output or gradient")
@@ -1946,9 +2150,13 @@ def main() -> int:
         plain_ms = time_ms(run_plain, 1, warmup=0)
         lib_ms = None if library is None else time_ms(library, reps)
         # the peak of the products' type: bf16 on the tensor cores, float32
-        # (the SIMT kernels' type) on the CUDA cores
-        peak = f32_peak if tol != BF16_TOL else bf16_peak
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+        # (the SIMT kernels' type) on the CUDA cores, and for the 3xTF32
+        # form three TF32 products a product on the tensor cores
+        if kernel == "fold_dkv_tf32":
+            t_ops = 3 * flops / tf32_peak * 1e3
+        else:
+            t_ops = flops / (f32_peak if tol != BF16_TOL else bf16_peak) * 1e3
+        t_bytes = nbytes / bw * 1e3
         b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
             t_bytes, "bytes")
         source = ATTN_TC_SOURCE if kernel in cuda_fold.TC_FORMS else \
@@ -2106,8 +2314,8 @@ def main() -> int:
           f"{lib_hb:.3f} ms; fold_dq_tc + fold_dkv_tc "
           f"{rows[-2]['ms'] + rows[-1]['ms']:.3f} ms")
     del outs_h, ops_bh
-    # (h) in float32: the SIMT forward, dq and dk/dv, SDPA in float32
-    # beside
+    # (h) in float32: the SIMT forward and dq, the 3xTF32 dk/dv, SDPA in
+    # float32 beside
     ops_h32 = tuple(t.float() for t in ops_h)
     outs_h32, _ = cuda_fold.fold(spec_h, ops_h32, lay_h)
     ops_bh32 = bwd_operands(*ops_h32, *outs_h32)
@@ -2131,14 +2339,57 @@ def main() -> int:
                                          goh.float(), retain_graph=True),
              shape, tol=GRAD_TOL)
     outs_k = cuda_fold.fold(sk, ops_bh32, lk)[0]
-    attn_row("fold_dkv_f32_prefill", "fold_dkv", "carry",
+    check(cuda_fold.fold_form("fold_dkv", torch.float32, p_d, lk.bq, lk.bk)
+          == "fold_dkv_tf32", "(h) float32 dk/dv should take fold_dkv_tf32")
+    attn_row("fold_dkv_tf32_prefill", "fold_dkv_tf32", "carry",
              lambda: cuda_fold.fold(sk, ops_bh32, lk)[0],
              lambda: schedules.fold_carry_plain(ops_bh32, sk, lk),
              nbytes(*ops_bh32, *outs_k), 8 * cell * p_d * live_h,
              lambda: torch.autograd.grad(o_s32, (qs32, ks32, vs32),
                                          goh.float(), retain_graph=True),
              shape, tol=GRAD_TOL)
+    # the SIMT fold_dkv it replaced at this shape, in the same run (a
+    # comparison, launched by name after the main path), and the new
+    # kernel from a CUDA graph replay
+    tf32_row = rows[-1]
+    simt = cuda_fold.fold(sk, ops_bh32, lk, form="fold_dkv")[0]
+    ok, e_simt = allclose(simt, schedules.fold_carry_plain(ops_bh32, sk, lk),
+                          GRAD_TOL)
+    check(ok, f"(h) SIMT fold_dkv vs plain: {e_simt}")
+    _, e_ts = allclose(outs_k, simt, GRAD_TOL)
+    del simt
+    simt_ms = time_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk,
+                                             form="fold_dkv")[0], 3)
+    tf32_again = time_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk)[0], 5)
+    tf32_g = graph_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk)[0], calls=5)
+    flops_h = 8 * cell * p_d * live_h
+    print(f"  (h) float32 dk/dv in the same run: fold_dkv_tf32 "
+          f"{tf32_row['ms']:.3f} / {tf32_again:.3f} ms (graph replay "
+          f"{'not measured' if tf32_g is None else f'{tf32_g:.4f} ms'}), SIMT "
+          f"fold_dkv {simt_ms:.3f} ms, SDPA float32 backward (dq, dk, dv) "
+          f"{tf32_row['library_ms']:.3f} ms; bounds: 3xTF32 "
+          f"{3 * flops_h / tf32_peak * 1e3:.4f} ms, float32 SIMT "
+          f"{flops_h / f32_peak * 1e3:.4f} ms; max |tf32 - plain| "
+          f"{tf32_row['max_abs_err']:.3g}, |SIMT - plain| {e_simt:.3g}, "
+          f"|tf32 - SIMT| {e_ts:.3g} (bar (atol, rtol) {GRAD_TOL})")
     del ops_h, ops_h32, outs_h32, ops_bh32, outs_k, o_s, qs, ks, vs, o_s32
+    # (f) global in float32: the SIMT dk/dv (d = 256), its main-path shape
+    ops_f32 = tuple(t.float() for t in flat_f)
+    spec_f32, lay_f32 = forward_fold(*shapes_f, return_stats=True, **kw_f)
+    outs_f32, _ = cuda_fold.fold(spec_f32, ops_f32, lay_f32)
+    ops_bf32 = bwd_operands(*ops_f32, *outs_f32)
+    _, (sk_f, lk_f) = backward_folds(*shapes_f, **kw_f)
+    check(cuda_fold.fold_form("fold_dkv", torch.float32, g_d, lk_f.bq,
+                              lk_f.bk) == "fold_dkv",
+          "(f) float32 dk/dv (d = 256) should take the SIMT fold_dkv")
+    outs_k = cuda_fold.fold(sk_f, ops_bf32, lk_f)[0]
+    live_f = g_hq * lay_f32.active_cells()
+    attn_row("fold_dkv_f32_training", "fold_dkv", "carry",
+             lambda: cuda_fold.fold(sk_f, ops_bf32, lk_f)[0],
+             lambda: schedules.fold_carry_plain(ops_bf32, sk_f, lk_f),
+             nbytes(*ops_bf32, *outs_k), 8 * cell * g_d * live_f, None,
+             "(f) global 16x8192x256, f32", reps=2, tol=GRAD_TOL)
+    del ops_f32, outs_f32, ops_bf32, outs_k
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

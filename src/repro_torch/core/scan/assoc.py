@@ -320,7 +320,7 @@ def _softmax_acc_kcombine(left, right):
 
 
 def _attn_block_logits(q, k, block_ids, *, scale, causal, window, softcap,
-                       kv_len, block_q, block_k):
+                       kv_len, block_q, block_k, matmul=torch.matmul):
     """Shared q·kᵀ logits tile for the attention forward AND backward
     transforms: ``(s, mask)`` where ``s`` is the scaled (and softcapped)
     logits block BEFORE masking and ``mask`` the combined
@@ -334,7 +334,7 @@ def _attn_block_logits(q, k, block_ids, *, scale, causal, window, softcap,
     mask beyond the geometry).
     """
     qi, kj = block_ids[-2], block_ids[-1]
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale     # (..., bq, bk)
+    s = matmul(q, k.transpose(-1, -2)) * scale           # (..., bq, bk)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     dev = s.device
@@ -435,7 +435,7 @@ def _identity_finalize(combined):
 
 
 def _attn_bwd_ds(ops, block_ids, *, scale, causal, window, softcap, kv_len,
-                 block_q, block_k):
+                 block_q, block_k, matmul=torch.matmul):
     """Shared backward tile: recomputed probabilities ``p`` and masked
     logit gradients ``ds`` for one (q-block, kv-block) cell.
 
@@ -445,15 +445,17 @@ def _attn_bwd_ds(ops, block_ids, *, scale, causal, window, softcap, kv_len,
     attention matrix outside this tile), ``dp = dO·Vᵀ``,
     ``ds = p ⊙ (dp - delta)``, with the softcap chain rule
     ``tanh' = 1 - (s/cap)²`` applied on the recomputed capped logits.
+    ``matmul`` computes the two products.
     """
     q, k, v, do, m, l, delta = ops
     s, mask = _attn_block_logits(
         q, k, block_ids, scale=scale, causal=causal, window=window,
-        softcap=softcap, kv_len=kv_len, block_q=block_q, block_k=block_k)
+        softcap=softcap, kv_len=kv_len, block_q=block_q, block_k=block_k,
+        matmul=matmul)
     sm = torch.where(mask, s, NEG_INF)
     safe_l = torch.where(l == 0.0, 1.0, l)
     p = torch.where(mask, torch.exp(sm - m), 0.0) / safe_l  # (..., bq, bk)
-    dp = torch.matmul(do, v.transpose(-1, -2))              # (..., bq, bk)
+    dp = matmul(do, v.transpose(-1, -2))                    # (..., bq, bk)
     ds = p * (dp - delta)
     if softcap is not None:
         ds = ds * (1.0 - (s / softcap) ** 2)                # tanh'
@@ -513,6 +515,7 @@ def softmax_pair_bwd_dkv_kernel_spec(
     kv_len: "int | None" = None,
     block_q: int = 128,
     block_k: int = 128,
+    matmul=torch.matmul,
 ) -> KernelSpec:
     """Flash-backward dk/dv: a SUM fold over q blocks (``QBlocks``).
 
@@ -520,17 +523,19 @@ def softmax_pair_bwd_dkv_kernel_spec(
     (group × q-block) axis — GQA head summation included, since every q
     head mapping to this KV head is part of the fold — accumulating
     ``dk += scale · dsᵀ @ Q`` and ``dv += pᵀ @ dO`` into the carried
-    (bk, d) pair.
+    (bk, d) pair. ``matmul`` computes the cell's four products
+    (``cuda_fold.matmul_3xtf32`` states the float32 tensor-core form's
+    arithmetic in plain PyTorch).
     """
     cfg = dict(scale=scale, causal=causal, window=window, softcap=softcap,
                kv_len=kv_len, block_q=block_q, block_k=block_k)
 
     def transform(ops, block_ids):
         ops = tuple(o.to(torch.float32) for o in ops)
-        p, ds = _attn_bwd_ds(ops, block_ids, **cfg)
+        p, ds = _attn_bwd_ds(ops, block_ids, matmul=matmul, **cfg)
         q, do = ops[0], ops[3]
-        dk = torch.matmul(ds.transpose(-1, -2), q) * scale  # (..., bk, d)
-        dv = torch.matmul(p.transpose(-1, -2), do)          # (..., bk, d)
+        dk = matmul(ds.transpose(-1, -2), q) * scale        # (..., bk, d)
+        dv = matmul(p.transpose(-1, -2), do)                # (..., bk, d)
         return (dk, dv)
 
     return KernelSpec(

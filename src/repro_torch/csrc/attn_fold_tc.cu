@@ -1,13 +1,15 @@
 // Tensor-core forms of the three attention-fold kernels, CUDA C++ for
 // Hopper (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dq
-// and dk/dv folds of the flash backward (fold_dq_tc, fold_dkv_tc). They
-// compute what fold_fwd_kernel, fold_dq_kernel and fold_dkv_kernel of
-// attn_fold.cu compute (the reference's softmax_pair_kernel_spec,
-// assoc.py:330, and softmax_pair_bwd_dq_kernel_spec, assoc.py:443, on
-// KVBlocks, and softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on
-// QBlocks, under fold_carry, kernels/scan_engine/schedules.py:722, and the
-// split pass of fold_decoupled, :778), on bf16 operands only; float32
-// keeps the SIMT kernels, whose products stay in float32.
+// and dk/dv folds of the flash backward (fold_dq_tc, fold_dkv_tc), and the
+// float32 dk/dv fold (fold_dkv_tf32, three TF32 products a product,
+// after fold_dkv_tc). They compute what fold_fwd_kernel, fold_dq_kernel
+// and fold_dkv_kernel of attn_fold.cu compute (the reference's
+// softmax_pair_kernel_spec, assoc.py:330, and
+// softmax_pair_bwd_dq_kernel_spec, assoc.py:443, on KVBlocks, and
+// softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on QBlocks, under
+// fold_carry, kernels/scan_engine/schedules.py:722, and the split pass of
+// fold_decoupled, :778); the float32 forward and dq keep the SIMT
+// kernels.
 //
 // Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 6·128·128·d
 // for dq, 8·128·128·d for dk/dv, against 2·128·d bf16 elements of k and v,
@@ -1061,6 +1063,480 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
+// -- backward dk/dv in float32 on the tensor cores (3xTF32) ------------------
+//
+// fold_dkv_tf32: what fold_dkv_kernel computes on float32 operands
+// (softmax_bwd_dkv on QBlocks, the carry fold and the split pass), with
+// every product on the tensor cores. A TF32 product keeps ~11 bits of
+// each operand, too few for the float32 bars (1e-5 / 1e-4); the split
+// x = hi + lo, hi = tf32(x) (cvt.rna), lo = tf32(x - hi), keeps ~22, and
+// x·y = hi·hi' + hi·lo' + lo·hi' drops only lo·lo' (~2^-22 of the
+// product), with float32 accumulators: three TF32 wgmmas a product, at
+// 495 TFLOP/s against the 67 of float32 on the CUDA cores. TF32 wgmma
+// reads its shared-memory operands K-major only (no transpose), so:
+//   * sᵀ = k·qᵀ and dpᵀ = v·dOᵀ contract over d, the q / dO chunk's
+//     contiguous axis: the chunk, split into hi and lo tiles in shared
+//     memory, is the B operand as TMA writes it; k / v (resident, as
+//     loaded) is the A operand, from registers, read by index and split
+//     there;
+//   * dvᵀ += dOᵀ·p and dkᵀ += qᵀ·ds contract over the chunk's q rows: the
+//     products are formed transposed, d the M axis; the A operand dOᵀ /
+//     qᵀ is read by index from the chunk's hi and lo tiles into
+//     registers, and the B operand pᵀ / dsᵀ [kv][q] is written into shared
+//     memory as hi and lo tiles straight from sᵀ's accumulator layout;
+//   * a block (256 threads, two warpgroups, one of whose threads issues
+//     the loads) takes 64 kv rows and the whole d, and walks each live
+//     cell's q block in chunks of 32 rows (a chunk's four tiles take
+//     R d 16 bytes: d = 128 fits two stages beside k, v and the pᵀ / dsᵀ
+//     tiles in 227 KB); warpgroup 0 forms sᵀ, pᵀ and dvᵀ and hands p·g
+//     to warpgroup 1 through shared memory, which forms dpᵀ, dsᵀ and
+//     dkᵀ. The association of fold_dkv_tc's cell element and carry (dk =
+//     dk + scale·dk_e, dv = dv + dv_e, __fadd_rn / __fmul_rn) is kept.
+// Named barriers: 1 + wg within a warpgroup, 3 "p·g of this chunk is
+// written" (warpgroup 0 arrives), 4 "the last chunk's dsᵀ is read" (1
+// arrives), 5 "the chunk's dO is split" (1 arrives); each side that only
+// arrives waits on another barrier that the other side passes after its
+// wait, so an arrival never runs a generation ahead.
+
+template <int D>
+struct Tf32DkvTiles {
+  static constexpr int kRows = 32;                 // q rows a chunk
+  static constexpr int kKvPanel = 64 * 128;        // 64 rows x 32 floats
+  static constexpr int kQPanel = kRows * 128;      // 32 rows x 32 floats
+  static constexpr int kKvBytes = D / 32 * kKvPanel;   // 64 kv rows x D
+  static constexpr int kQBytes = D / 32 * kQPanel;     // 32 q rows x D
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  // a stage: q hi, q lo, dO hi, dO lo, and apart the rows' m, l, delta
+  static constexpr int kStageBytes = 4 * kQBytes;
+  static constexpr int kStatBytes = 3 * kRows * 4;
+  // pᵀ hi, lo, then p·g / dsᵀ hi and dsᵀ lo: [64 kv][32 q] each
+  static constexpr int kPBytes = 4 * kKvPanel;
+  static constexpr int kThreads = 256;
+  static constexpr int kSmem = 1024 + 2 * kKvBytes + kPBytes +
+                               kStages * (kStageBytes + kStatBytes) +
+                               8 * (2 * kStages + 1);
+};
+
+// The shared-memory address of float (r, c) of a tile of 32-column panels
+// of `panel` bytes each, rows of 128 bytes swizzled as TMA writes them.
+__device__ __forceinline__ uint32_t f32_at(uint32_t tile, int panel, int r,
+                                           int c) {
+  return tile + (c >> 5) * panel + r * 128 +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+__device__ __forceinline__ float ld_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t ld_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a
+// float32 bit pattern whose 13 low bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo to ~22 bits: hi = tf32(x), lo = tf32(x - hi) (x - hi exact).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// K-major descriptor of k-step kk (8 tf32 columns, 32 bytes) of a tile of
+// 32-column panels of `panel` bytes.
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int kk,
+                                              int panel) {
+  return sw128_desc(tile + (kk >> 2) * panel + (kk & 3) * 32, 16, 1024);
+}
+
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// d (64 x 32, f32) = [d +] A (64 x 8) * B (8 x 32), TF32: A from registers
+// (a thread's a0 .. a3 at rows g, g + 8 and columns t, t + 4 of its warp's
+// 16 rows, g = lane / 4, t = lane % 4), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 8) * B (8 x 64), TF32, as wgmma_tf32_n32.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The byte offset of a thread's entries x, x + 1 (x even) of a (64 x 32)
+// accumulator in a [64][32] float32 panel (rows of 128 bytes, swizzled).
+__device__ __forceinline__ uint32_t f32_pair(int x, int tid) {
+  const int r = tile_row(tid, (x >> 1) & 1), c = 8 * (x >> 2) + 2 * (tid % 4);
+  return r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+__device__ __forceinline__ void st_f32x2(uint32_t addr, float v0, float v1) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(v0),
+               "f"(v1)
+               : "memory");
+}
+__device__ __forceinline__ float2 ld_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// Entries x, x + 1 as TF32 hi into panel `hi` and lo into panel `lo`.
+__device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo, int x,
+                                            int tid, float v0, float v1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(v0, h0, l0);
+  split_tf32(v1, h1, l1);
+  const uint32_t off = f32_pair(x, tid);
+  st_f32x2(hi + off, __uint_as_float(h0), __uint_as_float(h1));
+  st_f32x2(lo + off, __uint_as_float(l0), __uint_as_float(l1));
+}
+
+// sᵀ = k·qᵀ (warpgroup 0) or dpᵀ = v·dOᵀ (1): the block's 64 kv rows (A,
+// resident float32 `a`, split in registers) against the chunk's 32 q rows
+// (B, split tiles b_hi / b_lo), two k-steps' A registers in flight.
+template <int D>
+__device__ __forceinline__ void tf32_scores(float (&s)[16], uint32_t a,
+                                            uint32_t b_hi, uint32_t b_lo,
+                                            int tid) {
+  using G = Tf32DkvTiles<D>;
+  const int quad = tid % 4;
+#pragma unroll
+  for (int kb = 0; kb < D / 8; kb += 2) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(ld_f32(f32_at(a, G::kKvPanel, tile_row(tid, e & 1),
+                                 8 * (kb + u) + quad + 4 * (e >> 1))),
+                   ah[u][e], al[u][e]);
+    wg_fence();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int kk = kb + u;
+      const uint64_t dh = tf32_desc(b_hi, kk, G::kQPanel);
+      const uint64_t dl = tf32_desc(b_lo, kk, G::kQPanel);
+      wgmma_tf32_n32(s, al[u], dh, kk > 0);
+      wgmma_tf32_n32(s, ah[u], dl, 1);
+      wgmma_tf32_n32(s, ah[u], dh, 1);
+    }
+    wg_commit();
+    wg_wait1();   // the batch before is done: its A registers are free
+  }
+  wg_wait();
+  keep(s);
+}
+
+// el (D x 64 as D / 64 row tiles) [+]= Aᵀ·P: dvᵀ += dOᵀ·p (warpgroup 0)
+// or dkᵀ += qᵀ·ds (1), A read by index from the chunk's split tiles
+// a_hi / a_lo ([32 q][D]), P the [64 kv][32 q] split tiles p_hi / p_lo;
+// first: the cell's first chunk (from zero).
+template <int D>
+__device__ __forceinline__ void tf32_update(float (&el)[D / 64][32],
+                                            uint32_t a_hi, uint32_t a_lo,
+                                            uint32_t p_hi, uint32_t p_lo,
+                                            bool first, int tid) {
+  using G = Tf32DkvTiles<D>;
+  constexpr int MT = D / 64;
+  const int quad = tid % 4;
+#pragma unroll
+  for (int kk = 0; kk < G::kRows / 8; ++kk) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * kk + quad + 4 * (e >> 1);
+        const int m = 64 * mt + tile_row(tid, e & 1);
+        ah[mt][e] = ld_b32(f32_at(a_hi, G::kQPanel, q, m));
+        al[mt][e] = ld_b32(f32_at(a_lo, G::kQPanel, q, m));
+      }
+    wg_fence();
+    const uint64_t dh = tf32_desc(p_hi, kk, G::kKvPanel);
+    const uint64_t dl = tf32_desc(p_lo, kk, G::kKvPanel);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      wgmma_tf32_n64(el[mt], al[mt], dh, !(first && kk == 0));
+      wgmma_tf32_n64(el[mt], ah[mt], dl, 1);
+      wgmma_tf32_n64(el[mt], ah[mt], dh, 1);
+    }
+    wg_commit();
+    wg_wait1();
+  }
+  wg_wait();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) keep(el[mt]);
+}
+
+// Block (kv head hk, kv block jb, 64-row sub-block sub), split y; folds
+// the (group x q-block) axis as fold_dkv_tc_kernel does.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    fold_dkv_tf32_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                         FoldPtrs p) {
+  using G = Tf32DkvTiles<D>;
+  constexpr int R = G::kRows, MT = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);   // this block's 64 kv rows, whole d
+  const uint32_t k_u = smem_u32(k_s), v_u = k_u + G::kKvBytes;
+  const uint32_t pt = v_u + G::kKvBytes;           // pᵀ hi, lo, g hi, lo
+  const uint32_t stages_u = pt + G::kPBytes;
+  const uint32_t stats_u = stages_u + G::kStages * G::kStageBytes;
+  // mbarriers: full[kStages], empty[kStages], then k and v's
+  const uint32_t full = stats_u + G::kStages * G::kStatBytes;
+  const uint32_t empty = full + 8 * G::kStages, kvbar = empty + 8 * G::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nsub = a.bk / 64;
+  const int sub = blockIdx.x % nsub;
+  const int jb = (blockIdx.x / nsub) % a.nk;
+  const int hk = blockIdx.x / nsub / a.nk;
+  const int nch = a.bq / R;
+  const int f0 = blockIdx.y * a.bpc;
+  const int wg = threadIdx.x / 128;
+  const bool loader = threadIdx.x == 128;
+  int lf = f0, lc = 0, lstage = 0;
+  uint32_t lphase = 0;
+  auto skip_dead = [&]() {
+    while (lf < f0 + a.bpc && !cell_live(a, lf % a.nq, jb)) ++lf;
+  };
+  auto load_next = [&]() {   // chunk (lf, lc) into stage lstage, then on
+    const uint32_t bar = full + 8 * lstage;
+    mbar_wait(empty + 8 * lstage, lphase ^ 1);
+    mbar_expect_tx(bar, 2 * G::kQBytes + G::kStatBytes);
+    const uint32_t st = stages_u + lstage * G::kStageBytes;
+    const int qrow = (hk * a.group + lf / a.nq) * a.tq +
+                     (lf % a.nq) * a.bq + R * lc;
+    for (int pn = 0; pn < D / 32; ++pn) {
+      tma_load_2d(st + pn * G::kQPanel, &maps.q, bar, 32 * pn, qrow);
+      tma_load_2d(st + 2 * G::kQBytes + pn * G::kQPanel, &maps.dout, bar,
+                  32 * pn, qrow);
+    }
+    const uint32_t sts = stats_u + lstage * G::kStatBytes;
+    bulk_load(sts, p.m + qrow, 4 * R, bar);
+    bulk_load(sts + 4 * R, p.l + qrow, 4 * R, bar);
+    bulk_load(sts + 8 * R, p.delta + qrow, 4 * R, bar);
+    if (++lstage == G::kStages) {
+      lstage = 0;
+      lphase ^= 1;
+    }
+    if (++lc == nch) {
+      lc = 0;
+      ++lf;
+      skip_dead();
+    }
+  };
+  if (loader) {
+    const int kvrow = hk * a.tk + jb * a.bk + 64 * sub;
+    mbar_expect_tx(kvbar, 2 * G::kKvBytes);
+    for (int pn = 0; pn < D / 32; ++pn) {
+      tma_load_2d(k_u + pn * G::kKvPanel, &maps.k, kvbar, 32 * pn, kvrow);
+      tma_load_2d(v_u + pn * G::kKvPanel, &maps.v, kvbar, 32 * pn, kvrow);
+    }
+    skip_dead();
+    for (int k = 0; k < G::kStages && lf < f0 + a.bpc; ++k) load_next();
+  }
+  {  // warpgroup wg: 0 forms dv, 1 forms dk
+    const int tid = threadIdx.x % 128, quad = tid % 4;
+    float acc[MT][32];   // the carry: dvᵀ (warpgroup 0) or dkᵀ (1)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[mt][x] = 0.f;
+    const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+    const uint32_t p_hi = pt, p_lo = pt + G::kKvPanel;
+    const uint32_t g_hi = pt + 2 * G::kKvPanel, g_lo = pt + 3 * G::kKvPanel;
+    int count = 0, stage = 0, chunks = 0;
+    uint32_t phase = 0;
+    mbar_wait(kvbar, 0);
+    __syncwarp();
+    for (int f = f0; f < f0 + a.bpc; ++f) {
+      const int qi = f % a.nq;
+      if (!cell_live(a, qi, jb)) continue;
+      ++count;
+      float el[MT][32];   // the cell's element: dvᵀ_e or dkᵀ_e
+      for (int c = 0; c < nch; ++c, ++chunks) {
+        mbar_wait(full + 8 * stage, phase);
+        __syncwarp();
+        const uint32_t q_hi = stages_u + stage * G::kStageBytes;
+        const uint32_t q_lo = q_hi + G::kQBytes;
+        const uint32_t o_hi = q_hi + 2 * G::kQBytes;
+        const uint32_t o_lo = q_hi + 3 * G::kQBytes;
+        const float* sts = reinterpret_cast<const float*>(
+            k_s + (stats_u + stage * G::kStatBytes - k_u));
+        {  // warpgroup 0 splits the chunk's q, 1 its dO: hi in place
+          const uint32_t raw = wg == 0 ? q_hi : o_hi;
+          const uint32_t lo = wg == 0 ? q_lo : o_lo;
+          for (int i = tid; i < G::kQBytes / 16; i += 128) {
+            float4 v;
+            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                         : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                         : "r"(raw + 16 * i));
+            uint32_t h[4], l[4];
+            split_tf32(v.x, h[0], l[0]);
+            split_tf32(v.y, h[1], l[1]);
+            split_tf32(v.z, h[2], l[2]);
+            split_tf32(v.w, h[3], l[3]);
+            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                             raw + 16 * i),
+                         "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
+                         : "memory");
+            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                             lo + 16 * i),
+                         "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
+                         : "memory");
+          }
+          fence_async();
+          wg_sync(wg);
+          if (wg == 1) bar_arrive(5, 256);   // dO is split
+        }
+        int2 live[2];   // the chunk's q rows each of the thread's kv rows sees
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          live[i] = live_rows(
+              a, (long long)jb * a.pos_bk + 64 * sub + tile_row(tid, i),
+              (long long)qi * a.pos_bq + R * c, R);
+        float s[16];
+        if (wg == 0) {
+          tf32_scores<D>(s, k_u, q_hi, q_lo, tid);
+          if (chunks > 0) bar_sync(4, 256);   // the last dsᵀ / p·g is read
+          // pᵀ = exp(s - m) / l as hi, lo; p·g (g = tanh' under softcap)
+          // whole, for warpgroup 1
+#pragma unroll
+          for (int x = 0; x < 16; x += 2) {
+            const int i = (x >> 1) & 1;
+            float pv[2], pg[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int qc = 8 * (x >> 2) + 2 * quad + u;
+              const bool ok = qc >= live[i].x && qc < live[i].y;
+              const float sv = logit_tc(a, s[x + u], inv_cap);
+              const float l = sts[R + qc];
+              pv[u] = ok ? expf(sv - sts[qc]) * recip(l == 0.f ? 1.f : l)
+                         : 0.f;
+              pg[u] = pv[u];
+              if (a.has_softcap) {   // tanh' = 1 - (s / cap)^2
+                const float t = sv * inv_cap;
+                pg[u] = pv[u] * __fsub_rn(1.f, __fmul_rn(t, t));
+              }
+            }
+            store_split(p_hi, p_lo, x, tid, pv[0], pv[1]);
+            st_f32x2(g_hi + f32_pair(x, tid), pg[0], pg[1]);
+          }
+          fence_async();
+          bar_sync(5, 256);     // warpgroup 1 has split dO
+          bar_arrive(3, 256);   // p·g is written
+          wg_sync(0);           // and pᵀ, for this warpgroup's products
+          tf32_update<D>(el, o_hi, o_lo, p_hi, p_lo, c == 0, tid);
+        } else {
+          if (chunks > 0) bar_arrive(4, 256);   // the last chunk is done
+          tf32_scores<D>(s, v_u, o_hi, o_lo, tid);
+          bar_sync(3, 256);   // p·g from warpgroup 0
+          // dsᵀ = p·g (dpᵀ - delta) as hi (over p·g) and lo
+#pragma unroll
+          for (int x = 0; x < 16; x += 2) {
+            const int qc = 8 * (x >> 2) + 2 * quad;
+            const float2 pg = ld_f32x2(g_hi + f32_pair(x, tid));
+            store_split(g_hi, g_lo, x, tid,
+                        __fmul_rn(pg.x, __fsub_rn(s[x], sts[2 * R + qc])),
+                        __fmul_rn(pg.y,
+                                  __fsub_rn(s[x + 1], sts[2 * R + qc + 1])));
+          }
+          fence_async();
+          wg_sync(1);
+          tf32_update<D>(el, q_hi, q_lo, g_hi, g_lo, c == 0, tid);
+        }
+        mbar_arrive(empty + 8 * stage);
+        if (++stage == G::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (loader && lf < f0 + a.bpc) load_next();   // kStages chunks ahead
+      }
+      const float sc = wg == 0 ? 1.f : a.scale;   // dk = dk + scale·dk_e
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          acc[mt][x] = wg == 0 ? __fadd_rn(acc[mt][x], el[mt][x])
+                               : __fadd_rn(acc[mt][x],
+                                           __fmul_rn(el[mt][x], sc));
+    }
+
+    // entry x of row tile mt: d column 64 mt + tile_row(tid, i), kv row
+    // 8 (x >> 2) + 2 quad + (x & 1) of the block's 64
+    float* dst;
+    long long row0;
+    if (p.c0) {
+      dst = wg == 0 ? p.c1 : p.c0;
+      row0 = ((long long)(hk * a.nk + jb) * a.splits + blockIdx.y) * a.bk;
+    } else {
+      dst = static_cast<float*>(wg == 0 ? p.out1 : p.out0);
+      row0 = (long long)hk * a.tk + (long long)jb * a.bk;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int col = 64 * mt + tile_row(tid, (x >> 1) & 1);
+        const int kr = 64 * sub + 8 * (x >> 2) + 2 * quad + (x & 1);
+        dst[(row0 + kr) * D + col] = acc[mt][x];
+      }
+    if (!p.c0 && p.counts && wg == 1 && sub == 0 && tid == 0)
+      p.counts[hk * a.nk + jb] = count;
+  }
+}
+
 // -- backward dq (softmax_bwd_dq) ---------------------------------------------
 
 template <int D>
@@ -1407,19 +1883,38 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with 64-column boxes (128 bytes, 128-byte swizzle) over
-// `rank` dims, innermost first; strides in bytes of dims 1...
-bool bf16_map(CUtensorMap* map, const void* base, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
+// A tensor map of `type` with 128-byte boxes along the innermost dim
+// (128-byte swizzle) over `rank` dims, innermost first; strides in bytes of
+// dims 1...
+bool tile_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
               const cuuint32_t* box) {
   const EncodeTiled enc = encode_tiled();
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc != nullptr &&
-         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map with 64-column boxes (128 bytes).
+bool bf16_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box);
+}
+
+// (rows, d) float32 row-major as boxes of 32 columns (128 bytes) x
+// box_rows rows.
+bool f32_rows_map(CUtensorMap* map, const void* base, int d, long long rows,
+                  int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 2, dims,
+                  strides, box);
 }
 
 // (rows, d) row-major as boxes of 64 rows.
@@ -1492,6 +1987,27 @@ cudaError_t run_dkv(const FoldArgs& a, const FoldPtrs& p, int smem,
 }
 
 template <int D>
+cudaError_t run_dkv_tf32(const FoldArgs& a, const FoldPtrs& p, int smem,
+                         cudaStream_t st) {
+  using G = Tf32DkvTiles<D>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const long long q_rows = (long long)a.bh * a.tq;
+  const long long kv_rows = (long long)a.bh_kv * a.tk;
+  if (!f32_rows_map(&maps.q, p.q, D, q_rows, G::kRows) ||
+      !f32_rows_map(&maps.dout, p.dout, D, q_rows, G::kRows) ||
+      !f32_rows_map(&maps.k, p.k, D, kv_rows, 64) ||
+      !f32_rows_map(&maps.v, p.v, D, kv_rows, 64))
+    return cudaErrorInvalidPitchValue;
+  return launch(fold_dkv_tf32_kernel<D>,
+                dim3((unsigned)(a.bh_kv * a.nk * (a.bk / 64)),
+                     (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
+template <int D>
 cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
                    cudaStream_t st) {
   using G = DqTiles<D>;
@@ -1556,6 +2072,24 @@ int attn_fold_dkv_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
       return run_dkv<128>(*a, *p, smem, st);
     case 256:
       return run_dkv<256>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward dk/dv fold on QBlocks, float32 by 3xTF32 (fold_dkv_tf32):
+// out0 = dk, out1 = dv, or the split pass into c0 (dk) and c1 (dv). Takes
+// d in {64, 128}, bk and bq in {64, 128}.
+int attn_fold_dkv_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+    return cudaErrorInvalidValue;
+  switch (a->d) {
+    case 64:
+      return run_dkv_tf32<64>(*a, *p, smem, st);
+    case 128:
+      return run_dkv_tf32<128>(*a, *p, smem, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -26,8 +26,14 @@
 //                  with its optional running chunk totals (return_totals),
 //                  for Rows tiles of 128 r elements of the sum, segmented
 //                  sum and mask: the in-tile network in registers (below)
-//   carry_kernel   the same pallas_call for every other tile: Channels
-//                  strips, Rows tiles of other lengths, the affine pair
+//   carry_chan_reg_kernel
+//                  the same pallas_call for the affine pair on Channels
+//                  tiles of 128, 256 and 512 steps: each channel's
+//                  Hillis-Steele by warp shuffles, a warp two channels,
+//                  the tiles staged by cp.async (below)
+//   carry_kernel   the same pallas_call for every other tile: other
+//                  Channels strips, Rows tiles of other lengths, the
+//                  affine pair on Rows
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
 //                  (body _totals_body :361): the segmented sum, the
 //                  affine pair and every Channels launch
@@ -79,7 +85,10 @@
 // and tree keep their next rounds' loads in flight while they scan the
 // current one, apply and fused keep a whole 2048-element tile's loads in
 // flight in a small block; totals_reduce_kernel keeps a warp's loads in
-// flight too. The other launches (Channels strips, other tile lengths,
+// flight too. The affine carry on Channels tiles of 128, 256 and 512
+// steps (carry_chan_reg_kernel) stages each tile's `width` adjacent
+// channels by cp.async, two stages deep, and runs the network in
+// registers. The other launches (Channels strips, other tile lengths,
 // the affine pair) read a whole tile into shared memory (for Channels,
 // `width` adjacent channels per time step) and run the network there,
 // not pipelined (no cp.async or TMA): a block waits for each tile's load.
@@ -432,6 +441,7 @@ struct SumSpec {
   static constexpr bool kReduce = true;
   // Rows tiles of 128 r elements take the register network
   static constexpr bool kReg = true;
+  static constexpr bool kChanReg = false;   // Channels keep the shared one
   static constexpr bool kPack = true;
   __device__ static uint64_t pack(E e) {
     return static_cast<uint64_t>(to_bits(e.v)) << 32;
@@ -509,6 +519,7 @@ struct SegSumSpec {
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
   static constexpr bool kReduce = false;
   static constexpr bool kReg = true;
+  static constexpr bool kChanReg = false;
   static constexpr bool kPack = true;  // the value, and the flag in bit 2
   __device__ static uint64_t pack(E e) {
     return (static_cast<uint64_t>(to_bits(e.v)) << 32) |
@@ -542,6 +553,7 @@ struct MaskSpec : SumSpec<int32_t> {
 // is the b leaf in T. Rounded multiply and add, never contracted.
 template <typename T>
 struct AffineSpec {
+  using In = T;
   struct E { float a, b; };
   struct Buf {
     float* a;
@@ -586,6 +598,8 @@ struct AffineSpec {
   static constexpr bool kExact = false;
   static constexpr bool kReduce = false;
   static constexpr bool kReg = false;   // its wrappers lay it out on Channels
+  // carry on Channels tiles of 128, 256 and 512 steps runs in registers
+  static constexpr bool kChanReg = true;
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
   __device__ static E unpack(uint64_t) { return identity(); }
@@ -2115,6 +2129,230 @@ tree_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   walk_row<S, kVec>(t, g, process);
 }
 
+// carry on Channels in registers: the affine pair's carry (kChanReg) on
+// tiles of bt = 32 NS time steps (NS = 4, 8, 16: bt 128, 256, 512), the
+// shapes cuda.tile_network sends here. The bits of tile_scan on Channels,
+// element for element (Hillis-Steele over each channel's whole time tile,
+// step k taking x[i - k] (+) x[i] and the identity combine done below k,
+// every new value of a step computed from the old ones), the carry of
+// each channel entering every tile as the LEFT operand and advancing
+// carry = carry (+) last, as carry_kernel; no shared-memory pass of the
+// network and no barrier inside it:
+//   * a block takes a strip of C = width channels (cuda.chan_reg_width:
+//     32 where D allows, 128-byte rows of float32, and bt C <= 8192) and
+//     walks its lane's tiles in time order; a tile's a and b come into
+//     shared memory as [bt][C] float32 rows, by 16-byte cp.async copies
+//     (float32 from bases aligned to four elements) or by vector loads and
+//     stores (the 16-bit types, other bases), coalesced across the strip's
+//     channels; the 16-byte chunks of a row are swizzled (chan_word), so
+//     that eight consecutive rows cover the 32 banks; two stages, the next
+//     tile's copies in flight while the block scans the current one. Rows
+//     of 64 bytes (16-channel strips) held the copies alone, without the
+//     network, to 2.6 ms at the SSD carry; 128-byte rows take 2.0
+//     (PERF.md, tools/chan_variants.py);
+//   * a warp owns V = 2 adjacent channels (32 words of data a lane at bt
+//     256, so that 16 warps a block keep their registers; 4 is the tool's
+//     variant) and lane l holds their time steps l + 32 s, s < NS, one
+//     8-byte (16-byte) shared-memory read a step: steps k < 32 take
+//     x[i - k] from lane l - k by shuffle, or for l < k from slot s - 1 of
+//     lane l - k + 32 (the identity at s = 0); steps k = 32 m run within
+//     the lane, slot s - m; this layout, rather than steps 8 l .. 8 l + 7
+//     a lane, makes the column reads conflict-free;
+//   * the carry of each channel sits in every lane of its warp; the b leaf
+//     of carry (+) x (or of the exclusive neighbour) goes back into the
+//     stage's a rows and out with the same coalesced stores; running totals
+//     and exclusive as carry_kernel's.
+// Shared memory: 2 words in and 2 out an element, against carry_kernel's
+// ~24 and a barrier a step; up to 128 KB a block (two stages of 8192
+// pairs), one block of 512 threads an SM at bt 256.
+constexpr int kChanStages = 2;   // tiles a block holds: the next in flight
+
+// channels a lane holds in carry_chan_reg_kernel (two: 32 words of data
+// at bt 256, so that a block of 16 warps keeps every thread's registers)
+__host__ __device__ constexpr int chan_reg_lanes(int) { return 2; }
+// its threads at most: a warp per chan_reg_lanes channels of a strip of
+// up to 32 channels and 8192 tile elements (two stages of a, b: 128 KB)
+__host__ __device__ constexpr int chan_reg_threads(int ns) {
+  return 32 * (8192 / (32 * ns) < 32 ? 8192 / (32 * ns) : 32) /
+         chan_reg_lanes(ns);
+}
+
+// Word (row i, channel c) of a staged [rows][C] float32 tile: 16-byte chunk
+// c / 4 of row i lies at chunk (c / 4) ^ f(i), f(i) = (i >> (3 - lg)) &
+// (C / 4 - 1), C / 4 = 2^lg chunks a row.
+__device__ __forceinline__ int chan_word(int i, int c, int C, int lg) {
+  const int f = (i >> (3 - lg)) & ((C >> 2) - 1);
+  return i * C + (((c >> 2) ^ f) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+template <typename T, int NS, bool kVec>
+__global__ void __launch_bounds__(chan_reg_threads(NS), 1)
+carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;   // an (a, b) pair
+  constexpr int V = chan_reg_lanes(NS), BT = 32 * NS;
+  // cp.async for float32 from aligned bases, else vector loads
+  constexpr bool kAsync = kVec && std::is_same<T, float>::value;
+  extern __shared__ __align__(16) float stage[];   // [stages][a, b][BT][C]
+  const int C = g.width, lg = __ffs(C >> 2) - 1, words = BT * C;
+  const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
+  const int64_t base = data_base<true>(g, blockIdx.x);
+  const int64_t cbase = chain_base<true>(g, blockIdx.x);
+  const T* xa = static_cast<const T*>(t.x);
+  const T* xb = static_cast<const T*>(t.y);
+  T* out = static_cast<T*>(t.out);
+  const P id = S::identity();
+
+  // the 16-byte chunk a thread copies in and out: chunk c of rows i0,
+  // i0 + R, ..., R = threads / (C / 4) a multiple of 8 rows, over which
+  // the swizzle repeats: its word steps by R C, its element by R D
+  const int R = blockDim.x >> lg;
+  const int i0 = threadIdx.x >> lg, c = (threadIdx.x & ((C >> 2) - 1)) << 2;
+  const int w0 = chan_word(i0, c, C, lg);
+  const int64_t g0 = i0 * g.d + c;
+  auto load = [&](int64_t j, int st) {   // tile j (if any) into stage st
+    float* sa = stage + st * 2 * words;
+    int64_t src = base + j * BT * g.d + g0;
+    for (int w = w0; j < g.chunks && w < words; w += R * C, src += R * g.d) {
+      if constexpr (kAsync) {
+        cp_async16(sa + w, reinterpret_cast<const float*>(xa) + src);
+        cp_async16(sa + words + w, reinterpret_cast<const float*>(xb) + src);
+      } else {
+        float v[4];
+        load4<kVec>(xa + src, v);
+        *reinterpret_cast<float4*>(sa + w) = make_float4(v[0], v[1], v[2], v[3]);
+        load4<kVec>(xb + src, v);
+        *reinterpret_cast<float4*>(sa + words + w) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if constexpr (kAsync) asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  // a lane's words: step lane + 32 s lies 32 s C words past step lane's
+  // (the swizzle repeats every 8 rows)
+  const int wl = chan_word(lane, c0, C, lg);
+
+  P carry[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) carry[v] = id;
+  // tiles 0 .. kChanStages - 2 ahead; a copy group per tile (an empty one
+  // past the lane's end), so that group j is tile j's
+#pragma unroll
+  for (int s = 0; s + 1 < kChanStages; ++s) load(s, s);
+  for (int64_t j = 0; j < g.chunks; ++j) {
+    const int st = static_cast<int>(j % kChanStages);
+    if constexpr (kAsync)
+      asm volatile("cp.async.wait_group %0;" ::"n"(kChanStages - 2)
+                   : "memory");
+    __syncthreads();   // tile j is in; stage (j - 1)'s stores are done
+    load(j + kChanStages - 1, static_cast<int>((j + kChanStages - 1) %
+                                               kChanStages));
+    float* sa = stage + st * 2 * words;
+    float* sb = sa + words;
+    P x[NS][V];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int w = wl + 32 * C * s;
+      if constexpr (V == 4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(sa + w);
+        const float4 b4 = *reinterpret_cast<const float4*>(sb + w);
+        x[s][0] = {a4.x, b4.x};
+        x[s][1] = {a4.y, b4.y};
+        x[s][2] = {a4.z, b4.z};
+        x[s][3] = {a4.w, b4.w};
+      } else {
+        const float2 a2 = *reinterpret_cast<const float2*>(sa + w);
+        const float2 b2 = *reinterpret_cast<const float2*>(sb + w);
+        x[s][0] = {a2.x, b2.x};
+        x[s][1] = {a2.y, b2.y};
+      }
+    }
+    // steps k < 32: x[i - k] from lane l - k, slot s (slot s - 1 of lane
+    // l - k + 32 for l < k); slots from the top, so every shuffle reads
+    // the old value
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int src = (lane - k) & 31;
+      P hi[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], src);
+#pragma unroll
+      for (int s = NS - 1; s >= 0; --s) {
+        P lo[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          lo[v] = s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], src) : id;
+          x[s][v] = S::combine(lane >= k ? hi[v] : lo[v], x[s][v]);
+          hi[v] = lo[v];
+        }
+      }
+    }
+    // steps k = 32 m: slot s - m of the same lane, the identity below m
+#pragma unroll
+    for (int m = 1; m < NS; m <<= 1)
+#pragma unroll
+      for (int s = NS - 1; s >= 0; --s)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          x[s][v] = S::combine(s >= m ? x[s >= m ? s - m : 0][v] : id,
+                               x[s][v]);
+    // the outputs' b leaf into the stage's a rows: carry (+) x, or carry
+    // (+) the neighbour below (lane l - 1, or slot s - 1 of lane 31)
+    auto put = [&](int s, const float (&o)[V]) {
+      const int w = wl + 32 * C * s;
+      if constexpr (V == 4)
+        *reinterpret_cast<float4*>(sa + w) = make_float4(o[0], o[1], o[2], o[3]);
+      else
+        *reinterpret_cast<float2*>(sa + w) = make_float2(o[0], o[1]);
+    };
+    if (exclusive) {
+      P hi[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], (lane - 1) & 31);
+#pragma unroll
+      for (int s = NS - 1; s >= 0; --s) {
+        float o[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const P lo =
+              s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], (lane - 1) & 31) : id;
+          o[v] = S::combine(carry[v], lane >= 1 ? hi[v] : lo).b;
+          hi[v] = lo;
+        }
+        put(s, o);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        float o[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = S::combine(carry[v], x[s][v]).b;
+        put(s, o);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
+      if (running.v != nullptr && lane == 0)
+        S::put(running, cbase + j * g.d + c0 + v, carry[v]);
+    }
+    __syncthreads();   // every warp's outputs are in the stage
+    int64_t dst = base + j * BT * g.d + g0;
+    for (int w = w0; w < words; w += R * C, dst += R * g.d) {
+      const float4 o4 = *reinterpret_cast<const float4*>(sa + w);
+      const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+      store4<kVec>(out + dst, o);
+    }
+  }
+}
+
 // Opts in to more than 48 KB of shared memory, static included (fused
 // adds up to 4 KB of its own).
 template <typename K>
@@ -2152,9 +2390,37 @@ int reg_threads(int bn, int segs, int warps) {
   return 32 * (need < warps ? need : warps);
 }
 
-// net: the in-tile network the wrapper chose by shape (cuda.tile_network),
-// for carry, apply, fused and tree alike: 1 the register network, for Rows
-// tiles of 128 r elements of a kReg spec (anything else is refused), 0 the
+// carry_chan_reg_kernel over Channels strips of `width` channels (a
+// multiple of 4, at most 32) and tiles of 32 NS steps; refuses any other.
+template <typename T, int NS>
+int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
+                    long long d, int width, int exclusive,
+                    cudaStream_t stream) {
+  constexpr int V = chan_reg_lanes(NS);
+  if (width % 4 != 0 || 32 * width / V > chan_reg_threads(NS) ||
+      d % width != 0)
+    return cudaErrorInvalidValue;
+  const Geom g = make_geom(true, n, d, width, 32 * NS);
+  const size_t smem = kChanStages * 2 * sizeof(float) * 32 * NS * width;
+  // bases aligned to four elements take vector accesses (cp.async for
+  // float32)
+  constexpr uintptr_t v4 = 4 * sizeof(T) - 1;
+  const bool vec = ((reinterpret_cast<uintptr_t>(t.x) |
+                     reinterpret_cast<uintptr_t>(t.y) |
+                     reinterpret_cast<uintptr_t>(t.out)) & v4) == 0;
+  auto kern = vec ? carry_chan_reg_kernel<T, NS, true>
+                  : carry_chan_reg_kernel<T, NS, false>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(lanes_of(true, b, d, width)), 32 * width / V,
+         smem, stream>>>(t, running, g, exclusive);
+  return cudaGetLastError();
+}
+
+// net: the in-tile network the wrapper chose by shape (cuda.tile_network):
+// 1 the register network, for Rows tiles of 128 r elements of a kReg spec
+// (carry, apply, fused and tree) and, for carry, Channels tiles of 128, 256
+// or 512 steps of a kChanReg spec (anything else is refused); 0 the
 // network in shared memory (tile_scan, or tree_kernel's sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
@@ -2173,6 +2439,20 @@ int launch_carry(Tensors t, Leaves running, long long b, long long n,
                                      reg_threads(bn, kCarrySegs, kRegWarps), 0,
                                      stream>>>(t, running, g, exclusive);
       return cudaGetLastError();
+    } else if constexpr (kChan && S::kChanReg) {
+      switch (bn) {
+        case 128:
+          return launch_chan_reg<typename S::In, 4>(t, running, b, n, d, width,
+                                                    exclusive, stream);
+        case 256:
+          return launch_chan_reg<typename S::In, 8>(t, running, b, n, d, width,
+                                                    exclusive, stream);
+        case 512:
+          return launch_chan_reg<typename S::In, 16>(t, running, b, n, d,
+                                                     width, exclusive, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
     } else {
       return cudaErrorInvalidValue;
     }
@@ -2380,7 +2660,8 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 extern "C" {
 
 // net (carry, apply, fused, tree): 1 the register network (Rows tiles of
-// 128 r elements, no affine), 0 the shared-memory network.
+// 128 r elements, no affine; for carry also the affine pair on Channels
+// tiles of 128, 256 or 512 steps), 0 the shared-memory network.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,
                long long d, int width, int bn, int exclusive, int sentinel,

@@ -20,7 +20,10 @@ other ``totals`` launches the network's ``totals_kernel``. ``carry``,
 ``apply_reg_kernel``, ``fused_reg_kernel`` and ``tree_reg_kernel``
 (registers and warp shuffles) on ``Rows`` tiles of 128·r elements,
 ``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and ``tree_kernel``
-(shared memory) otherwise; both forms count under the same keys. Each
+(shared memory) otherwise, but for the affine carry on ``Channels`` tiles
+of 128, 256 and 512 steps, which runs ``carry_chan_reg_kernel`` (each
+channel's network by warp shuffles, the tiles staged by ``cp.async``);
+both forms count under the same keys. Each
 wrapper below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
 the layout's shape, raises on anything the kernel does not take,
@@ -78,6 +81,11 @@ MAX_AFFINE_BLOCK_N = 8192
 # network's two buffers stay within 64 KB and three blocks share an SM.
 MAX_WIDTH = 32
 MAX_CHANNEL_TILE = 4096
+# Time tiles the register carry on Channels takes (32 steps a lane-slot:
+# four, eight or sixteen slots a lane), and the elements of its strips'
+# tiles at most (two stages of (a, b) in 128 KB of shared memory).
+CHAN_REG_TILES = (128, 256, 512)
+CHAN_REG_TILE = 8192
 
 _lib = None
 build_log = ""  # the compiler's output of the last build in this process
@@ -182,30 +190,57 @@ def channel_width(layout: Channels) -> int:
     return w
 
 
-def tile_network(spec, layout) -> str:
-    """The in-tile network a ``carry``, ``apply``, ``fused`` or ``tree``
-    launch runs, chosen here by shape and nowhere else: ``"register"``
-    (``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel``,
-    ``tree_reg_kernel``: a warp a 128-element segment, Hillis–Steele or
-    the Blelloch sweep by warp shuffles) for ``Rows`` tiles whose length is
-    a multiple of 128, of every spec but the affine pair (its wrappers lay
-    it out on ``Channels``); ``"shared"`` (``carry_kernel``,
-    ``apply_kernel``, ``fused_kernel``, ``tree_kernel``: the network in
-    shared memory) for ``Channels``, for other tile lengths and for the
-    affine pair. Both give the bits of ``schedules.tile_scan`` (carry,
-    apply, fused) or ``schedules.tree_scan`` (tree); the kernel refuses a
+def chan_reg_width(layout: Channels) -> int:
+    """Channels a block of the register carry (``carry_chan_reg_kernel``)
+    takes: the widest power of two up to ``MAX_WIDTH`` that divides D and
+    keeps the tile within ``CHAN_REG_TILE`` elements: 32 channels, rows
+    of 128 bytes of float32, at 128 and 256 steps (rows of 64 bytes held
+    its copies alone to 2.6 ms at the SSD carry, 128 bytes to 2.0; PERF.md,
+    tools/chan_variants.py). Any split gives the same bits."""
+    w = MAX_WIDTH
+    while w > 1 and (layout.d % w or layout.bt * w > CHAN_REG_TILE):
+        w //= 2
+    return w
+
+
+def tile_network(spec, layout, kernel: str) -> str:
+    """The in-tile network a ``kernel`` launch (``"carry"``, ``"apply"``,
+    ``"fused"`` or ``"tree"``) runs, chosen here by shape and nowhere
+    else: ``"register"`` (``carry_reg_kernel``, ``apply_reg_kernel``,
+    ``fused_reg_kernel``, ``tree_reg_kernel``: a warp a 128-element
+    segment, Hillis–Steele or the Blelloch sweep by warp shuffles) for
+    ``Rows`` tiles whose length is a multiple of 128, of every spec but
+    the affine pair (its wrappers lay it out on ``Channels``), and for the
+    affine pair's carry on ``Channels`` tiles of ``CHAN_REG_TILES`` steps
+    whose ``chan_reg_width`` is a multiple of 4 channels
+    (``carry_chan_reg_kernel``: a warp two channels, lane l holding steps
+    l + 32 s);
+    ``"shared"`` (``carry_kernel``, ``apply_kernel``, ``fused_kernel``,
+    ``tree_kernel``: the network in shared memory) for every other
+    ``Channels`` launch, for other tile lengths and for the affine pair on
+    ``Rows``. Both give the bits of ``schedules.tile_scan`` (carry, apply,
+    fused) or ``schedules.tree_scan`` (tree); the kernel refuses a
     register launch of any other shape, and nothing falls back."""
-    if (not isinstance(layout, Channels) and layout.bn % 128 == 0
-            and spec.name != "affine"):
+    if kernel not in ("carry", "apply", "fused", "tree"):
+        raise ValueError(f"no tile network for the {kernel!r} kernel")
+    if isinstance(layout, Channels):
+        if (kernel == "carry" and spec.name == "affine"
+                and layout.bt in CHAN_REG_TILES
+                and chan_reg_width(layout) % 4 == 0):
+            return "register"
+        return "shared"
+    if layout.bn % 128 == 0 and spec.name != "affine":
         return "register"
     return "shared"
 
 
-def _geometry(layout):
-    """(chan, b, n, d, width, bn) of the C interface."""
+def _geometry(layout, network="shared"):
+    """(chan, b, n, d, width, bn) of the C interface; on Channels the
+    strip width of the ``network`` the launch runs."""
     if isinstance(layout, Channels):
-        return (1, layout.b, layout.t, layout.d, channel_width(layout),
-                layout.bt)
+        width = (chan_reg_width(layout) if network == "register"
+                 else channel_width(layout))
+        return 1, layout.b, layout.t, layout.d, width, layout.bt
     return 0, layout.rows, layout.n, 1, 1, layout.bn
 
 
@@ -291,20 +326,26 @@ def _out(spec, x, y, layout):
     return torch.empty(layout.shape, dtype=dt, device=x.device)
 
 
-def carry(spec, operands, layout, exclusive=False, return_totals=False):
+def carry(spec, operands, layout, exclusive=False, return_totals=False,
+          network=None):
     """Carry schedule: one block per lane (row, or channel strip), the
-    running carry on chip. Returns ``(outputs, running totals or None)``."""
+    running carry on chip. Returns ``(outputs, running totals or None)``.
+    ``network`` (``"register"`` or ``"shared"``) launches that network in
+    place of ``tile_network``'s choice, to time the two at one shape; the
+    kernel refuses a register launch of a shape it does not take."""
+    if network not in (None, "register", "shared"):
+        raise ValueError(f"unknown tile network {network!r}")
+    network = network or tile_network(spec, layout, "carry")
     code, x, y = _operands(spec, operands, layout)
     out = _out(spec, x, y, layout)
     running = (_new_leaves(spec, x, y, layout.chain_shape)
                if return_totals else None)
     if x.numel():
-        geo = _geometry(layout)
+        geo = _geometry(layout, network)
         _launch(spec, "carry", build().scan_carry, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
-                spec.sentinel or 0,
-                int(tile_network(spec, layout) == "register"))
+                spec.sentinel or 0, int(network == "register"))
     return (out,), running
 
 
@@ -378,7 +419,7 @@ def apply(spec, operands, offsets, layout, exclusive=False):
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 *_ptrs(offsets), out.data_ptr(), *geo[1:], int(exclusive),
                 spec.sentinel or 0,
-                int(tile_network(spec, layout) == "register"))
+                int(tile_network(spec, layout, "apply") == "register"))
     return (out,)
 
 
@@ -401,7 +442,7 @@ def fused(spec, operands, layout, exclusive=False):
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), state.data_ptr(), *_ptrs(agg), *_ptrs(incl),
                 *geo[1:], int(exclusive), spec.sentinel or 0,
-                int(tile_network(spec, layout) == "register"))
+                int(tile_network(spec, layout, "fused") == "register"))
     return (out,)
 
 
@@ -418,5 +459,5 @@ def tree(spec, operands, layout, exclusive=False, return_totals=False):
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
                 spec.sentinel or 0,
-                int(tile_network(spec, layout) == "register"))
+                int(tile_network(spec, layout, "tree") == "register"))
     return (out,), running

@@ -15,15 +15,19 @@ fold (``core/scan/assoc``):
   fold_dq_tc   the same on the tensor cores, bfloat16
   fold_dkv     ``softmax_bwd_dkv`` on ``QBlocks``, SIMT
   fold_dkv_tc  the same on the tensor cores, bfloat16
+  fold_dkv_tf32
+               the same on the tensor cores, float32: each product as
+               three TF32 products of the operands split into hi + lo
   fold_chain   the split-KV chain and finalize of any of the three: one
                ``__global__`` function for the softmax pair (counted as
                ``fold_chain``) and one for the sums of the two backward
                specs (counted as ``fold_chain_sum``)
 
 ``fold_form`` chooses between the SIMT and tensor-core form of a fold
-from dtype, head dim and block sizes: float32 always takes SIMT (its
-products stay float32), bfloat16 the tensor-core form wherever that
-form's tiling takes the shape. ``fold`` runs the carry schedule (one
+from dtype, head dim and block sizes: bfloat16 takes the tensor-core form
+wherever that form's tiling takes the shape, float32 dk/dv the 3xTF32
+form at head dims 64 and 128, and every other float32 fold SIMT (its
+products stay float32). ``fold`` runs the carry schedule (one
 launch that finalizes), ``fold_totals`` the split pass of the decoupled
 schedule (each chunk of the fold axis publishes its payload) and
 ``chain`` its chain. Each wrapper checks device, dtype, contiguity and
@@ -51,8 +55,9 @@ TC_SOURCE = cuda.SOURCE.parent / "attn_fold_tc.cu"
 BUILD_DIR = cuda.BUILD_DIR
 
 KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dq_tc", "fold_dkv",
-           "fold_dkv_tc", "fold_chain", "fold_chain_sum")
-TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc")
+           "fold_dkv_tc", "fold_dkv_tf32", "fold_chain", "fold_chain_sum")
+# the forms built from attn_fold_tc.cu
+TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc", "fold_dkv_tf32")
 # spec name -> (kernel, layout type, operand kinds)
 BWD_KINDS = ("q", "kv", "kv", "q", "qstat", "qstat", "qstat")
 SPECS = {
@@ -72,6 +77,11 @@ TC_DIMS = (64, 128, 256)
 TC_BK = (64, 128)
 TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
          "fold_dkv": (64, 128)}
+# The float32 dk/dv form: 64 kv rows a block and the whole d, chunks of
+# 32 q rows split into TF32 hi and lo tiles; d = 256 would not fit two
+# stages of them.
+TF32_DIMS = (64, 128)
+TF32_ROWS = 32   # q rows a chunk
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use (227 KB)
 PANEL_BYTES = 64 * 128   # 64 rows of a 64-column bf16 box
 
@@ -151,8 +161,8 @@ def build_tc() -> ctypes.CDLL:
     so, log = cuda.compile_library(TC_SOURCE, BUILD_DIR)
     build_log_tc = log or build_log_tc
     lib = ctypes.CDLL(str(so))
-    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dkv_tc"),
-          "attn_tc_error_string")
+    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dkv_tc",
+                "attn_fold_dkv_tf32"), "attn_tc_error_string")
     _lib_tc = lib
     return lib
 
@@ -162,9 +172,12 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
     ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``,
-    bk in ``TC_BK`` and bq in ``TC_BQ``, else the SIMT kernel (float32
-    always: its bars against the plain versions, 1e-5 / 1e-4, rule out
-    bf16 products). Raises TypeError for a dtype no kernel takes and
+    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_dkv_tf32`` for float32
+    dk/dv with d in ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32
+    products keep ~22 bits of each operand, where the float32 bars against
+    the plain versions, 1e-5 / 1e-4, rule out bf16 or single TF32
+    products); else the SIMT kernel. A choice by shape: no form gives way
+    to another. Raises TypeError for a dtype no kernel takes and
     ValueError past the kernels' range."""
     if dtype not in DTYPE_CODES:
         raise TypeError(
@@ -177,6 +190,9 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     if (dtype == torch.bfloat16 and kernel in TC_BQ and d in TC_DIMS
             and bk in TC_BK and bq in TC_BQ[kernel]):
         return kernel + "_tc"
+    if (dtype == torch.float32 and kernel == "fold_dkv" and d in TF32_DIMS
+            and bk in TC_BK and bq in TC_BK):
+        return "fold_dkv_tf32"
     return kernel
 
 
@@ -196,7 +212,21 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
     tile. A dk/dv block is two warpgroups, one of whose threads issues
     the loads; a stage is a 64-row chunk of q and of dO with its rows'
     (m, l, delta), beside the block's k and v rows and four panels (pᵀ
-    and p·g / dsᵀ as hi and lo)."""
+    and p·g / dsᵀ as hi and lo). The float32 dk/dv block
+    (``Tf32DkvTiles``) is laid out the same way in float32 with chunks of
+    ``TF32_ROWS`` q rows: a stage holds the chunk's q and dO each as TF32
+    hi and lo tiles beside their rows' (m, l, delta), and the four
+    [64 kv][32 q] tiles are pᵀ and p·g / dsᵀ as hi and lo."""
+    if form == "fold_dkv_tf32":
+        if d not in TF32_DIMS:
+            raise ValueError(f"fold_dkv_tf32 takes d in {TF32_DIMS}")
+        stages = 4 if d == 64 else 2
+        stage = 4 * TF32_ROWS * d * 4 + 3 * TF32_ROWS * 4
+        resident = 2 * 64 * d * 4 + 4 * 64 * TF32_ROWS * 4
+        return dict(warpgroups=2, threads=256, stages=stages,
+                    stage_bytes=stage,
+                    smem=1024 + resident + stages * stage
+                    + 8 * (2 * stages + 1))
     tile = d // 64 * PANEL_BYTES
     if form == "fold_fwd_tc":
         wgs = 2 if bq == 128 and d <= 128 else 1
@@ -217,6 +247,27 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
     return dict(warpgroups=wgs, threads=threads, stages=stages,
                 stage_bytes=stage,
                 smem=1024 + resident + stages * stage + 8 * (2 * stages + 1))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it:
+    to nearest on the 13 low mantissa bits, ties away from zero (the
+    magnitude's bits carry into the exponent), the low bits left 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``fold_dkv_tf32`` forms every product, in plain
+    PyTorch: each float32 operand split into TF32 hi = tf32(x) and lo =
+    tf32(x - hi), then hi·hi' + hi·lo' + lo·hi' in float32 (the products
+    of 11-bit mantissas are exact in float32; lo·lo', ~2^-22 of the
+    product, is dropped). The tensor cores add in another order, so this
+    states the arithmetic, not the kernel's bits."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return torch.matmul(ah, bh) + (torch.matmul(ah, bl) + torch.matmul(al, bh))
 
 
 def tc_tile_rows(bq: int, group: int, tile: int):
@@ -242,9 +293,9 @@ def _launch(kernel: str, lib, fn, device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _check(spec, operands, layout):
-    """The kernel (``fold_form``) that runs ``spec`` on the validated
-    operands."""
+def _check(spec, operands, layout, form=None):
+    """The kernel (``fold_form``, or ``form`` where given) that runs
+    ``spec`` on the validated operands."""
     if spec.name not in SPECS or spec.attn is None:
         raise NotImplementedError(
             f"no CUDA fold kernel for the {spec.name!r} spec")
@@ -259,7 +310,14 @@ def _check(spec, operands, layout):
     if not x.is_cuda:
         raise ValueError(
             f"the CUDA fold kernels take CUDA tensors, got {x.device}")
-    form = fold_form(kernel, x.dtype, layout.d, layout.bq, layout.bk)
+    chosen = fold_form(kernel, x.dtype, layout.d, layout.bq, layout.bk)
+    if form is None:
+        form = chosen
+    elif not form.startswith(kernel) or form not in KERNELS:
+        raise ValueError(f"{form!r} is not a form of {kernel}")
+    elif form != chosen and form in TC_FORMS and x.dtype != (
+            torch.float32 if form == "fold_dkv_tf32" else torch.bfloat16):
+        raise TypeError(f"{form} does not take {x.dtype} operands")
     if layout.splits > MAX_SPLITS:
         raise ValueError(f"{layout.splits} splits exceed one launch grid")
     shapes = {"q": (layout.bh, layout.tq, layout.d),
@@ -329,12 +387,15 @@ def _run(form, device, args, ptrs, dtype):
             ctypes.byref(args), ctypes.byref(ptrs), last)
 
 
-def fold(spec, operands, layout, count_cells=False):
+def fold(spec, operands, layout, count_cells=False, form=None):
     """Carry schedule: one launch folds every (row, sub-tile) block over
     the whole fold axis and writes the finalized outputs. Returns
     ``(outputs, counts or None)``: with ``count_cells`` an int32
-    ``layout.count_shape`` tensor of the cells each row ran."""
-    form = _check(spec, operands, layout)
+    ``layout.count_shape`` tensor of the cells each row ran. ``form`` (a
+    ``KERNELS`` name of the same fold) launches that form in place of
+    ``fold_form``'s choice, to time two forms at one shape; the kernel
+    refuses a shape it does not take."""
+    form = _check(spec, operands, layout, form)
     dkv = spec.name == "softmax_bwd_dkv"
     x = operands[0]
     out_dts = spec.out_dtypes(tuple(o.dtype for o in operands))

@@ -394,6 +394,44 @@ def _where(mask, a, b):
     return tuple(torch.where(mask, p, q) for p, q in zip(a, b))
 
 
+def tile_scan_chan_warps(spec, leaves, exclusive=False):
+    """``tile_scan`` of ``Channels`` tiles (time on axis -2, channels
+    last) as the CUDA ``carry_chan_reg_kernel`` organizes a channel's
+    tile of bt steps: (..., slots, lanes, channels) with lanes = min(bt,
+    32), lane l holding steps l + 32·slot. Hillis–Steele step k < lanes
+    takes step i − k from lane l − k of the same slot, or for l < k from
+    the slot below (the lanes rotated by k: ``__shfl_sync`` from (l − k)
+    mod 32), the identity in slot 0; step k = lanes·m takes slot − m of
+    the same lane, the identity below m. Returns the inclusive network,
+    or its exclusive shift (lane l − 1's value, lane 0 the slot below's
+    last lane). Tests use it; the schedules never do."""
+    bt = leaves[0].shape[-2]
+    lanes = min(bt, 32)
+    x = tuple(v.unflatten(-2, (bt // lanes, lanes)) for v in leaves)
+    lane = torch.arange(lanes)[:, None]
+
+    def below(xs, k):   # step i − k, k < lanes
+        rot = tuple(torch.roll(v, k, -2) for v in xs)
+        prev = tuple(torch.cat([torch.full_like(r[..., :1, :, :], f),
+                                r[..., :-1, :, :]], -3)
+                     for r, f in zip(rot, spec.fills))
+        return _where(lane >= k, rot, prev)
+
+    k = 1
+    while k < lanes:
+        x = spec.combine(below(x, k), x)
+        k *= 2
+    m = 1
+    while m < bt // lanes:
+        x = spec.combine(tuple(torch.cat([torch.full_like(v[..., :m, :, :], f),
+                                          v[..., :-m, :, :]], -3)
+                               for v, f in zip(x, spec.fills)), x)
+        m *= 2
+    if exclusive:
+        x = below(x, 1)
+    return tuple(v.flatten(-3, -2) for v in x)
+
+
 def _lanes_xor(leaves, d):
     """Each leaf (..., 32 lanes) read from lane l ^ d: ``__shfl_xor_sync``."""
     return tuple(x.index_select(-1, _LANE ^ d) for x in leaves)

@@ -439,14 +439,31 @@ def test_cuda_totals_reduce_bitwise_vs_plain(cuda_device, kind, bn):
 
 
 def _kernel_names(fn):
-    """The CUDA kernels one call of fn launches, by the profiler."""
+    """The CUDA kernels one call of fn launches, by the profiler. The scan
+    library is built and loaded before the window opens (a build inside
+    it left the profiler recording nothing for the rest of the process),
+    and the window opens with a fill kernel of its own, left out of the
+    names (the profiler has missed the first launch of its window). A
+    window that recorded no kernel at all (CUPTI dropped its records) is
+    profiled again, three times at most, the launch counters put back
+    first, so that they show one call of fn."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    cuda.build()
+    opener = torch.zeros(1, device="cuda")
+    counts = dict(cuda.LAUNCHES)
+    for _ in range(3):
+        cuda.LAUNCHES.update(counts)
         torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opener.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        keys = {e.key for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if keys:
+            break
+    return {k for k in keys if "Fill" not in k and "fill" not in k}
 
 
 def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
@@ -546,9 +563,10 @@ def test_cuda_carry_fused_network_by_shape(cuda_device):
     """By the profiler's kernel names: carry and fused on Rows tiles of
     128·r elements launch the register network for the sum (every dtype),
     the segmented sum and the mask, at block_n 128 to 16384; other tile
-    lengths, the affine pair and Channels launch the shared-memory
-    network. ``cuda.tile_network`` names the same choice, and the launch
-    counters keep their keys."""
+    lengths, the affine pair on Rows and Channels launch the
+    shared-memory network, but the affine carry on Channels tiles of 256
+    steps, which launches ``carry_chan_reg_kernel``. ``cuda.tile_network``
+    names the same choice, and the launch counters keep their keys."""
     ones = torch.ones((2, 32768), device=cuda_device)
     flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
     chan = scan_engine.Channels(2, 1024, 8, 256, 8)
@@ -569,14 +587,17 @@ def test_cuda_carry_fused_network_by_shape(cuda_device):
     ]
     for spec, ops_, lay in calls:
         ops_ = tuple(o.contiguous() for o in ops_)
-        reg = cuda.tile_network(spec, lay) == "register"
         for kernel in ("carry", "fused"):
+            reg = cuda.tile_network(spec, lay, kernel) == "register"
             fn = getattr(cuda, kernel)
             cuda.reset_launches()
             names = _kernel_names(lambda: fn(spec, ops_, lay))
             assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
             hits = [k for k in names if kernel in k]
-            want = f"{kernel}_reg_kernel<" if reg else f"{kernel}_kernel<"
+            chan = isinstance(lay, scan_engine.Channels)
+            want = (f"{kernel}_kernel<" if not reg else
+                    "carry_chan_reg_kernel<" if chan else
+                    f"{kernel}_reg_kernel<")
             assert len(hits) == 1 and want in hits[0], (
                 spec.name, ops_[0].dtype, lay, names)
 
@@ -662,10 +683,10 @@ def test_cuda_apply_tree_network_by_shape(cuda_device):
     ]
     for spec, ops_, lay in calls:
         ops_ = tuple(o.contiguous() for o in ops_)
-        reg = cuda.tile_network(spec, lay) == "register"
         offs, _ = cuda.chain(spec, cuda.totals(spec, ops_, lay))
         for kernel, fn in (("apply", lambda: cuda.apply(spec, ops_, offs, lay)),
                            ("tree", lambda: cuda.tree(spec, ops_, lay))):
+            reg = cuda.tile_network(spec, lay, kernel) == "register"
             cuda.reset_launches()
             names = _kernel_names(fn)
             assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
@@ -748,6 +769,82 @@ def test_cuda_affine_running_totals_and_kernels(cuda_device, schedule):
     (w_out,) = scan_engine.schedules.apply_plain(cpu, plain_o,
                                                  monoids.AFFINE, lay, True)
     assert _same_bits(out.cpu(), w_out)
+
+
+def _chan_operands(rng, shape, bt, dtype):
+    """Affine (a, b) on Channels: gates in [0.7, 1] with negative gates,
+    -0.0 and +0.0 gates scattered; offsets with -0.0 at every tile start
+    and scattered, so that the identity combine's +0.0 shows."""
+    a = rng.uniform(0.7, 1.0, shape).astype(np.float32)
+    a[rng.random(shape) < 0.05] *= -1
+    a[rng.random(shape) < 0.01] = -0.0
+    a[rng.random(shape) < 0.01] = 0.0
+    b = rng.standard_normal(shape).astype(np.float32)
+    b[rng.random(shape) < 0.05] = -0.0
+    b[:, ::bt] = -0.0
+    return tuple(torch.from_numpy(v).to(dtype) for v in (a, b))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_cuda_affine_carry_channels_register_bitwise(cuda_device, bt, dtype):
+    """The affine carry on Channels tiles of 128, 256 and 512 steps runs
+    ``carry_chan_reg_kernel`` (by the profiler's names) and gives
+    ``carry_plain``'s outputs and running totals bit for bit, inclusive
+    and exclusive, from aligned bases and from bases one element off,
+    over strips of 4 to 32 channels; decoupled == carry == fused."""
+    rng = np.random.default_rng(bt)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    for shape in ((2, 4 * bt, 48), (1, 2 * bt, 4), (1, 3 * bt, 96)):
+        lay = scan_engine.Channels(*shape, bt, shape[2])
+        assert cuda.tile_network(monoids.AFFINE, lay, "carry") == "register"
+        cpu = _chan_operands(rng, shape, bt, dtype)
+        for offset in (0, 1):
+            gpu = []
+            for o in cpu:
+                buf = torch.empty(o.numel() + offset, dtype=o.dtype,
+                                  device=cuda_device)
+                gpu.append(buf[offset:].view(o.shape))
+                gpu[-1].copy_(o)
+            gpu = tuple(gpu)
+            for exclusive in (False, True):
+                what = (shape, offset, exclusive)
+                cuda.reset_launches()
+                (got,), run = cuda.carry(monoids.AFFINE, gpu, lay, exclusive,
+                                         True)
+                torch.cuda.synchronize()
+                assert cuda.LAUNCHES["affine_carry"] == 1
+                (want,), w_run = sched.carry_plain(cpu, monoids.AFFINE, lay,
+                                                   exclusive, True)
+                assert same(got.cpu(), want), what
+                for x, y in zip(run, w_run):
+                    assert same(x.cpu(), y), what
+                (nrt,), _ = cuda.carry(monoids.AFFINE, gpu, lay, exclusive)
+                (dec,) = scan_engine.scan(gpu, monoids.AFFINE, lay,
+                                          schedule="decoupled",
+                                          exclusive=exclusive)
+                (fo,) = cuda.fused(monoids.AFFINE, gpu, lay, exclusive)
+                assert same(nrt, got) and same(dec, got) and same(fo, got), \
+                    what
+        names = _kernel_names(lambda: cuda.carry(monoids.AFFINE, gpu, lay))
+        assert any("carry_chan_reg_kernel<" in k for k in names), names
+
+
+def test_cuda_affine_carry_channels_networks_agree(cuda_device):
+    """At the SSD carry's tiling (256 steps, 16-channel strips) the register
+    and the shared-memory carry give the same bits, outputs and running
+    totals."""
+    rng = np.random.default_rng(21)
+    lay = scan_engine.Channels(1, 1024, 2048, 256, 2048)
+    gpu = tuple(t.to(cuda_device) for t in _chan_operands(
+        rng, lay.shape, 256, torch.float32))
+    reg = cuda.carry(monoids.AFFINE, gpu, lay, False, True)
+    shared = cuda.carry(monoids.AFFINE, gpu, lay, False, True,
+                        network="shared")
+    for x, y in zip((reg[0][0],) + reg[1], (shared[0][0],) + shared[1]):
+        assert _same_bits(x, y)
 
 
 def test_cuda_ssm_backward_runs_kernels(cuda_device):
@@ -1258,8 +1355,9 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
-    """float32 runs the SIMT kernels, bfloat16 the tensor-core forms, at
-    the same d = 128 shape; float16 is refused."""
+    """float32 runs the SIMT forward and dq and the 3xTF32 dk/dv form,
+    bfloat16 the bf16 tensor-core forms, at the same d = 128 shape;
+    float16 is refused."""
     x = torch.ones((1, 2, 256, 128), dtype=dtype, device=cuda_device)
     cuda_fold.reset_launches()
     out = fa_ops.flash_attention(*(t.requires_grad_() for t in
@@ -1271,7 +1369,123 @@ def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
     assert cuda_fold.LAUNCHES["fold_dkv_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_dq_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_fwd"] == int(not tc)
-    assert cuda_fold.LAUNCHES["fold_dkv"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dkv"] == 0
     assert cuda_fold.LAUNCHES["fold_dq"] == int(not tc)
     with pytest.raises(TypeError, match="no CUDA fold kernel"):
         fa_ops.flash_attention(x.half(), x.half(), x.half())
+
+
+# ---------------------------------------------------------------------------
+# fold_dkv_tf32: float32 dk/dv on the tensor cores (csrc/attn_fold_tc.cu)
+# ---------------------------------------------------------------------------
+
+TF32_CASES = [
+    # (name, Hkv, group, Tq, Tk, D, causal, window, kv_len, softcap, bq, bk)
+    ("d128_gqa4_causal", 2, 4, 512, 512, 128, True, None, None, None, 128,
+     128),
+    ("d128_bq64_bk64_window_cap", 2, 2, 384, 384, 128, True, 96, None, 30.0,
+     64, 64),
+    ("d128_noncausal_kv_tail", 1, 2, 256, 384, 128, False, None, 300, None,
+     128, 128),
+    ("d64_gqa3_bk64_window", 1, 3, 256, 256, 64, True, 64, None, None, 128,
+     64),
+    ("d64_bq64_cap_kv_tail", 2, 1, 192, 384, 64, True, None, 290, 50.0, 64,
+     128),
+]
+
+
+def _tf32_inputs(case):
+    """(q, k, v, dO, m, l, delta) in float32 on the card, the statistics
+    from the forward kernel, and the keywords of the case."""
+    name, hkv, g, tq, tk, d, causal, window, kv_len, softcap, bq, bk = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v, go = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((hkv * g, tq, d), (hkv, tk, d),
+                                      (hkv, tk, d), (hkv * g, tq, d)))
+    kw = dict(group=g, scale=d ** -0.5, causal=causal, window=window,
+              kv_len=kv_len, softcap=softcap, block_q=bq, block_k=bk)
+    out, m, l = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+    delta = (go * out).sum(-1, keepdim=True)
+    return (q, k, v, go, m, l, delta), kw
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_cuda_tf32_dkv_vs_plain(cuda_device, case, schedule):
+    """fold_dkv_tf32 (the float32 dk/dv fold at d 64 and 128, bq and bk 64
+    or 128) against the plain fold on CPU copies of the same float32
+    inputs, within the reference tests' gradient bar (atol 1e-4, rtol
+    1e-4), one launch, under the carry fold and the split pass (held to
+    the plain split pass, then the chain); dq stays on the SIMT kernel."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    from repro_torch.kernels.scan_engine import schedules
+    ops_, kw = _tf32_inputs(case)
+    d = case[5]
+    assert cuda_fold.fold_form("fold_dkv", torch.float32, d, case[10],
+                               case[11]) == "fold_dkv_tf32"
+    shapes = (ops_[0].shape, ops_[1].shape)
+    _, (spec, lay) = backward_folds(*shapes, schedule=schedule, **kw)
+    cpu = tuple(t.cpu() for t in ops_)
+    grad_tol = ATTN_TOL[torch.float32][1]
+    cuda_fold.reset_launches()
+    if schedule == "carry":
+        got = cuda_fold.fold(spec, ops_, lay)[0]
+        want = schedules.fold_carry_plain(cpu, spec, lay)
+    else:
+        tot = cuda_fold.fold_totals(spec, ops_, lay)
+        w_tot = schedules.fold_totals_plain(cpu, spec, lay)
+        for a, b in zip(tot, w_tot):
+            assert _allclose(a, b, grad_tol)
+        got = cuda_fold.chain(spec, tot, lay, (torch.float32,) * 2)
+        want = schedules.fold_finalize_plain(spec, lay, w_tot,
+                                             (torch.float32,) * 2)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_dkv"] == 0
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert _allclose(a, b, grad_tol), (a.cpu() - b).abs().max().item()
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+def test_cuda_tf32_dkv_bitwise_invariants(cuda_device, schedule):
+    """fold_dkv_tf32 with bounds on and off, and repeated on outputs whose
+    memory held NaN, gives the same bits (the backward takes no page map:
+    ``kv_block_map`` is the forward's), and its cell counts are the
+    plain fold's."""
+    ops_, kw = _tf32_inputs(TF32_CASES[1])
+    kw = dict(kw, schedule=schedule)
+    cuda_fold.reset_launches()
+    on = flash_attention_bwd_kernel(*ops_, **kw)
+    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == 1
+    off = flash_attention_bwd_kernel(*ops_, use_kv_bounds=False, **kw)
+    for _ in range(10):
+        junk = [torch.full((n,), float("nan"), device=cuda_device)
+                for n in (1 << 12, 1 << 16, 1 << 20) for _ in range(4)]
+        del junk
+        again = flash_attention_bwd_kernel(*ops_, **kw)
+        for a, b in zip(on, again):
+            assert _same_bits(a, b)
+    for a, b in zip(on, off):
+        assert _same_bits(a, b)
+
+
+def test_cuda_tf32_dkv_against_simt(cuda_device):
+    """At one shape the 3xTF32 form and the SIMT kernel (launched by name)
+    agree within the float32 gradient bar, and each counts its own
+    launch."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    ops_, kw = _tf32_inputs(TF32_CASES[0])
+    _, (spec, lay) = backward_folds(ops_[0].shape, ops_[1].shape, **kw)
+    cuda_fold.reset_launches()
+    tf32 = cuda_fold.fold(spec, ops_, lay)[0]
+    simt = cuda_fold.fold(spec, ops_, lay, form="fold_dkv")[0]
+    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_dkv"] == 1
+    for a, b in zip(tf32, simt):
+        assert _allclose(a, b, ATTN_TOL[torch.float32][1])
+    with pytest.raises(TypeError, match="does not take"):
+        cuda_fold.fold(spec, ops_, lay, form="fold_dkv_tc")

@@ -230,3 +230,103 @@ def test_autograd_function_paths():
                         jnp.asarray(v.numpy().reshape(1, 128, 16)),
                         group=2, scale=0.25).reshape(1, 2, 128, 16),
            plain, 2e-3)
+
+
+# float32 dk/dv on the tensor cores (fold_dkv_tf32): its arithmetic, three
+# TF32 products a product (cuda_fold.matmul_3xtf32), through the plain
+# dk/dv fold against the reference. (name, Hkv, group, Tq, Tk, D, causal,
+# window, softcap, kv_len, bq, bk)
+TF32_CONFIGS = [
+    ("causal_gqa2", 2, 2, 256, 256, 32, True, None, None, None, 128, 128),
+    ("window_bq64", 1, 2, 256, 256, 64, True, 96, None, None, 64, 64),
+    ("softcap_gqa4", 1, 4, 256, 256, 32, True, None, 20.0, None, 128, 64),
+    ("noncausal_kv_tail", 2, 1, 128, 256, 64, False, None, None, 200, 64,
+     128),
+]
+
+
+def _tf32_case(cfg, matmul):
+    """(port dk, dv through the plain fold with ``matmul``, reference dk,
+    dv), both schedules' folds for the port."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    from repro_torch.kernels.scan_engine import schedules
+    from repro_torch.core.scan.assoc import softmax_pair_bwd_dkv_kernel_spec
+    name, hkv, g, tq, tk, d, causal, window, softcap, kv_len, bq, bk = cfg
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, do = (rng.standard_normal((hkv * g, tq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((hkv, tk, d)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(group=g, scale=d ** -0.5, causal=causal, window=window,
+              softcap=softcap, kv_len=kv_len, block_q=bq, block_k=bk)
+    out, m, l = flash_attention_kernel(
+        *(torch.from_numpy(x) for x in (q, k, v)), return_stats=True, **kw)
+    m, l = m.numpy(), l.numpy()
+    delta = (do * out.numpy()).sum(-1, keepdims=True)
+    ops_ = (q, k, v, do, m, l, delta)
+    cfg_ = {n: kw[n] for n in ("scale", "causal", "window", "softcap",
+                               "kv_len", "block_q", "block_k")}
+    spec = softmax_pair_bwd_dkv_kernel_spec(matmul=matmul, **cfg_)
+    tops = tuple(torch.from_numpy(x) for x in ops_)
+    got = {}
+    for s in SCHEDULES:
+        _, (_, lay) = backward_folds(q.shape, k.shape, schedule=s, **kw)
+        fold = (schedules.fold_carry_plain if s == "carry"
+                else schedules.fold_decoupled_plain)
+        got[s] = fold(tops, spec, lay)
+    want = j_bwd_kernel(*(jnp.asarray(x) for x in ops_), interpret=True,
+                        **kw)[1:]
+    return got, want
+
+
+@pytest.mark.parametrize("cfg", TF32_CONFIGS, ids=[c[0] for c in TF32_CONFIGS])
+def test_3xtf32_dkv_meets_the_reference_bar(cfg):
+    """dk and dv with every product of the cell as three TF32 products of
+    the split operands (the float32 tensor-core form's arithmetic) meet
+    the reference tests' float32 gradient bar against the reference's dk
+    and dv, under the carry fold and the split pass with its chain."""
+    from repro_torch.kernels.scan_engine import cuda_fold
+    got, want = _tf32_case(cfg, cuda_fold.matmul_3xtf32)
+    for s in SCHEDULES:
+        for leaf, (a, b) in enumerate(zip(got[s], want)):
+            assert bool(torch.isfinite(a).all())
+            _close(a, b, GRAD_TOL, f"{cfg[0]}/{s} leaf {leaf}")
+
+
+def test_one_tf32_product_misses_the_bar():
+    """Why three products: with each product one TF32 product (~11 bits
+    an operand), dk / dv miss the float32 bar the three meet."""
+    from repro_torch.kernels.scan_engine import cuda_fold
+
+    def one_tf32(a, b):
+        return torch.matmul(cuda_fold.tf32_round(a.float()),
+                            cuda_fold.tf32_round(b.float()))
+
+    got, want = _tf32_case(TF32_CONFIGS[0], one_tf32)
+    err = max(float(np.abs(_np(a) - _np(b)).max())
+              for a, b in zip(got["carry"], want))
+    assert err > 10 * GRAD_TOL, err
+
+
+def test_tf32_round_and_split():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: the 13 low bits cleared,
+    to nearest with ties away from zero; hi + lo keeps x to ~2^-22."""
+    from repro_torch.kernels.scan_engine import cuda_fold
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, 3.0e-3, -0.0],
+                     dtype=torch.float32)
+    r = cuda_fold.tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert r.tolist()[:4] == [one, one + ulp, -(one + ulp), one]
+    assert torch.signbit(r[5])
+    rng = np.random.default_rng(3)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32) *
+                         np.float32(1e3))
+    hi = cuda_fold.tf32_round(y)
+    lo = cuda_fold.tf32_round(y - hi)
+    rel = ((hi.double() + lo.double() - y.double()).abs()
+           / y.double().abs()).max().item()
+    assert rel <= 2.0 ** -21, rel

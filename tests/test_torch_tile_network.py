@@ -166,18 +166,32 @@ NETWORKS = [
      "shared"),
     ("sum-channels-bt256", monoids.SUM, scan_engine.Channels(2, 512, 4, 256, 4),
      "shared"),
+    # the affine carry on Channels tiles of 256 steps: the register carry
+    # (carry_chan_reg_kernel); its apply, fused and tree stay shared
     ("affine-channels-bt256", monoids.AFFINE,
-     scan_engine.Channels(1, 1024, 64, 256, 64), "shared"),
+     scan_engine.Channels(1, 1024, 64, 256, 64),
+     {"carry": "register", "apply": "shared", "fused": "shared",
+      "tree": "shared"}),
+    ("affine-channels-bt64", monoids.AFFINE,
+     scan_engine.Channels(1, 1024, 64, 64, 64), "shared"),
 ]
+
+
+def _network(network, kernel):
+    """A case's network for ``kernel``: one for all four, or by kernel."""
+    return network if isinstance(network, str) else network[kernel]
 
 
 @pytest.mark.parametrize("name,spec,layout,network", NETWORKS,
                          ids=[c[0] for c in NETWORKS])
 def test_tile_network_by_shape(name, spec, layout, network):
     """Rows tiles of 128·r elements take the register network for every
-    spec but the affine pair; Channels and other tile lengths keep the
-    shared-memory ``tile_scan``."""
-    assert cuda.tile_network(spec, layout) == network
+    spec but the affine pair; other tile lengths keep the shared-memory
+    ``tile_scan``, and so does Channels but for the affine carry
+    (``tests/test_torch_chan_network.py``)."""
+    for kernel in ("carry", "apply", "fused", "tree"):
+        assert cuda.tile_network(spec, layout, kernel) == _network(network,
+                                                                   kernel)
 
 
 def _wrapper_operands(spec, layout):
@@ -213,7 +227,7 @@ def test_wrappers_launch_the_tile_network(monkeypatch, kernel, name, spec,
         cuda.apply(spec, ops_, offsets, layout)
     else:
         getattr(cuda, kernel)(spec, ops_, layout)
-    assert nets == [(kernel, int(network == "register"))]
+    assert nets == [(kernel, int(_network(network, kernel) == "register"))]
 
 
 def test_tile_network_follows_the_wrappers_tiling():
@@ -223,4 +237,6 @@ def test_tile_network_follows_the_wrappers_tiling():
         for block_n in (128, 512, 2048, 16384):
             bn = min(block_n, -(-n // 128) * 128)
             lay = scan_engine.Rows(1, -(-n // bn) * bn, 1, bn)
-            assert cuda.tile_network(monoids.SUM, lay) == "register", (n, bn)
+            for kernel in ("carry", "apply", "fused", "tree"):
+                assert cuda.tile_network(monoids.SUM, lay,
+                                         kernel) == "register", (n, bn)

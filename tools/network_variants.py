@@ -234,8 +234,8 @@ def main() -> int:
     for vname in order:
         cuda._lib = None
         cuda.SOURCE, cuda.BUILD_DIR = dirs[vname] / "scan_sum.cu", dirs[vname]
-        cuda.tile_network = (lambda spec, lay: "shared") if vname == "shared" \
-            else tile_network
+        cuda.tile_network = (lambda spec, lay, kernel: "shared") \
+            if vname == "shared" else tile_network
         cuda.build()
         row = []
         for name, run, _, _ in cases:
