@@ -10,9 +10,9 @@ first failure and prints no result):
      nvcc versions, and the builds of ``src/repro_torch/csrc/scan_sum.cu``,
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
-     tensor-core kernels one by one, and none may spill: fold_dq_tc's
-     three instantiations, d = 64, 128 and 256, and fold_dkv_tf32's two,
-     d = 64 and 128, among them; the 104 kernels of the register network,
+     tensor-core kernels one by one, and none may spill: fold_dq_tc's,
+     fold_dq_tf32's and fold_dkv_tf32's three instantiations each, d =
+     64, 128 and 256, among them; the 104 kernels of the register network,
      carry_reg_kernel, apply_reg_kernel, fused_reg_kernel and
      tree_reg_kernel by spec and vector form, and the 18 of the affine
      carry on Channels, carry_chan_reg_kernel, by dtype, tile and vector
@@ -119,7 +119,8 @@ first failure and prints no result):
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
      ``attn_fold_tc.cu``: fold_fwd_tc, fold_dq_tc and fold_dkv_tc, the
-     tensor-core forms bf16 takes) through
+     tensor-core forms bf16 takes, and fold_dq_tf32 and fold_dkv_tf32,
+     the 3xTF32 forms float32 dq and dk/dv take) through
      ``repro_torch.kernels.flash_attention.flash_attention`` and autograd,
      at two models' full attention widths with random bf16 inputs:
      (f) gemma2-9b training, B 1 x T 8192, 16 q / 8 kv heads of 256,
@@ -129,17 +130,19 @@ first failure and prints no result):
      heads (auto: decoupled, split-KV); (h) phi3-medium-14b causal
      prefill, T 4096, forward and backward (auto: carry), and once more in
      float32, and (f)'s global layer once more in float32. The launch
-     counters are zeroed before and read after, and all nine counters
-     must have moved: each bf16 call through the tensor-core forms, the
-     float32 ones through the SIMT forward and dq and, for dk/dv, the
-     3xTF32 ``fold_dkv_tf32`` at (h) (d = 128) and the SIMT kernel at
-     (f) (d = 256). The
+     counters are zeroed before and read after, and all eight counters of
+     the path must have moved: each bf16 call through the tensor-core
+     forms, the float32 ones through the SIMT forward and the 3xTF32
+     ``fold_dq_tf32`` and ``fold_dkv_tf32`` (d = 128 at (h), 256 at
+     (f)); the SIMT dq and dk/dv, off the path now, must not have. The
      folds' specs and layouts come from the entry points' own builders
      (``forward_fold``, ``backward_folds``,
      ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
      included, against its plain version in float32 at the (f), (g) and
      (h) shapes (1e-5 forward, 1e-4 gradients: the reference tests'
-     tolerances) and in bf16 at the timed shapes (atol 1e-3, rtol two
+     tolerances; the float32 dq and dk/dv under the carry fold and the
+     split pass at (f) and (h)) and in bf16 at the timed shapes (atol
+     1e-3, rtol two
      bf16 ulps); the (f) forward within 2e-3 of a float64 dense
      attention on two heads; carry == decoupled within 1e-5 (float32)
      and two bf16 ulps (bf16); use_kv_bounds
@@ -148,13 +151,13 @@ first failure and prints no result):
      cells; fully masked rows exactly 0 with zero gradients; then each
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
-     ``scaled_dot_product_attention`` (not for gemma2's softcap); the
-     SIMT forward and dq and ``fold_dkv_tf32`` are timed in float32 at
-     (h), the last also from a CUDA graph replay and beside the SIMT
-     dk/dv at the same shape in the same run, and the SIMT dk/dv at its
-     main-path shape, (f) in float32; one ``torch.profiler`` trace (host
-     and device) of the (h) bf16 forward call shows where its host time
-     goes beyond ``fold_fwd_tc``.
+     ``scaled_dot_product_attention`` (not for gemma2's softcap); in
+     float32 the SIMT forward, ``fold_dq_tf32`` and ``fold_dkv_tf32``
+     are timed at (h) and (f), the 3xTF32 forms at (h) also from a CUDA
+     graph replay, each beside the SIMT kernel it replaced, launched by
+     name at the same shape in the same run; one ``torch.profiler``
+     trace (host and device) of the (h) bf16 forward call shows where its
+     host time goes beyond ``fold_fwd_tc``.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -540,8 +543,12 @@ def main() -> int:
                           ("fold_dq_tc", 256, 128),
                           ("fold_dkv_tc", 128, 128),
                           ("fold_dkv_tc", 256, 128),
+                          ("fold_dq_tf32", 64, 128),
+                          ("fold_dq_tf32", 128, 128),
+                          ("fold_dq_tf32", 256, 128),
                           ("fold_dkv_tf32", 64, 128),
-                          ("fold_dkv_tf32", 128, 128))))
+                          ("fold_dkv_tf32", 128, 128),
+                          ("fold_dkv_tf32", 256, 128))))
     check(tc_spills == 0, f"ptxas: {tc_spills} tensor-core kernels spill")
     dq_entries = sorted(e for e in tc_entries if e.startswith("fold_dq_tc"))
     if tc_entries:   # a cached build in build/ prints no report
@@ -549,11 +556,14 @@ def main() -> int:
                              "fold_dq_tc_kernel<256>",
                              "fold_dq_tc_kernel<64>"],
               f"ptxas reported fold_dq_tc as {dq_entries}")
-        tf32_entries = sorted(e for e in tc_entries
-                              if e.startswith("fold_dkv_tf32"))
+        tf32_entries = sorted(e for e in tc_entries if "_tf32_" in e)
         check(tf32_entries == ["fold_dkv_tf32_kernel<128>",
-                               "fold_dkv_tf32_kernel<64>"],
-              f"ptxas reported fold_dkv_tf32 as {tf32_entries}")
+                               "fold_dkv_tf32_kernel<256>",
+                               "fold_dkv_tf32_kernel<64>",
+                               "fold_dq_tf32_kernel<128>",
+                               "fold_dq_tf32_kernel<256>",
+                               "fold_dq_tf32_kernel<64>"],
+              f"ptxas reported the 3xTF32 forms as {tf32_entries}")
         print(f"  ptxas: {len(tc_entries)} tensor-core kernels, "
               f"{', '.join(dq_entries + tf32_entries)} among them, none "
               "spills")
@@ -1775,9 +1785,9 @@ def main() -> int:
     kh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     vh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     goh = normals((1, p_hq, t_h, p_d), bf16)
-    # (h) in float32 too: a float32 caller takes the SIMT forward and dq
-    # and the 3xTF32 dk/dv (fold_dkv_tf32); (f)'s global layer in float32
-    # keeps the SIMT dk/dv (d = 256)
+    # (h) and (f)'s global layer in float32 too: a float32 caller takes the
+    # SIMT forward and the 3xTF32 dq and dk/dv (fold_dq_tf32,
+    # fold_dkv_tf32) at d = 128 and 256
     qh32, kh32, vh32 = (t.detach().float().requires_grad_()
                         for t in (qh, kh, vh))
     qf32m, kf32m, vf32m = (t.detach().float().requires_grad_()
@@ -1847,20 +1857,24 @@ def main() -> int:
           + ", ".join(f"{m}/{s} x{n}" for (m, s), n in
                       sorted(attn_events.items()))
           + f"; peak memory {attn_peak / 2**30:.2f} GiB")
+    # the SIMT dq and dk/dv lie off the main path (float32 takes the
+    # 3xTF32 forms at d 128 and 256): they are launched by name below, to
+    # be timed beside those forms
+    simt_only = ("fold_dq", "fold_dkv")
     for k_ in cuda_fold.KERNELS:
-        check(attn_launches[k_] > 0,
-              f"kernel {k_} never launched on the attention path")
+        check((attn_launches[k_] > 0) != (k_ in simt_only),
+              f"kernel {k_} launched {attn_launches[k_]} times on the "
+              "attention path")
     # bf16 calls run the tensor-core forms, float32 calls the SIMT forward
-    # and dq, and the 3xTF32 dk/dv at d = 128 (the SIMT one at d = 256)
+    # and the 3xTF32 dq and dk/dv
     for what, kernels in used.items():
         f32 = "float32" in what
-        fwd, dq, dkv = (("fold_fwd", "fold_dq", "fold_dkv_tf32") if f32 else
-                        ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"))
-        if f32 and what.startswith("(f)"):
-            dkv = "fold_dkv"
+        fwd, dq, dkv = (("fold_fwd", "fold_dq_tf32", "fold_dkv_tf32") if f32
+                        else ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"))
         want = {fwd} if "forward" in what else {dq, dkv}
         others = {"fold_fwd", "fold_dq", "fold_dkv", "fold_fwd_tc",
-                  "fold_dq_tc", "fold_dkv_tc", "fold_dkv_tf32"}
+                  "fold_dq_tc", "fold_dkv_tc", "fold_dq_tf32",
+                  "fold_dkv_tf32"}
         check(want <= kernels and not (kernels & others) - want,
               f"{what} launched {sorted(kernels)}, wants {sorted(want)}")
     print("fold kernels by call: " + "; ".join(
@@ -1915,9 +1929,9 @@ def main() -> int:
     check(all(bool(torch.isfinite(t).all()) for t in (of32,) + gf32),
           "(f) float32 non-finite output or gradient")
     _, e_f32 = allclose(main["global", "auto"][0], (of32,) + gf32, BF16_TOL)
-    print(f"(f) global bf16 (tensor-core forms) vs float32 (SIMT) through "
-          f"flash_attention: max |diff| {e_f32:.3g} (not gated: the bf16 "
-          "inputs' rounding is in it)")
+    print(f"(f) global bf16 (tensor-core forms) vs float32 (its forms) "
+          f"through flash_attention: max |diff| {e_f32:.3g} (not gated: the "
+          "bf16 inputs' rounding is in it)")
     del of32, gf32, qf32m, kf32m, vf32m
     for res, _, _ in main.values():
         check(all(bool(torch.isfinite(t).all()) for t in res),
@@ -1927,8 +1941,8 @@ def main() -> int:
           and all(bool(torch.isfinite(t).all()) for t in gh),
           "(g)/(h) non-finite output")
     _, e_h32 = allclose((oh,) + gh, (oh32,) + gh32, BF16_TOL)
-    print(f"(h) bf16 (tensor-core forms) vs float32 (SIMT) through "
-          f"flash_attention: max |diff| {e_h32:.3g} (not gated: the bf16 "
+    print(f"(h) bf16 (tensor-core forms) vs float32 (its forms) through"
+          f" flash_attention: max |diff| {e_h32:.3g} (not gated: the bf16 "
           "inputs' rounding is in it)")
     del oh32, gh32
     for layer in ("global", "local"):
@@ -2108,15 +2122,26 @@ def main() -> int:
             cuda_fold.fold(sp, ops_bh32, ly)[0],
             schedules.fold_carry_plain(ops_bh32, sp, ly), GRAD_TOL)
         check(ok, f"(h) fold_{what} f32 vs plain: {e_hb[what]}")
+    # and the split pass of the decoupled schedule at (h)
+    for what, (sp, ly) in zip(("dq", "dkv"), backward_folds(
+            *shapes_h, schedule="decoupled", **kw_h)):
+        ok, e_hb[what + " split"] = allclose(
+            cuda_fold.fold_totals(sp, ops_bh32, ly),
+            schedules.fold_totals_plain(ops_bh32, sp, ly), GRAD_TOL)
+        check(ok, f"(h) fold_{what} split pass f32 vs plain: "
+              f"{e_hb[what + ' split']}")
     del ops_h32, got_h, ops_bh32
+    f32_dq, f32_dkv = (cuda_fold.fold_form(k_, torch.float32, d_, 128, 128)
+                       for k_ in ("fold_dq", "fold_dkv") for d_ in (g_d,))
     print(f"float32 kernels vs plain (max |diff|; (atol, rtol) {FWD_TOL} "
           f"forward, {GRAD_TOL} gradients): (f) fold_fwd "
-          f"{e_fwd:.3g}, fold_dq {e_dq:.3g}, fold_dkv {e_dkv:.3g}; local "
+          f"{e_fwd:.3g}, {f32_dq} {e_dq:.3g}, {f32_dkv} {e_dkv:.3g}; local "
           f"split passes fwd {e_tot:.3g}, dq {e_bwd['dq']:.3g}, dkv "
           f"{e_bwd['dkv']:.3g}; chains fwd {e_ch:.3g}, dq "
           f"{e_bwd['dq chain']:.3g}, dkv {e_bwd['dkv chain']:.3g}; (g) split "
           f"pass {e_gt:.3g}, chain {e_gc:.3g}; (h) fold_fwd {e_h:.3g}, "
-          f"fold_dq {e_hb['dq']:.3g}, fold_dkv {e_hb['dkv']:.3g}; carry vs "
+          f"dq {e_hb['dq']:.3g} (split pass {e_hb['dq split']:.3g}), dkv "
+          f"{e_hb['dkv']:.3g} (split pass {e_hb['dkv split']:.3g}); carry vs "
           f"decoupled {e_cd:.3g}; (f) vs float64 dense attention (2 heads) "
           f"{e_64:.3g} ((atol, rtol) {DENSE_TOL})")
     torch.cuda.empty_cache()
@@ -2152,7 +2177,7 @@ def main() -> int:
         # the peak of the products' type: bf16 on the tensor cores, float32
         # (the SIMT kernels' type) on the CUDA cores, and for the 3xTF32
         # form three TF32 products a product on the tensor cores
-        if kernel == "fold_dkv_tf32":
+        if kernel in cuda_fold.TF32_FORMS:
             t_ops = 3 * flops / tf32_peak * 1e3
         else:
             t_ops = flops / (f32_peak if tol != BF16_TOL else bf16_peak) * 1e3
@@ -2314,8 +2339,10 @@ def main() -> int:
           f"{lib_hb:.3f} ms; fold_dq_tc + fold_dkv_tc "
           f"{rows[-2]['ms'] + rows[-1]['ms']:.3f} ms")
     del outs_h, ops_bh
-    # (h) in float32: the SIMT forward and dq, the 3xTF32 dk/dv, SDPA in
-    # float32 beside
+    # (h) in float32: the SIMT forward, the 3xTF32 dq and dk/dv, SDPA in
+    # float32 beside; then, launched by name after the main path (a
+    # comparison: no launch of theirs on the main path), the SIMT dq and
+    # dk/dv those forms replaced, at the same shape in the same run
     ops_h32 = tuple(t.float() for t in ops_h)
     outs_h32, _ = cuda_fold.fold(spec_h, ops_h32, lay_h)
     ops_bh32 = bwd_operands(*ops_h32, *outs_h32)
@@ -2323,6 +2350,11 @@ def main() -> int:
                                                               vh32))
     o_s32 = F.scaled_dot_product_attention(qs32, ks32, vs32, is_causal=True,
                                            enable_gqa=True)
+
+    def sdpa_bwd32():
+        return torch.autograd.grad(o_s32, (qs32, ks32, vs32), goh.float(),
+                                   retain_graph=True)
+
     shape = "(h) 40x4096x128 causal, f32"
     attn_row("fold_fwd_f32_prefill", "fold_fwd", "carry",
              lambda: cuda_fold.fold(spec_h, ops_h32, lay_h)[0],
@@ -2331,65 +2363,81 @@ def main() -> int:
              lambda: F.scaled_dot_product_attention(
                  qh32.detach(), kh32.detach(), vh32.detach(), is_causal=True,
                  enable_gqa=True), shape, tol=FWD_TOL)
-    attn_row("fold_dq_f32_prefill", "fold_dq", "carry",
-             lambda: cuda_fold.fold(sq, ops_bh32, lq)[0],
-             lambda: schedules.fold_carry_plain(ops_bh32, sq, lq),
-             nbytes(*ops_bh32, ops_bh32[0]), 6 * cell * p_d * live_h,
-             lambda: torch.autograd.grad(o_s32, (qs32, ks32, vs32),
-                                         goh.float(), retain_graph=True),
-             shape, tol=GRAD_TOL)
-    outs_k = cuda_fold.fold(sk, ops_bh32, lk)[0]
-    check(cuda_fold.fold_form("fold_dkv", torch.float32, p_d, lk.bq, lk.bk)
-          == "fold_dkv_tf32", "(h) float32 dk/dv should take fold_dkv_tf32")
-    attn_row("fold_dkv_tf32_prefill", "fold_dkv_tf32", "carry",
-             lambda: cuda_fold.fold(sk, ops_bh32, lk)[0],
-             lambda: schedules.fold_carry_plain(ops_bh32, sk, lk),
-             nbytes(*ops_bh32, *outs_k), 8 * cell * p_d * live_h,
-             lambda: torch.autograd.grad(o_s32, (qs32, ks32, vs32),
-                                         goh.float(), retain_graph=True),
-             shape, tol=GRAD_TOL)
-    # the SIMT fold_dkv it replaced at this shape, in the same run (a
-    # comparison, launched by name after the main path), and the new
-    # kernel from a CUDA graph replay
-    tf32_row = rows[-1]
-    simt = cuda_fold.fold(sk, ops_bh32, lk, form="fold_dkv")[0]
-    ok, e_simt = allclose(simt, schedules.fold_carry_plain(ops_bh32, sk, lk),
-                          GRAD_TOL)
-    check(ok, f"(h) SIMT fold_dkv vs plain: {e_simt}")
-    _, e_ts = allclose(outs_k, simt, GRAD_TOL)
-    del simt
-    simt_ms = time_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk,
-                                             form="fold_dkv")[0], 3)
-    tf32_again = time_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk)[0], 5)
-    tf32_g = graph_ms(lambda: cuda_fold.fold(sk, ops_bh32, lk)[0], calls=5)
-    flops_h = 8 * cell * p_d * live_h
-    print(f"  (h) float32 dk/dv in the same run: fold_dkv_tf32 "
-          f"{tf32_row['ms']:.3f} / {tf32_again:.3f} ms (graph replay "
-          f"{'not measured' if tf32_g is None else f'{tf32_g:.4f} ms'}), SIMT "
-          f"fold_dkv {simt_ms:.3f} ms, SDPA float32 backward (dq, dk, dv) "
-          f"{tf32_row['library_ms']:.3f} ms; bounds: 3xTF32 "
-          f"{3 * flops_h / tf32_peak * 1e3:.4f} ms, float32 SIMT "
-          f"{flops_h / f32_peak * 1e3:.4f} ms; max |tf32 - plain| "
-          f"{tf32_row['max_abs_err']:.3g}, |SIMT - plain| {e_simt:.3g}, "
-          f"|tf32 - SIMT| {e_ts:.3g} (bar (atol, rtol) {GRAD_TOL})")
-    del ops_h, ops_h32, outs_h32, ops_bh32, outs_k, o_s, qs, ks, vs, o_s32
-    # (f) global in float32: the SIMT dk/dv (d = 256), its main-path shape
+    for kernel, (sp, ly), fl in (("fold_dq", (sq, lq), 6),
+                                 ("fold_dkv", (sk, lk), 8)):
+        form = kernel + "_tf32"
+        check(cuda_fold.fold_form(kernel, torch.float32, p_d, ly.bq, ly.bk)
+              == form, f"(h) float32 {kernel} should take {form}")
+        outs_k = cuda_fold.fold(sp, ops_bh32, ly)[0]
+        flops_h = fl * cell * p_d * live_h
+        attn_row(f"{form}_prefill", form, "carry",
+                 lambda: cuda_fold.fold(sp, ops_bh32, ly)[0],
+                 lambda: schedules.fold_carry_plain(ops_bh32, sp, ly),
+                 nbytes(*ops_bh32, *outs_k), flops_h, sdpa_bwd32, shape,
+                 reps=5, tol=GRAD_TOL)
+        tf32_row = rows[-1]
+        tf32_g = graph_ms(lambda: cuda_fold.fold(sp, ops_bh32, ly)[0],
+                          calls=5)
+        attn_row(f"{kernel}_f32_prefill", kernel, "carry",
+                 lambda: cuda_fold.fold(sp, ops_bh32, ly, form=kernel)[0],
+                 lambda: schedules.fold_carry_plain(ops_bh32, sp, ly),
+                 nbytes(*ops_bh32, *outs_k), flops_h, sdpa_bwd32, shape,
+                 tol=GRAD_TOL)
+        simt = cuda_fold.fold(sp, ops_bh32, ly, form=kernel)[0]
+        _, e_ts = allclose(outs_k, simt, GRAD_TOL)
+        del simt, outs_k
+        tf32_again = time_ms(lambda: cuda_fold.fold(sp, ops_bh32, ly)[0], 5)
+        print(f"  (h) float32 {kernel[5:]} in the same run: {form} "
+              f"{tf32_row['ms']:.3f} / {tf32_again:.3f} ms (graph replay "
+              f"{'not measured' if tf32_g is None else f'{tf32_g:.4f} ms'}), "
+              f"SIMT {kernel} {rows[-1]['ms']:.3f} ms, SDPA float32 backward "
+              f"(dq, dk, dv) {tf32_row['library_ms']:.3f} ms; bounds: 3xTF32 "
+              f"{3 * flops_h / tf32_peak * 1e3:.4f} ms, float32 SIMT "
+              f"{flops_h / f32_peak * 1e3:.4f} ms; max |tf32 - plain| "
+              f"{tf32_row['max_abs_err']:.3g}, |SIMT - plain| "
+              f"{rows[-1]['max_abs_err']:.3g}, |tf32 - SIMT| {e_ts:.3g} (bar "
+              f"(atol, rtol) {GRAD_TOL})")
+    del ops_h, ops_h32, outs_h32, ops_bh32, o_s32, qs, ks, vs, o_s
+    # (f) global in float32 at its main-path shape: the SIMT forward, the
+    # 3xTF32 dq and dk/dv (d = 256), and beside them, by name, the SIMT dq
+    # and dk/dv they replaced; no library call (softcap)
     ops_f32 = tuple(t.float() for t in flat_f)
     spec_f32, lay_f32 = forward_fold(*shapes_f, return_stats=True, **kw_f)
-    outs_f32, _ = cuda_fold.fold(spec_f32, ops_f32, lay_f32)
-    ops_bf32 = bwd_operands(*ops_f32, *outs_f32)
-    _, (sk_f, lk_f) = backward_folds(*shapes_f, **kw_f)
-    check(cuda_fold.fold_form("fold_dkv", torch.float32, g_d, lk_f.bq,
-                              lk_f.bk) == "fold_dkv",
-          "(f) float32 dk/dv (d = 256) should take the SIMT fold_dkv")
-    outs_k = cuda_fold.fold(sk_f, ops_bf32, lk_f)[0]
     live_f = g_hq * lay_f32.active_cells()
-    attn_row("fold_dkv_f32_training", "fold_dkv", "carry",
-             lambda: cuda_fold.fold(sk_f, ops_bf32, lk_f)[0],
-             lambda: schedules.fold_carry_plain(ops_bf32, sk_f, lk_f),
-             nbytes(*ops_bf32, *outs_k), 8 * cell * g_d * live_f, None,
-             "(f) global 16x8192x256, f32", reps=2, tol=GRAD_TOL)
-    del ops_f32, outs_f32, ops_bf32, outs_k
+    shape = "(f) global 16x8192x256, f32"
+    outs_f32, _ = cuda_fold.fold(spec_f32, ops_f32, lay_f32)
+    attn_row("fold_fwd_f32_training", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_f32, ops_f32, lay_f32)[0],
+             lambda: schedules.fold_carry_plain(ops_f32, spec_f32, lay_f32),
+             nbytes(*ops_f32, *outs_f32), 4 * cell * g_d * live_f, None,
+             shape, reps=2, tol=FWD_TOL)
+    ops_bf32 = bwd_operands(*ops_f32, *outs_f32)
+    for kernel, (sp, ly), fl in zip(("fold_dq", "fold_dkv"), backward_folds(
+            *shapes_f, **kw_f), (6, 8)):
+        form = kernel + "_tf32"
+        check(cuda_fold.fold_form(kernel, torch.float32, g_d, ly.bq, ly.bk)
+              == form, f"(f) float32 {kernel} (d = 256) should take {form}")
+        outs_k = cuda_fold.fold(sp, ops_bf32, ly)[0]
+        flops_f = fl * cell * g_d * live_f
+        attn_row(f"{form}_training", form, "carry",
+                 lambda: cuda_fold.fold(sp, ops_bf32, ly)[0],
+                 lambda: schedules.fold_carry_plain(ops_bf32, sp, ly),
+                 nbytes(*ops_bf32, *outs_k), flops_f, None, shape,
+                 tol=GRAD_TOL)
+        tf32_row = rows[-1]
+        attn_row(f"{kernel}_f32_training", kernel, "carry",
+                 lambda: cuda_fold.fold(sp, ops_bf32, ly, form=kernel)[0],
+                 lambda: schedules.fold_carry_plain(ops_bf32, sp, ly),
+                 nbytes(*ops_bf32, *outs_k), flops_f, None, shape, reps=2,
+                 tol=GRAD_TOL)
+        del outs_k
+        print(f"  (f) float32 {kernel[5:]} in the same run: {form} "
+              f"{tf32_row['ms']:.3f} ms, SIMT {kernel} {rows[-1]['ms']:.3f} "
+              f"ms; bounds: 3xTF32 {3 * flops_f / tf32_peak * 1e3:.4f} ms, "
+              f"float32 SIMT {flops_f / f32_peak * 1e3:.4f} ms; max |tf32 - "
+              f"plain| {tf32_row['max_abs_err']:.3g}, |SIMT - plain| "
+              f"{rows[-1]['max_abs_err']:.3g}")
+    del ops_f32, outs_f32, ops_bf32
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -475,6 +475,7 @@ def softmax_pair_bwd_dq_kernel_spec(
     kv_len: "int | None" = None,
     block_q: int = 128,
     block_k: int = 128,
+    matmul=torch.matmul,
 ) -> KernelSpec:
     """Flash-backward dq: a SUM fold over KV blocks (``KVBlocks``).
 
@@ -482,15 +483,17 @@ def softmax_pair_bwd_dq_kernel_spec(
     ``scale · ds @ K`` to the carried (bq, d) dq accumulator. Plain sum
     monoid — all the attention structure lives in the transform, so the
     engine's fold schedules (carry accumulate / split-KV decoupled) run
-    it unchanged.
+    it unchanged. ``matmul`` computes the cell's three products
+    (``cuda_fold.matmul_3xtf32`` states the float32 tensor-core form's
+    arithmetic in plain PyTorch).
     """
     cfg = dict(scale=scale, causal=causal, window=window, softcap=softcap,
                kv_len=kv_len, block_q=block_q, block_k=block_k)
 
     def transform(ops, block_ids):
         ops = tuple(o.to(torch.float32) for o in ops)
-        _, ds = _attn_bwd_ds(ops, block_ids, **cfg)
-        dq = torch.matmul(ds, ops[1]) * scale             # (..., bq, d)
+        _, ds = _attn_bwd_ds(ops, block_ids, matmul=matmul, **cfg)
+        dq = matmul(ds, ops[1]) * scale                   # (..., bq, d)
         return (dq,)
 
     return KernelSpec(

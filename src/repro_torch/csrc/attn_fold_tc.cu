@@ -1,21 +1,21 @@
 // Tensor-core forms of the three attention-fold kernels, CUDA C++ for
 // Hopper (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dq
 // and dk/dv folds of the flash backward (fold_dq_tc, fold_dkv_tc), and the
-// float32 dk/dv fold (fold_dkv_tf32, three TF32 products a product,
-// after fold_dkv_tc). They compute what fold_fwd_kernel, fold_dq_kernel
+// float32 dq and dk/dv folds (fold_dq_tf32, fold_dkv_tf32: three TF32
+// products a product). They compute what fold_fwd_kernel, fold_dq_kernel
 // and fold_dkv_kernel of attn_fold.cu compute (the reference's
 // softmax_pair_kernel_spec, assoc.py:330, and
 // softmax_pair_bwd_dq_kernel_spec, assoc.py:443, on KVBlocks, and
 // softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on QBlocks, under
 // fold_carry, kernels/scan_engine/schedules.py:722, and the split pass of
-// fold_decoupled, :778); the float32 forward and dq keep the SIMT
-// kernels.
+// fold_decoupled, :778); the float32 forward keeps the SIMT kernel.
 //
 // Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 6·128·128·d
 // for dq, 8·128·128·d for dk/dv, against 2·128·d bf16 elements of k and v,
 // so at prefill and training shapes the folds are bound by operations
-// (989 TFLOP/s bf16 on the tensor cores); a decode step is bound by
-// reading the cache once. What the design does about it:
+// (989 TFLOP/s bf16 on the tensor cores; in float32 three TF32 products a
+// product at 495); a decode step is bound by reading the cache once. What
+// the design does about it:
 //   - every product is a wgmma (bf16 operands from shared memory, float32
 //     accumulators): s = q·kᵀ, then p·v; for dq s = q·kᵀ and dp = dO·vᵀ,
 //     then dq += ds·k; on the dk/dv side sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, then
@@ -1085,13 +1085,27 @@ __global__ void __launch_bounds__(256, 1)
 //     registers, and the B operand pᵀ / dsᵀ [kv][q] is written into shared
 //     memory as hi and lo tiles straight from sᵀ's accumulator layout;
 //   * a block (256 threads, two warpgroups, one of whose threads issues
-//     the loads) takes 64 kv rows and the whole d, and walks each live
-//     cell's q block in chunks of 32 rows (a chunk's four tiles take
-//     R d 16 bytes: d = 128 fits two stages beside k, v and the pᵀ / dsᵀ
-//     tiles in 227 KB); warpgroup 0 forms sᵀ, pᵀ and dvᵀ and hands p·g
+//     the loads) takes 64 kv rows and walks each live cell's q block in
+//     chunks of 32 rows; warpgroup 0 forms sᵀ, pᵀ and dvᵀ and hands p·g
 //     to warpgroup 1 through shared memory, which forms dpᵀ, dsᵀ and
-//     dkᵀ. The association of fold_dkv_tc's cell element and carry (dk =
-//     dk + scale·dk_e, dv = dv + dv_e, __fadd_rn / __fmul_rn) is kept.
+//     dkᵀ;
+//   * d <= 128: a stage holds a whole chunk (its four tiles take R d 16
+//     bytes: d = 128 fits two stages beside k, v and the pᵀ / dsᵀ tiles in
+//     227 KB), held through the updates, and the association of
+//     fold_dkv_tc's cell element and carry (dk = dk + scale·dk_e, dv = dv
+//     + dv_e, __fadd_rn / __fmul_rn) is kept;
+//   * d = 256: k and v alone take 128 KB and a whole chunk 128 KB more, so
+//     a chunk streams through the ring in stages of 64 columns: four for
+//     sᵀ and dpᵀ (q and dO split in place), then one for each 64-row tile
+//     of dvᵀ and dkᵀ (q and dO raw, read by index and split in registers;
+//     the first brings the rows' m, l, delta), each released once read,
+//     so that the next stage's load is in flight (two stages of 33 KB
+//     fit). A warpgroup's registers hold its four tiles of dvᵀ or dkᵀ but
+//     not a cell element beside them, so the element is a chunk's, one
+//     64-row tile at a time, from zero, then combined as above (a
+//     skipped dead cell still adds nothing: the bits do not depend on the
+//     bounds; accumulating every chunk in the wgmma accumulators instead
+//     was faster but gave a larger error against the plain fold).
 // Named barriers: 1 + wg within a warpgroup, 3 "p·g of this chunk is
 // written" (warpgroup 0 arrives), 4 "the last chunk's dsᵀ is read" (1
 // arrives), 5 "the chunk's dO is split" (1 arrives); each side that only
@@ -1104,9 +1118,18 @@ struct Tf32DkvTiles {
   static constexpr int kKvPanel = 64 * 128;        // 64 rows x 32 floats
   static constexpr int kQPanel = kRows * 128;      // 32 rows x 32 floats
   static constexpr int kKvBytes = D / 32 * kKvPanel;   // 64 kv rows x D
-  static constexpr int kQBytes = D / 32 * kQPanel;     // 32 q rows x D
+  static constexpr int kMT = D / 64;           // 64-row tiles of dkᵀ / dvᵀ
+  // d = 256 streams a chunk through stages of 64 columns (above); d <=
+  // 128 holds it whole in one stage
+  static constexpr bool kStream = D == 256;
+  static constexpr int kDChunk = kStream ? 64 : D;   // columns a stage
+  static constexpr int kScoreStages = D / kDChunk;
+  static constexpr int kChunkStages = kStream ? kScoreStages + kMT : 1;
+  static constexpr int kStatStage = kStream ? kScoreStages : 0;
+  static constexpr int kQBytes = kDChunk / 32 * kQPanel;   // 32 rows
   static constexpr int kStages = D == 64 ? 4 : 2;
-  // a stage: q hi, q lo, dO hi, dO lo, and apart the rows' m, l, delta
+  // a stage: q hi, q lo, dO hi, dO lo (raw q at 0 and dO at 2 kQBytes in
+  // an update stage), and apart the rows' m, l, delta (kStatStage's)
   static constexpr int kStageBytes = 4 * kQBytes;
   static constexpr int kStatBytes = 3 * kRows * 4;
   // pᵀ hi, lo, then p·g / dsᵀ hi and dsᵀ lo: [64 kv][32 q] each
@@ -1150,6 +1173,31 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
 
+// A warpgroup splits `bytes` of float32 at `raw` (a TMA-written tile) into
+// TF32 hi, in place, and lo at `lo`, 16 bytes a thread at a time.
+__device__ __forceinline__ void split_tile(uint32_t raw, uint32_t lo,
+                                           int bytes, int tid) {
+  for (int i = tid; i < bytes / 16; i += 128) {
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(raw + 16 * i));
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                     raw + 16 * i),
+                 "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                     lo + 16 * i),
+                 "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
+                 : "memory");
+  }
+}
+
 // K-major descriptor of k-step kk (8 tf32 columns, 32 bytes) of a tile of
 // 32-column panels of `panel` bytes.
 __device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int kk,
@@ -1164,9 +1212,9 @@ __device__ __forceinline__ void wg_wait1() {
 // d (64 x 32, f32) = [d +] A (64 x 8) * B (8 x 32), TF32: A from registers
 // (a thread's a0 .. a3 at rows g, g + 8 and columns t, t + 4 of its warp's
 // 16 rows, g = lane / 4, t = lane % 4), B K-major in shared memory.
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -1180,10 +1228,10 @@ __device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64, f32) = [d +] A (64 x 8) * B (8 x 64), TF32, as wgmma_tf32_n32.
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
+// d (64 x 64, f32) = [d +] A (64 x 8) * B (8 x 64), TF32, as above.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -1233,53 +1281,67 @@ __device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo, int x,
   st_f32x2(lo + off, __uint_as_float(l0), __uint_as_float(l1));
 }
 
-// sᵀ = k·qᵀ (warpgroup 0) or dpᵀ = v·dOᵀ (1): the block's 64 kv rows (A,
-// resident float32 `a`, split in registers) against the chunk's 32 q rows
-// (B, split tiles b_hi / b_lo), two k-steps' A registers in flight.
-template <int D>
-__device__ __forceinline__ void tf32_scores(float (&s)[16], uint32_t a,
-                                            uint32_t b_hi, uint32_t b_lo,
-                                            int tid) {
-  using G = Tf32DkvTiles<D>;
+// acc (64 x N) [+]= A (64 x 8 KS) · B over KS k-steps, three TF32
+// products of the split operands: A float32 in shared memory, tiles of
+// 32-column panels of APANEL bytes, A(m, k) at (m, c0 + k), or at (c0 +
+// k, m) when transposed (AT), read by index and split in registers; B the
+// K-major split tiles b_hi / b_lo (panels of BPANEL bytes); from zero when
+// `first`; the A registers of STEPS k-steps in flight (2, or 1 where a
+// kernel has no registers to spare; KS a multiple of STEPS).
+// fold_dkv_tf32's sᵀ = k·qᵀ and dpᵀ = v·dOᵀ (N 32) and, at d = 256, dvᵀ
+// and dkᵀ with A transposed (N 64); fold_dq_tf32's s = q·kᵀ and dp =
+// dO·vᵀ, and dqᵀ = kᵀ·dsᵀ with A transposed (N 64).
+template <int KS, int APANEL, bool AT, int BPANEL, int STEPS = 2, int NA>
+__device__ __forceinline__ void tf32_mma(float (&s)[NA], uint32_t a, int c0,
+                                         uint32_t b_hi, uint32_t b_lo,
+                                         int tid, bool first) {
   const int quad = tid % 4;
 #pragma unroll
-  for (int kb = 0; kb < D / 8; kb += 2) {
-    uint32_t ah[2][4], al[2][4];
+  for (int kb = 0; kb < KS; kb += STEPS) {
+    uint32_t ah[STEPS][4], al[STEPS][4];
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
+    for (int u = 0; u < STEPS; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(ld_f32(f32_at(a, G::kKvPanel, tile_row(tid, e & 1),
-                                 8 * (kb + u) + quad + 4 * (e >> 1))),
+      for (int e = 0; e < 4; ++e) {
+        const int m = tile_row(tid, e & 1);
+        const int k = c0 + 8 * (kb + u) + quad + 4 * (e >> 1);
+        split_tf32(ld_f32(AT ? f32_at(a, APANEL, k, m)
+                             : f32_at(a, APANEL, m, k)),
                    ah[u][e], al[u][e]);
+      }
     wg_fence();
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < STEPS; ++u) {
       const int kk = kb + u;
-      const uint64_t dh = tf32_desc(b_hi, kk, G::kQPanel);
-      const uint64_t dl = tf32_desc(b_lo, kk, G::kQPanel);
-      wgmma_tf32_n32(s, al[u], dh, kk > 0);
-      wgmma_tf32_n32(s, ah[u], dl, 1);
-      wgmma_tf32_n32(s, ah[u], dh, 1);
+      const uint64_t dh = tf32_desc(b_hi, kk, BPANEL);
+      const uint64_t dl = tf32_desc(b_lo, kk, BPANEL);
+      wgmma_tf32(s, al[u], dh, !(first && kk == 0));
+      wgmma_tf32(s, ah[u], dl, 1);
+      wgmma_tf32(s, ah[u], dh, 1);
     }
     wg_commit();
-    wg_wait1();   // the batch before is done: its A registers are free
+    if constexpr (STEPS == 1)
+      wg_wait();
+    else
+      wg_wait1();   // the batch before is done: its A registers are free
   }
   wg_wait();
   keep(s);
 }
 
-// el (D x 64 as D / 64 row tiles) [+]= Aᵀ·P: dvᵀ += dOᵀ·p (warpgroup 0)
-// or dkᵀ += qᵀ·ds (1), A read by index from the chunk's split tiles
-// a_hi / a_lo ([32 q][D]), P the [64 kv][32 q] split tiles p_hi / p_lo;
-// first: the cell's first chunk (from zero).
+// el (the block's dkᵀ / dvᵀ columns, kMT 64-row tiles) [+]= Aᵀ·P: dvᵀ +=
+// dOᵀ·p (warpgroup 0) or dkᵀ += qᵀ·ds (1), A read by index from the
+// chunk's split tiles, tile mt's 64 columns starting at a_hi[mt] /
+// a_lo[mt] ([32 q][·] panels), P the [64 kv][32 q] split tiles p_hi /
+// p_lo; first: the cell's first chunk (from zero).
 template <int D>
-__device__ __forceinline__ void tf32_update(float (&el)[D / 64][32],
-                                            uint32_t a_hi, uint32_t a_lo,
-                                            uint32_t p_hi, uint32_t p_lo,
-                                            bool first, int tid) {
+__device__ __forceinline__ void tf32_update(
+    float (&el)[Tf32DkvTiles<D>::kMT][32],
+    const uint32_t (&a_hi)[Tf32DkvTiles<D>::kMT],
+    const uint32_t (&a_lo)[Tf32DkvTiles<D>::kMT], uint32_t p_hi,
+    uint32_t p_lo, bool first, int tid) {
   using G = Tf32DkvTiles<D>;
-  constexpr int MT = D / 64;
+  constexpr int MT = G::kMT;
   const int quad = tid % 4;
 #pragma unroll
   for (int kk = 0; kk < G::kRows / 8; ++kk) {
@@ -1289,18 +1351,18 @@ __device__ __forceinline__ void tf32_update(float (&el)[D / 64][32],
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int q = 8 * kk + quad + 4 * (e >> 1);
-        const int m = 64 * mt + tile_row(tid, e & 1);
-        ah[mt][e] = ld_b32(f32_at(a_hi, G::kQPanel, q, m));
-        al[mt][e] = ld_b32(f32_at(a_lo, G::kQPanel, q, m));
+        const int m = tile_row(tid, e & 1);
+        ah[mt][e] = ld_b32(f32_at(a_hi[mt], G::kQPanel, q, m));
+        al[mt][e] = ld_b32(f32_at(a_lo[mt], G::kQPanel, q, m));
       }
     wg_fence();
     const uint64_t dh = tf32_desc(p_hi, kk, G::kKvPanel);
     const uint64_t dl = tf32_desc(p_lo, kk, G::kKvPanel);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      wgmma_tf32_n64(el[mt], al[mt], dh, !(first && kk == 0));
-      wgmma_tf32_n64(el[mt], ah[mt], dl, 1);
-      wgmma_tf32_n64(el[mt], ah[mt], dh, 1);
+      wgmma_tf32(el[mt], al[mt], dh, !(first && kk == 0));
+      wgmma_tf32(el[mt], ah[mt], dl, 1);
+      wgmma_tf32(el[mt], ah[mt], dh, 1);
     }
     wg_commit();
     wg_wait1();
@@ -1317,7 +1379,8 @@ __global__ void __launch_bounds__(256, 1)
     fold_dkv_tf32_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
                          FoldPtrs p) {
   using G = Tf32DkvTiles<D>;
-  constexpr int R = G::kRows, MT = D / 64;
+  constexpr int R = G::kRows, MT = G::kMT, NS = G::kScoreStages;
+  constexpr int NJ = G::kChunkStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = align1024(smem_raw);   // this block's 64 kv rows, whole d
   const uint32_t k_u = smem_u32(k_s), v_u = k_u + G::kKvBytes;
@@ -1345,35 +1408,45 @@ __global__ void __launch_bounds__(256, 1)
   const int f0 = blockIdx.y * a.bpc;
   const int wg = threadIdx.x / 128;
   const bool loader = threadIdx.x == 128;
-  int lf = f0, lc = 0, lstage = 0;
+  // the loader's walk over the live chunks (lf, lc) of the fold, stage lj
+  // of the chunk
+  int lf = f0, lc = 0, lj = 0, lstage = 0;
   uint32_t lphase = 0;
   auto skip_dead = [&]() {
     while (lf < f0 + a.bpc && !cell_live(a, lf % a.nq, jb)) ++lf;
   };
-  auto load_next = [&]() {   // chunk (lf, lc) into stage lstage, then on
+  auto load_next = [&]() {   // stage lj of chunk (lf, lc) into lstage, then on
     const uint32_t bar = full + 8 * lstage;
+    const bool stats = lj == G::kStatStage;
     mbar_wait(empty + 8 * lstage, lphase ^ 1);
-    mbar_expect_tx(bar, 2 * G::kQBytes + G::kStatBytes);
+    mbar_expect_tx(bar, 2 * G::kQBytes + (stats ? G::kStatBytes : 0));
     const uint32_t st = stages_u + lstage * G::kStageBytes;
     const int qrow = (hk * a.group + lf / a.nq) * a.tq +
                      (lf % a.nq) * a.bq + R * lc;
-    for (int pn = 0; pn < D / 32; ++pn) {
-      tma_load_2d(st + pn * G::kQPanel, &maps.q, bar, 32 * pn, qrow);
+    // score stage lj's columns, or those of update stage lj's tile lj - NS
+    const int col = G::kDChunk * (lj % NS);
+    for (int pn = 0; pn < G::kDChunk / 32; ++pn) {
+      tma_load_2d(st + pn * G::kQPanel, &maps.q, bar, col + 32 * pn, qrow);
       tma_load_2d(st + 2 * G::kQBytes + pn * G::kQPanel, &maps.dout, bar,
-                  32 * pn, qrow);
+                  col + 32 * pn, qrow);
     }
-    const uint32_t sts = stats_u + lstage * G::kStatBytes;
-    bulk_load(sts, p.m + qrow, 4 * R, bar);
-    bulk_load(sts + 4 * R, p.l + qrow, 4 * R, bar);
-    bulk_load(sts + 8 * R, p.delta + qrow, 4 * R, bar);
+    if (stats) {
+      const uint32_t sts = stats_u + lstage * G::kStatBytes;
+      bulk_load(sts, p.m + qrow, 4 * R, bar);
+      bulk_load(sts + 4 * R, p.l + qrow, 4 * R, bar);
+      bulk_load(sts + 8 * R, p.delta + qrow, 4 * R, bar);
+    }
     if (++lstage == G::kStages) {
       lstage = 0;
       lphase ^= 1;
     }
-    if (++lc == nch) {
-      lc = 0;
-      ++lf;
-      skip_dead();
+    if (++lj == NJ) {
+      lj = 0;
+      if (++lc == nch) {
+        lc = 0;
+        ++lf;
+        skip_dead();
+      }
     }
   };
   if (loader) {
@@ -1396,59 +1469,63 @@ __global__ void __launch_bounds__(256, 1)
     const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
     const uint32_t p_hi = pt, p_lo = pt + G::kKvPanel;
     const uint32_t g_hi = pt + 2 * G::kKvPanel, g_lo = pt + 3 * G::kKvPanel;
+    // this warpgroup's update operands: P (pᵀ or dsᵀ), and the offset of
+    // A (dO or q) in a stage
+    const uint32_t b_hi = wg == 0 ? p_hi : g_hi, b_lo = wg == 0 ? p_lo : g_lo;
+    const uint32_t a_off = 2 * G::kQBytes * (1 - wg);
+    const float sc = wg == 0 ? 1.f : a.scale;   // dk = dk + scale·dk_e
     int count = 0, stage = 0, chunks = 0;
     uint32_t phase = 0;
+    auto release = [&]() {   // the current stage is read: refill, move on
+      mbar_arrive(empty + 8 * stage);
+      if (++stage == G::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (loader && lf < f0 + a.bpc) load_next();   // kStages ahead
+    };
     mbar_wait(kvbar, 0);
     __syncwarp();
     for (int f = f0; f < f0 + a.bpc; ++f) {
       const int qi = f % a.nq;
       if (!cell_live(a, qi, jb)) continue;
       ++count;
-      float el[MT][32];   // the cell's element: dvᵀ_e or dkᵀ_e
+      float el[G::kStream ? 1 : MT][32];   // d <= 128: dvᵀ_e or dkᵀ_e
       for (int c = 0; c < nch; ++c, ++chunks) {
-        mbar_wait(full + 8 * stage, phase);
-        __syncwarp();
-        const uint32_t q_hi = stages_u + stage * G::kStageBytes;
-        const uint32_t q_lo = q_hi + G::kQBytes;
-        const uint32_t o_hi = q_hi + 2 * G::kQBytes;
-        const uint32_t o_lo = q_hi + 3 * G::kQBytes;
-        const float* sts = reinterpret_cast<const float*>(
-            k_s + (stats_u + stage * G::kStatBytes - k_u));
-        {  // warpgroup 0 splits the chunk's q, 1 its dO: hi in place
-          const uint32_t raw = wg == 0 ? q_hi : o_hi;
-          const uint32_t lo = wg == 0 ? q_lo : o_lo;
-          for (int i = tid; i < G::kQBytes / 16; i += 128) {
-            float4 v;
-            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-                         : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                         : "r"(raw + 16 * i));
-            uint32_t h[4], l[4];
-            split_tf32(v.x, h[0], l[0]);
-            split_tf32(v.y, h[1], l[1]);
-            split_tf32(v.z, h[2], l[2]);
-            split_tf32(v.w, h[3], l[3]);
-            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
-                             raw + 16 * i),
-                         "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
-                         : "memory");
-            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
-                             lo + 16 * i),
-                         "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
-                         : "memory");
-          }
+        if (wg == 1 && chunks > 0) bar_arrive(4, 256);   // the last is done
+        // sᵀ = k·qᵀ (warpgroup 0) or dpᵀ = v·dOᵀ (1) over the score
+        // stages; warpgroup 0 splits each one's q, 1 its dO (hi in place)
+        float s[16];
+#pragma unroll 1
+        for (int j = 0; j < NS; ++j) {
+          mbar_wait(full + 8 * stage, phase);
+          __syncwarp();
+          const uint32_t hi = stages_u + stage * G::kStageBytes +
+                              2 * G::kQBytes * wg;
+          split_tile(hi, hi + G::kQBytes, G::kQBytes, tid);
           fence_async();
           wg_sync(wg);
-          if (wg == 1) bar_arrive(5, 256);   // dO is split
+          if (wg == 1 && j == NS - 1) bar_arrive(5, 256);   // dO is split
+          tf32_mma<G::kDChunk / 8, G::kKvPanel, false, G::kQPanel>(
+              s, wg == 0 ? k_u : v_u, G::kDChunk * j, hi, hi + G::kQBytes,
+              tid, j == 0);
+          if (G::kStream) release();
         }
+        // the stage with the rows' (m, l, delta): d <= 128 the chunk's,
+        // held through the update; d = 256 the first update stage
+        if (G::kStream) {
+          mbar_wait(full + 8 * stage, phase);
+          __syncwarp();
+        }
+        const float* sts = reinterpret_cast<const float*>(
+            k_s + (stats_u + stage * G::kStatBytes - k_u));
         int2 live[2];   // the chunk's q rows each of the thread's kv rows sees
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           live[i] = live_rows(
               a, (long long)jb * a.pos_bk + 64 * sub + tile_row(tid, i),
               (long long)qi * a.pos_bq + R * c, R);
-        float s[16];
         if (wg == 0) {
-          tf32_scores<D>(s, k_u, q_hi, q_lo, tid);
           if (chunks > 0) bar_sync(4, 256);   // the last dsᵀ / p·g is read
           // pᵀ = exp(s - m) / l as hi, lo; p·g (g = tanh' under softcap)
           // whole, for warpgroup 1
@@ -1477,10 +1554,7 @@ __global__ void __launch_bounds__(256, 1)
           bar_sync(5, 256);     // warpgroup 1 has split dO
           bar_arrive(3, 256);   // p·g is written
           wg_sync(0);           // and pᵀ, for this warpgroup's products
-          tf32_update<D>(el, o_hi, o_lo, p_hi, p_lo, c == 0, tid);
         } else {
-          if (chunks > 0) bar_arrive(4, 256);   // the last chunk is done
-          tf32_scores<D>(s, v_u, o_hi, o_lo, tid);
           bar_sync(3, 256);   // p·g from warpgroup 0
           // dsᵀ = p·g (dpᵀ - delta) as hi (over p·g) and lo
 #pragma unroll
@@ -1494,23 +1568,49 @@ __global__ void __launch_bounds__(256, 1)
           }
           fence_async();
           wg_sync(1);
-          tf32_update<D>(el, q_hi, q_lo, g_hi, g_lo, c == 0, tid);
         }
-        mbar_arrive(empty + 8 * stage);
-        if (++stage == G::kStages) {
-          stage = 0;
-          phase ^= 1;
+        if constexpr (G::kStream) {
+          // the chunk's dvᵀ_e = dOᵀ·p (dkᵀ_e = qᵀ·ds) a 64-row tile a
+          // stage, A raw from the stage by index, from zero; then dv = dv +
+          // dv_e (dk = dk + scale·dk_e)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (mt > 0) {
+              mbar_wait(full + 8 * stage, phase);
+              __syncwarp();
+            }
+            float e[32];   // one k-step's A in flight: 255 registers
+            tf32_mma<R / 8, G::kQPanel, true, G::kKvPanel, 1>(
+                e, stages_u + stage * G::kStageBytes + a_off, 0, b_hi, b_lo,
+                tid, true);
+            release();
+#pragma unroll
+            for (int x = 0; x < 32; ++x)   // e · 1 is e: dv = dv + dv_e
+              acc[mt][x] = __fadd_rn(acc[mt][x], __fmul_rn(e[x], sc));
+          }
+        } else {
+          // the cell's dvᵀ_e += dOᵀ·p (dkᵀ_e += qᵀ·ds), A from the held
+          // stage's split tiles, from zero at the cell's first chunk
+          uint32_t a_hi[MT], a_lo[MT];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            a_hi[mt] = stages_u + stage * G::kStageBytes + a_off +
+                       2 * mt * G::kQPanel;
+            a_lo[mt] = a_hi[mt] + G::kQBytes;
+          }
+          tf32_update<D>(el, a_hi, a_lo, b_hi, b_lo, c == 0, tid);
+          release();
         }
-        if (loader && lf < f0 + a.bpc) load_next();   // kStages chunks ahead
       }
-      const float sc = wg == 0 ? 1.f : a.scale;   // dk = dk + scale·dk_e
+      if constexpr (!G::kStream) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int x = 0; x < 32; ++x)
-          acc[mt][x] = wg == 0 ? __fadd_rn(acc[mt][x], el[mt][x])
-                               : __fadd_rn(acc[mt][x],
-                                           __fmul_rn(el[mt][x], sc));
+          for (int x = 0; x < 32; ++x)
+            acc[mt][x] = wg == 0 ? __fadd_rn(acc[mt][x], el[mt][x])
+                                 : __fadd_rn(acc[mt][x],
+                                             __fmul_rn(el[mt][x], sc));
+      }
     }
 
     // entry x of row tile mt: d column 64 mt + tile_row(tid, i), kv row
@@ -1535,6 +1635,283 @@ __global__ void __launch_bounds__(256, 1)
     if (!p.c0 && p.counts && wg == 1 && sub == 0 && tid == 0)
       p.counts[hk * a.nk + jb] = count;
   }
+}
+
+// -- backward dq in float32 on the tensor cores (3xTF32) ---------------------
+//
+// fold_dq_tf32: what fold_dq_kernel computes on float32 operands
+// (softmax_bwd_dq on KVBlocks, the carry fold and the split pass), every
+// product as three TF32 wgmmas of the split operands, as fold_dkv_tf32's.
+// TF32 wgmma reads shared memory K-major only, so:
+//   * s = q·kᵀ and dp = dO·vᵀ (M = the block's 64 q rows) contract over
+//     d: q and dO, resident as loaded, are the A operand, read by index
+//     and split in registers; k and v, whose rows are K-major as stored,
+//     are the B operand, split into hi and lo tiles in shared memory;
+//   * dq = ds·k contracts over kv rows, along which k is not contiguous:
+//     it is formed transposed, dqᵀ += kᵀ·dsᵀ (M = 64 columns of d), with
+//     A = kᵀ read by index from the k rows and split in registers, and B =
+//     dsᵀ written as [q][kv] hi and lo tiles straight from s's
+//     accumulator layout (K-major: kv contiguous).
+// Budget at d = 256: q and dO take 64 KB each and a 64-row k or v tile as
+// hi + lo 128 KB, so k and v stream through a ring of 32 KB stages: a
+// 64-row kv tile of a cell takes d / 32 stages of 32 columns of k and of
+// v (split in place, hi over the raw floats, for s and dp) and then
+// stages of 64 columns of k for each warpgroup's dqᵀ tiles (raw, k read
+// again). A block (256 threads, two warpgroups, one of whose threads
+// issues the loads) takes one 64-row q tile; warpgroup 0 forms s and p·g
+// (p = exp(s - m) / l, g = tanh' under softcap, else 1) into the ds
+// tiles, warpgroup 1 dp and ds = p·g (dp - delta) over them, then each
+// forms its columns of dqᵀ: both own half of d >= 128, warpgroup 0 all
+// 64 at d = 64 (two 64-row tiles at most, 64 accumulator registers). The
+// element a kv tile adds, dq_e = kᵀ·dsᵀ from zero over its 64 rows, is
+// combined into the carry with __fmul_rn / __fadd_rn (dq = dq +
+// scale·dq_e): a skipped dead cell and a page-permuted pool give the bits
+// of folding it and of the contiguous pool, as in the other forms.
+// Named barriers: 1 + wg within a warpgroup, 3 "p·g is written" (0
+// arrives), 4 "ds is written" (1 arrives), 5 "the last tile's ds is read"
+// (1 arrives), ordered as fold_dkv_tf32's.
+
+template <int D>
+struct Tf32DqTiles {
+  static constexpr int kPanel = 64 * 128;             // 64 rows x 32 floats
+  static constexpr int kTileBytes = D / 32 * kPanel;  // 64 rows x D
+  static constexpr int kMT = D / 64;                  // 64-row tiles of dqᵀ
+  static constexpr int kOwn = D < 128 ? 1 : kMT / 2;  // ... a warpgroup owns
+  // stages a 64-row kv tile: 32 columns of k and v each, then a 64-column
+  // k tile for each warpgroup's dqᵀ tile
+  static constexpr int kScoreStages = D / 32;
+  static constexpr int kTileStages = kScoreStages + kOwn;
+  static constexpr int kStageBytes = 4 * kPanel;
+  static constexpr int kStages = D == 256 ? 2 : D == 128 ? 4 : 5;
+  // ds (p·g first) as hi, then lo: [64 q][64 kv], two panels each
+  static constexpr int kDsBytes = 4 * kPanel;
+  static constexpr int kThreads = 256;
+  static constexpr int kSmem = 1024 + 2 * kTileBytes + kDsBytes +
+                               kStages * kStageBytes + 8 * (2 * kStages + 1);
+};
+
+// Block (q head h, q block qi, 64-row q tile sub), split y; folds the KV
+// blocks as fold_dq_kernel does.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    fold_dq_tf32_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                        FoldPtrs p) {
+  using G = Tf32DqTiles<D>;
+  constexpr int NS = G::kScoreStages, NJ = G::kTileStages, PN = G::kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_u = smem_u32(align1024(smem_raw));
+  const uint32_t do_u = q_u + G::kTileBytes;
+  const uint32_t ds_hi = do_u + G::kTileBytes, ds_lo = ds_hi + 2 * PN;
+  const uint32_t ring_u = ds_hi + G::kDsBytes;
+  // mbarriers: full[kStages], empty[kStages], then the q and dO tiles'
+  const uint32_t full = ring_u + G::kStages * G::kStageBytes;
+  const uint32_t empty = full + 8 * G::kStages, qbar = empty + 8 * G::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nt = a.bq / 64;   // 64-row tiles of a q block
+  const int sub = blockIdx.x % nt;
+  const int qi = (blockIdx.x / nt) % a.nq;
+  const int h = blockIdx.x / nt / a.nq;
+  const int hk = h / a.group;
+  const int nsub = a.bk / 64;
+  const int f0 = blockIdx.y * a.bpc;
+  const long long qrow0 = (long long)h * a.tq + (long long)qi * a.bq + 64 * sub;
+  const int wg = threadIdx.x / 128;
+  const bool loader = threadIdx.x == 128;
+  // the loader's walk: live cell lf, its 64-row kv tile lt, stage lj of
+  // the tile, into ring slot lstage
+  int lf = f0, lt = 0, lj = 0, lstage = 0;
+  uint32_t lphase = 0;
+  auto skip_dead = [&]() {
+    while (lf < f0 + a.bpc && !cell_live(a, qi, lf)) ++lf;
+  };
+  auto load_next = [&]() {
+    const uint32_t bar = full + 8 * lstage;
+    mbar_wait(empty + 8 * lstage, lphase ^ 1);
+    const uint32_t st = ring_u + lstage * G::kStageBytes;
+    const int phys = p.kv_map ? p.kv_map[lf] : lf;
+    const int row = hk * a.tk + phys * a.bk + 64 * lt;
+    if (lj < NS) {   // columns 32 lj .. of k (at 0) and v (at 2 panels)
+      mbar_expect_tx(bar, 2 * PN);
+      tma_load_2d(st, &maps.k, bar, 32 * lj, row);
+      tma_load_2d(st + 2 * PN, &maps.v, bar, 32 * lj, row);
+    } else {   // warpgroup w's dqᵀ tile: 64 columns of k at 2 w panels
+      int parts = 0;
+      for (int w = 0; w < 2; ++w) parts += G::kOwn * w + lj - NS < G::kMT;
+      mbar_expect_tx(bar, parts * 2 * PN);
+      for (int w = 0; w < 2; ++w) {
+        const int mt = G::kOwn * w + lj - NS;
+        if (mt >= G::kMT) continue;
+        tma_load_2d(st + 2 * PN * w, &maps.k, bar, 64 * mt, row);
+        tma_load_2d(st + 2 * PN * w + PN, &maps.k, bar, 64 * mt + 32, row);
+      }
+    }
+    if (++lstage == G::kStages) {
+      lstage = 0;
+      lphase ^= 1;
+    }
+    if (++lj == NJ) {
+      lj = 0;
+      if (++lt == nsub) {
+        lt = 0;
+        ++lf;
+        skip_dead();
+      }
+    }
+  };
+  if (loader) {
+    mbar_expect_tx(qbar, 2 * G::kTileBytes);
+    for (int pn = 0; pn < D / 32; ++pn) {
+      tma_load_2d(q_u + pn * PN, &maps.q, qbar, 32 * pn, (int)qrow0);
+      tma_load_2d(do_u + pn * PN, &maps.dout, qbar, 32 * pn, (int)qrow0);
+    }
+    skip_dead();
+    for (int k = 0; k < G::kStages && lf < f0 + a.bpc; ++k) load_next();
+  }
+
+  const int tid = threadIdx.x % 128, quad = tid % 4;
+  float acc[G::kOwn][32];   // the carry: this warpgroup's dqᵀ tiles
+#pragma unroll
+  for (int j = 0; j < G::kOwn; ++j)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[j][x] = 0.f;
+  const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+  // the thread's rows: position, and the forward's m, 1 / l (l == 0
+  // marks a fully masked row: 1), delta
+  long long qpos[2];
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long g = qrow0 + tile_row(tid, i);
+    qpos[i] = (long long)qi * a.pos_bq + 64 * sub + tile_row(tid, i);
+    m_r[i] = p.m[g];
+    const float l = p.l[g];
+    il_r[i] = recip(l == 0.f ? 1.f : l);
+    dl_r[i] = p.delta[g];
+  }
+  int count = 0, stage = 0, tiles = 0;
+  uint32_t phase = 0;
+  auto release = [&]() {   // the current stage is read: refill, move on
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == G::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    if (loader && lf < f0 + a.bpc) load_next();   // kStages ahead
+  };
+  mbar_wait(qbar, 0);
+  __syncwarp();
+  for (int f = f0; f < f0 + a.bpc; ++f) {
+    if (!cell_live(a, qi, f)) continue;
+    ++count;
+    for (int t = 0; t < nsub; ++t, ++tiles) {
+      if (wg == 1 && tiles > 0) bar_arrive(5, 256);   // the last ds is read
+      // s = q·kᵀ (warpgroup 0) or dp = dO·vᵀ (1), 32 columns of d a stage
+      float s[32];
+#pragma unroll 1
+      for (int j = 0; j < NS; ++j) {
+        mbar_wait(full + 8 * stage, phase);
+        __syncwarp();
+        const uint32_t b = ring_u + stage * G::kStageBytes + 2 * PN * wg;
+        split_tile(b, b + PN, PN, tid);
+        fence_async();
+        wg_sync(wg);
+        tf32_mma<4, PN, false, PN>(s, wg == 0 ? q_u : do_u, 32 * j, b,
+                                   b + PN, tid, j == 0);
+        release();
+      }
+      if (wg == 0) {
+        // p·g on the live entries into the ds tiles (hi), whole; a masked
+        // entry is 0, not left to underflow (a fully masked row has m =
+        // NEG_INF)
+        int2 live[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          live[i] = live_cols(a, qpos[i], (long long)f * a.pos_bk + 64 * t,
+                              64);
+        if (tiles > 0) bar_sync(5, 256);   // the last tile's ds is read
+#pragma unroll
+        for (int x = 0; x < 32; x += 2) {
+          const int i = (x >> 1) & 1, c = 8 * (x >> 2) + 2 * quad;
+          float pg[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const bool ok = c + u >= live[i].x && c + u < live[i].y;
+            const float sv = logit_tc(a, s[x + u], inv_cap);
+            pg[u] = ok ? expf(sv - m_r[i]) * il_r[i] : 0.f;
+            if (a.has_softcap) {   // tanh' = 1 - (s / cap)^2
+              const float tc = sv * inv_cap;
+              pg[u] = pg[u] * __fsub_rn(1.f, __fmul_rn(tc, tc));
+            }
+          }
+          st_f32x2(ds_hi + (x >> 4) * PN + f32_pair(x & 15, tid), pg[0],
+                   pg[1]);
+        }
+        bar_arrive(3, 256);   // p·g is written
+        bar_sync(4, 256);     // ds is written
+      } else {
+        bar_sync(3, 256);     // p·g from warpgroup 0
+        // ds = p·g (dp - delta) as hi (over p·g) and lo
+#pragma unroll
+        for (int x = 0; x < 32; x += 2) {
+          const int i = (x >> 1) & 1;
+          const uint32_t hi = ds_hi + (x >> 4) * PN, lo = ds_lo + (x >> 4) * PN;
+          const float2 pg = ld_f32x2(hi + f32_pair(x & 15, tid));
+          store_split(hi, lo, x & 15, tid,
+                      __fmul_rn(pg.x, __fsub_rn(s[x], dl_r[i])),
+                      __fmul_rn(pg.y, __fsub_rn(s[x + 1], dl_r[i])));
+        }
+        fence_async();
+        bar_arrive(4, 256);   // ds is written
+        wg_sync(1);           // and visible to this warpgroup's wgmma
+      }
+      // this warpgroup's dqᵀ tiles: the element dq_e = kᵀ·dsᵀ from zero
+      // over the kv tile's 64 rows, then dq = dq + scale·dq_e
+#pragma unroll
+      for (int j = 0; j < G::kOwn; ++j) {
+        mbar_wait(full + 8 * stage, phase);
+        __syncwarp();
+        if (G::kOwn * wg + j < G::kMT) {
+          float e[32];
+          tf32_mma<8, PN, true, PN>(
+              e, ring_u + stage * G::kStageBytes + 2 * PN * wg, 0, ds_hi,
+              ds_lo, tid, true);
+#pragma unroll
+          for (int x = 0; x < 32; ++x)
+            acc[j][x] = __fadd_rn(acc[j][x], __fmul_rn(e[x], a.scale));
+        }
+        release();
+      }
+    }
+  }
+
+  // entry x of tile j: d column 64 (kOwn wg + j) + tile_row(tid, i), q
+  // row 8 (x >> 2) + 2 quad + (x & 1) of the block's 64
+#pragma unroll
+  for (int j = 0; j < G::kOwn; ++j) {
+    const int mt = G::kOwn * wg + j;
+    if (mt >= G::kMT) continue;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = 64 * mt + tile_row(tid, (x >> 1) & 1);
+      const int r = 8 * (x >> 2) + 2 * quad + (x & 1);
+      if (p.c0)   // split pass: publish the chunk's dq
+        p.c0[((((long long)h * a.nq + qi) * a.splits + blockIdx.y) * a.bq +
+              64 * sub + r) * D + col] = acc[j][x];
+      else
+        static_cast<float*>(p.out0)[(qrow0 + r) * D + col] = acc[j][x];
+    }
+  }
+  if (!p.c0 && p.counts && sub == 0 && wg == 0 && tid == 0)
+    p.counts[(long long)h * a.nq + qi] = count;
 }
 
 // -- backward dq (softmax_bwd_dq) ---------------------------------------------
@@ -2008,6 +2385,27 @@ cudaError_t run_dkv_tf32(const FoldArgs& a, const FoldPtrs& p, int smem,
 }
 
 template <int D>
+cudaError_t run_dq_tf32(const FoldArgs& a, const FoldPtrs& p, int smem,
+                        cudaStream_t st) {
+  using G = Tf32DqTiles<D>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const long long q_rows = (long long)a.bh * a.tq;
+  const long long kv_rows = (long long)a.bh_kv * a.tk;
+  if (!f32_rows_map(&maps.q, p.q, D, q_rows, 64) ||
+      !f32_rows_map(&maps.dout, p.dout, D, q_rows, 64) ||
+      !f32_rows_map(&maps.k, p.k, D, kv_rows, 64) ||
+      !f32_rows_map(&maps.v, p.v, D, kv_rows, 64))
+    return cudaErrorInvalidPitchValue;
+  return launch(fold_dq_tf32_kernel<D>,
+                dim3((unsigned)(a.bh * a.nq * (a.bq / 64)),
+                     (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
+template <int D>
 cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
                    cudaStream_t st) {
   using G = DqTiles<D>;
@@ -2079,7 +2477,7 @@ int attn_fold_dkv_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
 
 // Backward dk/dv fold on QBlocks, float32 by 3xTF32 (fold_dkv_tf32):
 // out0 = dk, out1 = dv, or the split pass into c0 (dk) and c1 (dv). Takes
-// d in {64, 128}, bk and bq in {64, 128}.
+// d in {64, 128, 256}, bk and bq in {64, 128}.
 int attn_fold_dkv_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2090,6 +2488,28 @@ int attn_fold_dkv_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
       return run_dkv_tf32<64>(*a, *p, smem, st);
     case 128:
       return run_dkv_tf32<128>(*a, *p, smem, st);
+    case 256:
+      return run_dkv_tf32<256>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Backward dq fold on KVBlocks, float32 by 3xTF32 (fold_dq_tf32): out0 =
+// dq, or the split pass into c0. Takes d in {64, 128, 256}, bk and bq in
+// {64, 128}.
+int attn_fold_dq_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+    return cudaErrorInvalidValue;
+  switch (a->d) {
+    case 64:
+      return run_dq_tf32<64>(*a, *p, smem, st);
+    case 128:
+      return run_dq_tf32<128>(*a, *p, smem, st);
+    case 256:
+      return run_dq_tf32<256>(*a, *p, smem, st);
     default:
       return cudaErrorInvalidValue;
   }

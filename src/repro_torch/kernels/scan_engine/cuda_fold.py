@@ -13,11 +13,12 @@ fold (``core/scan/assoc``):
   fold_fwd_tc  the same on the tensor cores (wgmma, TMA), bfloat16
   fold_dq      ``softmax_bwd_dq`` on ``KVBlocks``, SIMT
   fold_dq_tc   the same on the tensor cores, bfloat16
+  fold_dq_tf32 the same on the tensor cores, float32: each product as
+               three TF32 products of the operands split into hi + lo
   fold_dkv     ``softmax_bwd_dkv`` on ``QBlocks``, SIMT
   fold_dkv_tc  the same on the tensor cores, bfloat16
   fold_dkv_tf32
-               the same on the tensor cores, float32: each product as
-               three TF32 products of the operands split into hi + lo
+               the same on the tensor cores, float32, as fold_dq_tf32
   fold_chain   the split-KV chain and finalize of any of the three: one
                ``__global__`` function for the softmax pair (counted as
                ``fold_chain``) and one for the sums of the two backward
@@ -25,9 +26,9 @@ fold (``core/scan/assoc``):
 
 ``fold_form`` chooses between the SIMT and tensor-core form of a fold
 from dtype, head dim and block sizes: bfloat16 takes the tensor-core form
-wherever that form's tiling takes the shape, float32 dk/dv the 3xTF32
-form at head dims 64 and 128, and every other float32 fold SIMT (its
-products stay float32). ``fold`` runs the carry schedule (one
+wherever that form's tiling takes the shape, float32 dq and dk/dv the
+3xTF32 forms at head dims 64, 128 and 256, and every other float32 fold
+SIMT (its products stay float32). ``fold`` runs the carry schedule (one
 launch that finalizes), ``fold_totals`` the split pass of the decoupled
 schedule (each chunk of the fold axis publishes its payload) and
 ``chain`` its chain. Each wrapper checks device, dtype, contiguity and
@@ -54,10 +55,13 @@ SOURCE = cuda.SOURCE.parent / "attn_fold.cu"
 TC_SOURCE = cuda.SOURCE.parent / "attn_fold_tc.cu"
 BUILD_DIR = cuda.BUILD_DIR
 
-KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dq_tc", "fold_dkv",
-           "fold_dkv_tc", "fold_dkv_tf32", "fold_chain", "fold_chain_sum")
-# the forms built from attn_fold_tc.cu
-TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc", "fold_dkv_tf32")
+KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dq_tc",
+           "fold_dq_tf32", "fold_dkv", "fold_dkv_tc", "fold_dkv_tf32",
+           "fold_chain", "fold_chain_sum")
+# the forms built from attn_fold_tc.cu, and those of them taking float32
+TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dq_tf32", "fold_dkv_tc",
+            "fold_dkv_tf32")
+TF32_FORMS = ("fold_dq_tf32", "fold_dkv_tf32")
 # spec name -> (kernel, layout type, operand kinds)
 BWD_KINDS = ("q", "kv", "kv", "q", "qstat", "qstat", "qstat")
 SPECS = {
@@ -77,11 +81,15 @@ TC_DIMS = (64, 128, 256)
 TC_BK = (64, 128)
 TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
          "fold_dkv": (64, 128)}
-# The float32 dk/dv form: 64 kv rows a block and the whole d, chunks of
-# 32 q rows split into TF32 hi and lo tiles; d = 256 would not fit two
-# stages of them.
-TF32_DIMS = (64, 128)
+# The float32 (3xTF32) forms' head dims. dk/dv: 64 kv rows a block,
+# chunks of TF32_ROWS q rows split into TF32 hi and lo tiles, a stage the
+# whole d up to 128, else 64 columns (a chunk streams through four stages
+# for the scores, then four for the updates); dq: one 64-row q tile a
+# block, k and v streamed in stages of 32 columns, then 64 columns of k
+# for each dqᵀ tile.
+TF32_DIMS = (64, 128, 256)
 TF32_ROWS = 32   # q rows a chunk
+TF32_DQ_STAGES = {64: 5, 128: 4, 256: 2}
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use (227 KB)
 PANEL_BYTES = 64 * 128   # 64 rows of a 64-column bf16 box
 
@@ -161,8 +169,9 @@ def build_tc() -> ctypes.CDLL:
     so, log = cuda.compile_library(TC_SOURCE, BUILD_DIR)
     build_log_tc = log or build_log_tc
     lib = ctypes.CDLL(str(so))
-    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dkv_tc",
-                "attn_fold_dkv_tf32"), "attn_tc_error_string")
+    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dq_tf32",
+                "attn_fold_dkv_tc", "attn_fold_dkv_tf32"),
+          "attn_tc_error_string")
     _lib_tc = lib
     return lib
 
@@ -172,13 +181,13 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
     ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``,
-    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_dkv_tf32`` for float32
-    dk/dv with d in ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32
-    products keep ~22 bits of each operand, where the float32 bars against
-    the plain versions, 1e-5 / 1e-4, rule out bf16 or single TF32
-    products); else the SIMT kernel. A choice by shape: no form gives way
-    to another. Raises TypeError for a dtype no kernel takes and
-    ValueError past the kernels' range."""
+    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_dq_tf32`` /
+    ``fold_dkv_tf32`` for float32 dq / dk/dv with d in ``TF32_DIMS`` and
+    bk, bq in ``TC_BK`` (three TF32 products keep ~22 bits of each
+    operand, where the float32 bars against the plain versions, 1e-5 /
+    1e-4, rule out bf16 or single TF32 products); else the SIMT kernel.
+    A choice by shape: no form gives way to another. Raises TypeError for
+    a dtype no kernel takes and ValueError past the kernels' range."""
     if dtype not in DTYPE_CODES:
         raise TypeError(
             f"no CUDA fold kernel for {dtype}; supported: float32, "
@@ -190,9 +199,9 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     if (dtype == torch.bfloat16 and kernel in TC_BQ and d in TC_DIMS
             and bk in TC_BK and bq in TC_BQ[kernel]):
         return kernel + "_tc"
-    if (dtype == torch.float32 and kernel == "fold_dkv" and d in TF32_DIMS
-            and bk in TC_BK and bq in TC_BK):
-        return "fold_dkv_tf32"
+    if (dtype == torch.float32 and kernel in ("fold_dq", "fold_dkv")
+            and d in TF32_DIMS and bk in TC_BK and bq in TC_BK):
+        return kernel + "_tf32"
     return kernel
 
 
@@ -216,13 +225,25 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
     (``Tf32DkvTiles``) is laid out the same way in float32 with chunks of
     ``TF32_ROWS`` q rows: a stage holds the chunk's q and dO each as TF32
     hi and lo tiles beside their rows' (m, l, delta), and the four
-    [64 kv][32 q] tiles are pᵀ and p·g / dsᵀ as hi and lo."""
-    if form == "fold_dkv_tf32":
+    [64 kv][32 q] tiles are pᵀ and p·g / dsᵀ as hi and lo; at d = 256 a
+    stage holds 64 of the chunk's columns, a chunk streaming through four
+    stages for sᵀ and dpᵀ and then four, raw, for the updates of its four
+    64-row tiles of dkᵀ and dvᵀ. The float32 dq block (``Tf32DqTiles``)
+    keeps its 64-row q and dO tiles in float32 beside ds as TF32 hi and
+    lo ([64 q][64 kv] each); a stage is 32 columns of a 64-row kv tile's k
+    and of its v (each split into hi, over the raw floats, and lo), or 64
+    columns of k for each warpgroup's dqᵀ tile."""
+    if form in TF32_FORMS:
         if d not in TF32_DIMS:
-            raise ValueError(f"fold_dkv_tf32 takes d in {TF32_DIMS}")
-        stages = 4 if d == 64 else 2
-        stage = 4 * TF32_ROWS * d * 4 + 3 * TF32_ROWS * 4
-        resident = 2 * 64 * d * 4 + 4 * 64 * TF32_ROWS * 4
+            raise ValueError(f"{form} takes d in {TF32_DIMS}")
+        if form == "fold_dq_tf32":
+            stages, stage = TF32_DQ_STAGES[d], 4 * 64 * 32 * 4
+            resident = 2 * 64 * d * 4 + 4 * 64 * 32 * 4
+        else:
+            stages = 4 if d == 64 else 2
+            chunk = d if d < 256 else 64   # the chunk's columns a stage
+            stage = 4 * TF32_ROWS * chunk * 4 + 3 * TF32_ROWS * 4
+            resident = 2 * 64 * d * 4 + 4 * 64 * TF32_ROWS * 4
         return dict(warpgroups=2, threads=256, stages=stages,
                     stage_bytes=stage,
                     smem=1024 + resident + stages * stage
@@ -316,7 +337,7 @@ def _check(spec, operands, layout, form=None):
     elif not form.startswith(kernel) or form not in KERNELS:
         raise ValueError(f"{form!r} is not a form of {kernel}")
     elif form != chosen and form in TC_FORMS and x.dtype != (
-            torch.float32 if form == "fold_dkv_tf32" else torch.bfloat16):
+            torch.float32 if form in TF32_FORMS else torch.bfloat16):
         raise TypeError(f"{form} does not take {x.dtype} operands")
     if layout.splits > MAX_SPLITS:
         raise ValueError(f"{layout.splits} splits exceed one launch grid")

@@ -27,7 +27,10 @@ fold_dq_tc, fold_dkv_tc: bf16 operands, p and ds as bf16 hi + lo before
 their products, float32 accumulators) meet the same bf16 bar over head
 dims 64, 128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups,
 both schedules and packed decode tiles, and the same bitwise invariants;
-float32 still takes the SIMT kernels. The chain over chunk totals (a
+the float32 dq and dk/dv forms (fold_dq_tf32, fold_dkv_tf32: three TF32
+products a product) meet the float32 gradient bar at head dims 64, 128
+and 256 against the plain folds and the SIMT kernels launched by name,
+with the same bitwise invariants. The chain over chunk totals (a
 folding thread for float specs, a parallel scan for integer ones) must
 give ``exclusive_chain``'s bits. The sum's and the mask's Rows totals
 (``totals_reduce_kernel``, the network's last element built as its tree)
@@ -1355,7 +1358,7 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
-    """float32 runs the SIMT forward and dq and the 3xTF32 dk/dv form,
+    """float32 runs the SIMT forward and the 3xTF32 dq and dk/dv forms,
     bfloat16 the bf16 tensor-core forms, at the same d = 128 shape;
     float16 is refused."""
     x = torch.ones((1, 2, 256, 128), dtype=dtype, device=cuda_device)
@@ -1371,13 +1374,15 @@ def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
     assert cuda_fold.LAUNCHES["fold_fwd"] == int(not tc)
     assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == int(not tc)
     assert cuda_fold.LAUNCHES["fold_dkv"] == 0
-    assert cuda_fold.LAUNCHES["fold_dq"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dq_tf32"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_dq"] == 0
     with pytest.raises(TypeError, match="no CUDA fold kernel"):
         fa_ops.flash_attention(x.half(), x.half(), x.half())
 
 
 # ---------------------------------------------------------------------------
-# fold_dkv_tf32: float32 dk/dv on the tensor cores (csrc/attn_fold_tc.cu)
+# fold_dq_tf32, fold_dkv_tf32: float32 dq and dk/dv on the tensor cores
+# (csrc/attn_fold_tc.cu)
 # ---------------------------------------------------------------------------
 
 TF32_CASES = [
@@ -1392,6 +1397,13 @@ TF32_CASES = [
      64),
     ("d64_bq64_cap_kv_tail", 2, 1, 192, 384, 64, True, None, 290, 50.0, 64,
      128),
+    # d = 256: dk / dv streams a chunk in eight stages and accumulates
+    # without a cell element; dq's k and v in eight stages a kv tile and
+    # two dqᵀ tiles a warpgroup
+    ("d256_gqa2_causal_cap", 1, 2, 256, 256, 256, True, None, None, 50.0,
+     128, 128),
+    ("d256_bq64_bk64_window_kv_tail", 2, 1, 192, 320, 256, True, 96, 290,
+     None, 64, 64),
 ]
 
 
@@ -1410,25 +1422,25 @@ def _tf32_inputs(case):
     return (q, k, v, go, m, l, delta), kw
 
 
-@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
-@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
-def test_cuda_tf32_dkv_vs_plain(cuda_device, case, schedule):
-    """fold_dkv_tf32 (the float32 dk/dv fold at d 64 and 128, bq and bk 64
-    or 128) against the plain fold on CPU copies of the same float32
-    inputs, within the reference tests' gradient bar (atol 1e-4, rtol
-    1e-4), one launch, under the carry fold and the split pass (held to
-    the plain split pass, then the chain); dq stays on the SIMT kernel."""
+def _tf32_vs_plain(kernel, case, schedule):
+    """The 3xTF32 form of ``kernel`` ("fold_dq" or "fold_dkv") against the
+    plain fold on CPU copies of the same float32 inputs, within the
+    reference tests' gradient bar, one launch and none of the SIMT
+    kernel: the carry fold, or the split pass (held to the plain split
+    pass) and its chain."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         backward_folds)
     from repro_torch.kernels.scan_engine import schedules
     ops_, kw = _tf32_inputs(case)
-    d = case[5]
-    assert cuda_fold.fold_form("fold_dkv", torch.float32, d, case[10],
-                               case[11]) == "fold_dkv_tf32"
+    form = kernel + "_tf32"
+    assert cuda_fold.fold_form(kernel, torch.float32, case[5], case[10],
+                               case[11]) == form
     shapes = (ops_[0].shape, ops_[1].shape)
-    _, (spec, lay) = backward_folds(*shapes, schedule=schedule, **kw)
+    folds = backward_folds(*shapes, schedule=schedule, **kw)
+    spec, lay = folds[kernel == "fold_dkv"]
     cpu = tuple(t.cpu() for t in ops_)
     grad_tol = ATTN_TOL[torch.float32][1]
+    out_dts = (torch.float32,) * len(lay.out_dims)
     cuda_fold.reset_launches()
     if schedule == "carry":
         got = cuda_fold.fold(spec, ops_, lay)[0]
@@ -1438,15 +1450,34 @@ def test_cuda_tf32_dkv_vs_plain(cuda_device, case, schedule):
         w_tot = schedules.fold_totals_plain(cpu, spec, lay)
         for a, b in zip(tot, w_tot):
             assert _allclose(a, b, grad_tol)
-        got = cuda_fold.chain(spec, tot, lay, (torch.float32,) * 2)
-        want = schedules.fold_finalize_plain(spec, lay, w_tot,
-                                             (torch.float32,) * 2)
+        got = cuda_fold.chain(spec, tot, lay, out_dts)
+        want = schedules.fold_finalize_plain(spec, lay, w_tot, out_dts)
     torch.cuda.synchronize()
-    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == 1
-    assert cuda_fold.LAUNCHES["fold_dkv"] == 0
+    assert cuda_fold.LAUNCHES[form] == 1
+    assert cuda_fold.LAUNCHES[kernel] == 0
+    assert len(got) == len(want) == len(out_dts)
     for a, b in zip(got, want):
         assert a.dtype == torch.float32
         assert _allclose(a, b, grad_tol), (a.cpu() - b).abs().max().item()
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_cuda_tf32_dkv_vs_plain(cuda_device, case, schedule):
+    """fold_dkv_tf32 (the float32 dk/dv fold at d 64, 128 and 256, bq and
+    bk 64 or 128) against the plain fold within the reference tests'
+    gradient bar (atol 1e-4, rtol 1e-4), under the carry fold and the
+    split pass."""
+    _tf32_vs_plain("fold_dkv", case, schedule)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_cuda_tf32_dq_vs_plain(cuda_device, case, schedule):
+    """fold_dq_tf32 (the float32 dq fold at d 64, 128 and 256, bq and bk
+    64 or 128) against the plain fold within the same bar, under the
+    carry fold and the split pass."""
+    _tf32_vs_plain("fold_dq", case, schedule)
 
 
 @pytest.mark.parametrize("schedule", ("carry", "decoupled"))
@@ -1489,3 +1520,83 @@ def test_cuda_tf32_dkv_against_simt(cuda_device):
         assert _allclose(a, b, ATTN_TOL[torch.float32][1])
     with pytest.raises(TypeError, match="does not take"):
         cuda_fold.fold(spec, ops_, lay, form="fold_dkv_tc")
+
+
+# one case of each head dim: d 64, 128 and 256
+TF32_BY_D = [TF32_CASES[3], TF32_CASES[1], TF32_CASES[6]]
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_BY_D, ids=[c[0] for c in TF32_BY_D])
+def test_cuda_tf32_bitwise_invariants_by_d(cuda_device, case, schedule):
+    """fold_dq_tf32 and fold_dkv_tf32 give the same bits with bounds on
+    and off and on repeats over outputs whose memory held NaN, and the dq
+    fold through a page-permuted pool (kv_block_map) gives the contiguous
+    pool's bits, at each head dim."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    ops_, kw = _tf32_inputs(case)
+    kw = dict(kw, schedule=schedule)
+    cuda_fold.reset_launches()
+    on = flash_attention_bwd_kernel(*ops_, **kw)
+    assert cuda_fold.LAUNCHES["fold_dq_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq"] == cuda_fold.LAUNCHES["fold_dkv"] == 0
+    off = flash_attention_bwd_kernel(*ops_, use_kv_bounds=False, **kw)
+    for a, b in zip(on, off):
+        assert _same_bits(a, b)
+    for _ in range(3):
+        junk = [torch.full((n,), float("nan"), device=cuda_device)
+                for n in (1 << 12, 1 << 16, 1 << 20) for _ in range(4)]
+        del junk
+        again = flash_attention_bwd_kernel(*ops_, **kw)
+        for a, b in zip(on, again):
+            assert _same_bits(a, b)
+    q, k, v = ops_[:3]
+    bk = kw["block_k"]
+    pages = k.shape[1] // bk
+    rng = np.random.default_rng(pages)
+    perm = torch.from_numpy(rng.permutation(pages))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(pages)
+
+    def permuted(t):
+        return t.view(t.shape[0], pages, bk, t.shape[2])[
+            :, inv.to(cuda_device)].reshape(t.shape)
+
+    (sq, lq), _ = backward_folds(q.shape, k.shape, **kw)
+    lq_p = dataclasses.replace(lq, kv_block_map=perm.to(torch.int32).to(
+        cuda_device))
+    ops_p = (q, permuted(k), permuted(v)) + tuple(ops_[3:])
+    if schedule == "carry":
+        assert _same_bits(cuda_fold.fold(sq, ops_p, lq_p)[0][0],
+                          cuda_fold.fold(sq, ops_, lq)[0][0])
+    else:
+        assert _same_bits(cuda_fold.fold_totals(sq, ops_p, lq_p)[0],
+                          cuda_fold.fold_totals(sq, ops_, lq)[0])
+
+
+TF32_VS_SIMT = [("fold_dq", c) for c in TF32_BY_D] + [
+    ("fold_dkv", TF32_BY_D[2])]
+
+
+@pytest.mark.parametrize("kernel,case", TF32_VS_SIMT,
+                         ids=[f"{k}-{c[0]}" for k, c in TF32_VS_SIMT])
+def test_cuda_tf32_against_simt_by_d(cuda_device, kernel, case):
+    """The 3xTF32 form and the SIMT kernel launched by name agree within
+    the float32 gradient bar, each counting its own launch: dq at d 64,
+    128 and 256, dk/dv at d 256."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    ops_, kw = _tf32_inputs(case)
+    folds = backward_folds(ops_[0].shape, ops_[1].shape, **kw)
+    spec, lay = folds[kernel == "fold_dkv"]
+    cuda_fold.reset_launches()
+    tf32 = cuda_fold.fold(spec, ops_, lay)[0]
+    simt = cuda_fold.fold(spec, ops_, lay, form=kernel)[0]
+    assert cuda_fold.LAUNCHES[kernel + "_tf32"] == 1
+    assert cuda_fold.LAUNCHES[kernel] == 1
+    for a, b in zip(tf32, simt):
+        assert _allclose(a, b, ATTN_TOL[torch.float32][1])
+    with pytest.raises(TypeError, match="does not take"):
+        cuda_fold.fold(spec, ops_, lay, form=kernel + "_tc")

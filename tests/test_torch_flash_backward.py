@@ -14,6 +14,8 @@ Tolerances are the reference tests' own: 1e-4 for float32 gradients
 exactly 0 and zero gradients, and the bounds knob must not move a bit.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -232,26 +234,27 @@ def test_autograd_function_paths():
            plain, 2e-3)
 
 
-# float32 dk/dv on the tensor cores (fold_dkv_tf32): its arithmetic, three
-# TF32 products a product (cuda_fold.matmul_3xtf32), through the plain
-# dk/dv fold against the reference. (name, Hkv, group, Tq, Tk, D, causal,
-# window, softcap, kv_len, bq, bk)
+# float32 dq and dk/dv on the tensor cores (fold_dq_tf32, fold_dkv_tf32):
+# their arithmetic, three TF32 products a product
+# (cuda_fold.matmul_3xtf32), through the plain dq and dk/dv folds against
+# the reference. (name, Hkv, group, Tq, Tk, D, causal, window, softcap,
+# kv_len, bq, bk)
 TF32_CONFIGS = [
     ("causal_gqa2", 2, 2, 256, 256, 32, True, None, None, None, 128, 128),
     ("window_bq64", 1, 2, 256, 256, 64, True, 96, None, None, 64, 64),
     ("softcap_gqa4", 1, 4, 256, 256, 32, True, None, 20.0, None, 128, 64),
     ("noncausal_kv_tail", 2, 1, 128, 256, 64, False, None, None, 200, 64,
      128),
+    ("d256_softcap_gqa2", 1, 2, 128, 256, 256, True, None, 50.0, None, 128,
+     128),
 ]
 
 
-def _tf32_case(cfg, matmul):
-    """(port dk, dv through the plain fold with ``matmul``, reference dk,
-    dv), both schedules' folds for the port."""
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        backward_folds)
-    from repro_torch.kernels.scan_engine import schedules
-    from repro_torch.core.scan.assoc import softmax_pair_bwd_dkv_kernel_spec
+@functools.lru_cache(maxsize=None)
+def _tf32_reference(cfg):
+    """The float32 operands (q, k, v, dO, m, l, delta) of ``cfg`` from
+    seeded numpy and the port's forward, the keywords, and the
+    reference's (dq, dk, dv)."""
     name, hkv, g, tq, tk, d, causal, window, softcap, kv_len, bq, bk = cfg
     rng = np.random.default_rng(sum(map(ord, name)))
     q, do = (rng.standard_normal((hkv * g, tq, d)).astype(np.float32)
@@ -265,19 +268,35 @@ def _tf32_case(cfg, matmul):
     m, l = m.numpy(), l.numpy()
     delta = (do * out.numpy()).sum(-1, keepdims=True)
     ops_ = (q, k, v, do, m, l, delta)
+    want = j_bwd_kernel(*(jnp.asarray(x) for x in ops_), interpret=True,
+                        **kw)
+    return ops_, kw, tuple(np.asarray(w) for w in want)
+
+
+def _tf32_case(cfg, matmul, which="dkv"):
+    """(the port's dk, dv — or dq — through the plain fold with
+    ``matmul``, by schedule, and the reference's)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds)
+    from repro_torch.kernels.scan_engine import schedules
+    from repro_torch.core.scan.assoc import (
+        softmax_pair_bwd_dkv_kernel_spec, softmax_pair_bwd_dq_kernel_spec)
+    ops_, kw, want = _tf32_reference(cfg)
     cfg_ = {n: kw[n] for n in ("scale", "causal", "window", "softcap",
                                "kv_len", "block_q", "block_k")}
-    spec = softmax_pair_bwd_dkv_kernel_spec(matmul=matmul, **cfg_)
+    make = (softmax_pair_bwd_dq_kernel_spec if which == "dq"
+            else softmax_pair_bwd_dkv_kernel_spec)
+    spec = make(matmul=matmul, **cfg_)
     tops = tuple(torch.from_numpy(x) for x in ops_)
     got = {}
     for s in SCHEDULES:
-        _, (_, lay) = backward_folds(q.shape, k.shape, schedule=s, **kw)
+        folds = backward_folds(ops_[0].shape, ops_[1].shape, schedule=s,
+                               **kw)
+        _, lay = folds[which == "dkv"]
         fold = (schedules.fold_carry_plain if s == "carry"
                 else schedules.fold_decoupled_plain)
         got[s] = fold(tops, spec, lay)
-    want = j_bwd_kernel(*(jnp.asarray(x) for x in ops_), interpret=True,
-                        **kw)[1:]
-    return got, want
+    return got, (want[:1] if which == "dq" else want[1:])
 
 
 @pytest.mark.parametrize("cfg", TF32_CONFIGS, ids=[c[0] for c in TF32_CONFIGS])
@@ -292,6 +311,20 @@ def test_3xtf32_dkv_meets_the_reference_bar(cfg):
         for leaf, (a, b) in enumerate(zip(got[s], want)):
             assert bool(torch.isfinite(a).all())
             _close(a, b, GRAD_TOL, f"{cfg[0]}/{s} leaf {leaf}")
+
+
+@pytest.mark.parametrize("cfg", TF32_CONFIGS, ids=[c[0] for c in TF32_CONFIGS])
+def test_3xtf32_dq_meets_the_reference_bar(cfg):
+    """dq with the cell's three products (s, dp and ds·k) each as three
+    TF32 products of the split operands (fold_dq_tf32's arithmetic) meets
+    the reference tests' float32 gradient bar against the reference's
+    dq, under the carry fold and the split pass with its chain."""
+    from repro_torch.kernels.scan_engine import cuda_fold
+    got, want = _tf32_case(cfg, cuda_fold.matmul_3xtf32, "dq")
+    for s in SCHEDULES:
+        assert len(got[s]) == len(want) == 1
+        assert bool(torch.isfinite(got[s][0]).all())
+        _close(got[s][0], want[0], GRAD_TOL, f"{cfg[0]}/{s} dq")
 
 
 def test_one_tf32_product_misses_the_bar():

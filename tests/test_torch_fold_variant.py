@@ -29,19 +29,29 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_dkv", BF16, 256, 128, 128, "fold_dkv_tc"),
     ("fold_dkv", BF16, 64, 64, 64, "fold_dkv_tc"),
     ("fold_fwd", F32, 128, 128, 128, "fold_fwd"),       # float32: SIMT
-    ("fold_dkv", F32, 256, 128, 128, "fold_dkv"),       # d 256: SIMT
+    ("fold_fwd", F32, 256, 128, 128, "fold_fwd"),
+    ("fold_dkv", F32, 256, 128, 128, "fold_dkv_tf32"),  # gemma2 training
+    ("fold_dkv", F32, 256, 64, 64, "fold_dkv_tf32"),
     ("fold_dkv", F32, 128, 128, 128, "fold_dkv_tf32"),  # phi3 prefill
     ("fold_dkv", F32, 64, 64, 64, "fold_dkv_tf32"),
     ("fold_dkv", F32, 128, 64, 128, "fold_dkv_tf32"),
     ("fold_dkv", F32, 64, 128, 64, "fold_dkv_tf32"),
-    ("fold_dkv", F32, 32, 128, 128, "fold_dkv"),        # d not 64/128
+    ("fold_dkv", F32, 32, 128, 128, "fold_dkv"),        # d not 64/128/256
     ("fold_dkv", F32, 128, 8, 128, "fold_dkv"),         # bq 8
     ("fold_dkv", F32, 128, 128, 256, "fold_dkv"),       # bk 256
     ("fold_dq", BF16, 128, 128, 128, "fold_dq_tc"),
     ("fold_dq", BF16, 64, 128, 128, "fold_dq_tc"),
     ("fold_dq", BF16, 256, 128, 128, "fold_dq_tc"),
     ("fold_dq", BF16, 128, 64, 64, "fold_dq_tc"),
-    ("fold_dq", F32, 128, 128, 128, "fold_dq"),         # float32: SIMT
+    ("fold_dq", F32, 128, 128, 128, "fold_dq_tf32"),    # phi3 prefill
+    ("fold_dq", F32, 64, 128, 128, "fold_dq_tf32"),
+    ("fold_dq", F32, 256, 128, 128, "fold_dq_tf32"),    # gemma2 training
+    ("fold_dq", F32, 64, 64, 64, "fold_dq_tf32"),
+    ("fold_dq", F32, 128, 64, 128, "fold_dq_tf32"),
+    ("fold_dq", F32, 256, 128, 64, "fold_dq_tf32"),
+    ("fold_dq", F32, 32, 128, 128, "fold_dq"),          # d not 64/128/256
+    ("fold_dq", F32, 128, 8, 128, "fold_dq"),           # bq 8
+    ("fold_dq", F32, 256, 32, 64, "fold_dq"),           # bq 32
     ("fold_dq", BF16, 128, 8, 128, "fold_dq"),          # dq: bq 64/128
     ("fold_fwd", BF16, 32, 128, 128, "fold_fwd"),       # d not 64/128/256
     ("fold_fwd", BF16, 128, 128, 32, "fold_fwd"),       # bk not 64/128
@@ -119,26 +129,49 @@ def test_tf32_tiling_fits_shared_memory(d, bq):
     """``fold_dkv_tf32``'s block (``Tf32DkvTiles``) fits the 227 KB a
     block may use: k and v (64 rows x d float32), the four [64 kv][32 q]
     tiles of pᵀ and p·g / dsᵀ as TF32 hi and lo, and a ring of at least
-    two stages, each a 32-row chunk of q and dO as hi and lo beside the
-    rows' (m, l, delta), with its mbarriers."""
+    two stages, each a 32-row chunk of q and dO as hi and lo (the whole d
+    up to 128, 64 of its columns at d = 256) beside the rows' (m, l,
+    delta), with its mbarriers."""
     t = cuda_fold.tc_tiling("fold_dkv_tf32", d, bq)
     rows = cuda_fold.TF32_ROWS
+    chunk = d if d <= 128 else 64
     assert bq % rows == 0
     assert t["warpgroups"] == 2 and t["threads"] == 256
     assert t["stages"] >= 2
-    assert t["stage_bytes"] == 4 * rows * d * 4 + 3 * rows * 4
+    assert t["stage_bytes"] == 4 * rows * chunk * 4 + 3 * rows * 4
     assert t["smem"] == (1024 + 2 * 64 * d * 4 + 4 * 64 * rows * 4
                          + t["stages"] * t["stage_bytes"]
                          + 8 * (2 * t["stages"] + 1))
     assert t["smem"] <= cuda_fold.SMEM_LIMIT
-    # one stage more would not fit at d = 128
-    if d == 128:
+    # one stage more would not fit at d = 128 and 256
+    if d >= 128:
         assert t["smem"] + t["stage_bytes"] + 16 > cuda_fold.SMEM_LIMIT
 
 
-def test_tf32_tiling_refuses_d256():
-    with pytest.raises(ValueError, match="fold_dkv_tf32"):
-        cuda_fold.tc_tiling("fold_dkv_tf32", 256, 128)
+@pytest.mark.parametrize("d", cuda_fold.TF32_DIMS)
+@pytest.mark.parametrize("bq", cuda_fold.TC_BK)
+def test_tf32_dq_tiling_fits_shared_memory(d, bq):
+    """``fold_dq_tf32``'s block (``Tf32DqTiles``) fits the 227 KB a block
+    may use: the 64-row q and dO tiles in float32, ds as TF32 hi and lo
+    ([64 q][64 kv] each), and a ring of as many 32 KB stages as fit, at
+    least two (a stage: 32 columns of a 64-row kv tile's k and of its v,
+    each as hi and lo, or 64 columns of k for each warpgroup's dqᵀ
+    tile), with its mbarriers."""
+    t = cuda_fold.tc_tiling("fold_dq_tf32", d, bq)
+    assert t["warpgroups"] == 2 and t["threads"] == 256
+    assert t["stages"] >= 2
+    assert t["stage_bytes"] == 4 * 64 * 32 * 4 == 2 * 64 * 64 * 4
+    assert t["smem"] == (1024 + 2 * 64 * d * 4 + 2 * 64 * 64 * 4
+                         + t["stages"] * t["stage_bytes"]
+                         + 8 * (2 * t["stages"] + 1))
+    assert t["smem"] <= cuda_fold.SMEM_LIMIT
+    assert t["smem"] + t["stage_bytes"] + 16 > cuda_fold.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("form", ("fold_dq_tf32", "fold_dkv_tf32"))
+def test_tf32_tiling_refuses_other_dims(form):
+    with pytest.raises(ValueError, match=form):
+        cuda_fold.tc_tiling(form, 32, 128)
 
 
 def test_tc_tiling_refuses_other_kernels():
