@@ -11,12 +11,13 @@ first failure and prints no result):
      ``attn_fold.cu`` and ``attn_fold_tc.cu`` with ``nvcc`` for ``sm_90a``,
      one process each, together (their seconds and ptxas reports; the
      tensor-core kernels one by one, and none may spill: fold_dq_tc's,
-     fold_dq_tf32's and fold_dkv_tf32's three instantiations each, d =
-     64, 128 and 256, among them; the 104 kernels of the register network,
-     carry_reg_kernel, apply_reg_kernel, fused_reg_kernel and
-     tree_reg_kernel by spec and vector form, and the 18 of the affine
-     carry on Channels, carry_chan_reg_kernel, by dtype, tile and vector
-     form, none may spill either);
+     fold_fwd_tf32's, fold_dq_tf32's and fold_dkv_tf32's three
+     instantiations each, d = 64, 128 and 256, among them; the 104 kernels
+     of the register network, carry_reg_kernel, apply_reg_kernel,
+     fused_reg_kernel and tree_reg_kernel by spec and vector form, and the
+     18 each of the affine carry and fused on Channels,
+     carry_chan_reg_kernel and fused_chan_reg_kernel, by dtype, tile and
+     vector form, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -51,11 +52,12 @@ first failure and prints no result):
      register kernels while block_n 200 and Channels launch
      ``carry_kernel`` / ``apply_kernel`` / ``fused_kernel`` /
      ``tree_kernel`` (the networks in shared memory), but the affine
-     carry on Channels, which launches ``carry_chan_reg_kernel``; and
-     that kernel at time tiles of 128, 256 and 512 steps over three
-     shapes and three dtypes, outputs and running totals bitwise equal to
-     ``carry_plain``, decoupled == carry == fused, inclusive and
-     exclusive, aligned and one element off;
+     carry and fused on Channels, which launch ``carry_chan_reg_kernel``
+     and ``fused_chan_reg_kernel``; and those kernels at time tiles of
+     128, 256 and 512 steps over three shapes and three dtypes, outputs
+     and running totals bitwise equal to ``carry_plain``, decoupled ==
+     carry == fused == the shared-memory ``fused_kernel`` launched by name,
+     inclusive and exclusive, aligned and one element off;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -113,14 +115,16 @@ first failure and prints no result):
      are bitwise equal to the plain versions, the forward within 2e-4 of
      a float64 sequential recurrence; then each affine kernel's time
      (the carry, ``carry_chan_reg_kernel``, also from a CUDA graph replay,
-     beside the shared-memory ``carry_kernel`` it replaced, timed at the
-     same shape in the same run and held bitwise against it);
+     beside the shared-memory ``carry_kernel`` it replaced, and the fused,
+     ``fused_chan_reg_kernel``, beside the shared-memory ``fused_kernel``,
+     each timed at the same shape in the same run and held bitwise
+     against it);
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
      ``attn_fold_tc.cu``: fold_fwd_tc, fold_dq_tc and fold_dkv_tc, the
-     tensor-core forms bf16 takes, and fold_dq_tf32 and fold_dkv_tf32,
-     the 3xTF32 forms float32 dq and dk/dv take) through
+     tensor-core forms bf16 takes, and fold_fwd_tf32, fold_dq_tf32 and
+     fold_dkv_tf32, the 3xTF32 forms float32 takes) through
      ``repro_torch.kernels.flash_attention.flash_attention`` and autograd,
      at two models' full attention widths with random bf16 inputs:
      (f) gemma2-9b training, B 1 x T 8192, 16 q / 8 kv heads of 256,
@@ -132,27 +136,33 @@ first failure and prints no result):
      float32, and (f)'s global layer once more in float32. The launch
      counters are zeroed before and read after, and all eight counters of
      the path must have moved: each bf16 call through the tensor-core
-     forms, the float32 ones through the SIMT forward and the 3xTF32
+     forms, the float32 ones through the 3xTF32 ``fold_fwd_tf32``,
      ``fold_dq_tf32`` and ``fold_dkv_tf32`` (d = 128 at (h), 256 at
-     (f)); the SIMT dq and dk/dv, off the path now, must not have. The
+     (f)); the SIMT forward, dq and dk/dv, off the path now, must not
+     have. The
      folds' specs and layouts come from the entry points' own builders
      (``forward_fold``, ``backward_folds``,
      ``ops.kernel_inputs``). Gates: each kernel, each chain per spec
      included, against its plain version in float32 at the (f), (g) and
      (h) shapes (1e-5 forward, 1e-4 gradients: the reference tests'
-     tolerances; the float32 dq and dk/dv under the carry fold and the
-     split pass at (f) and (h)) and in bf16 at the timed shapes (atol
+     tolerances; the float32 forward, dq and dk/dv under the carry fold
+     and the split pass at (f) and (h): the forward's split pass by its
+     chunks' (m, l) and, through the chain, its outputs against the plain
+     folds, and its chunk payloads, acc included, against float64 on two
+     heads) and in bf16 at the timed shapes (atol
      1e-3, rtol two
      bf16 ulps); the (f) forward within 2e-3 of a float64 dense
      attention on two heads; carry == decoupled within 1e-5 (float32)
      and two bf16 ulps (bf16); use_kv_bounds
      on and off, and a page-permuted cache through kv_block_map against
-     the contiguous one, bitwise; count_cells equal to the analytic live
+     the contiguous one, bitwise (at (f) in bf16 and (g); the float32
+     ``fold_fwd_tf32`` at (h) and (f)); count_cells equal to the analytic
+     live
      cells; fully masked rows exactly 0 with zero gradients; then each
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
      ``scaled_dot_product_attention`` (not for gemma2's softcap); in
-     float32 the SIMT forward, ``fold_dq_tf32`` and ``fold_dkv_tf32``
+     float32 ``fold_fwd_tf32``, ``fold_dq_tf32`` and ``fold_dkv_tf32``
      are timed at (h) and (f), the 3xTF32 forms at (h) also from a CUDA
      graph replay, each beside the SIMT kernel it replaced, launched by
      name at the same shape in the same run; one ``torch.profiler``
@@ -166,6 +176,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -494,29 +505,31 @@ def main() -> int:
         check(len(regk) == 104 and not reg_spills,
               f"ptxas: register network {len(regk)} kernels, spills in "
               f"{reg_spills}")
-    # the affine carry on Channels in registers (carry_chan_reg_kernel) by
-    # dtype, slots a lane (bt / 32) and vector form: registers, spills
-    entry, chan, chan_spills = None, [], []
-    for line in cuda.build_log.splitlines():
-        if "Compiling entry function" in line:
-            found = re.search(r"carry_chan_reg_kernelI(f|13__nv_bfloat16|"
-                              r"6__half)Li(\d+)ELb([01])E", line)
-            dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
-            entry = found and f"<{dt[found[1]]}, {found[2]}, {found[3]}>"
-        elif entry and "spill stores" in line:
-            if spilled(line):
-                chan_spills.append(entry)
-        elif entry and "Used" in line and "registers" in line:
-            chan.append(f"{entry} "
-                        f"{line.split('Used')[1].split('registers')[0].strip()}")
-            entry = None
-    if chan:   # a cached build in build/ prints no report
-        print(f"  ptxas carry_chan_reg_kernel ({len(chan)} kernels: dtype, "
-              f"bt / 32, vector form): {', '.join(chan)}; with spills: "
-              f"{chan_spills or 'none'}")
-        check(len(chan) == 18 and not chan_spills,
-              f"ptxas: carry_chan_reg_kernel {len(chan)} kernels, spills in "
-              f"{chan_spills}")
+    # the affine carry and fused on Channels in registers
+    # (carry_chan_reg_kernel, fused_chan_reg_kernel) by dtype, slots a lane
+    # (bt / 32) and vector form: registers, spills
+    for kname in ("carry_chan_reg_kernel", "fused_chan_reg_kernel"):
+        entry, chan, chan_spills = None, [], []
+        for line in cuda.build_log.splitlines():
+            if "Compiling entry function" in line:
+                found = re.search(kname + r"I(f|13__nv_bfloat16|"
+                                  r"6__half)Li(\d+)ELb([01])E", line)
+                dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+                entry = found and f"<{dt[found[1]]}, {found[2]}, {found[3]}>"
+            elif entry and "spill stores" in line:
+                if spilled(line):
+                    chan_spills.append(entry)
+            elif entry and "Used" in line and "registers" in line:
+                used = line.split('Used')[1].split('registers')[0].strip()
+                chan.append(f"{entry} {used}")
+                entry = None
+        if chan:   # a cached build in build/ prints no report
+            print(f"  ptxas {kname} ({len(chan)} kernels: dtype, bt / 32, "
+                  f"vector form): {', '.join(chan)}; with spills: "
+                  f"{chan_spills or 'none'}")
+            check(len(chan) == 18 and not chan_spills,
+                  f"ptxas: {kname} {len(chan)} kernels, spills in "
+                  f"{chan_spills}")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
     entry, tc_spills, tc_entries = None, 0, []
     for line in cuda_fold.build_log_tc.splitlines():
@@ -543,6 +556,9 @@ def main() -> int:
                           ("fold_dq_tc", 256, 128),
                           ("fold_dkv_tc", 128, 128),
                           ("fold_dkv_tc", 256, 128),
+                          ("fold_fwd_tf32", 64, 128),
+                          ("fold_fwd_tf32", 128, 128),
+                          ("fold_fwd_tf32", 256, 128),
                           ("fold_dq_tf32", 64, 128),
                           ("fold_dq_tf32", 128, 128),
                           ("fold_dq_tf32", 256, 128),
@@ -562,7 +578,10 @@ def main() -> int:
                                "fold_dkv_tf32_kernel<64>",
                                "fold_dq_tf32_kernel<128>",
                                "fold_dq_tf32_kernel<256>",
-                               "fold_dq_tf32_kernel<64>"],
+                               "fold_dq_tf32_kernel<64>",
+                               "fold_fwd_tf32_kernel<128>",
+                               "fold_fwd_tf32_kernel<256>",
+                               "fold_fwd_tf32_kernel<64>"],
               f"ptxas reported the 3xTF32 forms as {tf32_entries}")
         print(f"  ptxas: {len(tc_entries)} tensor-core kernels, "
               f"{', '.join(dq_entries + tf32_entries)} among them, none "
@@ -828,8 +847,8 @@ def main() -> int:
             names = {}
             for e in prof.key_averages():
                 found = re.search(
-                    r"((carry_chan|carry|apply|fused|tree)(_reg)?_kernel)<",
-                    e.key)
+                    r"((carry_chan|fused_chan|carry|apply|fused|tree)(_reg)?"
+                    r"_kernel)<", e.key)
                 if e.device_type == torch.autograd.DeviceType.CUDA and found:
                     names[found[1]] = names.get(found[1], 0) + e.count
             if sum(names.values()) >= len(NET_KERNELS) * len(calls):
@@ -902,15 +921,15 @@ def main() -> int:
     # the shared-memory kernels: Rows tiles of 200 elements bitwise against
     # the plain versions (every schedule), and by the profiler's names with
     # Channels (the affine pair's kernels are held bitwise below): every
-    # Channels launch but the affine carry, which takes
-    # carry_chan_reg_kernel
+    # Channels launch but the affine carry and fused, which take
+    # carry_chan_reg_kernel and fused_chan_reg_kernel
     calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
              (SEGSUM, (ones[:, :600].contiguous(),
                        zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
              (SUM, (ones_c,), chan), (AFFINE, (ones_c, ones_c), chan))
     for spec, _, lay in calls:
         for k in NET_KERNELS:
-            net = ("register" if spec is AFFINE and k == "carry"
+            net = ("register" if spec is AFFINE and k in ("carry", "fused")
                    else "shared")
             check(cuda.tile_network(spec, lay, k) == net,
                   f"tile_network {spec.name} {lay} {k}")
@@ -926,7 +945,8 @@ def main() -> int:
                             f"bn 200 excl={exclusive}", exclusive)
     names = launched_names(calls)
     want = {f"{k}_kernel": len(calls) for k in NET_KERNELS}
-    want.update(carry_kernel=len(calls) - 1, carry_chan_reg_kernel=1)
+    want.update(carry_kernel=len(calls) - 1, carry_chan_reg_kernel=1,
+                fused_kernel=len(calls) - 1, fused_chan_reg_kernel=1)
     check(names == want, f"bn 200 and Channels launched {names}, not {want}")
     print(f"phase 2 (register network): {n_reg} checks (carry + fused + "
           "tree + decoupled launch sets at bn 128, 2048, 2176, 16384, "
@@ -934,8 +954,8 @@ def main() -> int:
           "equal to the plain versions, carry == decoupled == fused; by the "
           "profiler, bn 200 on Rows (sum, segsum) and Channels (sum, affine) "
           "launch carry_kernel / apply_kernel / fused_kernel / tree_kernel "
-          "(the networks in shared memory), but the affine carry on "
-          "Channels, carry_chan_reg_kernel")
+          "(the networks in shared memory), but the affine carry and fused "
+          "on Channels, carry_chan_reg_kernel and fused_chan_reg_kernel")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -956,18 +976,21 @@ def main() -> int:
     print(f"phase 2 (affine): {n_aff} schedule runs, outputs and running "
           "totals bitwise equal to the plain versions")
 
-    # the affine carry on Channels in registers (carry_chan_reg_kernel) at
-    # time tiles of 128, 256 and 512 steps: outputs and running totals
-    # bitwise equal to carry_plain, and decoupled == carry == fused,
-    # inclusive and exclusive, from aligned bases and one element off, on
-    # gates with negative and signed-zero values and offsets with -0.0 at
-    # every tile start (g_red's generator); the profiler names the kernel
+    # the affine carry and fused on Channels in registers
+    # (carry_chan_reg_kernel, fused_chan_reg_kernel) at time tiles of 128,
+    # 256 and 512 steps: outputs and running totals bitwise equal to
+    # carry_plain, and decoupled == carry == fused == the shared-memory
+    # fused_kernel launched by name, inclusive and exclusive, from aligned
+    # bases and one element off, on gates with negative and signed-zero
+    # values and offsets with -0.0 at every tile start (g_red's
+    # generator); the profiler names the kernels
     n_chan = 0
     for bt in cuda.CHAN_REG_TILES:
         for shape in ((2, 8 * bt, 48), (1, 4 * bt, 1024), (1, 2 * bt, 4)):
             lay = Channels(*shape, bt, shape[2])
-            check(cuda.tile_network(AFFINE, lay, "carry") == "register",
-                  f"tile_network affine carry {lay}")
+            check(cuda.tile_network(AFFINE, lay, "carry") == "register"
+                  and cuda.tile_network(AFFINE, lay, "fused") == "register",
+                  f"tile_network affine carry / fused {lay}")
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 a = 0.6 + 0.4 * torch.rand(shape, device=dev, generator=g_red)
                 a[torch.rand(shape, device=dev, generator=g_red) < 0.05] *= -1
@@ -991,30 +1014,36 @@ def main() -> int:
                         (dec,) = schedules.scan_decoupled(
                             ops_o, AFFINE, lay, exclusive=exclusive)
                         sync()
-                        check(cuda.LAUNCHES["affine_carry"] == 1,
-                              f"affine carry {what}: {launched()}")
+                        check(cuda.LAUNCHES["affine_carry"] == 1
+                              and cuda.LAUNCHES["affine_fused"] == 1,
+                              f"affine carry / fused {what}: {launched()}")
+                        (fs,) = cuda.fused(AFFINE, ops_o, lay, exclusive,
+                                           network="shared")
                         check(same_bits(got, w_out)
                               and all_same_bits(run, w_run),
                               f"carry_chan_reg_kernel != carry_plain: {what}")
-                        check(same_bits(fo, got) and same_bits(dec, got),
-                              f"affine carry / decoupled / fused differ: "
-                              f"{what}")
+                        check(same_bits(fo, got) and same_bits(dec, got)
+                              and same_bits(fs, got),
+                              f"affine carry / decoupled / fused (register, "
+                              f"shared) differ: {what}")
                         n_chan += 1
-                        del ops_o, got, run, fo, dec
+                        del ops_o, got, run, fo, dec, fs
                     del w_out, w_run
         names = launched_names(((AFFINE, (a, b), lay),))
-        check(names.get("carry_chan_reg_kernel") == 1,
-              f"affine carry bt={bt} launched {names}")
+        check(names.get("carry_chan_reg_kernel") == 1
+              and names.get("fused_chan_reg_kernel") == 1,
+              f"affine carry / fused bt={bt} launched {names}")
         widths = [cuda.chan_reg_width(Channels(*sh, bt, sh[2]))
                   for sh in ((2, 8 * bt, 48), (1, 4 * bt, 1024),
                              (1, 2 * bt, 4))]
-        print(f"affine carry on Channels bt={bt} (carry_chan_reg_kernel by "
-              f"the profiler; strips of {widths} channels): == carry_plain "
-              "bitwise, carry == decoupled == fused")
-    print(f"phase 2 (affine register carry): {n_chan} checks (bt 128, 256, "
-          "512 x 3 shapes x 3 dtypes x inclusive / exclusive x aligned / "
-          "one element off), outputs and running totals bitwise equal to "
-          "carry_plain")
+        print(f"affine carry and fused on Channels bt={bt} "
+              "(carry_chan_reg_kernel and fused_chan_reg_kernel by the "
+              f"profiler; strips of {widths} channels): == carry_plain "
+              "bitwise, carry == decoupled == fused == shared fused_kernel")
+    print(f"phase 2 (affine register carry and fused): {n_chan} checks (bt "
+          "128, 256, 512 x 3 shapes x 3 dtypes x inclusive / exclusive x "
+          "aligned / one element off), outputs and running totals bitwise "
+          "equal to carry_plain")
 
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
@@ -1738,10 +1767,32 @@ def main() -> int:
                lambda: schedules.apply_plain((a, b), (ao, bo), AFFINE, lay_s),
                12 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
                f"{SSD_SHAPE} bt 256", aff_launches)
+    check(cuda.tile_network(AFFINE, lay_s, "fused") == "register",
+          "the SSD fused should take fused_chan_reg_kernel")
     kernel_row("affine_fused", lambda: cuda.fused(AFFINE, (a, b), lay_s),
                lambda: schedules.fused_plain((a, b), AFFINE, lay_s),
                12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
-               aff_launches)
+               aff_launches, graph=5)
+    # the shared-memory fused_kernel it replaced, at the same shape in the
+    # same run (a comparison: these launches come after the main path's),
+    # in turns: shared, register, register, shared
+    (fs,) = cuda.fused(AFFINE, (a, b), lay_s, network="shared")
+    (fr,) = cuda.fused(AFFINE, (a, b), lay_s)
+    (fc,), _ = cuda.carry(AFFINE, (a, b), lay_s)
+    check(same_bits(fs, fr) and same_bits(fr, fc),
+          "SSD fused: register != shared network / carry")
+    del fs, fr, fc
+    fu_ms = [time_ms(lambda: cuda.fused(AFFINE, (a, b), lay_s, network=net),
+                     5) for net in ("shared", None, None, "shared")]
+    carry_ms = next(r["ms"] for r in rows if r["name"] == "affine_carry")
+    print(f"  affine_fused at {SSD_SHAPE} bt 256 in the same run: "
+          f"fused_chan_reg_kernel ({cuda.chan_reg_width(lay_s)}-channel "
+          f"strips) {rows[-1]['ms']:.3f} / {fu_ms[1]:.3f} / {fu_ms[2]:.3f} "
+          f"ms, shared-memory fused_kernel ({cuda.channel_width(lay_s)}-"
+          f"channel strips) {fu_ms[0]:.3f} / {fu_ms[3]:.3f} ms, "
+          f"carry_chan_reg_kernel {carry_ms:.3f} ms; bound "
+          f"{rows[-1]['bound_ms']:.4f} ms; register == shared == carry "
+          "bitwise")
     kernel_row("affine_tree", lambda: cuda.tree(AFFINE, (a, b), lay_s)[0],
                lambda: schedules.tree_plain((a, b), AFFINE, lay_s),
                12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
@@ -1786,7 +1837,7 @@ def main() -> int:
     vh = normals((1, p_hkv, t_h, p_d), bf16).requires_grad_()
     goh = normals((1, p_hq, t_h, p_d), bf16)
     # (h) and (f)'s global layer in float32 too: a float32 caller takes the
-    # SIMT forward and the 3xTF32 dq and dk/dv (fold_dq_tf32,
+    # 3xTF32 forward, dq and dk/dv (fold_fwd_tf32, fold_dq_tf32,
     # fold_dkv_tf32) at d = 128 and 256
     qh32, kh32, vh32 = (t.detach().float().requires_grad_()
                         for t in (qh, kh, vh))
@@ -1857,24 +1908,25 @@ def main() -> int:
           + ", ".join(f"{m}/{s} x{n}" for (m, s), n in
                       sorted(attn_events.items()))
           + f"; peak memory {attn_peak / 2**30:.2f} GiB")
-    # the SIMT dq and dk/dv lie off the main path (float32 takes the
-    # 3xTF32 forms at d 128 and 256): they are launched by name below, to
-    # be timed beside those forms
-    simt_only = ("fold_dq", "fold_dkv")
+    # the SIMT forward, dq and dk/dv lie off the main path (float32 takes
+    # the 3xTF32 forms at d 128 and 256): they are launched by name below,
+    # to be timed beside those forms
+    simt_only = ("fold_fwd", "fold_dq", "fold_dkv")
     for k_ in cuda_fold.KERNELS:
         check((attn_launches[k_] > 0) != (k_ in simt_only),
               f"kernel {k_} launched {attn_launches[k_]} times on the "
               "attention path")
-    # bf16 calls run the tensor-core forms, float32 calls the SIMT forward
-    # and the 3xTF32 dq and dk/dv
+    # bf16 calls run the tensor-core forms, float32 calls the 3xTF32
+    # forward, dq and dk/dv
     for what, kernels in used.items():
         f32 = "float32" in what
-        fwd, dq, dkv = (("fold_fwd", "fold_dq_tf32", "fold_dkv_tf32") if f32
-                        else ("fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"))
+        fwd, dq, dkv = (("fold_fwd_tf32", "fold_dq_tf32", "fold_dkv_tf32")
+                        if f32 else ("fold_fwd_tc", "fold_dq_tc",
+                                     "fold_dkv_tc"))
         want = {fwd} if "forward" in what else {dq, dkv}
         others = {"fold_fwd", "fold_dq", "fold_dkv", "fold_fwd_tc",
-                  "fold_dq_tc", "fold_dkv_tc", "fold_dq_tf32",
-                  "fold_dkv_tf32"}
+                  "fold_dq_tc", "fold_dkv_tc", "fold_fwd_tf32",
+                  "fold_dq_tf32", "fold_dkv_tf32"}
         check(want <= kernels and not (kernels & others) - want,
               f"{what} launched {sorted(kernels)}, wants {sorted(want)}")
     print("fold kernels by call: " + "; ".join(
@@ -2034,6 +2086,69 @@ def main() -> int:
     want = schedules.fold_carry_plain(ops_c, spec_c, lay_c)
     ok, e_fwd = allclose(got, want, FWD_TOL)
     check(ok, f"fold_fwd f32 vs plain: {e_fwd}")
+
+    def fwd_split(spec, ops, lay, tag):
+        """The float32 forward's split pass: the chunks' (m, l) against the
+        plain split pass, and through the chain kernel (out, m, l) against
+        the plain decoupled fold, within FWD_TOL. The chunks' acc,
+        unnormalized and relative to each chunk's max, is held to float64
+        (fwd_split_f64): against the plain float32 products it measures
+        their rounding as well (on the card the plain payload lies
+        further from float64 than the 3xTF32 one). Returns the totals and
+        the two max |err|."""
+        tot = cuda_fold.fold_totals(spec, ops, lay)
+        w_tot = schedules.fold_totals_plain(ops, spec, lay)
+        ok, e_ml = allclose(tot[:2], w_tot[:2], FWD_TOL)
+        check(ok, f"{tag} split pass (m, l) vs plain: {e_ml}")
+        dts = (torch.float32,) * 3
+        ok, e_out = allclose(cuda_fold.chain(spec, tot, lay, dts),
+                             schedules.fold_finalize_plain(spec, lay, w_tot,
+                                                           dts), FWD_TOL)
+        check(ok, f"{tag} split pass + chain vs plain decoupled: {e_out}")
+        return tot, e_ml, e_out
+
+    def fwd_split_f64(ops, kw, tag):
+        """The split pass's chunk payloads (m, l, acc) of two q heads of
+        the first kv head against float64 within FWD_TOL; the plain
+        version's max |err| against float64 beside."""
+        q2, k1, v1 = ops[0][:2], ops[1][:1], ops[2][:1]
+        spec2, lay2 = forward_fold(q2.shape, k1.shape, schedule="decoupled",
+                                   return_stats=True, **dict(kw, group=2))
+        # rounded to float32: a fully masked chunk's m is NEG_INF there
+        want = tuple(w.float() for w in fa_ref.split_payload_ref(
+            q2.double(), k1.double(), v1.double(), spec2, lay2))
+        ok, e_k = allclose(cuda_fold.fold_totals(spec2, (q2, k1, v1), lay2),
+                           want, FWD_TOL)
+        check(ok, f"{tag} split payload vs float64: {e_k}")
+        _, e_p = allclose(schedules.fold_totals_plain((q2, k1, v1), spec2,
+                                                      lay2), want, FWD_TOL)
+        return e_k, e_p
+
+    # the global layer's split pass (16 chunks), and bounds on / off and a
+    # page-permuted pool through kv_block_map, bitwise
+    spec_gs, lay_gs = forward_fold(*shapes_f, schedule="decoupled",
+                                   return_stats=True, **kw_f)
+    _, e_fgs, e_fgo = fwd_split(spec_gs, ops_c, lay_gs, "(f) global f32")
+    e_fg64 = fwd_split_f64(ops_c, kw_f, "(f) global f32")
+
+    def fwd_invariants(spec, ops, lay, out, tag):
+        """The forward fold with bounds off, and through a random
+        permutation of the kv pages (kv_block_map), gives ``out``'s bits."""
+        lay_off = dataclasses.replace(lay, kv_bounds=None)
+        check(all_same_bits(cuda_fold.fold(spec, ops, lay_off)[0], out),
+              f"{tag}: bounds off != on bitwise")
+        pages = lay.nk
+        perm = torch.randperm(pages, device=dev, generator=gen)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(pages, device=dev)
+        paged = tuple(t.view(t.shape[0], pages, lay.bk, t.shape[2])[:, inv]
+                      .reshape(t.shape) for t in ops[1:])
+        lay_pg = dataclasses.replace(lay, kv_block_map=perm.to(torch.int32))
+        check(all_same_bits(cuda_fold.fold(spec, (ops[0],) + paged,
+                                           lay_pg)[0], out),
+              f"{tag}: kv_block_map != contiguous bitwise")
+
+    fwd_invariants(spec_c, ops_c, lay_c, got, "(f) global float32 forward")
     out32, m32, l32 = got
     ops_b = bwd_operands(qf32, kf32, vf32, out32, m32, l32)
     (sq, lq), (sk, lk) = backward_folds(*shapes_f, **kw_f)
@@ -2055,10 +2170,7 @@ def main() -> int:
     # the split pass and chain of the local layer, float32
     spec_s, lay_s = forward_fold(*shapes_f, window=win, schedule="decoupled",
                                  return_stats=True, **kw_f)
-    tot = cuda_fold.fold_totals(spec_s, ops_c, lay_s)
-    ok, e_tot = allclose(tot, schedules.fold_totals_plain(ops_c, spec_s,
-                                                          lay_s), FWD_TOL)
-    check(ok, f"fold_fwd split pass f32 vs plain: {e_tot}")
+    tot, e_tot, e_too = fwd_split(spec_s, ops_c, lay_s, "(f) local f32")
     out_dts = (torch.float32,) * 3
     ok, e_ch = allclose(cuda_fold.chain(spec_s, tot, lay_s, out_dts),
                         schedules.fold_finalize_plain(spec_s, lay_s, tot,
@@ -2114,6 +2226,11 @@ def main() -> int:
     ok, e_h = allclose(got_h, schedules.fold_carry_plain(ops_h32, spec_h,
                                                          lay_h), FWD_TOL)
     check(ok, f"(h) fold_fwd f32 vs plain: {e_h}")
+    spec_hs, lay_hs = forward_fold(*shapes_h, schedule="decoupled",
+                                   return_stats=True, **kw_h)
+    _, e_hs, e_hso = fwd_split(spec_hs, ops_h32, lay_hs, "(h) f32")
+    e_h64 = fwd_split_f64(ops_h32, kw_h, "(h) f32")
+    fwd_invariants(spec_h, ops_h32, lay_h, got_h, "(h) float32 forward")
     ops_bh32 = bwd_operands(*ops_h32, *got_h)
     e_hb = {}
     for what, (sp, ly) in zip(("dq", "dkv"),
@@ -2131,15 +2248,25 @@ def main() -> int:
         check(ok, f"(h) fold_{what} split pass f32 vs plain: "
               f"{e_hb[what + ' split']}")
     del ops_h32, got_h, ops_bh32
-    f32_dq, f32_dkv = (cuda_fold.fold_form(k_, torch.float32, d_, 128, 128)
-                       for k_ in ("fold_dq", "fold_dkv") for d_ in (g_d,))
+    f32_fwd, f32_dq, f32_dkv = (
+        cuda_fold.fold_form(k_, torch.float32, g_d, 128, 128)
+        for k_ in ("fold_fwd", "fold_dq", "fold_dkv"))
     print(f"float32 kernels vs plain (max |diff|; (atol, rtol) {FWD_TOL} "
-          f"forward, {GRAD_TOL} gradients): (f) fold_fwd "
-          f"{e_fwd:.3g}, {f32_dq} {e_dq:.3g}, {f32_dkv} {e_dkv:.3g}; local "
-          f"split passes fwd {e_tot:.3g}, dq {e_bwd['dq']:.3g}, dkv "
+          f"forward, {GRAD_TOL} gradients): (f) {f32_fwd} "
+          f"{e_fwd:.3g} (global split pass: (m, l) {e_fgs:.3g}, through "
+          f"the chain {e_fgo:.3g}, payload of two heads vs float64 "
+          f"{e_fg64[0]:.3g} (the plain version's {e_fg64[1]:.3g}); bounds "
+          f"off and kv_block_map bitwise), {f32_dq} {e_dq:.3g}, {f32_dkv} "
+          f"{e_dkv:.3g}; local "
+          f"split passes fwd (m, l) {e_tot:.3g} (through the chain "
+          f"{e_too:.3g}), dq {e_bwd['dq']:.3g}, dkv "
           f"{e_bwd['dkv']:.3g}; chains fwd {e_ch:.3g}, dq "
           f"{e_bwd['dq chain']:.3g}, dkv {e_bwd['dkv chain']:.3g}; (g) split "
-          f"pass {e_gt:.3g}, chain {e_gc:.3g}; (h) fold_fwd {e_h:.3g}, "
+          f"pass (SIMT, bq 8) {e_gt:.3g}, chain {e_gc:.3g}; (h) fwd "
+          f"{e_h:.3g} (split pass: (m, l) {e_hs:.3g}, through the chain "
+          f"{e_hso:.3g}, payload of two heads vs float64 {e_h64[0]:.3g} (the "
+          f"plain version's {e_h64[1]:.3g}); bounds off and kv_block_map "
+          f"bitwise), "
           f"dq {e_hb['dq']:.3g} (split pass {e_hb['dq split']:.3g}), dkv "
           f"{e_hb['dkv']:.3g} (split pass {e_hb['dkv split']:.3g}); carry vs "
           f"decoupled {e_cd:.3g}; (f) vs float64 dense attention (2 heads) "
@@ -2356,13 +2483,45 @@ def main() -> int:
                                    retain_graph=True)
 
     shape = "(h) 40x4096x128 causal, f32"
-    attn_row("fold_fwd_f32_prefill", "fold_fwd", "carry",
+
+    def sdpa_fwd32():
+        return F.scaled_dot_product_attention(
+            qh32.detach(), kh32.detach(), vh32.detach(), is_causal=True,
+            enable_gqa=True)
+
+    check(cuda_fold.fold_form("fold_fwd", torch.float32, p_d, lay_h.bq,
+                              lay_h.bk) == "fold_fwd_tf32",
+          "(h) float32 forward should take fold_fwd_tf32")
+    flops_hf = 4 * cell * p_d * live_h
+    attn_row("fold_fwd_tf32_prefill", "fold_fwd_tf32", "carry",
              lambda: cuda_fold.fold(spec_h, ops_h32, lay_h)[0],
              lambda: schedules.fold_carry_plain(ops_h32, spec_h, lay_h),
-             nbytes(*ops_h32, *outs_h32), 4 * cell * p_d * live_h,
-             lambda: F.scaled_dot_product_attention(
-                 qh32.detach(), kh32.detach(), vh32.detach(), is_causal=True,
-                 enable_gqa=True), shape, tol=FWD_TOL)
+             nbytes(*ops_h32, *outs_h32), flops_hf, sdpa_fwd32, shape,
+             reps=5, tol=FWD_TOL)
+    tf32_row = rows[-1]
+    tf32_g = graph_ms(lambda: cuda_fold.fold(spec_h, ops_h32, lay_h)[0],
+                      calls=5)
+    attn_row("fold_fwd_f32_prefill", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_h, ops_h32, lay_h,
+                                    form="fold_fwd")[0],
+             lambda: schedules.fold_carry_plain(ops_h32, spec_h, lay_h),
+             nbytes(*ops_h32, *outs_h32), flops_hf, sdpa_fwd32, shape,
+             tol=FWD_TOL)
+    simt = cuda_fold.fold(spec_h, ops_h32, lay_h, form="fold_fwd")[0]
+    _, e_ts = allclose(outs_h32, simt, FWD_TOL)
+    del simt
+    tf32_again = time_ms(lambda: cuda_fold.fold(spec_h, ops_h32, lay_h)[0],
+                         5)
+    print(f"  (h) float32 forward in the same run: fold_fwd_tf32 "
+          f"{tf32_row['ms']:.3f} / {tf32_again:.3f} ms (graph replay "
+          f"{'not measured' if tf32_g is None else f'{tf32_g:.4f} ms'}), "
+          f"SIMT fold_fwd {rows[-1]['ms']:.3f} ms, SDPA float32 forward "
+          f"{tf32_row['library_ms']:.3f} ms; bounds: 3xTF32 "
+          f"{3 * flops_hf / tf32_peak * 1e3:.4f} ms, float32 SIMT "
+          f"{flops_hf / f32_peak * 1e3:.4f} ms; max |tf32 - plain| "
+          f"{tf32_row['max_abs_err']:.3g}, |SIMT - plain| "
+          f"{rows[-1]['max_abs_err']:.3g}, |tf32 - SIMT| {e_ts:.3g} (bar "
+          f"(atol, rtol) {FWD_TOL})")
     for kernel, (sp, ly), fl in (("fold_dq", (sq, lq), 6),
                                  ("fold_dkv", (sk, lk), 8)):
         form = kernel + "_tf32"
@@ -2398,19 +2557,35 @@ def main() -> int:
               f"{rows[-1]['max_abs_err']:.3g}, |tf32 - SIMT| {e_ts:.3g} (bar "
               f"(atol, rtol) {GRAD_TOL})")
     del ops_h, ops_h32, outs_h32, ops_bh32, o_s32, qs, ks, vs, o_s
-    # (f) global in float32 at its main-path shape: the SIMT forward, the
-    # 3xTF32 dq and dk/dv (d = 256), and beside them, by name, the SIMT dq
-    # and dk/dv they replaced; no library call (softcap)
+    # (f) global in float32 at its main-path shape: the 3xTF32 forward, dq
+    # and dk/dv (d = 256), and beside them, by name, the SIMT kernels they
+    # replaced; no library call (softcap)
     ops_f32 = tuple(t.float() for t in flat_f)
     spec_f32, lay_f32 = forward_fold(*shapes_f, return_stats=True, **kw_f)
     live_f = g_hq * lay_f32.active_cells()
     shape = "(f) global 16x8192x256, f32"
     outs_f32, _ = cuda_fold.fold(spec_f32, ops_f32, lay_f32)
-    attn_row("fold_fwd_f32_training", "fold_fwd", "carry",
+    check(cuda_fold.fold_form("fold_fwd", torch.float32, g_d, lay_f32.bq,
+                              lay_f32.bk) == "fold_fwd_tf32",
+          "(f) float32 forward (d = 256) should take fold_fwd_tf32")
+    flops_ff = 4 * cell * g_d * live_f
+    attn_row("fold_fwd_tf32_training", "fold_fwd_tf32", "carry",
              lambda: cuda_fold.fold(spec_f32, ops_f32, lay_f32)[0],
              lambda: schedules.fold_carry_plain(ops_f32, spec_f32, lay_f32),
-             nbytes(*ops_f32, *outs_f32), 4 * cell * g_d * live_f, None,
-             shape, reps=2, tol=FWD_TOL)
+             nbytes(*ops_f32, *outs_f32), flops_ff, None, shape, tol=FWD_TOL)
+    tf32_row = rows[-1]
+    attn_row("fold_fwd_f32_training", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_f32, ops_f32, lay_f32,
+                                    form="fold_fwd")[0],
+             lambda: schedules.fold_carry_plain(ops_f32, spec_f32, lay_f32),
+             nbytes(*ops_f32, *outs_f32), flops_ff, None, shape, reps=2,
+             tol=FWD_TOL)
+    print(f"  (f) float32 forward in the same run: fold_fwd_tf32 "
+          f"{tf32_row['ms']:.3f} ms, SIMT fold_fwd {rows[-1]['ms']:.3f} ms; "
+          f"bounds: 3xTF32 {3 * flops_ff / tf32_peak * 1e3:.4f} ms, float32 "
+          f"SIMT {flops_ff / f32_peak * 1e3:.4f} ms; max |tf32 - plain| "
+          f"{tf32_row['max_abs_err']:.3g}, |SIMT - plain| "
+          f"{rows[-1]['max_abs_err']:.3g}")
     ops_bf32 = bwd_operands(*ops_f32, *outs_f32)
     for kernel, (sp, ly), fl in zip(("fold_dq", "fold_dkv"), backward_folds(
             *shapes_f, **kw_f), (6, 8)):

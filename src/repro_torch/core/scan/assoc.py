@@ -362,6 +362,7 @@ def softmax_pair_kernel_spec(
     block_q: int = 128,
     block_k: int = 128,
     with_stats: bool = False,
+    matmul=torch.matmul,
 ) -> KernelSpec:
     """Flash-attention monoid: online softmax with the value payload.
 
@@ -382,6 +383,10 @@ def softmax_pair_kernel_spec(
     0 (and zero gradients) rather than a uniform average over however
     many masked columns the grid happened to visit — the invariance that
     lets the causal-aware KV bound skip fully-masked blocks bitwise-free.
+
+    ``matmul`` computes the cell's two products, ``q·kᵀ`` and ``p·v``
+    (``cuda_fold.matmul_3xtf32`` states the float32 tensor-core form's
+    arithmetic in plain PyTorch).
     """
     geom = AttnMask(scale=scale, causal=causal, window=window,
                     softcap=softcap, kv_len=kv_len, block_q=block_q,
@@ -392,7 +397,7 @@ def softmax_pair_kernel_spec(
         s, mask = _attn_block_logits(
             q, k, block_ids, scale=scale, causal=causal, window=window,
             softcap=softcap, kv_len=kv_len, block_q=block_q,
-            block_k=block_k)
+            block_k=block_k, matmul=matmul)
         s = torch.where(mask, s, NEG_INF)
         m = torch.amax(s, dim=-1, keepdim=True)           # (..., bq, 1)
         # exp underflows to exactly 0 at masked columns of LIVE rows, so
@@ -400,7 +405,7 @@ def softmax_pair_kernel_spec(
         # where exp(s - m) would be exp(0) = 1): they get l == 0.
         p = torch.where(mask, torch.exp(s - m), 0.0)      # (..., bq, bk)
         l = torch.sum(p, dim=-1, keepdim=True)            # (..., bq, 1)
-        acc = torch.matmul(p, v)                          # (..., bq, d)
+        acc = matmul(p, v)                                # (..., bq, d)
         return (m, l, acc)
 
     def finalize(combined):

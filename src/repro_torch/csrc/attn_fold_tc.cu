@@ -1,14 +1,15 @@
 // Tensor-core forms of the three attention-fold kernels, CUDA C++ for
 // Hopper (sm_90a): the bfloat16 flash forward (fold_fwd_tc) and the dq
 // and dk/dv folds of the flash backward (fold_dq_tc, fold_dkv_tc), and the
-// float32 dq and dk/dv folds (fold_dq_tf32, fold_dkv_tf32: three TF32
-// products a product). They compute what fold_fwd_kernel, fold_dq_kernel
-// and fold_dkv_kernel of attn_fold.cu compute (the reference's
-// softmax_pair_kernel_spec, assoc.py:330, and
+// float32 forward, dq and dk/dv folds (fold_fwd_tf32, fold_dq_tf32,
+// fold_dkv_tf32: three TF32 products a product). They compute what
+// fold_fwd_kernel, fold_dq_kernel and fold_dkv_kernel of attn_fold.cu
+// compute (the reference's softmax_pair_kernel_spec, assoc.py:330, and
 // softmax_pair_bwd_dq_kernel_spec, assoc.py:443, on KVBlocks, and
 // softmax_pair_bwd_dkv_kernel_spec, assoc.py:486, on QBlocks, under
 // fold_carry, kernels/scan_engine/schedules.py:722, and the split pass of
-// fold_decoupled, :778); the float32 forward keeps the SIMT kernel.
+// fold_decoupled, :778); float32 shapes outside the 3xTF32 forms' range
+// (a decode step's q block of 8 rows among them) keep the SIMT kernels.
 //
 // Bound. A (128 x 128) cell costs 4·128·128·d flops forward and 6·128·128·d
 // for dq, 8·128·128·d for dk/dv, against 2·128·d bf16 elements of k and v,
@@ -1914,6 +1915,378 @@ __global__ void __launch_bounds__(256, 1)
     p.counts[(long long)h * a.nq + qi] = count;
 }
 
+// -- forward in float32 on the tensor cores (3xTF32) -------------------------
+//
+// fold_fwd_tf32: what fold_fwd_kernel computes on float32 operands
+// (softmax_pair on KVBlocks: the carry fold, which finalizes the output and
+// writes the (m, l) statistics when the spec asks for them, and the split
+// pass, which publishes (m, l, acc) to fold_chain), every product as three
+// TF32 wgmmas of the split operands, as fold_dq_tf32's. TF32 wgmma reads
+// shared memory K-major only, so:
+//   * s = q·kᵀ (M = the block's 64 q rows) contracts over d: q, resident as
+//     loaded, is the A operand, read by index and split in registers; k's
+//     rows, K-major as stored, are the B operand, split into hi and lo tiles
+//     in shared memory, in place;
+//   * p·v contracts over kv rows, along which v is not contiguous: it is
+//     formed transposed, accᵀ += vᵀ·pᵀ (M = 64 columns of d), with A = vᵀ
+//     read by index from v's rows and split in registers, and B = p written
+//     as [q][kv] hi and lo tiles straight from s's accumulator layout
+//     (K-major: kv contiguous), as fold_dq_tf32 writes ds.
+// A block (256 threads, two warpgroups, one of whose threads issues the
+// loads) takes one 64-row q tile. Warpgroup t forms s of the cell's 64-row
+// kv tile t (bk = 128: both warpgroups; bk = 64: warpgroup 0), so that s
+// and p are formed once per cell; the two hand each other their rows'
+// partial max and sum through shared memory. Each then owns half of d's
+// columns of accᵀ (d >= 128; warpgroup 0 all 64 at d = 64), a 64-row tile
+// at a time: the cell's element accᵀ_e from zero over the cell's kv rows,
+// combined into the carry at once (acc = acc·a1 + accᵀ_e·a2 by q column,
+// the scales a1 = exp(m_c - m), a2 = exp(m_e - m) of each row through
+// shared memory).
+// Budget at d = 256: q takes 64 KB and p as hi + lo 64 KB, so k and v
+// stream through a ring of three 32 KB stages: a cell takes d / 32 stages
+// of 32 columns of k of each of its kv tiles (split in place, hi over the
+// raw floats), then a stage of 64 columns of v of one kv tile for each
+// warpgroup's accᵀ tile (raw, read by index). Registers: the carry (64
+// floats a thread at d = 256) beside one tile's element or s, and a
+// partial product (32 each).
+// Accumulation: the tensor cores add into their float32 accumulators with
+// truncation, a bias that grows with the length of the chain: s over d =
+// 256 in one chain of 32 k-steps missed the forward's 1e-5 bar against
+// the plain fold at gemma2's shape (its row max off by 1.7e-5, which l
+// and the split pass's acc carry whole). So a wgmma chain is at most 4
+// k-steps (32 columns of d for s, 32 kv rows for accᵀ_e), from zero, and
+// is added into its product with __fadd_rn; at d = 256 accᵀ_e's chains
+// are one k-step each, its A registers one k-step's (kProductSteps: 255
+// registers without a spill, where chains of 4 spilled).
+// Association, as in the other forms: the cell's element (m_e, l_e,
+// accᵀ_e) from zero, then combined into the carry with __fmul_rn /
+// __fadd_rn, the carry the earlier operand; so a skipped dead cell and a
+// page-permuted pool give the bits of folding its identity and of the
+// contiguous pool. Named barriers: 1 + wg within a warpgroup, 3 "the rows'
+// partial max are written", 4 "p, the partial sums and the scales are
+// written" (both warpgroups pass both).
+
+template <int D>
+struct Tf32FwdTiles {
+  static constexpr int kPanel = 64 * 128;             // 64 rows x 32 floats
+  static constexpr int kQBytes = D / 32 * kPanel;     // 64 q rows x D
+  static constexpr int kMT = D / 64;                  // 64-row tiles of accᵀ
+  static constexpr int kOwn = D < 128 ? 1 : kMT / 2;  // ... a warpgroup owns
+  static constexpr int kScoreStages = D / 32;   // stages of k a cell
+  // a stage: k tile t's 32 columns at 2 t panels (hi over the raw floats,
+  // then lo), or 64 columns of a v tile for warpgroup w at 2 w panels
+  static constexpr int kStageBytes = 4 * kPanel;
+  static constexpr int kStages = D == 256 ? 3 : 4;
+  // p as hi, then lo: [64 q][128 kv], four panels each
+  static constexpr int kPBytes = 8 * kPanel;
+  // each warpgroup's partial row max and row sum, then the scales a1, a2
+  static constexpr int kStatBytes = 6 * 64 * 4;
+  static constexpr int kThreads = 256;
+  static constexpr int kSmem = 1024 + kQBytes + kPBytes +
+                               kStages * kStageBytes + kStatBytes +
+                               8 * (2 * kStages + 1);
+  // k-steps a wgmma chain of accᵀ_e (registers at d = 256, above)
+  static constexpr int kProductSteps = D == 256 ? 1 : 4;
+};
+
+// Block (q head h, q block qi, 64-row q tile sub), split y; folds the KV
+// blocks as fold_fwd_kernel does.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    fold_fwd_tf32_kernel(const __grid_constant__ TcMaps maps, FoldArgs a,
+                         FoldPtrs p) {
+  using G = Tf32FwdTiles<D>;
+  constexpr int NS = G::kScoreStages, PN = G::kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t q_u = smem_u32(base);
+  const uint32_t p_hi = q_u + G::kQBytes, p_lo = p_hi + 4 * PN;
+  const uint32_t ring_u = p_hi + G::kPBytes;
+  const uint32_t stat_u = ring_u + G::kStages * G::kStageBytes;
+  // the statistics: m_part[2][64], l_part[2][64], a1[64], a2[64]
+  float* m_part = reinterpret_cast<float*>(base + (stat_u - q_u));
+  float* l_part = m_part + 128;
+  const uint32_t sc1 = stat_u + 256 * 4, sc2 = sc1 + 64 * 4;
+  // mbarriers: full[kStages], empty[kStages], then the q tile's
+  const uint32_t full = stat_u + G::kStatBytes;
+  const uint32_t empty = full + 8 * G::kStages, qbar = empty + 8 * G::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nt = a.bq / 64;   // 64-row tiles of a q block
+  const int sub = blockIdx.x % nt;
+  const int qi = (blockIdx.x / nt) % a.nq;
+  const int h = blockIdx.x / nt / a.nq;
+  const int hk = h / a.group;
+  const int nsub = a.bk / 64;   // the cell's 64-row kv tiles
+  const int nj = NS + G::kOwn * nsub;   // stages a cell
+  const int f0 = blockIdx.y * a.bpc;
+  const long long qrow0 = (long long)h * a.tq + (long long)qi * a.bq + 64 * sub;
+  const int wg = threadIdx.x / 128;
+  const bool loader = threadIdx.x == 128;
+  // the loader's walk: live cell lf, stage lj of the cell, into ring slot
+  // lstage
+  int lf = f0, lj = 0, lstage = 0;
+  uint32_t lphase = 0;
+  auto skip_dead = [&]() {
+    while (lf < f0 + a.bpc && !cell_live(a, qi, lf)) ++lf;
+  };
+  auto load_next = [&]() {
+    const uint32_t bar = full + 8 * lstage;
+    mbar_wait(empty + 8 * lstage, lphase ^ 1);
+    const uint32_t st = ring_u + lstage * G::kStageBytes;
+    const int phys = p.kv_map ? p.kv_map[lf] : lf;
+    const int row = hk * a.tk + phys * a.bk;
+    if (lj < NS) {   // columns 32 lj .. of k, kv tile t at 2 t panels
+      mbar_expect_tx(bar, nsub * PN);
+      for (int t = 0; t < nsub; ++t)
+        tma_load_2d(st + 2 * PN * t, &maps.k, bar, 32 * lj, row + 64 * t);
+    } else {   // warpgroup w's accᵀ tile j over kv tile t: 64 columns of v
+      const int j = (lj - NS) / nsub, t = (lj - NS) % nsub;
+      int parts = 0;
+      for (int w = 0; w < 2; ++w) parts += G::kOwn * w + j < G::kMT;
+      mbar_expect_tx(bar, parts * 2 * PN);
+      for (int w = 0; w < 2; ++w) {
+        const int mt = G::kOwn * w + j;
+        if (mt >= G::kMT) continue;
+        tma_load_2d(st + 2 * PN * w, &maps.v, bar, 64 * mt, row + 64 * t);
+        tma_load_2d(st + 2 * PN * w + PN, &maps.v, bar, 64 * mt + 32,
+                    row + 64 * t);
+      }
+    }
+    if (++lstage == G::kStages) {
+      lstage = 0;
+      lphase ^= 1;
+    }
+    if (++lj == nj) {
+      lj = 0;
+      ++lf;
+      skip_dead();
+    }
+  };
+  if (loader) {
+    mbar_expect_tx(qbar, G::kQBytes);
+    for (int pn = 0; pn < D / 32; ++pn)
+      tma_load_2d(q_u + pn * PN, &maps.q, qbar, 32 * pn, (int)qrow0);
+    skip_dead();
+    for (int k = 0; k < G::kStages && lf < f0 + a.bpc; ++k) load_next();
+  }
+
+  const int tid = threadIdx.x % 128, quad = tid % 4;
+  float acc[G::kOwn][32];   // the carry: this warpgroup's accᵀ tiles
+#pragma unroll
+  for (int j = 0; j < G::kOwn; ++j)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[j][x] = 0.f;
+  // the carry's (m, l) of the thread's rows, and their positions
+  float m_c[2] = {kNegInf, kNegInf}, l_c[2] = {0.f, 0.f};
+  long long qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = (long long)qi * a.pos_bq + 64 * sub + tile_row(tid, i);
+  const float inv_cap = a.has_softcap ? recip(a.softcap) : 0.f;
+  const bool scores = wg < nsub;   // this warpgroup forms s of kv tile wg
+  int count = 0, stage = 0;
+  uint32_t phase = 0;
+  auto release = [&]() {   // the current stage is read: refill, move on
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == G::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    if (loader && lf < f0 + a.bpc) load_next();   // kStages ahead
+  };
+  mbar_wait(qbar, 0);
+  __syncwarp();
+  for (int f = f0; f < f0 + a.bpc; ++f) {
+    if (!cell_live(a, qi, f)) continue;
+    ++count;
+    // s = q·kᵀ over kv tile wg, 32 columns of d a stage
+    float s[32];
+#pragma unroll 1
+    for (int j = 0; j < NS; ++j) {
+      mbar_wait(full + 8 * stage, phase);
+      __syncwarp();
+      if (scores) {
+        const uint32_t b = ring_u + stage * G::kStageBytes + 2 * PN * wg;
+        split_tile(b, b + PN, PN, tid);
+        fence_async();
+        wg_sync(wg);
+        float part[32];   // the stage's 4 k-steps, from zero
+        tf32_mma<4, PN, false, PN>(part, q_u, 32 * j, b, b + PN, tid, true);
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          s[x] = j == 0 ? part[x] : __fadd_rn(s[x], part[x]);
+      }
+      release();
+    }
+    // the mask and softcapped logits; the cell's row max m_e from both
+    // tiles' shares
+    int2 live[2];
+    float m_e[2] = {kNegInf, kNegInf};
+    if (scores) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        live[i] = live_cols(a, qpos[i], (long long)f * a.pos_bk + 64 * wg,
+                            64);
+      mask_logits(a, s, 2 * quad, live, inv_cap, m_e);
+      row_max(m_e);
+      if (quad == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) m_part[64 * wg + tile_row(tid, i)] = m_e[i];
+      }
+    }
+    bar_sync(3, 256);   // both tiles' partial max are written
+    float a1[2], a2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = tile_row(tid, i);
+      m_e[i] = nsub > 1 ? fmaxf(m_part[r], m_part[64 + r]) : m_part[r];
+      // the combine's scales: carry (m_c, l_c) the earlier operand
+      const float mn = fmaxf(m_c[i], m_e[i]);
+      a1[i] = expf(m_c[i] - mn);
+      a2[i] = expf(m_e[i] - mn);
+      m_c[i] = mn;
+    }
+    if (wg == 0 && quad == 0) {   // the scales by q row, for accᵀ's columns
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = tile_row(tid, i);
+        asm volatile("st.shared.f32 [%0], %1;" ::"r"(sc1 + 4 * r), "f"(a1[i])
+                     : "memory");
+        asm volatile("st.shared.f32 [%0], %1;" ::"r"(sc2 + 4 * r), "f"(a2[i])
+                     : "memory");
+      }
+    }
+    if (scores) {
+      // p = exp(s - m_e) (a masked entry is zeroed, not left to underflow:
+      // in a fully masked row m_e = NEG_INF and exp(s - m_e) would be 1)
+      // into the p tiles as hi and lo, kv tile wg's two panels; its row
+      // sums
+      float l_e[2] = {0.f, 0.f};
+      const uint32_t ph = p_hi + 2 * PN * wg, pl = p_lo + 2 * PN * wg;
+#pragma unroll
+      for (int x = 0; x < 32; x += 2) {
+        const int i = (x >> 1) & 1, c = 8 * (x >> 2) + 2 * quad;
+        const float p0 =
+            c >= live[i].x && c < live[i].y ? expf(s[x] - m_e[i]) : 0.f;
+        const float p1 = c + 1 >= live[i].x && c + 1 < live[i].y
+                             ? expf(s[x + 1] - m_e[i]) : 0.f;
+        l_e[i] = __fadd_rn(__fadd_rn(l_e[i], p0), p1);
+        store_split(ph + (x >> 4) * PN, pl + (x >> 4) * PN, x & 15, tid, p0,
+                    p1);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_e[i] = __fadd_rn(l_e[i], __shfl_xor_sync(0xffffffffu, l_e[i], 1));
+        l_e[i] = __fadd_rn(l_e[i], __shfl_xor_sync(0xffffffffu, l_e[i], 2));
+        if (quad == 0) l_part[64 * wg + tile_row(tid, i)] = l_e[i];
+      }
+      fence_async();
+    }
+    bar_sync(4, 256);   // p, the partial sums and the scales are written
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = tile_row(tid, i);
+      const float l_e = nsub > 1 ? __fadd_rn(l_part[r], l_part[64 + r])
+                                 : l_part[r];
+      l_c[i] = __fadd_rn(__fmul_rn(l_c[i], a1[i]), __fmul_rn(l_e, a2[i]));
+    }
+    // this warpgroup's accᵀ tiles: the element accᵀ_e = vᵀ·pᵀ from zero
+    // over the cell's kv tiles, a stage each, 8 kProductSteps kv rows a
+    // chain, then acc = acc·a1 + accᵀ_e·a2, the scales by q column
+#pragma unroll
+    for (int j = 0; j < G::kOwn; ++j) {
+      const bool own = G::kOwn * wg + j < G::kMT;
+      float e[32];
+      for (int t = 0; t < nsub; ++t) {
+        mbar_wait(full + 8 * stage, phase);
+        __syncwarp();
+        if (own) {
+          constexpr int KC = G::kProductSteps;
+#pragma unroll
+          for (int c = 0; c < 8 / KC; ++c) {
+            float part[32];
+            // kv rows 8 KC c .. of the tile: p's panel and k-step there
+            const uint32_t off = (2 * t + KC * c / 4) * PN + 32 * (KC * c % 4);
+            tf32_mma<KC, PN, true, PN, KC == 1 ? 1 : 2>(
+                part, ring_u + stage * G::kStageBytes + 2 * PN * wg,
+                8 * KC * c, p_hi + off, p_lo + off, tid, true);
+#pragma unroll
+            for (int x = 0; x < 32; ++x)
+              e[x] = t == 0 && c == 0 ? part[x] : __fadd_rn(e[x], part[x]);
+          }
+        }
+        release();
+      }
+      if (own) {
+#pragma unroll
+        for (int x = 0; x < 32; x += 2) {
+          const int c = 8 * (x >> 2) + 2 * quad;   // q rows c, c + 1
+          const float2 s1 = ld_f32x2(sc1 + 4 * c), s2 = ld_f32x2(sc2 + 4 * c);
+          acc[j][x] = __fadd_rn(__fmul_rn(acc[j][x], s1.x),
+                                __fmul_rn(e[x], s2.x));
+          acc[j][x + 1] = __fadd_rn(__fmul_rn(acc[j][x + 1], s1.y),
+                                    __fmul_rn(e[x + 1], s2.y));
+        }
+      }
+    }
+  }
+
+  // the finalize's 1 / l by q row (l == 0 marks a fully masked row, or an
+  // empty fold: acc is 0 there)
+  __syncthreads();   // every read of the scales is done
+  if (!p.c0 && wg == 0 && quad == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      asm volatile("st.shared.f32 [%0], %1;" ::"r"(sc1 + 4 * tile_row(tid, i)),
+                   "f"(recip(l_c[i] == 0.f ? 1.f : l_c[i]))
+                   : "memory");
+  }
+  __syncthreads();
+  const long long crow0 =
+      (((long long)h * a.nq + qi) * a.splits + blockIdx.y) * a.bq + 64 * sub;
+  // entry x of tile j: d column 64 (kOwn wg + j) + tile_row(tid, i), q
+  // row 8 (x >> 2) + 2 quad + (x & 1) of the block's 64
+#pragma unroll
+  for (int j = 0; j < G::kOwn; ++j) {
+    const int mt = G::kOwn * wg + j;
+    if (mt >= G::kMT) continue;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = 64 * mt + tile_row(tid, (x >> 1) & 1);
+      const int r = 8 * (x >> 2) + 2 * quad + (x & 1);
+      if (p.c0)   // split pass: publish the chunk's acc
+        p.c2[(crow0 + r) * D + col] = acc[j][x];
+      else
+        static_cast<float*>(p.out0)[(qrow0 + r) * D + col] =
+            acc[j][x] * ld_f32(sc1 + 4 * r);
+    }
+  }
+  if (wg == 0 && quad == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = tile_row(tid, i);
+      if (p.c0) {   // ... and its (m, l)
+        p.c0[crow0 + r] = m_c[i];
+        p.c1[crow0 + r] = l_c[i];
+      } else if (p.m_out) {
+        p.m_out[qrow0 + r] = m_c[i];
+        p.l_out[qrow0 + r] = l_c[i];
+      }
+    }
+  }
+  if (!p.c0 && p.counts && sub == 0 && wg == 0 && tid == 0)
+    p.counts[(long long)h * a.nq + qi] = count;
+}
+
 // -- backward dq (softmax_bwd_dq) ---------------------------------------------
 
 template <int D>
@@ -2406,6 +2779,26 @@ cudaError_t run_dq_tf32(const FoldArgs& a, const FoldPtrs& p, int smem,
 }
 
 template <int D>
+cudaError_t run_fwd_tf32(const FoldArgs& a, const FoldPtrs& p, int smem,
+                         cudaStream_t st) {
+  using G = Tf32FwdTiles<D>;
+  if (smem != G::kSmem) return cudaErrorInvalidValue;
+  TcMaps maps;
+  memset(&maps, 0, sizeof maps);
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const long long q_rows = (long long)a.bh * a.tq;
+  const long long kv_rows = (long long)a.bh_kv * a.tk;
+  if (!f32_rows_map(&maps.q, p.q, D, q_rows, 64) ||
+      !f32_rows_map(&maps.k, p.k, D, kv_rows, 64) ||
+      !f32_rows_map(&maps.v, p.v, D, kv_rows, 64))
+    return cudaErrorInvalidPitchValue;
+  return launch(fold_fwd_tf32_kernel<D>,
+                dim3((unsigned)(a.bh * a.nq * (a.bq / 64)),
+                     (unsigned)a.splits),
+                G::kThreads, G::kSmem, st, maps, a, p);
+}
+
+template <int D>
 cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
                    cudaStream_t st) {
   using G = DqTiles<D>;
@@ -2450,6 +2843,26 @@ int attn_fold_fwd_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
                  : run_fwd<128, 1>(*a, *p, smem, st);
     case 256:
       return run_fwd<256, 1>(*a, *p, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Forward fold (softmax_pair) on KVBlocks, float32 by 3xTF32
+// (fold_fwd_tf32): p->c0 set, the split pass; else finalize into out0 (and
+// m_out / l_out). Takes d in {64, 128, 256}, bk and bq in {64, 128}.
+int attn_fold_fwd_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+    return cudaErrorInvalidValue;
+  switch (a->d) {
+    case 64:
+      return run_fwd_tf32<64>(*a, *p, smem, st);
+    case 128:
+      return run_fwd_tf32<128>(*a, *p, smem, st);
+    case 256:
+      return run_fwd_tf32<256>(*a, *p, smem, st);
     default:
       return cudaErrorInvalidValue;
   }

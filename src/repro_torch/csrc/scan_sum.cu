@@ -57,11 +57,12 @@
 //                  _apply_body :371): the register network on the tiles
 //                  carry_reg_kernel takes, the shared-memory one on the
 //                  rest
-//   fused_reg_kernel, fused_kernel
+//   fused_reg_kernel, fused_chan_reg_kernel, fused_kernel
 //                  scan_fused, pallas_call at :527 (body _fused_body :453):
 //                  decoupled in one launch, through a look-back (below);
-//                  the register network on the tiles carry_reg_kernel
-//                  takes, the shared-memory one on the rest
+//                  the register network on the tiles carry_reg_kernel and
+//                  carry_chan_reg_kernel take, the shared-memory one on the
+//                  rest
 //   tree_reg_kernel, tree_kernel
 //                  scan_tree, pallas_call at :605 (body _tree_body :557,
 //                  tree_scan :224, _blelloch :178): the Blelloch sweep in
@@ -88,7 +89,9 @@
 // flight too. The affine carry on Channels tiles of 128, 256 and 512
 // steps (carry_chan_reg_kernel) stages each tile's `width` adjacent
 // channels by cp.async, two stages deep, and runs the network in
-// registers. The other launches (Channels strips, other tile lengths,
+// registers; the affine fused on the same tiles (fused_chan_reg_kernel)
+// stages its one tile so, two blocks an SM overlapping each other's
+// copies. The other launches (Channels strips, other tile lengths,
 // the affine pair) read a whole tile into shared memory (for Channels,
 // `width` adjacent channels per time step) and run the network there,
 // not pipelined (no cp.async or TMA): a block waits for each tile's load.
@@ -2177,6 +2180,17 @@ __host__ __device__ constexpr int chan_reg_threads(int ns) {
          chan_reg_lanes(ns);
 }
 
+// channels a lane holds in fused_chan_reg_kernel (four: 64 words of data at
+// bt 256, in a block of eight scan warps and the look-back warp, two
+// blocks an SM), and its threads at most: the scan warps of a strip of up
+// to 32 channels and 8192 tile elements (one stage of a, b: 64 KB), and
+// warp 0
+__host__ __device__ constexpr int fused_chan_lanes(int) { return 4; }
+__host__ __device__ constexpr int fused_chan_threads(int ns) {
+  return 32 + 32 * (8192 / (32 * ns) < 32 ? 8192 / (32 * ns) : 32) /
+                  fused_chan_lanes(ns);
+}
+
 // Word (row i, channel c) of a staged [rows][C] float32 tile: 16-byte chunk
 // c / 4 of row i lies at chunk (c / 4) ^ f(i), f(i) = (i >> (3 - lg)) &
 // (C / 4 - 1), C / 4 = 2^lg chunks a row.
@@ -2190,6 +2204,112 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
                : "memory");
+}
+
+// A lane's NS slots of V adjacent channels from a staged tile's a and b
+// rows (word wl + 32 C s for slot s: step lane + 32 s; the swizzle repeats
+// every 8 rows), one 8-byte (16-byte) read a slot and leaf.
+template <typename S, int NS, int V>
+__device__ __forceinline__ void chan_read(typename S::E (&x)[NS][V],
+                                          const float* sa, const float* sb,
+                                          int wl, int C) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int w = wl + 32 * C * s;
+    if constexpr (V == 4) {
+      const float4 a4 = *reinterpret_cast<const float4*>(sa + w);
+      const float4 b4 = *reinterpret_cast<const float4*>(sb + w);
+      x[s][0] = {a4.x, b4.x};
+      x[s][1] = {a4.y, b4.y};
+      x[s][2] = {a4.z, b4.z};
+      x[s][3] = {a4.w, b4.w};
+    } else {
+      const float2 a2 = *reinterpret_cast<const float2*>(sa + w);
+      const float2 b2 = *reinterpret_cast<const float2*>(sb + w);
+      x[s][0] = {a2.x, b2.x};
+      x[s][1] = {a2.y, b2.y};
+    }
+  }
+}
+
+// Hillis-Steele over each channel's 32 NS steps, lane l holding steps
+// l + 32 s in x[s]: steps k < 32 take x[i - k] from lane l - k, slot s (slot
+// s - 1 of lane l - k + 32 for l < k, the identity at s = 0); slots from the
+// top, so every shuffle reads the old value; steps k = 32 m take slot s - m
+// of the same lane, the identity below m.
+template <typename S, int NS, int V>
+__device__ __forceinline__ void chan_scan(typename S::E (&x)[NS][V],
+                                          int lane) {
+  using P = typename S::E;
+  const P id = S::identity();
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int src = (lane - k) & 31;
+    P hi[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], src);
+#pragma unroll
+    for (int s = NS - 1; s >= 0; --s) {
+      P lo[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        lo[v] = s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], src) : id;
+        x[s][v] = S::combine(lane >= k ? hi[v] : lo[v], x[s][v]);
+        hi[v] = lo[v];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < NS; m <<= 1)
+#pragma unroll
+    for (int s = NS - 1; s >= 0; --s)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        x[s][v] = S::combine(s >= m ? x[s >= m ? s - m : 0][v] : id, x[s][v]);
+}
+
+// The outputs' b leaf into the stage's a rows (the lane's words, as
+// chan_read): left (+) x, or left (+) the exclusive neighbour below (lane
+// l - 1, or slot s - 1 of lane 31), each channel's left the EARLIER operand.
+template <typename S, int NS, int V>
+__device__ __forceinline__ void chan_emit(const typename S::E (&x)[NS][V],
+                                          const typename S::E (&left)[V],
+                                          float* sa, int wl, int C, int lane,
+                                          int exclusive) {
+  using P = typename S::E;
+  const P id = S::identity();
+  auto put = [&](int s, const float (&o)[V]) {
+    const int w = wl + 32 * C * s;
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(sa + w) = make_float4(o[0], o[1], o[2], o[3]);
+    else
+      *reinterpret_cast<float2*>(sa + w) = make_float2(o[0], o[1]);
+  };
+  if (exclusive) {
+    P hi[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], (lane - 1) & 31);
+#pragma unroll
+    for (int s = NS - 1; s >= 0; --s) {
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const P lo =
+            s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], (lane - 1) & 31) : id;
+        o[v] = S::combine(left[v], lane >= 1 ? hi[v] : lo).b;
+        hi[v] = lo;
+      }
+      put(s, o);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) o[v] = S::combine(left[v], x[s][v]).b;
+      put(s, o);
+    }
+  }
 }
 
 template <typename T, int NS, bool kVec>
@@ -2255,88 +2375,10 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
     load(j + kChanStages - 1, static_cast<int>((j + kChanStages - 1) %
                                                kChanStages));
     float* sa = stage + st * 2 * words;
-    float* sb = sa + words;
     P x[NS][V];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int w = wl + 32 * C * s;
-      if constexpr (V == 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(sa + w);
-        const float4 b4 = *reinterpret_cast<const float4*>(sb + w);
-        x[s][0] = {a4.x, b4.x};
-        x[s][1] = {a4.y, b4.y};
-        x[s][2] = {a4.z, b4.z};
-        x[s][3] = {a4.w, b4.w};
-      } else {
-        const float2 a2 = *reinterpret_cast<const float2*>(sa + w);
-        const float2 b2 = *reinterpret_cast<const float2*>(sb + w);
-        x[s][0] = {a2.x, b2.x};
-        x[s][1] = {a2.y, b2.y};
-      }
-    }
-    // steps k < 32: x[i - k] from lane l - k, slot s (slot s - 1 of lane
-    // l - k + 32 for l < k); slots from the top, so every shuffle reads
-    // the old value
-#pragma unroll
-    for (int k = 1; k < 32; k <<= 1) {
-      const int src = (lane - k) & 31;
-      P hi[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], src);
-#pragma unroll
-      for (int s = NS - 1; s >= 0; --s) {
-        P lo[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          lo[v] = s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], src) : id;
-          x[s][v] = S::combine(lane >= k ? hi[v] : lo[v], x[s][v]);
-          hi[v] = lo[v];
-        }
-      }
-    }
-    // steps k = 32 m: slot s - m of the same lane, the identity below m
-#pragma unroll
-    for (int m = 1; m < NS; m <<= 1)
-#pragma unroll
-      for (int s = NS - 1; s >= 0; --s)
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          x[s][v] = S::combine(s >= m ? x[s >= m ? s - m : 0][v] : id,
-                               x[s][v]);
-    // the outputs' b leaf into the stage's a rows: carry (+) x, or carry
-    // (+) the neighbour below (lane l - 1, or slot s - 1 of lane 31)
-    auto put = [&](int s, const float (&o)[V]) {
-      const int w = wl + 32 * C * s;
-      if constexpr (V == 4)
-        *reinterpret_cast<float4*>(sa + w) = make_float4(o[0], o[1], o[2], o[3]);
-      else
-        *reinterpret_cast<float2*>(sa + w) = make_float2(o[0], o[1]);
-    };
-    if (exclusive) {
-      P hi[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) hi[v] = shfl_e(x[NS - 1][v], (lane - 1) & 31);
-#pragma unroll
-      for (int s = NS - 1; s >= 0; --s) {
-        float o[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          const P lo =
-              s > 0 ? shfl_e(x[s > 0 ? s - 1 : 0][v], (lane - 1) & 31) : id;
-          o[v] = S::combine(carry[v], lane >= 1 ? hi[v] : lo).b;
-          hi[v] = lo;
-        }
-        put(s, o);
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        float o[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) o[v] = S::combine(carry[v], x[s][v]).b;
-        put(s, o);
-      }
-    }
+    chan_read<S, NS, V>(x, sa, sa + words, wl, C);
+    chan_scan<S, NS, V>(x, lane);
+    chan_emit<S, NS, V>(x, carry, sa, wl, C, lane, exclusive);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
@@ -2347,6 +2389,139 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
     int64_t dst = base + j * BT * g.d + g0;
     for (int w = w0; w < words; w += R * C, dst += R * g.d) {
       const float4 o4 = *reinterpret_cast<const float4*>(sa + w);
+      const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+      store4<kVec>(out + dst, o);
+    }
+  }
+}
+
+// fused on Channels in registers: the affine pair's fused schedule
+// (kChanReg) on the tiles carry_chan_reg_kernel takes, the shapes
+// cuda.tile_network sends here. carry_chan_reg_kernel's network on one tile
+// a block, fused_kernel's ticket, look-back and publication around it:
+//   * a block takes one (strip, time tile) in ticket order, as fused_kernel
+//     does: the strip's C = width channels (cuda.chan_reg_width: 32 at the
+//     SSD carry, 128-byte rows of float32), bt = 32 NS steps;
+//   * the scan warps (1 ..) copy the tile into shared memory as
+//     carry_chan_reg_kernel does (swizzled 16-byte cp.async copies for
+//     float32 from aligned bases, else vector loads), one stage, while warp
+//     0 takes the tile's offset by the look-back over the strip's earlier
+//     tiles (lookback_arrays: lane l its channel's, folded left to right
+//     from the nearest inclusive prefix);
+//   * the scan warps run carry_chan_reg_kernel's network (a warp four
+//     adjacent channels, fused_chan_lanes, lane l steps l + 32 s;
+//     chan_scan), publish the
+//     tile's aggregate (each channel's last element: lane 31's last slot)
+//     and release the "aggregate" state as soon as the tile is scanned, so
+//     that a long lane's later tiles do not wait in a chain;
+//   * then warp 0 publishes the inclusive prefix offset (+) aggregate and
+//     the scan warps emit offset (+) x (the offset the LEFT operand, as
+//     carry's carry; chan_emit) through the stage with the copies' layout.
+// The network's bits are carry_chan_reg_kernel's and the offset the
+// chain's left fold, so the outputs are carry's, decoupled's and
+// fused_kernel's, signed zeros included. A block's copies, scan, look-back
+// and stores follow each other, so blocks overlap one another's: the
+// launch bounds ask for two an SM, where the carry's one block overlaps
+// its own tiles (one fused block an SM took a third longer at the SSD
+// carry; four channels a lane, eight scan warps a 32-channel strip, came
+// closest to the copies' own time: PERF.md, tools/chan_variants.py).
+// Named barrier 1: the scan warps alone.
+template <typename T, int NS, bool kVec>
+__global__ void __launch_bounds__(fused_chan_threads(NS), 2)
+fused_chan_reg_kernel(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
+                      Geom g, int exclusive) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;   // an (a, b) pair
+  constexpr int V = fused_chan_lanes(NS), BT = 32 * NS;
+  constexpr bool kAsync = kVec && std::is_same<T, float>::value;
+  extern __shared__ __align__(16) float stage[];   // [a, b][BT][C]
+  __shared__ uint32_t ticket;
+  __shared__ P pre_s[kMaxWidth], last_s[kMaxWidth];   // offset, aggregate
+  const int C = g.width, lg = __ffs(C >> 2) - 1, words = BT * C;
+  const int scan_threads = blockDim.x - 32;
+  if (threadIdx.x == 0)
+    ticket = atomicAdd(reinterpret_cast<unsigned*>(state), 1u);
+  __syncthreads();
+  const uint32_t j = ticket % static_cast<uint32_t>(g.chunks);
+  int64_t tile, chain;
+  tile_at<true>(g, ticket, tile, chain);
+  const int64_t cbase = chain - j * g.d;           // the lane's chain entries
+  uint64_t* st = state + 1 + (ticket - j);         // and its tile states
+  const bool publish = j + 1 < g.chunks;           // a successor reads it
+  const int u = threadIdx.x - 32;                  // the scan thread
+  // as carry_chan_reg_kernel's copies, over the scan threads: chunk c of
+  // rows i0, i0 + R, ..., R = scan threads / (C / 4)
+  const int R = scan_threads >> lg;
+  const int i0 = u >> lg, c = (u & ((C >> 2) - 1)) << 2;
+  const int w0 = chan_word(i0, c, C, lg);
+  const int64_t g0 = i0 * g.d + c;
+  const int lane = threadIdx.x % 32, c0 = (u >> 5) * V;
+  P x[NS][V];
+  if (threadIdx.x < 32) {
+    P pre = S::identity();
+    if (j > 0) pre = lookback_arrays<S>(st, j, agg, incl, cbase, g.d, C);
+    if (lane < C) pre_s[lane] = pre;
+  } else {
+    const T* xa = static_cast<const T*>(t.x);
+    const T* xb = static_cast<const T*>(t.y);
+    int64_t src = tile + g0;
+    for (int w = w0; w < words; w += R * C, src += R * g.d) {
+      if constexpr (kAsync) {
+        cp_async16(stage + w, reinterpret_cast<const float*>(xa) + src);
+        cp_async16(stage + words + w,
+                   reinterpret_cast<const float*>(xb) + src);
+      } else {
+        float v[4];
+        load4<kVec>(xa + src, v);
+        *reinterpret_cast<float4*>(stage + w) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        load4<kVec>(xb + src, v);
+        *reinterpret_cast<float4*>(stage + words + w) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if constexpr (kAsync)
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" :::
+                   "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(scan_threads) : "memory");
+    const int wl = chan_word(lane, c0, C, lg);
+    chan_read<S, NS, V>(x, stage, stage + words, wl, C);
+    chan_scan<S, NS, V>(x, lane);
+    // the aggregate: each channel's last element, lane 31's last slot
+    if (lane == 31) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        last_s[c0 + v] = x[NS - 1][v];
+        if (j > 0 && publish)
+          S::put(agg, cbase + j * g.d + c0 + v, x[NS - 1][v]);
+      }
+      if (j > 0 && publish) __threadfence();
+    }
+    asm volatile("bar.sync 1, %0;" ::"r"(scan_threads) : "memory");
+    if (u == 0 && j > 0 && publish) st_release(st + j, kAggregate);
+  }
+  __syncthreads();   // the offsets and the aggregates are in
+  if (threadIdx.x < 32) {   // the inclusive prefix offset (+) aggregate
+    if (publish) {
+      if (lane < C) {
+        S::put(incl, cbase + j * g.d + lane,
+               S::combine(pre_s[lane], last_s[lane]));
+        if (C > 1) __threadfence();
+      }
+      __syncwarp();
+      if (lane == 0) st_release(st + j, kInclusive);
+    }
+  } else {
+    P left[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) left[v] = pre_s[c0 + v];
+    chan_emit<S, NS, V>(x, left, stage, chan_word(lane, c0, C, lg), C, lane,
+                        exclusive);
+    asm volatile("bar.sync 1, %0;" ::"r"(scan_threads) : "memory");
+    T* out = static_cast<T*>(t.out);
+    int64_t dst = tile + g0;
+    for (int w = w0; w < words; w += R * C, dst += R * g.d) {
+      const float4 o4 = *reinterpret_cast<const float4*>(stage + w);
       const float o[4] = {o4.x, o4.y, o4.z, o4.w};
       store4<kVec>(out + dst, o);
     }
@@ -2417,11 +2592,37 @@ int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
   return cudaGetLastError();
 }
 
+// fused_chan_reg_kernel over Channels strips of `width` channels (a
+// multiple of 4, at most 32) and tiles of 32 NS steps; refuses any other.
+template <typename T, int NS>
+int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
+                          long long b, long long n, long long d, int width,
+                          int exclusive, cudaStream_t stream) {
+  constexpr int V = fused_chan_lanes(NS);
+  if (width % 4 != 0 || 32 + 32 * width / V > fused_chan_threads(NS) ||
+      width * 32 * NS > 8192 || d % width != 0)
+    return cudaErrorInvalidValue;
+  const Geom g = make_geom(true, n, d, width, 32 * NS);
+  const size_t smem = 2 * sizeof(float) * 32 * NS * width;
+  constexpr uintptr_t v4 = 4 * sizeof(T) - 1;
+  const bool vec = ((reinterpret_cast<uintptr_t>(t.x) |
+                     reinterpret_cast<uintptr_t>(t.y) |
+                     reinterpret_cast<uintptr_t>(t.out)) & v4) == 0;
+  auto kern = vec ? fused_chan_reg_kernel<T, NS, true>
+                  : fused_chan_reg_kernel<T, NS, false>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = lanes_of(true, b, d, width) * (n / (32 * NS));
+  kern<<<static_cast<unsigned>(tiles), 32 + 32 * width / V, smem, stream>>>(
+      t, state, agg, incl, g, exclusive);
+  return cudaGetLastError();
+}
+
 // net: the in-tile network the wrapper chose by shape (cuda.tile_network):
 // 1 the register network, for Rows tiles of 128 r elements of a kReg spec
-// (carry, apply, fused and tree) and, for carry, Channels tiles of 128, 256
-// or 512 steps of a kChanReg spec (anything else is refused); 0 the
-// network in shared memory (tile_scan, or tree_kernel's sweep).
+// (carry, apply, fused and tree) and, for carry and fused, Channels tiles
+// of 128, 256 or 512 steps of a kChanReg spec (anything else is refused);
+// 0 the network in shared memory (tile_scan, or tree_kernel's sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
                  long long d, int width, int bn, int exclusive, int net,
@@ -2579,6 +2780,21 @@ int launch_fused(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
         fused_reg_kernel<S, false><<<tiles, threads, 0, stream>>>(t, state, g,
                                                                   exclusive);
       return cudaGetLastError();
+    } else if constexpr (kChan && S::kChanReg) {
+      using T = typename S::In;
+      switch (bn) {
+        case 128:
+          return launch_fused_chan_reg<T, 4>(t, state, agg, incl, b, n, d,
+                                             width, exclusive, stream);
+        case 256:
+          return launch_fused_chan_reg<T, 8>(t, state, agg, incl, b, n, d,
+                                             width, exclusive, stream);
+        case 512:
+          return launch_fused_chan_reg<T, 16>(t, state, agg, incl, b, n, d,
+                                              width, exclusive, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
     } else {
       return cudaErrorInvalidValue;
     }
@@ -2660,8 +2876,8 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 extern "C" {
 
 // net (carry, apply, fused, tree): 1 the register network (Rows tiles of
-// 128 r elements, no affine; for carry also the affine pair on Channels
-// tiles of 128, 256 or 512 steps), 0 the shared-memory network.
+// 128 r elements, no affine; for carry and fused also the affine pair on
+// Channels tiles of 128, 256 or 512 steps), 0 the shared-memory network.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,
                long long d, int width, int bn, int exclusive, int sentinel,

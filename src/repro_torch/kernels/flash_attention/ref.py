@@ -9,6 +9,11 @@ ref.py``:
                     fold structure in plain PyTorch.
 ``banded_ref``    — sliding-window attention touching only the in-window
                     KV band of each query block.
+``split_payload_ref``
+                  — the decoupled forward's split pass, densely: each
+                    chunk's (m, l, acc) of every row (no counterpart in
+                    the reference; the float32 tensor-core forward's
+                    chunk payloads are held to it in float64).
 
 Fully-masked rows (q positions past ``kv_len + window``) emit EXACTLY 0
 with zero gradients: probabilities are zeroed at masked columns and the
@@ -21,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.scan.assoc import NEG_INF
+from repro_torch.core.scan.assoc import NEG_INF, _attn_block_logits
 
 
 def _mask(rows, cols, kv_len, causal, window):
@@ -154,3 +159,36 @@ def banded_ref(
         out = torch.einsum("bhgqk,bhkd->bhgqd", p, vi)
         outs.append(out.reshape(B, H, bq, d).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def split_payload_ref(q, k, v, spec, layout):
+    """The payload the split pass of the decoupled forward fold publishes
+    (``schedules.fold_totals_plain`` of ``spec`` on the ``KVBlocks``
+    ``layout``), computed densely in the inputs' dtype: the logits of
+    every row against the whole sequence through the spec's own mask
+    statement (``_attn_block_logits``), then each chunk's row max m, its
+    row sum l of exp(s - m) and its value products acc, masked entries 0.
+    q is (BH, Tq, d), k and v (BHkv, Tk, d) with BH = BHkv · group. Returns
+    (m, l, acc) shaped as ``layout.chain_shape_for``: float64 inputs give
+    the chunks' payloads without the float32 rounding of a product."""
+    at = spec.attn
+    k, v = (t.repeat_interleave(layout.group, 0) for t in (k, v))
+    s, mask = _attn_block_logits(
+        q, k, (0, 0, 0), scale=at.scale, causal=at.causal, window=at.window,
+        softcap=at.softcap, kv_len=at.kv_len, block_q=layout.tq,
+        block_k=layout.tk)
+    s = torch.where(mask, s, NEG_INF)
+    width = layout.blocks_per_chunk * layout.bk
+    leaves = ([], [], [])
+    for c in range(layout.splits):
+        cols = slice(c * width, (c + 1) * width)
+        m = s[..., cols].amax(-1, keepdim=True)
+        p = torch.where(mask[..., cols], torch.exp(s[..., cols] - m), 0.0)
+        for leaf, x in zip(leaves, (m, p.sum(-1, keepdim=True),
+                                    p @ v[:, cols])):
+            leaf.append(x)
+    return tuple(
+        torch.stack(x, 1).view(layout.bh, layout.splits, layout.nq,
+                               layout.bq, -1)
+        .transpose(1, 2).reshape(layout.chain_shape_for(i))
+        for i, x in enumerate(leaves))

@@ -20,10 +20,11 @@ other ``totals`` launches the network's ``totals_kernel``. ``carry``,
 ``apply_reg_kernel``, ``fused_reg_kernel`` and ``tree_reg_kernel``
 (registers and warp shuffles) on ``Rows`` tiles of 128·r elements,
 ``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and ``tree_kernel``
-(shared memory) otherwise, but for the affine carry on ``Channels`` tiles
-of 128, 256 and 512 steps, which runs ``carry_chan_reg_kernel`` (each
-channel's network by warp shuffles, the tiles staged by ``cp.async``);
-both forms count under the same keys. Each
+(shared memory) otherwise, but for the affine carry and fused on
+``Channels`` tiles of 128, 256 and 512 steps, which run
+``carry_chan_reg_kernel`` and ``fused_chan_reg_kernel`` (each channel's
+network by warp shuffles, the tiles staged by ``cp.async``); both forms
+count under the same keys. Each
 wrapper below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
 the layout's shape, raises on anything the kernel does not take,
@@ -191,9 +192,10 @@ def channel_width(layout: Channels) -> int:
 
 
 def chan_reg_width(layout: Channels) -> int:
-    """Channels a block of the register carry (``carry_chan_reg_kernel``)
-    takes: the widest power of two up to ``MAX_WIDTH`` that divides D and
-    keeps the tile within ``CHAN_REG_TILE`` elements: 32 channels, rows
+    """Channels a block of the register carry and fused
+    (``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``) takes: the
+    widest power of two up to ``MAX_WIDTH`` that divides D and keeps the
+    tile within ``CHAN_REG_TILE`` elements: 32 channels, rows
     of 128 bytes of float32, at 128 and 256 steps (rows of 64 bytes held
     its copies alone to 2.6 ms at the SSD carry, 128 bytes to 2.0; PERF.md,
     tools/chan_variants.py). Any split gives the same bits."""
@@ -211,10 +213,11 @@ def tile_network(spec, layout, kernel: str) -> str:
     segment, Hillis–Steele or the Blelloch sweep by warp shuffles) for
     ``Rows`` tiles whose length is a multiple of 128, of every spec but
     the affine pair (its wrappers lay it out on ``Channels``), and for the
-    affine pair's carry on ``Channels`` tiles of ``CHAN_REG_TILES`` steps
-    whose ``chan_reg_width`` is a multiple of 4 channels
-    (``carry_chan_reg_kernel``: a warp two channels, lane l holding steps
-    l + 32 s);
+    affine pair's carry and fused on ``Channels`` tiles of
+    ``CHAN_REG_TILES`` steps whose ``chan_reg_width`` is a multiple of 4
+    channels (``carry_chan_reg_kernel``: a warp two channels, lane l
+    holding steps l + 32 s; ``fused_chan_reg_kernel``: a warp four, a
+    tile a block, its offset by the look-back);
     ``"shared"`` (``carry_kernel``, ``apply_kernel``, ``fused_kernel``,
     ``tree_kernel``: the network in shared memory) for every other
     ``Channels`` launch, for other tile lengths and for the affine pair on
@@ -224,7 +227,7 @@ def tile_network(spec, layout, kernel: str) -> str:
     if kernel not in ("carry", "apply", "fused", "tree"):
         raise ValueError(f"no tile network for the {kernel!r} kernel")
     if isinstance(layout, Channels):
-        if (kernel == "carry" and spec.name == "affine"
+        if (kernel in ("carry", "fused") and spec.name == "affine"
                 and layout.bt in CHAN_REG_TILES
                 and chan_reg_width(layout) % 4 == 0):
             return "register"
@@ -423,17 +426,21 @@ def apply(spec, operands, offsets, layout, exclusive=False):
     return (out,)
 
 
-def fused(spec, operands, layout, exclusive=False):
+def fused(spec, operands, layout, exclusive=False, network=None):
     """Fused schedule: decoupled in one launch, each tile taking its
     offset through a look-back over its predecessors' published
     prefixes. Returns the outputs. The scratch — a ticket counter and one
-    64-bit state word per tile, zeroed here per launch, and each tile's
-    published aggregate and inclusive prefix where they do not ride in
-    the state word — is allocated here."""
+    64-bit state word per tile (the tiles of the network's strips),
+    zeroed here per launch, and each tile's published aggregate and
+    inclusive prefix where they do not ride in the state word — is
+    allocated here. ``network`` as in ``carry``."""
+    if network not in (None, "register", "shared"):
+        raise ValueError(f"unknown tile network {network!r}")
+    network = network or tile_network(spec, layout, "fused")
     code, x, y = _operands(spec, operands, layout)
     out = _out(spec, x, y, layout)
     if x.numel():
-        geo = _geometry(layout)
+        geo = _geometry(layout, network)
         tiles = geo[1] * (geo[3] // geo[4]) * (geo[2] // geo[5])
         state = torch.zeros(1 + tiles, dtype=torch.int64, device=x.device)
         agg = _new_leaves(spec, x, y, layout.chain_shape)
@@ -442,7 +449,7 @@ def fused(spec, operands, layout, exclusive=False):
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), state.data_ptr(), *_ptrs(agg), *_ptrs(incl),
                 *geo[1:], int(exclusive), spec.sentinel or 0,
-                int(tile_network(spec, layout, "fused") == "register"))
+                int(network == "register"))
     return (out,)
 
 

@@ -11,10 +11,12 @@ fold (``core/scan/assoc``):
 
   fold_fwd     ``softmax_pair`` on ``KVBlocks`` (the flash forward), SIMT
   fold_fwd_tc  the same on the tensor cores (wgmma, TMA), bfloat16
+  fold_fwd_tf32
+               the same on the tensor cores, float32: each product as
+               three TF32 products of the operands split into hi + lo
   fold_dq      ``softmax_bwd_dq`` on ``KVBlocks``, SIMT
   fold_dq_tc   the same on the tensor cores, bfloat16
-  fold_dq_tf32 the same on the tensor cores, float32: each product as
-               three TF32 products of the operands split into hi + lo
+  fold_dq_tf32 the same on the tensor cores, float32, as fold_fwd_tf32
   fold_dkv     ``softmax_bwd_dkv`` on ``QBlocks``, SIMT
   fold_dkv_tc  the same on the tensor cores, bfloat16
   fold_dkv_tf32
@@ -26,10 +28,11 @@ fold (``core/scan/assoc``):
 
 ``fold_form`` chooses between the SIMT and tensor-core form of a fold
 from dtype, head dim and block sizes: bfloat16 takes the tensor-core form
-wherever that form's tiling takes the shape, float32 dq and dk/dv the
-3xTF32 forms at head dims 64, 128 and 256, and every other float32 fold
-SIMT (its products stay float32). ``fold`` runs the carry schedule (one
-launch that finalizes), ``fold_totals`` the split pass of the decoupled
+wherever that form's tiling takes the shape, float32 the 3xTF32 forms at
+head dims 64, 128 and 256 with q and KV blocks of 64 or 128 rows, and
+every other float32 fold SIMT (its products stay float32). ``fold`` runs
+the carry schedule (one launch that finalizes), ``fold_totals`` the
+split pass of the decoupled
 schedule (each chunk of the fold axis publishes its payload) and
 ``chain`` its chain. Each wrapper checks device, dtype, contiguity and
 the layout's shapes, raises on anything the kernels do not take
@@ -55,13 +58,13 @@ SOURCE = cuda.SOURCE.parent / "attn_fold.cu"
 TC_SOURCE = cuda.SOURCE.parent / "attn_fold_tc.cu"
 BUILD_DIR = cuda.BUILD_DIR
 
-KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_dq", "fold_dq_tc",
-           "fold_dq_tf32", "fold_dkv", "fold_dkv_tc", "fold_dkv_tf32",
-           "fold_chain", "fold_chain_sum")
+KERNELS = ("fold_fwd", "fold_fwd_tc", "fold_fwd_tf32", "fold_dq",
+           "fold_dq_tc", "fold_dq_tf32", "fold_dkv", "fold_dkv_tc",
+           "fold_dkv_tf32", "fold_chain", "fold_chain_sum")
 # the forms built from attn_fold_tc.cu, and those of them taking float32
-TC_FORMS = ("fold_fwd_tc", "fold_dq_tc", "fold_dq_tf32", "fold_dkv_tc",
-            "fold_dkv_tf32")
-TF32_FORMS = ("fold_dq_tf32", "fold_dkv_tf32")
+TC_FORMS = ("fold_fwd_tc", "fold_fwd_tf32", "fold_dq_tc", "fold_dq_tf32",
+            "fold_dkv_tc", "fold_dkv_tf32")
+TF32_FORMS = ("fold_fwd_tf32", "fold_dq_tf32", "fold_dkv_tf32")
 # spec name -> (kernel, layout type, operand kinds)
 BWD_KINDS = ("q", "kv", "kv", "q", "qstat", "qstat", "qstat")
 SPECS = {
@@ -86,10 +89,15 @@ TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
 # whole d up to 128, else 64 columns (a chunk streams through four stages
 # for the scores, then four for the updates); dq: one 64-row q tile a
 # block, k and v streamed in stages of 32 columns, then 64 columns of k
-# for each dqᵀ tile.
+# for each dqᵀ tile; forward: one 64-row q tile a block, k streamed in
+# stages of 32 columns of the cell's (one or two) 64-row kv tiles, then v
+# in stages of 64 columns of a 64-row kv tile for each warpgroup's accᵀ
+# tile.
 TF32_DIMS = (64, 128, 256)
 TF32_ROWS = 32   # q rows a chunk
 TF32_DQ_STAGES = {64: 5, 128: 4, 256: 2}
+TF32_FWD_STAGES = {64: 4, 128: 4, 256: 3}
+TF32_FWD_STATS = 6 * 64 * 4   # the forward's row statistics: 6 x 64 floats
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use (227 KB)
 PANEL_BYTES = 64 * 128   # 64 rows of a 64-column bf16 box
 
@@ -169,8 +177,9 @@ def build_tc() -> ctypes.CDLL:
     so, log = cuda.compile_library(TC_SOURCE, BUILD_DIR)
     build_log_tc = log or build_log_tc
     lib = ctypes.CDLL(str(so))
-    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_dq_tc", "attn_fold_dq_tf32",
-                "attn_fold_dkv_tc", "attn_fold_dkv_tf32"),
+    _bind(lib, ("attn_fold_fwd_tc", "attn_fold_fwd_tf32", "attn_fold_dq_tc",
+                "attn_fold_dq_tf32", "attn_fold_dkv_tc",
+                "attn_fold_dkv_tf32"),
           "attn_tc_error_string")
     _lib_tc = lib
     return lib
@@ -181,11 +190,12 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
     ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``,
-    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_dq_tf32`` /
-    ``fold_dkv_tf32`` for float32 dq / dk/dv with d in ``TF32_DIMS`` and
-    bk, bq in ``TC_BK`` (three TF32 products keep ~22 bits of each
-    operand, where the float32 bars against the plain versions, 1e-5 /
-    1e-4, rule out bf16 or single TF32 products); else the SIMT kernel.
+    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_fwd_tf32`` /
+    ``fold_dq_tf32`` / ``fold_dkv_tf32`` for float32 with d in
+    ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32 products keep ~22
+    bits of each operand, where the float32 bars against the plain
+    versions, 1e-5 / 1e-4, rule out bf16 or single TF32 products); else
+    the SIMT kernel (a decode step's bq of 8 among them).
     A choice by shape: no form gives way to another. Raises TypeError for
     a dtype no kernel takes and ValueError past the kernels' range."""
     if dtype not in DTYPE_CODES:
@@ -199,8 +209,8 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     if (dtype == torch.bfloat16 and kernel in TC_BQ and d in TC_DIMS
             and bk in TC_BK and bq in TC_BQ[kernel]):
         return kernel + "_tc"
-    if (dtype == torch.float32 and kernel in ("fold_dq", "fold_dkv")
-            and d in TF32_DIMS and bk in TC_BK and bq in TC_BK):
+    if (dtype == torch.float32 and d in TF32_DIMS and bk in TC_BK
+            and bq in TC_BK):
         return kernel + "_tf32"
     return kernel
 
@@ -232,11 +242,20 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
     keeps its 64-row q and dO tiles in float32 beside ds as TF32 hi and
     lo ([64 q][64 kv] each); a stage is 32 columns of a 64-row kv tile's k
     and of its v (each split into hi, over the raw floats, and lo), or 64
-    columns of k for each warpgroup's dqᵀ tile."""
+    columns of k for each warpgroup's dqᵀ tile. The float32 forward block
+    (``Tf32FwdTiles``) keeps its 64-row q tile in float32 beside p as TF32
+    hi and lo ([64 q][128 kv] each) and the rows' statistics (the two
+    warpgroups' partial row max and sum, and the combine's two scales);
+    a stage is 32 columns of k for each of the cell's 64-row kv tiles
+    (split into hi, over the raw floats, and lo), or 64 columns of v of
+    one kv tile for each warpgroup's accᵀ tile, 32 KB either way."""
     if form in TF32_FORMS:
         if d not in TF32_DIMS:
             raise ValueError(f"{form} takes d in {TF32_DIMS}")
-        if form == "fold_dq_tf32":
+        if form == "fold_fwd_tf32":
+            stages, stage = TF32_FWD_STAGES[d], 4 * 64 * 32 * 4
+            resident = 64 * d * 4 + 2 * 64 * 128 * 4 + TF32_FWD_STATS
+        elif form == "fold_dq_tf32":
             stages, stage = TF32_DQ_STAGES[d], 4 * 64 * 32 * 4
             resident = 2 * 64 * d * 4 + 4 * 64 * 32 * 4
         else:

@@ -13,8 +13,13 @@ reference's, signed zeros included: the identity combine (1, 0) ⊕ (a, b)
 = (a, a·0 + b) is done, and turns b = −0.0 into +0.0 where a ≥ 0. The
 reference runs op by op, not under ``jax.jit`` (XLA folds 0.0 + x into x
 and contracts the affine combine into an FMA there), on exact-valued
-data. The kernel itself is held against ``carry_plain`` on the card in
-``tests/test_torch_cuda_kernels.py``; which network each wrapper
+data. ``fused_chan_reg_kernel`` runs the same network on one tile a
+block and takes each tile's offset by a look-back: the tile folds, left
+to right, the nearest published inclusive prefix and the aggregates after
+it; that organization in torch ops must give ``fused_plain``'s,
+``carry_plain``'s and the reference's bits whichever prefix the look-back
+finds. The kernels themselves are held against the plain versions on the
+card in ``tests/test_torch_cuda_kernels.py``; which network each wrapper
 launches is chosen by shape in ``cuda.tile_network``, tested here.
 """
 
@@ -137,15 +142,16 @@ CHANNEL_NETWORKS = [
 @pytest.mark.parametrize("name,layout,network", CHANNEL_NETWORKS,
                          ids=[c[0] for c in CHANNEL_NETWORKS])
 def test_tile_network_affine_channels(name, layout, network):
-    """The affine carry on Channels takes the register network at 128,
-    256 and 512 steps over strips of a multiple of four channels; apply,
-    fused and tree keep the shared network, and so does the sum on
-    Channels."""
-    assert cuda.tile_network(AFFINE, layout, "carry") == network
-    for kernel in ("apply", "fused", "tree"):
+    """The affine carry and fused on Channels take the register network at
+    128, 256 and 512 steps over strips of a multiple of four channels, and
+    the shared one elsewhere; apply and tree keep the shared network, and
+    so does the sum on Channels."""
+    for kernel in ("carry", "fused"):
+        assert cuda.tile_network(AFFINE, layout, kernel) == network
+        assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
+    for kernel in ("apply", "tree"):
         assert cuda.tile_network(AFFINE, layout, kernel) == "shared"
         assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
-    assert cuda.tile_network(monoids.SUM, layout, "carry") == "shared"
 
 
 def test_tile_network_refuses_other_kernels():
@@ -158,9 +164,10 @@ def test_tile_network_refuses_other_kernels():
                          ids=[c[0] for c in CHANNEL_NETWORKS[:4]])
 def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     """``cuda.carry`` passes the kernel ``tile_network``'s choice, or the
-    network it is asked for (to time the two at one shape), and totals,
-    the chain, apply, fused and tree of the affine pair pass theirs; the
-    launch is intercepted, so this runs on CPU tensors."""
+    network it is asked for (to time the two at one shape), and apply,
+    fused and tree of the affine pair pass theirs (fused the register
+    network, as carry); the launch is intercepted, so this runs on CPU
+    tensors."""
     nets = []
     monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
     lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
@@ -179,6 +186,130 @@ def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     cuda.fused(AFFINE, (x, x), small)
     cuda.tree(AFFINE, (x, x), small)
     assert nets == [("carry", int(want == "register")), ("apply", 0),
-                    ("fused", 0), ("tree", 0)]
+                    ("fused", 1), ("tree", 0)]
     with pytest.raises(ValueError, match="unknown tile network"):
         cuda.carry(AFFINE, (x, x), small, network="warp")
+
+
+@pytest.mark.parametrize("network", (None, "register", "shared"))
+@pytest.mark.parametrize("name,layout,_", CHANNEL_NETWORKS[:4],
+                         ids=[c[0] for c in CHANNEL_NETWORKS[:4]])
+def test_fused_launches_the_network(monkeypatch, name, layout, _, network):
+    """``cuda.fused`` passes the kernel the network ``tile_network``
+    chooses, or the one it is asked for, with that network's strip width
+    (``chan_reg_width`` for the register fused, ``channel_width`` for the
+    shared one) and one state word per tile of those strips; the launch
+    is intercepted, so this runs on CPU tensors."""
+    seen = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: seen.append(
+                            (k, args)))
+    zeros = torch.zeros
+    states = []
+
+    def counted_zeros(*shape, **kw):
+        z = zeros(*shape, **kw)
+        states.append(z.numel())
+        return z
+
+    monkeypatch.setattr(torch, "zeros", counted_zeros)
+    d = layout.d % 64 or 64
+    small = scan_engine.Channels(1, 4 * layout.bt, d, layout.bt, d)
+    x = torch.ones(small.shape)
+    cuda.fused(AFFINE, (x, x), small, network=network)
+    want = network or cuda.tile_network(AFFINE, small, "fused")
+    assert want == "register" or network == "shared"
+    width = (cuda.chan_reg_width(small) if want == "register"
+             else cuda.channel_width(small))
+    ((kernel, args),) = seen
+    assert kernel == "fused"
+    # (..., b, n, d, width, bn, exclusive, sentinel, net)
+    assert args[-8:-3] == (1, 4 * small.bt, d, width, small.bt)
+    assert args[-1] == int(want == "register")
+    assert states == [1 + (d // width) * 4]
+    with pytest.raises(ValueError, match="unknown tile network"):
+        cuda.fused(AFFINE, (x, x), small, network="warp")
+
+
+def _register_fused(ops, lay, exclusive, pick):
+    """``fused_chan_reg_kernel``'s organization in torch ops: each tile
+    scanned as ``tile_scan_chan_warps``; its aggregate (the last step) and
+    inclusive prefix published; its offset the look-back's fold, LEFT TO
+    RIGHT from the inclusive prefix of tile ``pick(j)`` < j over the
+    aggregates after it (the identity for tile 0); the output offset ⊕ x,
+    the offset the earlier operand."""
+    tiles = schedules._tiles(AFFINE, ops, lay)
+    scanned = schedules.tile_scan_chan_warps(AFFINE, tiles)
+    sel = (schedules.tile_scan_chan_warps(AFFINE, tiles, True) if exclusive
+           else scanned)
+    lasts = schedules._last(scanned)
+    agg = [tuple(t[:, j] for t in lasts) for j in range(lay.num_seq_blocks)]
+    incl, offs = [], []
+    for j in range(lay.num_seq_blocks):
+        if j == 0:
+            pre = tuple(torch.full_like(t, f)
+                        for t, f in zip(agg[0], AFFINE.fills))
+        else:
+            k = pick(j)
+            pre = incl[k]
+            for i in range(k + 1, j):
+                pre = AFFINE.combine(pre, agg[i])
+        offs.append(pre)
+        incl.append(AFFINE.combine(pre, agg[j]))
+    offsets = tuple(torch.stack([o[i] for o in offs], 1) for i in range(2))
+    return schedules._emit(AFFINE, ops, lay, tiles,
+                           schedules._offset(AFFINE, offsets, sel))
+
+
+def _reference_chain(ops, bt, exclusive):
+    """The reference's organization, op by op: its ``tile_scan`` along
+    time of each tile, the chunk offsets folded left to right from the
+    identity with its combine, each offset combined on the LEFT."""
+    a, b = (jnp.asarray(o.numpy()) for o in ops)
+    B, T, D = a.shape
+    tiles = tuple(v.reshape(B, T // bt, bt, D) for v in (a, b))
+    scanned = jax_schedules.tile_scan(jax_monoids.AFFINE, tiles, axis=2)
+    sel = (jax_schedules.shift_one(jax_monoids.AFFINE, scanned, 2)
+           if exclusive else scanned)
+    pre = tuple(jnp.full_like(t[:, 0, 0], f)
+                for t, f in zip(tiles, jax_monoids.AFFINE.fills))
+    outs = []
+    for j in range(T // bt):
+        outs.append(jax_monoids.AFFINE.combine(
+            tuple(p[:, None] for p in pre), tuple(s[:, j] for s in sel))[1])
+        pre = jax_monoids.AFFINE.combine(
+            pre, tuple(s[:, j, -1] for s in scanned))
+    return torch.from_numpy(np.array(jnp.stack(outs, 1).reshape(B, T, D)))
+
+
+PICKS = {"nearest": lambda j: j - 1, "first": lambda j: 0,
+         "middle": lambda j: j // 2}
+
+
+@pytest.mark.parametrize("pick", tuple(PICKS))
+@pytest.mark.parametrize("exclusive", (False, True))
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_register_fused_bitwise(bt, exclusive, pick):
+    """The register fused's organization (the network a tile, the
+    look-back's left fold from whichever inclusive prefix it finds) is
+    bitwise ``fused_plain``, ``carry_plain`` and the reference's chain,
+    signed zeros included, on exact data with -0.0 at every tile start."""
+    ops = _operands(bt, 7 * bt + len(pick), exact=True, shape=(2, 6 * bt, 8))
+    lay = scan_engine.Channels(*ops[0].shape, bt, 8)
+    assert cuda.tile_network(AFFINE, lay, "fused") == "register"
+    (got,) = _register_fused(ops, lay, exclusive, PICKS[pick])
+    (want,) = schedules.fused_plain(ops, AFFINE, lay, exclusive)
+    assert same_bits(got, want)
+    assert same_bits(got, schedules.carry_plain(ops, AFFINE, lay,
+                                                exclusive)[0])
+    assert same_bits(got, _reference_chain(ops, bt, exclusive))
+    # tile 0's identity offset turns b = -0.0 at step 0 into +0.0 where
+    # a > 0: the combine is done, not skipped
+    assert bool(torch.signbit(ops[1][:, 0]).all())
+    if not exclusive:
+        z = got[:, 0][ops[0][:, 0] > 0]
+        assert z.numel() and bool((z == 0).all())
+        assert not bool(torch.signbit(z).any())

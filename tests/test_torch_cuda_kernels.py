@@ -27,10 +27,11 @@ fold_dq_tc, fold_dkv_tc: bf16 operands, p and ds as bf16 hi + lo before
 their products, float32 accumulators) meet the same bf16 bar over head
 dims 64, 128 and 256, KV blocks of 64 and 128 rows, masks, GQA groups,
 both schedules and packed decode tiles, and the same bitwise invariants;
-the float32 dq and dk/dv forms (fold_dq_tf32, fold_dkv_tf32: three TF32
-products a product) meet the float32 gradient bar at head dims 64, 128
-and 256 against the plain folds and the SIMT kernels launched by name,
-with the same bitwise invariants. The chain over chunk totals (a
+the float32 forward, dq and dk/dv forms (fold_fwd_tf32, fold_dq_tf32,
+fold_dkv_tf32: three TF32 products a product) meet the float32 forward
+and gradient bars at head dims 64, 128 and 256 against the plain folds
+and the SIMT kernels launched by name, with the same bitwise
+invariants. The chain over chunk totals (a
 folding thread for float specs, a parallel scan for integer ones) must
 give ``exclusive_chain``'s bits. The sum's and the mask's Rows totals
 (``totals_reduce_kernel``, the network's last element built as its tree)
@@ -41,7 +42,10 @@ carry, apply, fused and tree on ``Rows`` (``carry_reg_kernel``,
 tiles of 128·r elements, the shared-memory kernels on others): outputs
 and running totals bitwise equal to ``carry_plain``, ``apply_plain``,
 ``fused_plain`` and ``tree_plain``, decoupled == carry == fused, with the
-profiler's kernel names showing which network each shape launches.
+profiler's kernel names showing which network each shape launches; the
+affine carry and fused on ``Channels`` tiles of 128, 256 and 512 steps
+(``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``) likewise, and
+equal to the shared-memory kernels launched by name.
 """
 
 import dataclasses
@@ -57,6 +61,7 @@ from repro_torch.kernels import scan_engine
 from repro_torch.core.scan import assoc
 from repro_torch.kernels.compact import ops as kc_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_bwd_kernel, flash_attention_kernel)
 from repro_torch.kernels.scan_blocked import ops
@@ -567,9 +572,10 @@ def test_cuda_carry_fused_network_by_shape(cuda_device):
     128·r elements launch the register network for the sum (every dtype),
     the segmented sum and the mask, at block_n 128 to 16384; other tile
     lengths, the affine pair on Rows and Channels launch the
-    shared-memory network, but the affine carry on Channels tiles of 256
-    steps, which launches ``carry_chan_reg_kernel``. ``cuda.tile_network``
-    names the same choice, and the launch counters keep their keys."""
+    shared-memory network, but the affine carry and fused on Channels
+    tiles of 256 steps, which launch ``carry_chan_reg_kernel`` and
+    ``fused_chan_reg_kernel``. ``cuda.tile_network`` names the same
+    choice, and the launch counters keep their keys."""
     ones = torch.ones((2, 32768), device=cuda_device)
     flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
     chan = scan_engine.Channels(2, 1024, 8, 256, 8)
@@ -599,7 +605,7 @@ def test_cuda_carry_fused_network_by_shape(cuda_device):
             hits = [k for k in names if kernel in k]
             chan = isinstance(lay, scan_engine.Channels)
             want = (f"{kernel}_kernel<" if not reg else
-                    "carry_chan_reg_kernel<" if chan else
+                    f"{kernel}_chan_reg_kernel<" if chan else
                     f"{kernel}_reg_kernel<")
             assert len(hits) == 1 and want in hits[0], (
                 spec.name, ops_[0].dtype, lay, names)
@@ -848,6 +854,78 @@ def test_cuda_affine_carry_channels_networks_agree(cuda_device):
                         network="shared")
     for x, y in zip((reg[0][0],) + reg[1], (shared[0][0],) + shared[1]):
         assert _same_bits(x, y)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_cuda_affine_fused_channels_register_bitwise(cuda_device, bt, dtype):
+    """The affine fused on Channels tiles of 128, 256 and 512 steps runs
+    ``fused_chan_reg_kernel`` (one launch, and by the profiler's names)
+    and gives ``fused_plain``'s bits, inclusive and exclusive, from
+    aligned bases and from bases one element off, over strips of 4 to 32
+    channels and lanes of 2 to 16 tiles; it equals the carry
+    (``carry_chan_reg_kernel``), decoupled and the shared-memory
+    ``fused_kernel`` launched by name (``network="shared"``), each launch
+    counted."""
+    rng = np.random.default_rng(bt + 7)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    aff = monoids.AFFINE
+    for shape in ((2, 4 * bt, 48), (1, 2 * bt, 4), (1, 16 * bt, 96)):
+        lay = scan_engine.Channels(*shape, bt, shape[2])
+        assert cuda.tile_network(aff, lay, "fused") == "register"
+        cpu = _chan_operands(rng, shape, bt, dtype)
+        for offset in (0, 1):
+            gpu = []
+            for o in cpu:
+                buf = torch.empty(o.numel() + offset, dtype=o.dtype,
+                                  device=cuda_device)
+                gpu.append(buf[offset:].view(o.shape))
+                gpu[-1].copy_(o)
+            gpu = tuple(gpu)
+            for exclusive in (False, True):
+                what = (shape, offset, exclusive)
+                cuda.reset_launches()
+                (got,) = cuda.fused(aff, gpu, lay, exclusive)
+                torch.cuda.synchronize()
+                assert cuda.LAUNCHES["affine_fused"] == 1
+                assert sum(cuda.LAUNCHES.values()) == 1
+                (want,) = sched.fused_plain(cpu, aff, lay, exclusive)
+                assert same(got.cpu(), want), what
+                cuda.reset_launches()
+                (shared,) = cuda.fused(aff, gpu, lay, exclusive,
+                                       network="shared")
+                (carry,), _ = cuda.carry(aff, gpu, lay, exclusive)
+                (dec,) = scan_engine.scan(gpu, aff, lay, schedule="decoupled",
+                                          exclusive=exclusive)
+                torch.cuda.synchronize()
+                assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {
+                    "affine_fused": 1, "affine_carry": 1, "affine_totals": 1,
+                    "affine_chain": 1, "affine_apply": 1}
+                assert same(shared, got) and same(carry, got) and \
+                    same(dec, got), what
+    names = _kernel_names(lambda: cuda.fused(aff, gpu, lay))
+    assert any("fused_chan_reg_kernel<" in k for k in names), names
+    names = _kernel_names(lambda: cuda.fused(aff, gpu, lay,
+                                             network="shared"))
+    assert any("::fused_kernel<" in k for k in names), names
+
+
+def test_cuda_affine_fused_channels_networks_agree(cuda_device):
+    """At the SSD carry's tiling (256 steps; 32-channel strips for the
+    register fused, 16 for the shared one) the register and the
+    shared-memory fused give the carry's bits, over lanes of four
+    tiles."""
+    rng = np.random.default_rng(23)
+    lay = scan_engine.Channels(1, 1024, 2048, 256, 2048)
+    gpu = tuple(t.to(cuda_device) for t in _chan_operands(
+        rng, lay.shape, 256, torch.float32))
+    assert cuda.chan_reg_width(lay) == 32 and cuda.channel_width(lay) == 16
+    (reg,) = cuda.fused(monoids.AFFINE, gpu, lay)
+    (shared,) = cuda.fused(monoids.AFFINE, gpu, lay, network="shared")
+    (carry,), _ = cuda.carry(monoids.AFFINE, gpu, lay)
+    assert _same_bits(reg, shared) and _same_bits(reg, carry)
 
 
 def test_cuda_ssm_backward_runs_kernels(cuda_device):
@@ -1358,9 +1436,9 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
-    """float32 runs the SIMT forward and the 3xTF32 dq and dk/dv forms,
-    bfloat16 the bf16 tensor-core forms, at the same d = 128 shape;
-    float16 is refused."""
+    """float32 runs the 3xTF32 forward, dq and dk/dv forms, bfloat16 the
+    bf16 tensor-core forms, at the same d = 128 shape; no SIMT kernel
+    runs; float16 is refused."""
     x = torch.ones((1, 2, 256, 128), dtype=dtype, device=cuda_device)
     cuda_fold.reset_launches()
     out = fa_ops.flash_attention(*(t.requires_grad_() for t in
@@ -1371,7 +1449,8 @@ def test_cuda_fold_forms_by_dtype(cuda_device, dtype):
     assert cuda_fold.LAUNCHES["fold_fwd_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_dkv_tc"] == int(tc)
     assert cuda_fold.LAUNCHES["fold_dq_tc"] == int(tc)
-    assert cuda_fold.LAUNCHES["fold_fwd"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_fwd_tf32"] == int(not tc)
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
     assert cuda_fold.LAUNCHES["fold_dkv_tf32"] == int(not tc)
     assert cuda_fold.LAUNCHES["fold_dkv"] == 0
     assert cuda_fold.LAUNCHES["fold_dq_tf32"] == int(not tc)
@@ -1600,3 +1679,148 @@ def test_cuda_tf32_against_simt_by_d(cuda_device, kernel, case):
         assert _allclose(a, b, ATTN_TOL[torch.float32][1])
     with pytest.raises(TypeError, match="does not take"):
         cuda_fold.fold(spec, ops_, lay, form=kernel + "_tc")
+
+
+def _tf32_fwd_inputs(case):
+    """(q, k, v) in float32 on the card and the forward's keywords of a
+    ``TF32_CASES`` case."""
+    name, hkv, g, tq, tk, d, causal, window, kv_len, softcap, bq, bk = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((hkv * g, tq, d), (hkv, tk, d),
+                                      (hkv, tk, d)))
+    kw = dict(group=g, scale=d ** -0.5, causal=causal, window=window,
+              kv_len=kv_len, softcap=softcap, block_q=bq, block_k=bk)
+    return (q, k, v), kw
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_cuda_tf32_fwd_vs_plain(cuda_device, case, schedule):
+    """fold_fwd_tf32 (the float32 forward fold at d 64, 128 and 256, bq
+    and bk 64 or 128) against the plain fold on CPU copies of the same
+    inputs within the reference tests' forward bar (atol 1e-5, rtol
+    1e-5): out, m and l under the carry fold, and the split pass with its
+    chain against the plain decoupled fold, the chunks' (m, l) against
+    the plain split pass; one launch and none of the SIMT forward. (The
+    chunks' acc, unnormalized and relative to each chunk's max, is held to
+    a float64 statement below: against the plain float32 products it
+    would measure their rounding as well.)"""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        forward_fold)
+    from repro_torch.kernels.scan_engine import schedules
+    ops_, kw = _tf32_fwd_inputs(case)
+    assert cuda_fold.fold_form("fold_fwd", torch.float32, case[5], case[10],
+                               case[11]) == "fold_fwd_tf32"
+    spec, lay = forward_fold(ops_[0].shape, ops_[1].shape, schedule=schedule,
+                             return_stats=True, **kw)
+    cpu = tuple(t.cpu() for t in ops_)
+    fwd_tol = ATTN_TOL[torch.float32][0]
+    out_dts = (torch.float32,) * 3
+    cuda_fold.reset_launches()
+    if schedule == "carry":
+        got = cuda_fold.fold(spec, ops_, lay)[0]
+        want = schedules.fold_carry_plain(cpu, spec, lay)
+    else:
+        tot = cuda_fold.fold_totals(spec, ops_, lay)
+        w_tot = schedules.fold_totals_plain(cpu, spec, lay)
+        for a, b in zip(tot[:2], w_tot[:2]):
+            assert _allclose(a, b, fwd_tol)
+        got = cuda_fold.chain(spec, tot, lay, out_dts)
+        want = schedules.fold_finalize_plain(spec, lay, w_tot, out_dts)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_fwd_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert _allclose(a, b, fwd_tol), (a.cpu() - b).abs().max().item()
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", TF32_BY_D, ids=[c[0] for c in TF32_BY_D])
+def test_cuda_tf32_fwd_bitwise_invariants_by_d(cuda_device, case, schedule):
+    """fold_fwd_tf32 gives the same bits (out, m, l) with bounds on and
+    off, on repeats over outputs whose memory held NaN, and through a
+    page-permuted pool (kv_block_map), at each head dim; its cell counts
+    are the plain fold's."""
+    (q, k, v), kw = _tf32_fwd_inputs(case)
+    kw = dict(kw, schedule=schedule)
+    cuda_fold.reset_launches()
+    on = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+    assert cuda_fold.LAUNCHES["fold_fwd_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
+    off = flash_attention_kernel(q, k, v, return_stats=True,
+                                 use_kv_bounds=False, **kw)
+    for a, b in zip(on, off):
+        assert _same_bits(a, b)
+    for _ in range(3):
+        junk = [torch.full((n,), float("nan"), device=cuda_device)
+                for n in (1 << 12, 1 << 16, 1 << 20) for _ in range(4)]
+        del junk
+        again = flash_attention_kernel(q, k, v, return_stats=True, **kw)
+        for a, b in zip(on, again):
+            assert _same_bits(a, b)
+    bk = kw["block_k"]
+    pages = k.shape[1] // bk
+    rng = np.random.default_rng(pages + 1)
+    perm = torch.from_numpy(rng.permutation(pages))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(pages)
+
+    def permuted(t):
+        return t.view(t.shape[0], pages, bk, t.shape[2])[
+            :, inv.to(cuda_device)].reshape(t.shape)
+
+    paged = flash_attention_kernel(q, permuted(k), permuted(v),
+                                   kv_block_map=perm.tolist(),
+                                   return_stats=True, **kw)
+    for a, b in zip(on, paged):
+        assert _same_bits(a, b)
+    if schedule == "carry":
+        _, counts = flash_attention_kernel(q, k, v, count_cells=True, **kw)
+        _, want = flash_attention_kernel(q.cpu(), k.cpu(), v.cpu(),
+                                         count_cells=True, **kw)
+        assert torch.equal(counts.cpu(), want)
+
+
+@pytest.mark.parametrize("case", TF32_BY_D, ids=[c[0] for c in TF32_BY_D])
+def test_cuda_tf32_fwd_against_simt_by_d(cuda_device, case):
+    """fold_fwd_tf32 and the SIMT forward launched by name agree within
+    the float32 forward bar (out, m, l), each counting its own launch, at
+    d 64, 128 and 256; the bf16 form refuses float32 operands."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        forward_fold)
+    ops_, kw = _tf32_fwd_inputs(case)
+    spec, lay = forward_fold(ops_[0].shape, ops_[1].shape, return_stats=True,
+                             **kw)
+    cuda_fold.reset_launches()
+    tf32 = cuda_fold.fold(spec, ops_, lay)[0]
+    simt = cuda_fold.fold(spec, ops_, lay, form="fold_fwd")[0]
+    assert cuda_fold.LAUNCHES["fold_fwd_tf32"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 1
+    for a, b in zip(tf32, simt):
+        assert _allclose(a, b, ATTN_TOL[torch.float32][0])
+    with pytest.raises(TypeError, match="does not take"):
+        cuda_fold.fold(spec, ops_, lay, form="fold_fwd_tc")
+
+
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_cuda_tf32_fwd_split_payload_vs_float64(cuda_device, case):
+    """fold_fwd_tf32's split pass publishes each chunk's (m, l, acc)
+    within the forward bar (atol 1e-5, rtol 1e-5) of the same payload in
+    float64, acc included."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        forward_fold)
+    ops_, kw = _tf32_fwd_inputs(case)
+    spec, lay = forward_fold(ops_[0].shape, ops_[1].shape,
+                             schedule="decoupled", return_stats=True, **kw)
+    cuda_fold.reset_launches()
+    tot = cuda_fold.fold_totals(spec, ops_, lay)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_fwd_tf32"] == 1
+    want = fa_ref.split_payload_ref(*(t.cpu().double() for t in ops_), spec,
+                                    lay)
+    for a, b in zip(tot, want):
+        assert _allclose(a.double(), b, ATTN_TOL[torch.float32][0]), \
+            (a.cpu().double() - b).abs().max().item()

@@ -28,8 +28,17 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_fwd", BF16, 256, 16, 64, "fold_fwd_tc"),
     ("fold_dkv", BF16, 256, 128, 128, "fold_dkv_tc"),
     ("fold_dkv", BF16, 64, 64, 64, "fold_dkv_tc"),
-    ("fold_fwd", F32, 128, 128, 128, "fold_fwd"),       # float32: SIMT
-    ("fold_fwd", F32, 256, 128, 128, "fold_fwd"),
+    ("fold_fwd", F32, 128, 128, 128, "fold_fwd_tf32"),  # phi3 prefill
+    ("fold_fwd", F32, 256, 128, 128, "fold_fwd_tf32"),  # gemma2 training
+    ("fold_fwd", F32, 64, 128, 128, "fold_fwd_tf32"),
+    ("fold_fwd", F32, 64, 64, 64, "fold_fwd_tf32"),
+    ("fold_fwd", F32, 128, 64, 128, "fold_fwd_tf32"),
+    ("fold_fwd", F32, 256, 128, 64, "fold_fwd_tf32"),
+    ("fold_fwd", F32, 256, 64, 64, "fold_fwd_tf32"),
+    ("fold_fwd", F32, 128, 8, 128, "fold_fwd"),         # decode: bq 8
+    ("fold_fwd", F32, 256, 32, 64, "fold_fwd"),         # bq 32
+    ("fold_fwd", F32, 32, 128, 128, "fold_fwd"),        # d not 64/128/256
+    ("fold_fwd", F32, 128, 128, 32, "fold_fwd"),        # bk 32
     ("fold_dkv", F32, 256, 128, 128, "fold_dkv_tf32"),  # gemma2 training
     ("fold_dkv", F32, 256, 64, 64, "fold_dkv_tf32"),
     ("fold_dkv", F32, 128, 128, 128, "fold_dkv_tf32"),  # phi3 prefill
@@ -168,7 +177,31 @@ def test_tf32_dq_tiling_fits_shared_memory(d, bq):
     assert t["smem"] + t["stage_bytes"] + 16 > cuda_fold.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("form", ("fold_dq_tf32", "fold_dkv_tf32"))
+@pytest.mark.parametrize("d", cuda_fold.TF32_DIMS)
+@pytest.mark.parametrize("bq", cuda_fold.TC_BK)
+def test_tf32_fwd_tiling_fits_shared_memory(d, bq):
+    """``fold_fwd_tf32``'s block (``Tf32FwdTiles``) fits the 227 KB a
+    block may use: the 64-row q tile in float32, p as TF32 hi and lo
+    ([64 q][128 kv] each, the widest cell), the rows' statistics, and a
+    ring of as many 32 KB stages as fit, at least three (a stage: 32
+    columns of k for each of the cell's two 64-row kv tiles, each as hi
+    and lo, or 64 columns of a kv tile's v for each warpgroup's accᵀ
+    tile), with its mbarriers."""
+    t = cuda_fold.tc_tiling("fold_fwd_tf32", d, bq)
+    assert t["warpgroups"] == 2 and t["threads"] == 256
+    assert t["stages"] >= 3
+    assert t["stage_bytes"] == 4 * 64 * 32 * 4 == 2 * 64 * 64 * 4
+    assert t["smem"] == (1024 + 64 * d * 4 + 2 * 64 * 128 * 4
+                         + cuda_fold.TF32_FWD_STATS
+                         + t["stages"] * t["stage_bytes"]
+                         + 8 * (2 * t["stages"] + 1))
+    assert t["smem"] <= cuda_fold.SMEM_LIMIT
+    # one stage more would not fit
+    assert t["smem"] + t["stage_bytes"] + 16 > cuda_fold.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("form", ("fold_fwd_tf32", "fold_dq_tf32",
+                                  "fold_dkv_tf32"))
 def test_tf32_tiling_refuses_other_dims(form):
     with pytest.raises(ValueError, match=form):
         cuda_fold.tc_tiling(form, 32, 128)

@@ -166,11 +166,12 @@ NETWORKS = [
      "shared"),
     ("sum-channels-bt256", monoids.SUM, scan_engine.Channels(2, 512, 4, 256, 4),
      "shared"),
-    # the affine carry on Channels tiles of 256 steps: the register carry
-    # (carry_chan_reg_kernel); its apply, fused and tree stay shared
+    # the affine carry and fused on Channels tiles of 256 steps: the
+    # register carry and fused (carry_chan_reg_kernel,
+    # fused_chan_reg_kernel); its apply and tree stay shared
     ("affine-channels-bt256", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 256, 64),
-     {"carry": "register", "apply": "shared", "fused": "shared",
+     {"carry": "register", "apply": "shared", "fused": "register",
       "tree": "shared"}),
     ("affine-channels-bt64", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 64, 64), "shared"),
@@ -187,8 +188,8 @@ def _network(network, kernel):
 def test_tile_network_by_shape(name, spec, layout, network):
     """Rows tiles of 128·r elements take the register network for every
     spec but the affine pair; other tile lengths keep the shared-memory
-    ``tile_scan``, and so does Channels but for the affine carry
-    (``tests/test_torch_chan_network.py``)."""
+    ``tile_scan``, and so does Channels but for the affine carry and
+    fused (``tests/test_torch_chan_network.py``)."""
     for kernel in ("carry", "apply", "fused", "tree"):
         assert cuda.tile_network(spec, layout, kernel) == _network(network,
                                                                    kernel)

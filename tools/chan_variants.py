@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Time the affine carry on ``Channels`` in registers
-(``carry_chan_reg_kernel``) against variants of its own source and the
-shared-memory ``carry_kernel``, on one card, in one process.
+"""Time the affine carry and fused on ``Channels`` in registers
+(``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``) against variants
+of their own source and the shared-memory ``carry_kernel``, on one card,
+in one process.
 
     PYTHONPATH=src python3 tools/chan_variants.py
 
-Each variant is ``csrc/scan_sum.cu`` with a few text edits (the ring's
-depth, the channels a lane holds, and a marked diagnostic: the copies in
+Each variant is ``csrc/scan_sum.cu`` with a few text edits (the carry's
+ring depth, the channels a lane of the carry and of the fused holds, one
+fused block an SM instead of two, and a marked diagnostic: the copies in
 and out without the network). All are compiled with ``nvcc``
 together into ``build/variants/chan_<name>/``, then run at chip_smoke's
 SSD carry shape, (1, 1024, 458752) float32 with time tiles of 256, over
 strips of 8, 16 and 32 channels (the strip width is free: only the time
 tile fixes the association), each one call between CUDA events (median
-of 10), in turns (each variant, then again in reverse order). Each
-(variant, width) is held bitwise against ``carry_plain`` at a smaller
-shape first, outputs and running totals (but the diagnostic's), and the
-shared-memory
-``carry_kernel`` is timed at the same shape on the first variant's build.
+of 10), in turns (each variant, then again in reverse order), the carry
+and then the fused. Each (variant, width) is held bitwise against
+``carry_plain`` at a smaller shape first, the carry's outputs and running
+totals and the fused's outputs (but the diagnostic's), and the
+shared-memory ``carry_kernel`` is timed at the same shape on the first
+variant's build.
 """
 
 from __future__ import annotations
@@ -41,13 +44,22 @@ VARIANTS = {
                 "{ return 2; }",
                 "__host__ __device__ constexpr int chan_reg_lanes(int) "
                 "{ return 4; }")],
+    # fused_chan_reg_kernel with two channels a lane (sixteen scan warps
+    # a 32-channel strip), and at one block an SM (launch bounds that let
+    # ptxas use more registers)
+    "fused_lanes2": [("__host__ __device__ constexpr int fused_chan_lanes(int) "
+                      "{ return 4; }",
+                      "__host__ __device__ constexpr int fused_chan_lanes(int) "
+                      "{ return 2; }")],
+    "fused1": [("__global__ void __launch_bounds__(fused_chan_threads(NS), 2)",
+                "__global__ void __launch_bounds__(fused_chan_threads(NS), 1)")],
     # a diagnostic: the same copies in and out, no network (out = b): what
     # this access pattern alone takes
     "copyonly": [("for (int k = 1; k < 32; k <<= 1) {",
                   "for (int k = 32; k < 32; k <<= 1) {"),
                  ("for (int m = 1; m < NS; m <<= 1)",
                   "for (int m = NS; m < NS; m <<= 1)"),
-                 ("o[v] = S::combine(carry[v], x[s][v]).b;",
+                 ("o[v] = S::combine(left[v], x[s][v]).b;",
                   "o[v] = x[s][v].b;")],
 }
 DIAGNOSTIC = ("copyonly",)
@@ -99,13 +111,14 @@ def main() -> int:
                 [pool.submit(cuda.compile_library, d / "scan_sum.cu", d)
                  for d in dirs.values()]]
     print(f"built {len(dirs)} variants in {time.perf_counter() - t0:.1f} s")
-    for name, log in zip(dirs, logs):   # the float32 bt 256 kernel's report
+    for name, log in zip(dirs, logs):   # the float32 bt 256 kernels' reports
         lines = log.splitlines()
-        at = [i for i, line in enumerate(lines) if "Compiling" in line
-              and "carry_chan_reg_kernelIfLi8ELb1" in line]
-        report = [line.strip() for line in lines[at[0] + 1:at[0] + 4]
-                  if "spill" in line or "Used" in line] if at else []
-        print(f"  {name}: carry_chan_reg_kernel<f32, 8, vec>: {report}")
+        for kernel in ("carry_chan_reg_kernel", "fused_chan_reg_kernel"):
+            at = [i for i, line in enumerate(lines) if "Compiling" in line
+                  and f"{kernel}IfLi8ELb1" in line]
+            report = [line.strip() for line in lines[at[0] + 1:at[0] + 4]
+                      if "spill" in line or "Used" in line] if at else []
+            print(f"  {name}: {kernel}<f32, 8, vec>: {report}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -117,6 +130,7 @@ def main() -> int:
     lay_small = Channels(1, 1024, 4096, 256, 4096)
     (want,), w_run = schedules.carry_plain(small, monoids.AFFINE, lay_small,
                                            return_totals=True)
+    aff = monoids.AFFINE
     width_of = cuda.chan_reg_width
     shared = time_ms(lambda: cuda.carry(monoids.AFFINE, (a, b), lay,
                                         network="shared"))
@@ -147,12 +161,17 @@ def main() -> int:
             except RuntimeError:   # a strip the variant's blocks refuse
                 row.append(f"w{w} refused")
                 continue
+            (fo,) = cuda.fused(aff, small, lay_small, network="register")
             if name not in DIAGNOSTIC and not (
-                    same(got, want)
+                    same(got, want) and same(fo, want)
                     and all(same(x, y) for x, y in zip(run, w_run))):
                 raise SystemExit(f"variant {name} width {w}: differs from "
                                  "carry_plain")
-            row.append(f"w{w} {time_ms(lambda: cuda.carry(monoids.AFFINE, (a, b), lay, network='register')):.3f}")
+            carry_ms = time_ms(lambda: cuda.carry(aff, (a, b), lay,
+                                                  network="register"))
+            fused_ms = time_ms(lambda: cuda.fused(aff, (a, b), lay,
+                                                  network="register"))
+            row.append(f"w{w} carry {carry_ms:.3f} fused {fused_ms:.3f}")
         cuda.chan_reg_width = width_of
         print(f"{name:15s} " + "  ".join(row) + " ms"
               + (" (diagnostic: bits not checked)" if name in DIAGNOSTIC
