@@ -15,9 +15,11 @@ first failure and prints no result):
      instantiations each, d = 64, 128 and 256, among them; the 104 kernels
      of the register network, carry_reg_kernel, apply_reg_kernel,
      fused_reg_kernel and tree_reg_kernel by spec and vector form, and the
-     18 each of the affine carry and fused on Channels,
-     carry_chan_reg_kernel and fused_chan_reg_kernel, by dtype, tile and
-     vector form, none may spill either);
+     18 each of the affine carry, apply and fused on Channels,
+     carry_chan_reg_kernel, apply_chan_reg_kernel and
+     fused_chan_reg_kernel, by dtype, tile and vector form, and of the
+     affine totals there, totals_chan_reduce_kernel, by dtype, tile and
+     channels a thread, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
      bitwise: the four schedules (fused: the one-launch look-back kernel)
      x {inclusive, exclusive} x {f32, bf16, int32} on (3, 517), (64, 2^18)
@@ -36,8 +38,10 @@ first failure and prints no result):
      and ``totals_tree_plain`` at block_n 128, 2048, 2176 and 16384 for
      the six sum dtypes and the mask, signed zeros at tile starts, from an
      aligned base and one element off; and, by the profiler's kernel
-     names, that those launch it while the segmented sum, and every
-     Channels launch, take the network's ``totals_kernel``; carry,
+     names, that those launch it, the affine pair on Channels tiles of
+     128, 256 and 512 steps ``totals_chan_reduce_kernel``, while the
+     segmented sum, the sum on Channels and the affine pair on Rows and on
+     other Channels tiles take the network's ``totals_kernel``; carry,
      apply, fused and tree on Rows in the register network
      (``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel``,
      ``tree_reg_kernel``: a warp a 128-element segment, Hillis-Steele or
@@ -52,12 +56,17 @@ first failure and prints no result):
      register kernels while block_n 200 and Channels launch
      ``carry_kernel`` / ``apply_kernel`` / ``fused_kernel`` /
      ``tree_kernel`` (the networks in shared memory), but the affine
-     carry and fused on Channels, which launch ``carry_chan_reg_kernel``
-     and ``fused_chan_reg_kernel``; and those kernels at time tiles of
-     128, 256 and 512 steps over three shapes and three dtypes, outputs
-     and running totals bitwise equal to ``carry_plain``, decoupled ==
-     carry == fused == the shared-memory ``fused_kernel`` launched by name,
-     inclusive and exclusive, aligned and one element off;
+     carry, apply and fused on Channels, which launch
+     ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
+     ``fused_chan_reg_kernel``; and those kernels and
+     ``totals_chan_reduce_kernel`` at time tiles of 128, 256 and 512 steps
+     over three shapes and three dtypes, outputs and running totals
+     bitwise equal to ``carry_plain``, the totals to ``totals_plain``,
+     ``totals_tree_plain`` and the shared ``totals_kernel``, the chain's
+     offsets to ``exclusive_chain``, apply to ``apply_plain`` and the
+     shared ``apply_kernel``, decoupled == carry == fused == the
+     shared-memory ``fused_kernel`` launched by name, inclusive and
+     exclusive, aligned and one element off;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -115,7 +124,10 @@ first failure and prints no result):
      are bitwise equal to the plain versions, the forward within 2e-4 of
      a float64 sequential recurrence; then each affine kernel's time
      (the carry, ``carry_chan_reg_kernel``, also from a CUDA graph replay,
-     beside the shared-memory ``carry_kernel`` it replaced, and the fused,
+     beside the shared-memory ``carry_kernel`` it replaced; decoupled's
+     totals and apply, ``totals_chan_reduce_kernel`` and
+     ``apply_chan_reg_kernel``, beside the shared ``totals_kernel`` and
+     ``apply_kernel``, in turns and from graph replays; and the fused,
      ``fused_chan_reg_kernel``, beside the shared-memory ``fused_kernel``,
      each timed at the same shape in the same run and held bitwise
      against it);
@@ -505,15 +517,24 @@ def main() -> int:
         check(len(regk) == 104 and not reg_spills,
               f"ptxas: register network {len(regk)} kernels, spills in "
               f"{reg_spills}")
-    # the affine carry and fused on Channels in registers
-    # (carry_chan_reg_kernel, fused_chan_reg_kernel) by dtype, slots a lane
-    # (bt / 32) and vector form: registers, spills
-    for kname in ("carry_chan_reg_kernel", "fused_chan_reg_kernel"):
+    # the affine carry, apply and fused on Channels in registers
+    # (carry_chan_reg_kernel, apply_chan_reg_kernel, fused_chan_reg_kernel)
+    # by dtype, slots a lane (bt / 32) and vector form, and the affine
+    # totals there (totals_chan_reduce_kernel) by dtype, tile and channels
+    # a thread: registers, spills
+    for kname, form in (("carry_chan_reg_kernel", "dtype, bt / 32, vector "
+                         "form"),
+                        ("apply_chan_reg_kernel", "dtype, bt / 32, vector "
+                         "form"),
+                        ("fused_chan_reg_kernel", "dtype, bt / 32, vector "
+                         "form"),
+                        ("totals_chan_reduce_kernel", "dtype, bt, channels "
+                         "a thread")):
         entry, chan, chan_spills = None, [], []
         for line in cuda.build_log.splitlines():
             if "Compiling entry function" in line:
                 found = re.search(kname + r"I(f|13__nv_bfloat16|"
-                                  r"6__half)Li(\d+)ELb([01])E", line)
+                                  r"6__half)Li(\d+)EL[bi](\d+)E", line)
                 dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
                 entry = found and f"<{dt[found[1]]}, {found[2]}, {found[3]}>"
             elif entry and "spill stores" in line:
@@ -524,9 +545,8 @@ def main() -> int:
                 chan.append(f"{entry} {used}")
                 entry = None
         if chan:   # a cached build in build/ prints no report
-            print(f"  ptxas {kname} ({len(chan)} kernels: dtype, bt / 32, "
-                  f"vector form): {', '.join(chan)}; with spills: "
-                  f"{chan_spills or 'none'}")
+            print(f"  ptxas {kname} ({len(chan)} kernels: {form}): "
+                  f"{', '.join(chan)}; with spills: {chan_spills or 'none'}")
             check(len(chan) == 18 and not chan_spills,
                   f"ptxas: {kname} {len(chan)} kernels, spills in "
                   f"{chan_spills}")
@@ -769,7 +789,14 @@ def main() -> int:
             (SEGSUM, (ones, zeros_i), Rows(2, 4096, 1, 2048),
              "totals_kernel"),
             (SUM, (ones_c,), chan, "totals_kernel"),
-            (AFFINE, (ones_c, ones_c), chan, "totals_kernel")):
+            (AFFINE, (ones_c, ones_c), Channels(2, 1024, 8, 128, 8),
+             "totals_chan_reduce_kernel"),
+            (AFFINE, (ones_c, ones_c), chan, "totals_chan_reduce_kernel"),
+            (AFFINE, (ones_c, ones_c), Channels(2, 1024, 8, 512, 8),
+             "totals_chan_reduce_kernel"),
+            (AFFINE, (ones_c, ones_c), Channels(2, 1024, 8, 64, 8),
+             "totals_kernel"),
+            (AFFINE, (ones, ones), Rows(2, 4096, 1, 2048), "totals_kernel")):
         sync()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             cuda.totals(spec, ops, lay)
@@ -779,9 +806,13 @@ def main() -> int:
                  and "totals" in e.key]
         check(len(names) == 1 and want + "<" in names[0],
               f"{spec.name} {type(lay).__name__} totals launched {names}")
+        check(cuda.tile_network(spec, lay, "totals") == (
+            "shared" if want == "totals_kernel" else "register"),
+            f"tile_network totals {spec.name} {lay}")
     print("totals kernels by the profiler: sum (f32, int8) and mask on Rows "
-          "-> totals_reduce_kernel; segsum on Rows, sum and affine on "
-          "Channels -> totals_kernel")
+          "-> totals_reduce_kernel; affine on Channels bt 128, 256, 512 -> "
+          "totals_chan_reduce_kernel; segsum on Rows, sum on Channels, "
+          "affine on Channels bt 64 and on Rows -> totals_kernel")
 
     # carry, apply, fused and tree on Rows: the register network
     # (carry_reg_kernel, apply_reg_kernel, fused_reg_kernel,
@@ -847,8 +878,8 @@ def main() -> int:
             names = {}
             for e in prof.key_averages():
                 found = re.search(
-                    r"((carry_chan|fused_chan|carry|apply|fused|tree)(_reg)?"
-                    r"_kernel)<", e.key)
+                    r"((carry_chan|apply_chan|fused_chan|carry|apply|fused|"
+                    r"tree)(_reg)?_kernel)<", e.key)
                 if e.device_type == torch.autograd.DeviceType.CUDA and found:
                     names[found[1]] = names.get(found[1], 0) + e.count
             if sum(names.values()) >= len(NET_KERNELS) * len(calls):
@@ -921,16 +952,16 @@ def main() -> int:
     # the shared-memory kernels: Rows tiles of 200 elements bitwise against
     # the plain versions (every schedule), and by the profiler's names with
     # Channels (the affine pair's kernels are held bitwise below): every
-    # Channels launch but the affine carry and fused, which take
-    # carry_chan_reg_kernel and fused_chan_reg_kernel
+    # Channels launch but the affine carry, apply and fused, which take
+    # carry_chan_reg_kernel, apply_chan_reg_kernel and fused_chan_reg_kernel
     calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
              (SEGSUM, (ones[:, :600].contiguous(),
                        zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
              (SUM, (ones_c,), chan), (AFFINE, (ones_c, ones_c), chan))
     for spec, _, lay in calls:
         for k in NET_KERNELS:
-            net = ("register" if spec is AFFINE and k in ("carry", "fused")
-                   else "shared")
+            net = ("register" if spec is AFFINE
+                   and k in ("carry", "apply", "fused") else "shared")
             check(cuda.tile_network(spec, lay, k) == net,
                   f"tile_network {spec.name} {lay} {k}")
     lay200 = Rows(2, 600, 1, 200)
@@ -946,6 +977,7 @@ def main() -> int:
     names = launched_names(calls)
     want = {f"{k}_kernel": len(calls) for k in NET_KERNELS}
     want.update(carry_kernel=len(calls) - 1, carry_chan_reg_kernel=1,
+                apply_kernel=len(calls) - 1, apply_chan_reg_kernel=1,
                 fused_kernel=len(calls) - 1, fused_chan_reg_kernel=1)
     check(names == want, f"bn 200 and Channels launched {names}, not {want}")
     print(f"phase 2 (register network): {n_reg} checks (carry + fused + "
@@ -954,8 +986,9 @@ def main() -> int:
           "equal to the plain versions, carry == decoupled == fused; by the "
           "profiler, bn 200 on Rows (sum, segsum) and Channels (sum, affine) "
           "launch carry_kernel / apply_kernel / fused_kernel / tree_kernel "
-          "(the networks in shared memory), but the affine carry and fused "
-          "on Channels, carry_chan_reg_kernel and fused_chan_reg_kernel")
+          "(the networks in shared memory), but the affine carry, apply and "
+          "fused on Channels, carry_chan_reg_kernel, apply_chan_reg_kernel "
+          "and fused_chan_reg_kernel")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -976,21 +1009,24 @@ def main() -> int:
     print(f"phase 2 (affine): {n_aff} schedule runs, outputs and running "
           "totals bitwise equal to the plain versions")
 
-    # the affine carry and fused on Channels in registers
-    # (carry_chan_reg_kernel, fused_chan_reg_kernel) at time tiles of 128,
-    # 256 and 512 steps: outputs and running totals bitwise equal to
-    # carry_plain, and decoupled == carry == fused == the shared-memory
-    # fused_kernel launched by name, inclusive and exclusive, from aligned
-    # bases and one element off, on gates with negative and signed-zero
-    # values and offsets with -0.0 at every tile start (g_red's
-    # generator); the profiler names the kernels
+    # the affine carry, fused, totals and apply on Channels in registers
+    # (carry_chan_reg_kernel, fused_chan_reg_kernel,
+    # totals_chan_reduce_kernel, apply_chan_reg_kernel) at time tiles of
+    # 128, 256 and 512 steps: outputs and running totals bitwise equal to
+    # carry_plain, the totals to totals_plain, totals_tree_plain and the
+    # shared totals_kernel, the chain's offsets to exclusive_chain, apply to
+    # apply_plain and the shared apply_kernel, and decoupled == carry ==
+    # fused == the shared-memory fused_kernel launched by name, inclusive
+    # and exclusive, from aligned bases and one element off, on gates with
+    # negative and signed-zero values and offsets with -0.0 at every tile
+    # start (g_red's generator); the profiler names the kernels
     n_chan = 0
     for bt in cuda.CHAN_REG_TILES:
         for shape in ((2, 8 * bt, 48), (1, 4 * bt, 1024), (1, 2 * bt, 4)):
             lay = Channels(*shape, bt, shape[2])
-            check(cuda.tile_network(AFFINE, lay, "carry") == "register"
-                  and cuda.tile_network(AFFINE, lay, "fused") == "register",
-                  f"tile_network affine carry / fused {lay}")
+            check(all(cuda.tile_network(AFFINE, lay, k) == "register"
+                      for k in ("carry", "totals", "apply", "fused")),
+                  f"tile_network affine carry / totals / apply / fused {lay}")
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 a = 0.6 + 0.4 * torch.rand(shape, device=dev, generator=g_red)
                 a[torch.rand(shape, device=dev, generator=g_red) < 0.05] *= -1
@@ -999,9 +1035,16 @@ def main() -> int:
                 b[torch.rand(shape, device=dev, generator=g_red) < 0.05] = -0.0
                 b[:, ::bt] = -0.0
                 a, b = a.to(dtype), b.to(dtype)
+                w_tot = schedules.totals_plain((a, b), AFFINE, lay)
+                check(all_same_bits(schedules.totals_tree_plain(
+                    (a, b), AFFINE, lay), w_tot),
+                    f"totals_tree_plain != totals_plain: {dtype} {shape}")
+                w_off = schedules.exclusive_chain(AFFINE, w_tot)
                 for exclusive in (False, True):
                     (w_out,), w_run = schedules.carry_plain(
                         (a, b), AFFINE, lay, exclusive, return_totals=True)
+                    (w_ap,) = schedules.apply_plain((a, b), w_off, AFFINE,
+                                                    lay, exclusive)
                     for offset in (0, 1):
                         ops_o = (offset_view(a, offset),
                                  offset_view(b, offset))
@@ -1014,11 +1057,30 @@ def main() -> int:
                         (dec,) = schedules.scan_decoupled(
                             ops_o, AFFINE, lay, exclusive=exclusive)
                         sync()
-                        check(cuda.LAUNCHES["affine_carry"] == 1
-                              and cuda.LAUNCHES["affine_fused"] == 1,
-                              f"affine carry / fused {what}: {launched()}")
+                        check(all(cuda.LAUNCHES[f"affine_{k}"] == 1
+                                  for k in ("carry", "fused", "totals",
+                                            "chain", "apply")),
+                              f"affine carry / fused / decoupled {what}: "
+                              f"{launched()}")
                         (fs,) = cuda.fused(AFFINE, ops_o, lay, exclusive,
                                            network="shared")
+                        tot = cuda.totals(AFFINE, ops_o, lay)
+                        tsh = cuda.totals(AFFINE, ops_o, lay,
+                                          network="shared")
+                        offs, _ = cuda.chain(AFFINE, tot)
+                        (ap,) = cuda.apply(AFFINE, ops_o, offs, lay,
+                                           exclusive)
+                        (ash,) = cuda.apply(AFFINE, ops_o, offs, lay,
+                                            exclusive, network="shared")
+                        check(all_same_bits(tot, w_tot)
+                              and all_same_bits(tsh, w_tot),
+                              f"totals_chan_reduce_kernel != totals_plain / "
+                              f"shared totals_kernel: {what}")
+                        check(all_same_bits(offs, w_off),
+                              f"affine chain != exclusive_chain: {what}")
+                        check(same_bits(ap, w_ap) and same_bits(ash, ap),
+                              f"apply_chan_reg_kernel != apply_plain / "
+                              f"shared apply_kernel: {what}")
                         check(same_bits(got, w_out)
                               and all_same_bits(run, w_run),
                               f"carry_chan_reg_kernel != carry_plain: {what}")
@@ -1027,23 +1089,31 @@ def main() -> int:
                               f"affine carry / decoupled / fused (register, "
                               f"shared) differ: {what}")
                         n_chan += 1
-                        del ops_o, got, run, fo, dec, fs
-                    del w_out, w_run
+                        del ops_o, got, run, fo, dec, fs, tot, tsh, offs, \
+                            ap, ash
+                    del w_out, w_run, w_ap
+                del w_tot, w_off
         names = launched_names(((AFFINE, (a, b), lay),))
         check(names.get("carry_chan_reg_kernel") == 1
+              and names.get("apply_chan_reg_kernel") == 1
               and names.get("fused_chan_reg_kernel") == 1,
-              f"affine carry / fused bt={bt} launched {names}")
+              f"affine carry / apply / fused bt={bt} launched {names}")
         widths = [cuda.chan_reg_width(Channels(*sh, bt, sh[2]))
                   for sh in ((2, 8 * bt, 48), (1, 4 * bt, 1024),
                              (1, 2 * bt, 4))]
-        print(f"affine carry and fused on Channels bt={bt} "
-              "(carry_chan_reg_kernel and fused_chan_reg_kernel by the "
-              f"profiler; strips of {widths} channels): == carry_plain "
-              "bitwise, carry == decoupled == fused == shared fused_kernel")
-    print(f"phase 2 (affine register carry and fused): {n_chan} checks (bt "
-          "128, 256, 512 x 3 shapes x 3 dtypes x inclusive / exclusive x "
-          "aligned / one element off), outputs and running totals bitwise "
-          "equal to carry_plain")
+        print(f"affine carry, apply and fused on Channels bt={bt} "
+              "(carry_chan_reg_kernel, apply_chan_reg_kernel and "
+              "fused_chan_reg_kernel by the profiler; strips of "
+              f"{widths} channels): == carry_plain bitwise, carry == "
+              "decoupled == fused == shared fused_kernel; totals "
+              "(totals_chan_reduce_kernel) == totals_plain == "
+              "totals_tree_plain == shared totals_kernel, apply == "
+              "apply_plain == shared apply_kernel")
+    print(f"phase 2 (affine register carry, fused, totals and apply): "
+          f"{n_chan} checks (bt 128, 256, 512 x 3 shapes x 3 dtypes x "
+          "inclusive / exclusive x aligned / one element off), outputs and "
+          "running totals bitwise equal to carry_plain, totals, offsets and "
+          "apply to the plain versions and the shared kernels")
 
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
@@ -1654,7 +1724,9 @@ def main() -> int:
     print(f"SSD carry {SSD_SHAPE} float32 ({4 * n_ssd / 1e9:.2f} GB per "
           f"operand): auto -> {route_ssd}; time tiles of 256, the carry in "
           f"{cuda.chan_reg_width(lay_s)}-channel strips "
-          "(carry_chan_reg_kernel), the other affine kernels in "
+          "(carry_chan_reg_kernel; apply_chan_reg_kernel and "
+          "fused_chan_reg_kernel too, the totals a reduction, "
+          "totals_chan_reduce_kernel), the tree in "
           f"{cuda.channel_width(lay_s)}-channel strips")
     check(route_ssd == "carry", "zamba2 SSD carry should route to carry")
     sync()
@@ -1754,10 +1826,42 @@ def main() -> int:
           f"{'not measured' if sh_g is None else f'{sh_g:.4f} ms'}); bound "
           f"{rows[-1]['bound_ms']:.4f} ms; the two bitwise equal, outputs "
           "and running totals")
+    check(cuda.tile_network(AFFINE, lay_s, "totals") == "register"
+          and cuda.tile_network(AFFINE, lay_s, "apply") == "register",
+          "the SSD decoupled should take totals_chan_reduce_kernel and "
+          "apply_chan_reg_kernel")
+
+    def beside_shared(kname, run):
+        """kname's kernel (``run(None)``, timed by kernel_row just before)
+        beside the shared-memory kernel it replaced (``run("shared")``),
+        at the same shape in the same run (a comparison: these launches
+        come after the main path's): bitwise equal, then CUDA-event
+        medians in turns (shared, register, register, shared) and a CUDA
+        graph replay of each."""
+        check(all_same_bits(flat(run("shared")), flat(run(None))),
+              f"SSD {kname}: register != shared network")
+        turns = [time_ms(lambda: run(net), 5)
+                 for net in ("shared", None, None, "shared")]
+        g_reg = graph_ms(lambda: run(None), calls=5)
+        g_sh = graph_ms(lambda: run("shared"), calls=5)
+        row = rows[-1]
+        print(f"  {kname} at {SSD_SHAPE} bt 256 in the same run: "
+              f"{row['ms']:.3f} / {turns[1]:.3f} / {turns[2]:.3f} ms "
+              f"(graph replay "
+              f"{'not measured' if g_reg is None else f'{g_reg:.4f} ms'}), "
+              f"the shared-memory kernel {turns[0]:.3f} / {turns[3]:.3f} ms "
+              f"(graph replay "
+              f"{'not measured' if g_sh is None else f'{g_sh:.4f} ms'}); "
+              f"bound {row['bound_ms']:.4f} ms; the two bitwise equal")
+
     kernel_row("affine_totals", lambda: cuda.totals(AFFINE, (a, b), lay_s),
                lambda: schedules.totals_plain((a, b), AFFINE, lay_s),
                8 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
-               f"{SSD_SHAPE} bt 256", aff_launches)
+               f"{SSD_SHAPE} bt 256", aff_launches, graph=5)
+    beside_shared("affine_totals (totals_chan_reduce_kernel; "
+                  "shared: totals_kernel)",
+                  lambda net: cuda.totals(AFFINE, (a, b), lay_s,
+                                          network=net))
     kernel_row("affine_chain", lambda: cuda.chain(AFFINE, (at_, bt_))[0],
                lambda: schedules.exclusive_chain(AFFINE, (at_, bt_)),
                16 * n_sc, 3 * n_sc, 5, None,
@@ -1766,7 +1870,11 @@ def main() -> int:
                lambda: cuda.apply(AFFINE, (a, b), (ao, bo), lay_s),
                lambda: schedules.apply_plain((a, b), (ao, bo), AFFINE, lay_s),
                12 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
-               f"{SSD_SHAPE} bt 256", aff_launches)
+               f"{SSD_SHAPE} bt 256", aff_launches, graph=5)
+    beside_shared("affine_apply (apply_chan_reg_kernel; shared: "
+                  "apply_kernel)",
+                  lambda net: cuda.apply(AFFINE, (a, b), (ao, bo), lay_s,
+                                         network=net))
     check(cuda.tile_network(AFFINE, lay_s, "fused") == "register",
           "the SSD fused should take fused_chan_reg_kernel")
     kernel_row("affine_fused", lambda: cuda.fused(AFFINE, (a, b), lay_s),

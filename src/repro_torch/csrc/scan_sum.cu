@@ -36,11 +36,17 @@
 //                  affine pair on Rows
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
 //                  (body _totals_body :361): the segmented sum, the
-//                  affine pair and every Channels launch
+//                  affine pair on Rows and on Channels tiles of other
+//                  lengths, and the sum on Channels
 //   totals_reduce_kernel
 //                  the same pallas_call for Rows tiles of the sum (every
 //                  dtype) and the mask: the network's last element built
 //                  as its tree, from registers, without the scan
+//   totals_chan_reduce_kernel
+//                  the same pallas_call for the affine pair on Channels
+//                  tiles of 128, 256 and 512 steps: each channel's
+//                  balanced tree over the tile's steps, a thread four
+//                  channels, without the scan (below)
 //   chain_seq_kernel, chain_scan_kernel
 //                  exclusive_chain :248, the sequential lax.scan over the
 //                  chunk totals between decoupled's two launches; it also
@@ -52,11 +58,12 @@
 //                  combines associate exactly, scan in parallel
 //                  (chain_scan_kernel). chain_chan_kernel: the same chain
 //                  for Channels, one thread per (batch, channel)
-//   apply_reg_kernel, apply_kernel
+//   apply_reg_kernel, apply_chan_reg_kernel, apply_kernel
 //                  scan_decoupled, apply pallas_call at :405 (body
 //                  _apply_body :371): the register network on the tiles
-//                  carry_reg_kernel takes, the shared-memory one on the
-//                  rest
+//                  carry_reg_kernel and carry_chan_reg_kernel take (on
+//                  Channels carry's walk with the chain's offsets in place
+//                  of the carry), the shared-memory one on the rest
 //   fused_reg_kernel, fused_chan_reg_kernel, fused_kernel
 //                  scan_fused, pallas_call at :527 (body _fused_body :453):
 //                  decoupled in one launch, through a look-back (below);
@@ -86,15 +93,18 @@
 // and tree keep their next rounds' loads in flight while they scan the
 // current one, apply and fused keep a whole 2048-element tile's loads in
 // flight in a small block; totals_reduce_kernel keeps a warp's loads in
-// flight too. The affine carry on Channels tiles of 128, 256 and 512
-// steps (carry_chan_reg_kernel) stages each tile's `width` adjacent
-// channels by cp.async, two stages deep, and runs the network in
-// registers; the affine fused on the same tiles (fused_chan_reg_kernel)
-// stages its one tile so, two blocks an SM overlapping each other's
-// copies. The other launches (Channels strips, other tile lengths,
-// the affine pair) read a whole tile into shared memory (for Channels,
-// `width` adjacent channels per time step) and run the network there,
-// not pipelined (no cp.async or TMA): a block waits for each tile's load.
+// flight too. The affine carry and apply on Channels tiles of 128, 256
+// and 512 steps (carry_chan_reg_kernel, apply_chan_reg_kernel) stage each
+// tile's `width` adjacent channels by cp.async, two stages deep, and run
+// the network in registers; the affine fused on the same tiles
+// (fused_chan_reg_kernel) stages its one tile so, two blocks an SM
+// overlapping each other's copies; the affine totals there
+// (totals_chan_reduce_kernel) build each channel's tree from registers,
+// a batch of steps' loads in flight. The other launches (Channels strips,
+// other tile lengths, the affine pair on Rows) read a whole tile into
+// shared memory (for Channels, `width` adjacent channels per time step)
+// and run the network there, not pipelined (no cp.async or TMA): a block
+// waits for each tile's load.
 // The mask's select re-reads its element at the writeback (an L1/L2 hit:
 // the tile was just loaded) in shared-memory kernels; the register ones
 // keep the loaded elements.
@@ -601,7 +611,8 @@ struct AffineSpec {
   static constexpr bool kExact = false;
   static constexpr bool kReduce = false;
   static constexpr bool kReg = false;   // its wrappers lay it out on Channels
-  // carry on Channels tiles of 128, 256 and 512 steps runs in registers
+  // carry, apply and fused on Channels tiles of 128, 256 and 512 steps run
+  // in registers, and the totals there are a reduction
   static constexpr bool kChanReg = true;
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
@@ -1046,6 +1057,122 @@ totals_reduce_kernel(const void* x, Leaves totals, int64_t tiles, int bn) {
     else
       total.v = tile_total_int(p, bn, lane);
     if (lane == 0) S::put(totals, tile, total);
+  }
+}
+
+// totals, reduced, on Channels: the affine pair (kChanReg) on tiles of
+// BT = 128, 256 or 512 steps. The same totals as totals_kernel's, without
+// the scan: on Channels tile_scan is Hillis-Steele along time over the
+// whole tile, and its last element over a power-of-two tile is the
+// balanced binary tree over the tile's BT steps, which never meets the
+// identity (schedules.totals_tree_plain); every combine takes the EARLIER
+// subtree as its left operand.
+//   * a thread owns V adjacent channels of one (batch row, chunk) tile: V =
+//     4 from bases aligned to four elements with D a multiple of 4 (16-byte
+//     float32 or 8-byte half loads), else 1 (scalar loads); the warp's
+//     loads of a time step are coalesced across its channels, 512 (or 128)
+//     bytes a leaf;
+//   * it walks the tile's steps in batches of kChanReduceBatch, issuing a
+//     batch's loads (evict-first: each byte is read once) before it
+//     combines the batch before, builds each batch's subtree in registers
+//     and merges it with the pending subtrees of equal size, a binary
+//     counter over the batches; the loops unroll over the compile-time BT,
+//     so every index is static and the stack lives in registers.
+// Bound: device-memory bytes, read 2 n and write two words a (tile,
+// channel). No shared memory, no barrier; a thread a (tile, channel
+// group), the grid over every tile.
+constexpr int kChanReduceThreads = 128;
+constexpr int kChanReduceBatch = 8;   // steps loaded before any is combined
+
+// Loops, not recursion: after unrolling m is a constant, and a loop over
+// constants folds away.
+__host__ __device__ constexpr int log2_of(int n) {
+  int k = 0;
+  for (; n > 1; n >>= 1) ++k;
+  return k;
+}
+__host__ __device__ constexpr int trailing_ones(int m) {
+  int k = 0;
+  for (; m & 1; m >>= 1) ++k;
+  return k;
+}
+
+// V consecutive elements of a leaf as float32: one vector load for V = 4.
+template <int V, typename T>
+__device__ __forceinline__ void load_run(const T* p, float (&v)[V]) {
+  if constexpr (V == 4) load4<true>(p, v);
+  else v[0] = load_acc(p);
+}
+
+template <typename T, int BT, int V>
+__global__ void __launch_bounds__(kChanReduceThreads)
+totals_chan_reduce_kernel(Tensors t, Leaves totals, int64_t groups,
+                          int64_t items, int64_t d) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;
+  constexpr int kBatch = kChanReduceBatch, kBatches = BT / kBatch;
+  constexpr int kLevels = log2_of(kBatches);   // pending subtrees at most
+  static_assert(BT % kBatch == 0 && (kBatches & (kBatches - 1)) == 0,
+                "a power-of-two number of batches");
+  const int64_t id = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (id >= items) return;
+  // tile (batch row, chunk) in row-major order: its data lie at tile BT d,
+  // its chain entries at tile d
+  const int64_t tile = id / groups, c = (id - tile * groups) * V;
+  const T* pa = static_cast<const T*>(t.x) + tile * BT * d + c;
+  const T* pb = static_cast<const T*>(t.y) + tile * BT * d + c;
+  auto load = [&](int m, P (&v)[kBatch][V]) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      float a[V], b[V];
+      load_run<V>(pa + (m * kBatch + u) * d, a);
+      load_run<V>(pb + (m * kBatch + u) * d, b);
+#pragma unroll
+      for (int w = 0; w < V; ++w) v[u][w] = {a[w], b[w]};
+    }
+  };
+  P stack[kLevels > 0 ? kLevels : 1][V];   // stack[j]: 2^j batches
+  P cur[kBatch][V], next[kBatch][V];
+  load(0, cur);
+#pragma unroll
+  for (int m = 0; m < kBatches; ++m) {
+    if (m + 1 < kBatches) load(m + 1, next);
+    // the batch's balanced subtree, into cur[0]
+#pragma unroll
+    for (int h = 1; h < kBatch; h <<= 1)
+#pragma unroll
+      for (int u = 0; u < kBatch; u += 2 * h)
+#pragma unroll
+        for (int w = 0; w < V; ++w) cur[u][w] = S::combine(cur[u][w], cur[u + h][w]);
+    // batch m closes one subtree at each of its trailing one bits
+    const int ones = trailing_ones(m);
+#pragma unroll
+    for (int j = 0; j < kLevels; ++j)
+      if (j < ones)
+#pragma unroll
+        for (int w = 0; w < V; ++w) cur[0][w] = S::combine(stack[j][w], cur[0][w]);
+#pragma unroll
+    for (int j = 0; j < kLevels; ++j)
+      if (j == ones)
+#pragma unroll
+        for (int w = 0; w < V; ++w) stack[j][w] = cur[0][w];
+    if (m + 1 < kBatches) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+        for (int w = 0; w < V; ++w) cur[u][w] = next[u][w];
+    }
+  }
+  // the last batch closed the root (kBatches - 1 is all ones)
+  if constexpr (V == 4) {
+    float* va = static_cast<float*>(totals.v) + tile * d + c;
+    float* vb = static_cast<float*>(totals.f) + tile * d + c;
+    *reinterpret_cast<float4*>(va) =
+        make_float4(cur[0][0].a, cur[0][1].a, cur[0][2].a, cur[0][3].a);
+    *reinterpret_cast<float4*>(vb) =
+        make_float4(cur[0][0].b, cur[0][1].b, cur[0][2].b, cur[0][3].b);
+  } else {
+    S::put(totals, tile * d + c, cur[0][0]);
   }
 }
 
@@ -2312,9 +2439,19 @@ __device__ __forceinline__ void chan_emit(const typename S::E (&x)[NS][V],
   }
 }
 
-template <typename T, int NS, bool kVec>
-__global__ void __launch_bounds__(chan_reg_threads(NS), 1)
-carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+// The body of carry_chan_reg_kernel and apply_chan_reg_kernel: the block
+// walks tiles [j0, j1) of strip `strip` in time order through the
+// two-stage copies and the register network. left(j, left) gives tile j's
+// LEFT operand of each of the warp's channels (the carry, or the chain's
+// offset); it is called before the block waits for tile j's copies, so
+// that loads it issues are in flight with them. after(j, x) sees the
+// scanned tile (x: the inclusive network, lane 31's last slot each
+// channel's last element) once its outputs are in the stage.
+template <typename T, int NS, bool kVec, typename Left, typename After>
+__device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
+                                              uint32_t strip, int64_t j0,
+                                              int64_t j1, int exclusive,
+                                              Left left_of, After after) {
   using S = AffineSpec<T>;
   using P = typename S::E;   // an (a, b) pair
   constexpr int V = chan_reg_lanes(NS), BT = 32 * NS;
@@ -2323,12 +2460,10 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   extern __shared__ __align__(16) float stage[];   // [stages][a, b][BT][C]
   const int C = g.width, lg = __ffs(C >> 2) - 1, words = BT * C;
   const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
-  const int64_t base = data_base<true>(g, blockIdx.x);
-  const int64_t cbase = chain_base<true>(g, blockIdx.x);
+  const int64_t base = data_base<true>(g, strip);
   const T* xa = static_cast<const T*>(t.x);
   const T* xb = static_cast<const T*>(t.y);
   T* out = static_cast<T*>(t.out);
-  const P id = S::identity();
 
   // the 16-byte chunk a thread copies in and out: chunk c of rows i0,
   // i0 + R, ..., R = threads / (C / 4) a multiple of 8 rows, over which
@@ -2340,7 +2475,7 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   auto load = [&](int64_t j, int st) {   // tile j (if any) into stage st
     float* sa = stage + st * 2 * words;
     int64_t src = base + j * BT * g.d + g0;
-    for (int w = w0; j < g.chunks && w < words; w += R * C, src += R * g.d) {
+    for (int w = w0; j < j1 && w < words; w += R * C, src += R * g.d) {
       if constexpr (kAsync) {
         cp_async16(sa + w, reinterpret_cast<const float*>(xa) + src);
         cp_async16(sa + words + w, reinterpret_cast<const float*>(xb) + src);
@@ -2359,32 +2494,26 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   // (the swizzle repeats every 8 rows)
   const int wl = chan_word(lane, c0, C, lg);
 
-  P carry[V];
+  // tiles j0 .. j0 + kChanStages - 2 ahead; a copy group per tile (an
+  // empty one past the walk's end), so that group j - j0 is tile j's
 #pragma unroll
-  for (int v = 0; v < V; ++v) carry[v] = id;
-  // tiles 0 .. kChanStages - 2 ahead; a copy group per tile (an empty one
-  // past the lane's end), so that group j is tile j's
-#pragma unroll
-  for (int s = 0; s + 1 < kChanStages; ++s) load(s, s);
-  for (int64_t j = 0; j < g.chunks; ++j) {
-    const int st = static_cast<int>(j % kChanStages);
+  for (int s = 0; s + 1 < kChanStages; ++s) load(j0 + s, s);
+  for (int64_t j = j0; j < j1; ++j) {
+    const int st = static_cast<int>((j - j0) % kChanStages);
+    P left[V];
+    left_of(j, left);
     if constexpr (kAsync)
       asm volatile("cp.async.wait_group %0;" ::"n"(kChanStages - 2)
                    : "memory");
     __syncthreads();   // tile j is in; stage (j - 1)'s stores are done
-    load(j + kChanStages - 1, static_cast<int>((j + kChanStages - 1) %
+    load(j + kChanStages - 1, static_cast<int>((j - j0 + kChanStages - 1) %
                                                kChanStages));
     float* sa = stage + st * 2 * words;
     P x[NS][V];
     chan_read<S, NS, V>(x, sa, sa + words, wl, C);
     chan_scan<S, NS, V>(x, lane);
-    chan_emit<S, NS, V>(x, carry, sa, wl, C, lane, exclusive);
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
-      if (running.v != nullptr && lane == 0)
-        S::put(running, cbase + j * g.d + c0 + v, carry[v]);
-    }
+    chan_emit<S, NS, V>(x, left, sa, wl, C, lane, exclusive);
+    after(j, x);
     __syncthreads();   // every warp's outputs are in the stage
     int64_t dst = base + j * BT * g.d + g0;
     for (int w = w0; w < words; w += R * C, dst += R * g.d) {
@@ -2393,6 +2522,71 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
       store4<kVec>(out + dst, o);
     }
   }
+}
+
+template <typename T, int NS, bool kVec>
+__global__ void __launch_bounds__(chan_reg_threads(NS), 1)
+carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;
+  constexpr int V = chan_reg_lanes(NS);
+  const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
+  const int64_t cbase = chain_base<true>(g, blockIdx.x);
+  P carry[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) carry[v] = S::identity();
+  chan_reg_walk<T, NS, kVec>(
+      t, g, blockIdx.x, 0, g.chunks, exclusive,
+      [&](int64_t, P (&left)[V]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) left[v] = carry[v];
+      },
+      [&](int64_t j, const P (&x)[NS][V]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
+          if (running.v != nullptr && lane == 0)
+            S::put(running, cbase + j * g.d + c0 + v, carry[v]);
+        }
+      });
+}
+
+// apply on Channels in registers: the affine pair's apply (kChanReg) on
+// the tiles carry_chan_reg_kernel takes, the shapes cuda.tile_network
+// sends here. carry_chan_reg_kernel's walk, the two-stage copies and the
+// network, with each tile's offsets read from the chain in place of the
+// carry that advances: carry_chan_reg_kernel emits carry (+) x where carry
+// is the left fold of the tiles' last elements from the identity, which
+// is exactly the chain's offset (chain_chan_kernel over
+// totals_chan_reduce_kernel's or totals_kernel's totals), so the outputs
+// are carry's bits. Lane l of each warp reads its channels' offsets (the
+// same two words for every lane of the warp) before the block waits for
+// the tile's copies. A block walks `walk` consecutive tiles of one strip
+// (the launcher makes it the lane's whole length unless there are too
+// few strips to fill the card), so that the next tile's copies overlap
+// the current scan. Bound: device-memory bytes, read 2 n and the
+// offsets, write n.
+template <typename T, int NS, bool kVec>
+__global__ void __launch_bounds__(chan_reg_threads(NS), 1)
+apply_chan_reg_kernel(Tensors t, Leaves offsets, Geom g, int walk,
+                      int exclusive) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;
+  constexpr int V = chan_reg_lanes(NS);
+  const int c0 = threadIdx.x / 32 * V;
+  const uint32_t parts = static_cast<uint32_t>((g.chunks + walk - 1) / walk);
+  const uint32_t strip = blockIdx.x / parts;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x % parts) * walk;
+  const int64_t j1 = j0 + walk < g.chunks ? j0 + walk : g.chunks;
+  const int64_t cbase = chain_base<true>(g, strip);
+  chan_reg_walk<T, NS, kVec>(
+      t, g, strip, j0, j1, exclusive,
+      [&](int64_t j, P (&left)[V]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          left[v] = S::get(offsets, cbase + j * g.d + c0 + v);
+      },
+      [](int64_t, const P (&)[NS][V]) {});
 }
 
 // fused on Channels in registers: the affine pair's fused schedule
@@ -2565,30 +2759,106 @@ int reg_threads(int bn, int segs, int warps) {
   return 32 * (need < warps ? need : warps);
 }
 
-// carry_chan_reg_kernel over Channels strips of `width` channels (a
-// multiple of 4, at most 32) and tiles of 32 NS steps; refuses any other.
+// Bases (x, y and out; a null out counts as aligned) aligned to four
+// elements: the Channels register kernels take vector accesses
+// (cp.async for float32).
+template <typename T>
+bool chan_vec(const Tensors& t) {
+  constexpr uintptr_t v4 = 4 * sizeof(T) - 1;
+  return ((reinterpret_cast<uintptr_t>(t.x) | reinterpret_cast<uintptr_t>(t.y) |
+           reinterpret_cast<uintptr_t>(t.out)) & v4) == 0;
+}
+
+// The card's SMs, for the launchers that size their grids by it.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// The strips carry_chan_reg_kernel and apply_chan_reg_kernel take on
+// tiles of 32 NS steps: `width` channels, a multiple of 4 that divides D,
+// at most a block's (32 over bt 256); their stages' shared memory.
+template <int NS>
+bool chan_reg_takes(long long d, int width) {
+  return width % 4 == 0 &&
+         32 * width / chan_reg_lanes(NS) <= chan_reg_threads(NS) &&
+         d % width == 0;
+}
+template <int NS>
+size_t chan_reg_smem(int width) {
+  return kChanStages * 2 * sizeof(float) * 32 * NS * width;
+}
+
+// carry_chan_reg_kernel over the strips chan_reg_takes; refuses any other.
 template <typename T, int NS>
 int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
                     long long d, int width, int exclusive,
                     cudaStream_t stream) {
   constexpr int V = chan_reg_lanes(NS);
-  if (width % 4 != 0 || 32 * width / V > chan_reg_threads(NS) ||
-      d % width != 0)
-    return cudaErrorInvalidValue;
+  if (!chan_reg_takes<NS>(d, width)) return cudaErrorInvalidValue;
   const Geom g = make_geom(true, n, d, width, 32 * NS);
-  const size_t smem = kChanStages * 2 * sizeof(float) * 32 * NS * width;
-  // bases aligned to four elements take vector accesses (cp.async for
-  // float32)
-  constexpr uintptr_t v4 = 4 * sizeof(T) - 1;
-  const bool vec = ((reinterpret_cast<uintptr_t>(t.x) |
-                     reinterpret_cast<uintptr_t>(t.y) |
-                     reinterpret_cast<uintptr_t>(t.out)) & v4) == 0;
-  auto kern = vec ? carry_chan_reg_kernel<T, NS, true>
-                  : carry_chan_reg_kernel<T, NS, false>;
+  const size_t smem = chan_reg_smem<NS>(width);
+  auto kern = chan_vec<T>(t) ? carry_chan_reg_kernel<T, NS, true>
+                             : carry_chan_reg_kernel<T, NS, false>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(lanes_of(true, b, d, width)), 32 * width / V,
          smem, stream>>>(t, running, g, exclusive);
+  return cudaGetLastError();
+}
+
+// apply_chan_reg_kernel over the strips chan_reg_takes (refuses any
+// other). A block walks a strip's whole length, unless the strips are
+// fewer than kChanFill blocks an SM: then each strip's walk is cut into
+// as many parts as make up that many blocks.
+constexpr int kChanFill = 4;
+
+template <typename T, int NS>
+int launch_apply_chan_reg(Tensors t, Leaves offsets, long long b, long long n,
+                          long long d, int width, int exclusive,
+                          cudaStream_t stream) {
+  constexpr int V = chan_reg_lanes(NS);
+  if (!chan_reg_takes<NS>(d, width)) return cudaErrorInvalidValue;
+  const Geom g = make_geom(true, n, d, width, 32 * NS);
+  const size_t smem = chan_reg_smem<NS>(width);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long lanes = lanes_of(true, b, d, width);
+  long long parts = (static_cast<long long>(kChanFill) * sms + lanes - 1) / lanes;
+  if (parts > g.chunks) parts = g.chunks;
+  if (parts < 1) parts = 1;
+  const long long walk = (g.chunks + parts - 1) / parts;
+  const long long blocks = lanes * ((g.chunks + walk - 1) / walk);
+  auto kern = chan_vec<T>(t) ? apply_chan_reg_kernel<T, NS, true>
+                             : apply_chan_reg_kernel<T, NS, false>;
+  err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(blocks), 32 * width / V, smem, stream>>>(
+      t, offsets, g, static_cast<int>(walk), exclusive);
+  return cudaGetLastError();
+}
+
+// totals_chan_reduce_kernel over (b, n, d) with tiles of BT steps: four
+// channels a thread where D and the bases allow 16-byte (8-byte) loads,
+// else one.
+template <typename T, int BT>
+int launch_totals_chan_reduce(Tensors t, Leaves totals, long long b,
+                              long long n, long long d, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && chan_vec<T>(t);
+  const long long groups = vec ? d / 4 : d;
+  const long long items = b * (n / BT) * groups;
+  const unsigned blocks = static_cast<unsigned>(
+      (items + kChanReduceThreads - 1) / kChanReduceThreads);
+  if (vec)
+    totals_chan_reduce_kernel<T, BT, 4><<<blocks, kChanReduceThreads, 0,
+                                          stream>>>(t, totals, groups, items, d);
+  else
+    totals_chan_reduce_kernel<T, BT, 1><<<blocks, kChanReduceThreads, 0,
+                                          stream>>>(t, totals, groups, items, d);
   return cudaGetLastError();
 }
 
@@ -2604,10 +2874,7 @@ int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
     return cudaErrorInvalidValue;
   const Geom g = make_geom(true, n, d, width, 32 * NS);
   const size_t smem = 2 * sizeof(float) * 32 * NS * width;
-  constexpr uintptr_t v4 = 4 * sizeof(T) - 1;
-  const bool vec = ((reinterpret_cast<uintptr_t>(t.x) |
-                     reinterpret_cast<uintptr_t>(t.y) |
-                     reinterpret_cast<uintptr_t>(t.out)) & v4) == 0;
+  const bool vec = chan_vec<T>(t);
   auto kern = vec ? fused_chan_reg_kernel<T, NS, true>
                   : fused_chan_reg_kernel<T, NS, false>;
   cudaError_t err = allow_smem(kern, smem);
@@ -2620,9 +2887,10 @@ int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
 
 // net: the in-tile network the wrapper chose by shape (cuda.tile_network):
 // 1 the register network, for Rows tiles of 128 r elements of a kReg spec
-// (carry, apply, fused and tree) and, for carry and fused, Channels tiles
-// of 128, 256 or 512 steps of a kChanReg spec (anything else is refused);
-// 0 the network in shared memory (tile_scan, or tree_kernel's sweep).
+// (carry, apply, fused and tree) and, for carry, apply and fused, Channels
+// tiles of 128, 256 or 512 steps of a kChanReg spec (anything else is
+// refused); 0 the network in shared memory (tile_scan, or tree_kernel's
+// sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
                  long long d, int width, int bn, int exclusive, int net,
@@ -2677,10 +2945,8 @@ int launch_totals_reduce(const void* x, Leaves totals, long long tiles,
   if (per_sm == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, totals_reduce_kernel<S>, kReduceThreads, 0);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long warps = kReduceThreads / 32;
   const long long need = (tiles + warps - 1) / warps;
@@ -2690,24 +2956,42 @@ int launch_totals_reduce(const void* x, Leaves totals, long long tiles,
   return cudaGetLastError();
 }
 
-// Rows tiles of the sum and the mask take totals_reduce_kernel; the
-// segmented sum, the affine pair and every Channels launch take the
-// network's totals_kernel.
+// net (cuda.tile_network's choice for "totals"): 1 the reduction without
+// the scan, totals_reduce_kernel for Rows tiles of the sum and the mask
+// (kReduce) and totals_chan_reduce_kernel for Channels tiles of 128, 256
+// or 512 steps of the affine pair (kChanReg); anything else is refused.
+// 0 the network's totals_kernel.
 template <typename S, bool kChan>
 int launch_totals(Tensors t, Leaves totals, long long b, long long n,
-                  long long d, int width, int bn, cudaStream_t stream) {
-  if constexpr (!kChan && S::kReduce) {
-    return launch_totals_reduce<S>(t.x, totals, b * (n / bn), bn, stream);
-  } else {
-    const Geom g = make_geom(kChan, n, d, width, bn);
-    const size_t smem = network_bytes<S>(bn, g.width);
-    cudaError_t err = allow_smem(totals_kernel<S, kChan>, smem);
-    if (err != cudaSuccess) return err;
-    const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
-    totals_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
-                              stream>>>(t, totals, g);
-    return cudaGetLastError();
+                  long long d, int width, int bn, int net,
+                  cudaStream_t stream) {
+  if (net) {
+    if constexpr (!kChan && S::kReduce) {
+      return launch_totals_reduce<S>(t.x, totals, b * (n / bn), bn, stream);
+    } else if constexpr (kChan && S::kChanReg) {
+      using T = typename S::In;
+      switch (bn) {
+        case 128:
+          return launch_totals_chan_reduce<T, 128>(t, totals, b, n, d, stream);
+        case 256:
+          return launch_totals_chan_reduce<T, 256>(t, totals, b, n, d, stream);
+        case 512:
+          return launch_totals_chan_reduce<T, 512>(t, totals, b, n, d, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
+  const Geom g = make_geom(kChan, n, d, width, bn);
+  const size_t smem = network_bytes<S>(bn, g.width);
+  cudaError_t err = allow_smem(totals_kernel<S, kChan>, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = lanes_of(kChan, b, d, width) * (n / bn);
+  totals_kernel<S, kChan><<<static_cast<unsigned>(tiles), kThreads, smem,
+                            stream>>>(t, totals, g);
+  return cudaGetLastError();
 }
 
 template <typename S, bool kChan>
@@ -2749,6 +3033,21 @@ int launch_apply(Tensors t, Leaves offsets, long long b, long long n,
         apply_reg_kernel<S, false><<<tiles, threads, 0, stream>>>(t, offsets, g,
                                                                   exclusive);
       return cudaGetLastError();
+    } else if constexpr (kChan && S::kChanReg) {
+      using T = typename S::In;
+      switch (bn) {
+        case 128:
+          return launch_apply_chan_reg<T, 4>(t, offsets, b, n, d, width,
+                                             exclusive, stream);
+        case 256:
+          return launch_apply_chan_reg<T, 8>(t, offsets, b, n, d, width,
+                                             exclusive, stream);
+        case 512:
+          return launch_apply_chan_reg<T, 16>(t, offsets, b, n, d, width,
+                                              exclusive, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
     } else {
       return cudaErrorInvalidValue;
     }
@@ -2876,8 +3175,10 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 extern "C" {
 
 // net (carry, apply, fused, tree): 1 the register network (Rows tiles of
-// 128 r elements, no affine; for carry and fused also the affine pair on
-// Channels tiles of 128, 256 or 512 steps), 0 the shared-memory network.
+// 128 r elements, no affine; for carry, apply and fused also the affine
+// pair on Channels tiles of 128, 256 or 512 steps), 0 the shared-memory
+// network. net (totals): 1 the reduction (see launch_totals), 0 the
+// network's totals_kernel.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,
                long long d, int width, int bn, int exclusive, int sentinel,
@@ -2890,11 +3191,11 @@ int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
 
 int scan_totals(int spec, int dtype, int chan, const void* x, const void* y,
                 void* tot_v, void* tot_f, long long b, long long n,
-                long long d, int width, int bn, void* stream) {
+                long long d, int width, int bn, int net, void* stream) {
   const Tensors t{x, y, nullptr, 0};
   const Leaves totals{tot_v, tot_f};
   SCAN_DISPATCH(chan, spec, dtype, launch_totals, t, totals, b, n, d, width,
-                bn, static_cast<cudaStream_t>(stream));
+                bn, net, static_cast<cudaStream_t>(stream));
 }
 
 // The chain's dtype code is its totals' accumulation dtype: 0 float32 or

@@ -11,20 +11,22 @@ once over a spec and a geometry and instantiated for the four specs with
 a CUDA kernel — the sum, the segmented sum (values and int32 flags), the
 compact mask (int32 mask, int32 destinations) and the affine recurrence
 (gates a and offsets b of one float dtype) — on ``Rows`` (2-D) and
-``Channels`` (3-D) layouts. ``totals`` of the sum and the mask on
-``Rows`` launch ``totals_reduce_kernel`` (the network's last element
-built as its tree, without the scan; counted under the same keys); every
-other ``totals`` launches the network's ``totals_kernel``. ``carry``,
-``apply``, ``fused`` and ``tree`` run the in-tile network that
-``tile_network`` chooses by shape: ``carry_reg_kernel``,
-``apply_reg_kernel``, ``fused_reg_kernel`` and ``tree_reg_kernel``
-(registers and warp shuffles) on ``Rows`` tiles of 128·r elements,
-``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and ``tree_kernel``
-(shared memory) otherwise, but for the affine carry and fused on
-``Channels`` tiles of 128, 256 and 512 steps, which run
-``carry_chan_reg_kernel`` and ``fused_chan_reg_kernel`` (each channel's
-network by warp shuffles, the tiles staged by ``cp.async``); both forms
-count under the same keys. Each
+``Channels`` (3-D) layouts. Every kernel but the chain runs the form
+that ``tile_network`` chooses by shape. ``totals`` of the sum and the
+mask on ``Rows`` launch ``totals_reduce_kernel``, and of the affine pair
+on ``Channels`` tiles of 128, 256 and 512 steps
+``totals_chan_reduce_kernel`` (the network's last element built as its
+tree, without the scan); every other ``totals`` launches the network's
+``totals_kernel``. ``carry``, ``apply``, ``fused`` and ``tree`` run
+``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel`` and
+``tree_reg_kernel`` (registers and warp shuffles) on ``Rows`` tiles of
+128·r elements, ``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and
+``tree_kernel`` (shared memory) otherwise, but for the affine carry,
+apply and fused on ``Channels`` tiles of 128, 256 and 512 steps, which
+run ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
+``fused_chan_reg_kernel`` (each channel's network by warp shuffles, the
+tiles staged by ``cp.async``). Both forms of a kernel count under the
+same key. Each
 wrapper below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
 the layout's shape, raises on anything the kernel does not take,
@@ -151,7 +153,7 @@ def build() -> ctypes.CDLL:
     geom = (ll, ll, ll, i, i)       # b, n, d, width, bn
     signatures = {
         "scan_carry": tile + (p, p, p) + geom + (i, i, i, p),
-        "scan_totals": tile + (p, p) + geom + (p,),
+        "scan_totals": tile + (p, p) + geom + (i, p),
         "scan_chain": (i, i, i, p, p, p, p, p, p, ll, ll, ll, p),
         "scan_apply": tile + (p, p, p) + geom + (i, i, i, p),
         "scan_fused": tile + (p, p, p, p, p, p) + geom + (i, i, i, p),
@@ -206,32 +208,40 @@ def chan_reg_width(layout: Channels) -> int:
 
 
 def tile_network(spec, layout, kernel: str) -> str:
-    """The in-tile network a ``kernel`` launch (``"carry"``, ``"apply"``,
-    ``"fused"`` or ``"tree"``) runs, chosen here by shape and nowhere
-    else: ``"register"`` (``carry_reg_kernel``, ``apply_reg_kernel``,
-    ``fused_reg_kernel``, ``tree_reg_kernel``: a warp a 128-element
-    segment, Hillis–Steele or the Blelloch sweep by warp shuffles) for
-    ``Rows`` tiles whose length is a multiple of 128, of every spec but
-    the affine pair (its wrappers lay it out on ``Channels``), and for the
-    affine pair's carry and fused on ``Channels`` tiles of
-    ``CHAN_REG_TILES`` steps whose ``chan_reg_width`` is a multiple of 4
-    channels (``carry_chan_reg_kernel``: a warp two channels, lane l
-    holding steps l + 32 s; ``fused_chan_reg_kernel``: a warp four, a
-    tile a block, its offset by the look-back);
-    ``"shared"`` (``carry_kernel``, ``apply_kernel``, ``fused_kernel``,
-    ``tree_kernel``: the network in shared memory) for every other
-    ``Channels`` launch, for other tile lengths and for the affine pair on
-    ``Rows``. Both give the bits of ``schedules.tile_scan`` (carry, apply,
-    fused) or ``schedules.tree_scan`` (tree); the kernel refuses a
+    """The in-tile network a ``kernel`` launch (``"carry"``,
+    ``"totals"``, ``"apply"``, ``"fused"`` or ``"tree"``) runs, chosen
+    here by shape and nowhere else: ``"register"`` (``carry_reg_kernel``,
+    ``apply_reg_kernel``, ``fused_reg_kernel``, ``tree_reg_kernel``: a
+    warp a 128-element segment, Hillis–Steele or the Blelloch sweep by
+    warp shuffles) for ``Rows`` tiles whose length is a multiple of 128,
+    of every spec but the affine pair (its wrappers lay it out on
+    ``Channels``), and for the affine pair's carry, apply and fused on
+    ``Channels`` tiles of ``CHAN_REG_TILES`` steps whose
+    ``chan_reg_width`` is a multiple of 4 channels
+    (``carry_chan_reg_kernel`` and ``apply_chan_reg_kernel``: a warp two
+    channels, lane l holding steps l + 32 s, the carry or the chain's
+    offsets on the left; ``fused_chan_reg_kernel``: a warp four, a tile a
+    block, its offset by the look-back); for ``totals``, the reduction
+    without the scan (``totals_reduce_kernel`` for ``Rows`` tiles of any
+    length of the sum and the mask, ``totals_chan_reduce_kernel`` for the
+    affine pair on ``Channels`` tiles of ``CHAN_REG_TILES`` steps, any
+    D); ``"shared"`` (``carry_kernel``, ``totals_kernel``,
+    ``apply_kernel``, ``fused_kernel``, ``tree_kernel``: the network in
+    shared memory) for every other launch. Both give the bits of
+    ``schedules.tile_scan`` (carry, apply, fused; totals its last
+    element) or ``schedules.tree_scan`` (tree); the kernel refuses a
     register launch of any other shape, and nothing falls back."""
-    if kernel not in ("carry", "apply", "fused", "tree"):
+    if kernel not in ("carry", "totals", "apply", "fused", "tree"):
         raise ValueError(f"no tile network for the {kernel!r} kernel")
     if isinstance(layout, Channels):
-        if (kernel in ("carry", "fused") and spec.name == "affine"
-                and layout.bt in CHAN_REG_TILES
-                and chan_reg_width(layout) % 4 == 0):
+        if spec.name != "affine" or layout.bt not in CHAN_REG_TILES:
+            return "shared"
+        if kernel == "totals" or (kernel != "tree"
+                                  and chan_reg_width(layout) % 4 == 0):
             return "register"
         return "shared"
+    if kernel == "totals":
+        return "register" if spec.name in ("sum", "mask") else "shared"
     if layout.bn % 128 == 0 and spec.name != "affine":
         return "register"
     return "shared"
@@ -314,6 +324,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _network(spec, layout, kernel, network):
+    """The network a launch runs: the one it is asked for (``"register"``
+    or ``"shared"``, to time the two at one shape; the kernel refuses a
+    register launch of a shape it does not take) or ``tile_network``'s
+    choice."""
+    if network not in (None, "register", "shared"):
+        raise ValueError(f"unknown tile network {network!r}")
+    return network or tile_network(spec, layout, kernel)
+
+
 def _launch(spec, kernel: str, fn, device, *args) -> None:
     name = kernel_name(spec.name, kernel)
     with torch.cuda.device(device):
@@ -336,9 +356,7 @@ def carry(spec, operands, layout, exclusive=False, return_totals=False,
     ``network`` (``"register"`` or ``"shared"``) launches that network in
     place of ``tile_network``'s choice, to time the two at one shape; the
     kernel refuses a register launch of a shape it does not take."""
-    if network not in (None, "register", "shared"):
-        raise ValueError(f"unknown tile network {network!r}")
-    network = network or tile_network(spec, layout, "carry")
+    network = _network(spec, layout, "carry", network)
     code, x, y = _operands(spec, operands, layout)
     out = _out(spec, x, y, layout)
     running = (_new_leaves(spec, x, y, layout.chain_shape)
@@ -352,16 +370,23 @@ def carry(spec, operands, layout, exclusive=False, return_totals=False,
     return (out,), running
 
 
-def totals(spec, operands, layout):
+def totals(spec, operands, layout, network=None):
     """Per-chunk totals (``layout.chain_shape``), one tensor per element
-    leaf in its accumulation dtype."""
+    leaf in its accumulation dtype: each tile's network's last element.
+    Which kernel builds it is ``tile_network(spec, layout, "totals")``'s
+    choice, made there alone: ``"register"``, the reduction without the
+    scan (``totals_reduce_kernel`` on ``Rows`` for the sum and the mask,
+    ``totals_chan_reduce_kernel`` on ``Channels`` for the affine pair at
+    ``CHAN_REG_TILES`` steps), or ``"shared"``, the network's
+    ``totals_kernel``. ``network`` as in ``carry``."""
+    network = _network(spec, layout, "totals", network)
     code, x, y = _operands(spec, operands, layout)
     tot = _new_leaves(spec, x, y, layout.chain_shape)
     if x.numel():
-        geo = _geometry(layout)
+        geo = _geometry(layout, network)
         _launch(spec, "totals", build().scan_totals, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
-                *_ptrs(tot), *geo[1:])
+                *_ptrs(tot), *geo[1:], int(network == "register"))
     return tot
 
 
@@ -402,9 +427,10 @@ def chain(spec, totals, return_running=False):
     return offsets, running
 
 
-def apply(spec, operands, offsets, layout, exclusive=False):
+def apply(spec, operands, offsets, layout, exclusive=False, network=None):
     """Rescan every (lane, chunk) tile and combine its chunk offsets;
-    returns the outputs."""
+    returns the outputs. ``network`` as in ``carry``."""
+    network = _network(spec, layout, "apply", network)
     code, x, y = _operands(spec, operands, layout)
     want = _leaf_dtypes(spec, x, y)
     if len(offsets) != len(want) or any(
@@ -417,12 +443,11 @@ def apply(spec, operands, offsets, layout, exclusive=False):
             f"{x.device}")
     out = _out(spec, x, y, layout)
     if x.numel():
-        geo = _geometry(layout)
+        geo = _geometry(layout, network)
         _launch(spec, "apply", build().scan_apply, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 *_ptrs(offsets), out.data_ptr(), *geo[1:], int(exclusive),
-                spec.sentinel or 0,
-                int(tile_network(spec, layout, "apply") == "register"))
+                spec.sentinel or 0, int(network == "register"))
     return (out,)
 
 
@@ -434,9 +459,7 @@ def fused(spec, operands, layout, exclusive=False, network=None):
     zeroed here per launch, and each tile's published aggregate and
     inclusive prefix where they do not ride in the state word — is
     allocated here. ``network`` as in ``carry``."""
-    if network not in (None, "register", "shared"):
-        raise ValueError(f"unknown tile network {network!r}")
-    network = network or tile_network(spec, layout, "fused")
+    network = _network(spec, layout, "fused", network)
     code, x, y = _operands(spec, operands, layout)
     out = _out(spec, x, y, layout)
     if x.numel():

@@ -1,7 +1,8 @@
 """Adversarial operands for the chunk-totals tests (numpy, from a seed).
 
 Shared by ``test_torch_totals_tree.py`` (the plain tree against the
-plain network and the JAX reference, on the CPU) and
+plain network and the JAX reference, on the CPU),
+``test_torch_chan_network.py`` (the affine pair on ``Channels``) and
 ``test_torch_cuda_kernels.py`` (``totals_reduce_kernel`` on the card).
 """
 
@@ -57,6 +58,29 @@ def operands(kind, rows, n, bn, seed):
         x[1, 2 * bn + rng.integers(bn)] = np.inf
         x[0, (tiles - 1) * bn + rng.integers(bn)] = np.nan
     return torch.from_numpy(x).to(dtype)
+
+
+def affine_channels(bt, seed, exact=False, shape=None):
+    """Affine (a, b) of (B, T, D) = (2, 2 bt, 6) (or ``shape``): gates
+    with negative values, ±0.0 and ±1, offsets with −0.0 at every tile
+    start and scattered; ``exact``: every value (and every product and sum
+    of the scan) exact in float32 — gates ±1, ±0.0 and a few halves,
+    offsets small integers."""
+    rng = np.random.default_rng(seed)
+    shape = shape or (2, 2 * bt, 6)
+    if exact:
+        a = rng.choice(np.float32([1, -1, 1, 1, 0.5, -0.0, 0.0]), shape,
+                       p=[0.45, 0.3, 0.1, 0.1, 0.01, 0.02, 0.02])
+        b = rng.integers(-3, 4, shape).astype(np.float32)
+    else:
+        a = rng.uniform(0.5, 1.0, shape).astype(np.float32)
+        a[rng.random(shape) < 0.1] *= -1
+        a[rng.random(shape) < 0.02] = 1.0
+        a[rng.random(shape) < 0.02] = -0.0
+        b = rng.standard_normal(shape).astype(np.float32)
+    b[rng.random(shape) < 0.1] = -0.0
+    b[:, ::bt] = -0.0
+    return torch.from_numpy(a), torch.from_numpy(b)
 
 
 def same_bits(a, b):

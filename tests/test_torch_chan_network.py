@@ -18,9 +18,14 @@ block and takes each tile's offset by a look-back: the tile folds, left
 to right, the nearest published inclusive prefix and the aggregates after
 it; that organization in torch ops must give ``fused_plain``'s,
 ``carry_plain``'s and the reference's bits whichever prefix the look-back
-finds. The kernels themselves are held against the plain versions on the
-card in ``tests/test_torch_cuda_kernels.py``; which network each wrapper
-launches is chosen by shape in ``cuda.tile_network``, tested here.
+finds. ``apply_chan_reg_kernel`` runs the same network with the chain's
+offset of each tile on the left, the chain folded over the totals that
+``totals_chan_reduce_kernel`` builds as each channel's balanced tree
+(``totals_tree_plain``); that organization must give ``apply_plain``'s,
+``carry_plain``'s and the reference's decoupled bits. The kernels
+themselves are held against the plain versions on the card in
+``tests/test_torch_cuda_kernels.py``; which network each wrapper launches
+is chosen by shape in ``cuda.tile_network``, tested here.
 """
 
 import jax.numpy as jnp
@@ -28,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_totals_data import same_bits
+from _torch_totals_data import affine_channels, same_bits
 from repro.kernels.scan_engine import monoids as jax_monoids
 from repro.kernels.scan_engine import schedules as jax_schedules
 from repro_torch.kernels import scan_engine
@@ -38,27 +43,9 @@ AFFINE = monoids.AFFINE
 TILES = (8, 32, 64, 256, 512)
 
 
-def _operands(bt, seed, exact=False, shape=None):
-    """Affine (a, b) of (B, T, D) = (2, 2 bt, 6): gates with negative
-    values, ±0.0 and ±1, offsets with −0.0 at every tile start and
-    scattered; ``exact``: every value (and every product and sum of the
-    scan) exact in float32 — gates ±1, ±0.0 and a few halves, offsets
-    small integers."""
-    rng = np.random.default_rng(seed)
-    shape = shape or (2, 2 * bt, 6)
-    if exact:
-        a = rng.choice(np.float32([1, -1, 1, 1, 0.5, -0.0, 0.0]), shape,
-                       p=[0.45, 0.3, 0.1, 0.1, 0.01, 0.02, 0.02])
-        b = rng.integers(-3, 4, shape).astype(np.float32)
-    else:
-        a = rng.uniform(0.5, 1.0, shape).astype(np.float32)
-        a[rng.random(shape) < 0.1] *= -1
-        a[rng.random(shape) < 0.02] = 1.0
-        a[rng.random(shape) < 0.02] = -0.0
-        b = rng.standard_normal(shape).astype(np.float32)
-    b[rng.random(shape) < 0.1] = -0.0
-    b[:, ::bt] = -0.0
-    return torch.from_numpy(a), torch.from_numpy(b)
+# Affine (a, b) on Channels from a seed (gates with negative values and
+# ±0.0, offsets with −0.0 at every tile start; exact-valued on request).
+_operands = affine_channels
 
 
 def _tiles(ops, bt):
@@ -142,21 +129,25 @@ CHANNEL_NETWORKS = [
 @pytest.mark.parametrize("name,layout,network", CHANNEL_NETWORKS,
                          ids=[c[0] for c in CHANNEL_NETWORKS])
 def test_tile_network_affine_channels(name, layout, network):
-    """The affine carry and fused on Channels take the register network at
-    128, 256 and 512 steps over strips of a multiple of four channels, and
-    the shared one elsewhere; apply and tree keep the shared network, and
-    so does the sum on Channels."""
-    for kernel in ("carry", "fused"):
+    """The affine carry, apply and fused on Channels take the register
+    network at 128, 256 and 512 steps over strips of a multiple of four
+    channels, and the shared one elsewhere; the affine totals take the
+    reduction (``"register"``) at those tiles whatever the strip, since
+    it does not run in strips; tree keeps the shared network, and so does
+    the sum on Channels, its totals included."""
+    for kernel in ("carry", "apply", "fused"):
         assert cuda.tile_network(AFFINE, layout, kernel) == network
-        assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
-    for kernel in ("apply", "tree"):
-        assert cuda.tile_network(AFFINE, layout, kernel) == "shared"
+    reduced = layout.bt in cuda.CHAN_REG_TILES
+    assert cuda.tile_network(AFFINE, layout, "totals") == (
+        "register" if reduced else "shared")
+    assert cuda.tile_network(AFFINE, layout, "tree") == "shared"
+    for kernel in ("carry", "totals", "apply", "fused", "tree"):
         assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
 
 
 def test_tile_network_refuses_other_kernels():
     with pytest.raises(ValueError, match="no tile network"):
-        cuda.tile_network(AFFINE, CHANNEL_NETWORKS[0][1], "totals")
+        cuda.tile_network(AFFINE, CHANNEL_NETWORKS[0][1], "chain")
 
 
 @pytest.mark.parametrize("network", (None, "register", "shared"))
@@ -165,9 +156,9 @@ def test_tile_network_refuses_other_kernels():
 def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     """``cuda.carry`` passes the kernel ``tile_network``'s choice, or the
     network it is asked for (to time the two at one shape), and apply,
-    fused and tree of the affine pair pass theirs (fused the register
-    network, as carry); the launch is intercepted, so this runs on CPU
-    tensors."""
+    fused and tree of the affine pair pass theirs (apply and fused the
+    register network, as carry; tree the shared one); the launch is
+    intercepted, so this runs on CPU tensors."""
     nets = []
     monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
     lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
@@ -185,7 +176,7 @@ def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     cuda.apply(AFFINE, (x, x), offs, small)
     cuda.fused(AFFINE, (x, x), small)
     cuda.tree(AFFINE, (x, x), small)
-    assert nets == [("carry", int(want == "register")), ("apply", 0),
+    assert nets == [("carry", int(want == "register")), ("apply", 1),
                     ("fused", 1), ("tree", 0)]
     with pytest.raises(ValueError, match="unknown tile network"):
         cuda.carry(AFFINE, (x, x), small, network="warp")
@@ -232,6 +223,52 @@ def test_fused_launches_the_network(monkeypatch, name, layout, _, network):
     assert states == [1 + (d // width) * 4]
     with pytest.raises(ValueError, match="unknown tile network"):
         cuda.fused(AFFINE, (x, x), small, network="warp")
+
+
+@pytest.mark.parametrize("network", (None, "register", "shared"))
+@pytest.mark.parametrize("name,layout,carry_net", CHANNEL_NETWORKS,
+                         ids=[c[0] for c in CHANNEL_NETWORKS])
+def test_totals_apply_launch_the_network(monkeypatch, name, layout,
+                                         carry_net, network):
+    """``cuda.totals`` and ``cuda.apply`` pass the kernel the network
+    ``tile_network`` chooses (the register apply on the register shapes,
+    the shared one elsewhere; the reduced totals at every tile of
+    ``CHAN_REG_TILES``), or the one they are asked for, with that
+    network's strip width (``chan_reg_width`` for the register kernels,
+    ``channel_width`` for the shared ones); the launch is intercepted, so
+    this runs on CPU tensors."""
+    seen = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: seen.append(
+                            (k, args)))
+    d = layout.d % 64 or 64
+    small = scan_engine.Channels(1, 2 * layout.bt, d, layout.bt, d)
+    x = torch.ones(small.shape)
+    offs = cuda._new_leaves(AFFINE, x, x, small.chain_shape)
+    cuda.totals(AFFINE, (x, x), small, network=network)
+    cuda.apply(AFFINE, (x, x), offs, small, exclusive=True, network=network)
+    assert [k for k, _ in seen] == ["totals", "apply"]
+    reduced = "register" if small.bt in cuda.CHAN_REG_TILES else "shared"
+    for kernel, args in seen:
+        want = network or cuda.tile_network(AFFINE, small, kernel)
+        assert network or want == (reduced if kernel == "totals"
+                                   else carry_net)
+        width = (cuda.chan_reg_width(small) if want == "register"
+                 else cuda.channel_width(small))
+        geo = (1, 2 * small.bt, d, width, small.bt)
+        if kernel == "totals":   # (..., b, n, d, width, bn, net)
+            assert args[-6:-1] == geo
+        else:   # (..., b, n, d, width, bn, exclusive, sentinel, net)
+            assert args[-8:-3] == geo and args[-3] == 1
+        assert args[-1] == int(want == "register")
+    for call in (lambda: cuda.totals(AFFINE, (x, x), small, network="warp"),
+                 lambda: cuda.apply(AFFINE, (x, x), offs, small,
+                                    network="warp")):
+        with pytest.raises(ValueError, match="unknown tile network"):
+            call()
 
 
 def _register_fused(ops, lay, exclusive, pick):
@@ -306,6 +343,56 @@ def test_register_fused_bitwise(bt, exclusive, pick):
     assert same_bits(got, schedules.carry_plain(ops, AFFINE, lay,
                                                 exclusive)[0])
     assert same_bits(got, _reference_chain(ops, bt, exclusive))
+    # tile 0's identity offset turns b = -0.0 at step 0 into +0.0 where
+    # a > 0: the combine is done, not skipped
+    assert bool(torch.signbit(ops[1][:, 0]).all())
+    if not exclusive:
+        z = got[:, 0][ops[0][:, 0] > 0]
+        assert z.numel() and bool((z == 0).all())
+        assert not bool(torch.signbit(z).any())
+
+
+def _register_apply(ops, lay, exclusive):
+    """decoupled on Channels as the CUDA kernels organize it: the totals
+    as each channel's balanced tree over the tile (``totals_tree_plain``,
+    ``totals_chan_reduce_kernel``), the chain's left fold
+    (``exclusive_chain``), then ``apply_chan_reg_kernel``: each tile
+    scanned as ``tile_scan_chan_warps`` (or its exclusive neighbour) with
+    its chunk offset combined on the LEFT (``_offset``)."""
+    tiles = schedules._tiles(AFFINE, ops, lay)
+    offsets = schedules.exclusive_chain(
+        AFFINE, schedules.totals_tree_plain(ops, AFFINE, lay))
+    sel = schedules.tile_scan_chan_warps(AFFINE, tiles, exclusive)
+    return schedules._emit(AFFINE, ops, lay, tiles,
+                           schedules._offset(AFFINE, offsets, sel))
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("exclusive", (False, True))
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_register_apply_bitwise(bt, exclusive, exact):
+    """The register decoupled's organization (the reduced totals, the
+    chain, the register network a tile with the chain's offset on the
+    left) is bitwise ``apply_plain`` given the plain chain's offsets,
+    ``carry_plain`` and, on exact data, the reference's decoupled run op
+    by op (its ``tile_scan`` along time, each tile's last element, the
+    offsets folded left to right with its combine, each on the LEFT),
+    signed zeros included, with -0.0 at every tile start."""
+    ops = _operands(bt, 11 * bt + exact, exact=exact, shape=(2, 4 * bt, 8))
+    lay = scan_engine.Channels(*ops[0].shape, bt, 8)
+    assert all(cuda.tile_network(AFFINE, lay, k) == "register"
+               for k in ("totals", "apply"))
+    (got,) = _register_apply(ops, lay, exclusive)
+    offsets = schedules.exclusive_chain(
+        AFFINE, schedules.totals_plain(ops, AFFINE, lay))
+    (want,) = schedules.apply_plain(ops, offsets, AFFINE, lay, exclusive)
+    assert same_bits(got, want)
+    assert same_bits(got, schedules.carry_plain(ops, AFFINE, lay,
+                                                exclusive)[0])
+    assert same_bits(got, schedules.decoupled_plain(ops, AFFINE, lay,
+                                                    exclusive)[0])
+    if exact:
+        assert same_bits(got, _reference_chain(ops, bt, exclusive))
     # tile 0's identity offset turns b = -0.0 at step 0 into +0.0 where
     # a > 0: the combine is done, not skipped
     assert bool(torch.signbit(ops[1][:, 0]).all())

@@ -43,8 +43,9 @@ tiles of 128·r elements, the shared-memory kernels on others): outputs
 and running totals bitwise equal to ``carry_plain``, ``apply_plain``,
 ``fused_plain`` and ``tree_plain``, decoupled == carry == fused, with the
 profiler's kernel names showing which network each shape launches; the
-affine carry and fused on ``Channels`` tiles of 128, 256 and 512 steps
-(``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``) likewise, and
+affine carry, fused, totals and apply on ``Channels`` tiles of 128, 256
+and 512 steps (``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``,
+``totals_chan_reduce_kernel``, ``apply_chan_reg_kernel``) likewise, and
 equal to the shared-memory kernels launched by name.
 """
 
@@ -452,9 +453,10 @@ def _kernel_names(fn):
     it left the profiler recording nothing for the rest of the process),
     and the window opens with a fill kernel of its own, left out of the
     names (the profiler has missed the first launch of its window). A
-    window that recorded no kernel at all (CUPTI dropped its records) is
-    profiled again, three times at most, the launch counters put back
-    first, so that they show one call of fn."""
+    window that recorded no kernel of fn (CUPTI dropped its records: none
+    at all, or the fill kernel alone) is profiled again, three times at
+    most, the launch counters put back first, so that they show one call
+    of fn."""
     from torch.profiler import ProfilerActivity, profile
     cuda.build()
     opener = torch.zeros(1, device="cuda")
@@ -467,20 +469,23 @@ def _kernel_names(fn):
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        keys = {e.key for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-        if keys:
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "Fill" not in e.key and "fill" not in e.key}
+        if names:
             break
-    return {k for k in keys if "Fill" not in k and "fill" not in k}
+    return names
 
 
 def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
     """SUM (every dtype) and MASK on Rows launch ``totals_reduce_kernel``
-    and never the network's ``totals_kernel``; SEGSUM and AFFINE on Rows
-    or Channels, and SUM on Channels, launch ``totals_kernel``. The launch
-    counters keep their keys."""
+    and never the network's ``totals_kernel``; AFFINE on Channels tiles of
+    256 steps launches ``totals_chan_reduce_kernel``; SEGSUM, AFFINE on
+    Rows and on Channels tiles of 64 steps, and SUM on Channels launch
+    ``totals_kernel``. The launch counters keep their keys."""
     rows = scan_engine.Rows(2, 4096, 1, 2048)
     chan = scan_engine.Channels(2, 1024, 8, 256, 8)
+    chan64 = scan_engine.Channels(2, 1024, 8, 64, 8)
     ones = torch.ones(rows.shape, device=cuda_device)
     flags = torch.zeros(rows.shape, dtype=torch.int32, device=cuda_device)
     calls = [(monoids.SUM, (ones.to(dt),), rows, "totals_reduce_kernel")
@@ -491,7 +496,10 @@ def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
         (monoids.SUM, (torch.ones(chan.shape, device=cuda_device),), chan,
          "totals_kernel"),
         (monoids.AFFINE, (torch.ones(chan.shape, device=cuda_device),) * 2,
-         chan, "totals_kernel"),
+         chan, "totals_chan_reduce_kernel"),
+        (monoids.AFFINE, (torch.ones(chan.shape, device=cuda_device),) * 2,
+         chan64, "totals_kernel"),
+        (monoids.AFFINE, (ones, ones), rows, "totals_kernel"),
     ]
     spec_type = {"sum": "SumSpec", "mask": "MaskSpec",
                  "segsum": "SegSumSpec", "affine": "AffineSpec"}
@@ -502,7 +510,12 @@ def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
         hits = [k for k in names if "totals" in k]
         assert len(hits) == 1 and kernel + "<" in hits[0], (
             spec.name, ops[0].dtype, type(lay).__name__, names)
-        assert spec_type[spec.name] in hits[0]
+        # totals_chan_reduce_kernel takes the affine pair alone, by dtype,
+        # tile and channels a thread
+        inst = (f"<float, {lay.bt}, 4>"
+                if kernel == "totals_chan_reduce_kernel"
+                else spec_type[spec.name])
+        assert inst in hits[0], hits
 
 
 # carry and fused on Rows: the register network (carry_reg_kernel,
@@ -668,9 +681,11 @@ def test_cuda_apply_tree_network_by_shape(cuda_device):
     """By the profiler's kernel names: apply and tree on Rows tiles of
     128·r elements launch ``apply_reg_kernel`` / ``tree_reg_kernel`` for
     the sum (every dtype), the segmented sum and the mask, at block_n 128
-    to 16384; other tile lengths, the affine pair and Channels launch
-    ``apply_kernel`` / ``tree_kernel``. ``cuda.tile_network`` names the
-    same choice, and the launch counters keep their keys."""
+    to 16384; the affine apply on Channels tiles of 256 steps launches
+    ``apply_chan_reg_kernel``; other tile lengths, the affine pair on
+    Rows, the sum on Channels and the affine tree launch ``apply_kernel``
+    / ``tree_kernel``. ``cuda.tile_network`` names the same choice, and
+    the launch counters keep their keys."""
     ones = torch.ones((2, 32768), device=cuda_device)
     flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
     chan = scan_engine.Channels(2, 1024, 8, 256, 8)
@@ -700,7 +715,9 @@ def test_cuda_apply_tree_network_by_shape(cuda_device):
             names = _kernel_names(fn)
             assert cuda.LAUNCHES[cuda.kernel_name(spec.name, kernel)] == 1
             hits = [k for k in names if kernel in k]
-            want = f"{kernel}_reg_kernel<" if reg else f"{kernel}_kernel<"
+            chan_reg = "_chan" if isinstance(lay, scan_engine.Channels) else ""
+            want = (f"{kernel}{chan_reg}_reg_kernel<" if reg
+                    else f"{kernel}_kernel<")
             assert len(hits) == 1 and want in hits[0], (
                 spec.name, ops_[0].dtype, lay, names)
 
@@ -926,6 +943,107 @@ def test_cuda_affine_fused_channels_networks_agree(cuda_device):
     (shared,) = cuda.fused(monoids.AFFINE, gpu, lay, network="shared")
     (carry,), _ = cuda.carry(monoids.AFFINE, gpu, lay)
     assert _same_bits(reg, shared) and _same_bits(reg, carry)
+
+
+def _offset_copy(t, offset, device):
+    """A copy of CPU tensor t on the card whose base lies ``offset``
+    elements past an aligned allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_cuda_affine_totals_apply_channels_register_bitwise(cuda_device, bt,
+                                                            dtype):
+    """decoupled's affine totals and apply on Channels tiles of 128, 256
+    and 512 steps run ``totals_chan_reduce_kernel`` and
+    ``apply_chan_reg_kernel`` (by the profiler's names): the totals
+    bitwise ``totals_plain``, ``totals_tree_plain`` and the shared
+    ``totals_kernel`` (``network="shared"``), the chain's offsets
+    ``exclusive_chain``'s, the outputs ``apply_plain``'s and the shared
+    ``apply_kernel``'s, inclusive and exclusive, from aligned bases and
+    bases one element off, over strips of 4 to 32 channels, D = 7 (the
+    reduction's scalar loads; the apply stays shared) and one strip of 32
+    tiles (its walk split so the grid fills the card); decoupled == carry
+    == fused."""
+    rng = np.random.default_rng(bt + 11)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    aff = monoids.AFFINE
+    for shape in ((2, 4 * bt, 48), (1, 2 * bt, 4), (1, 3 * bt, 96),
+                  (2, 2 * bt, 7), (1, 32 * bt, 32)):
+        lay = scan_engine.Channels(*shape, bt, shape[2])
+        assert cuda.tile_network(aff, lay, "totals") == "register"
+        reg_apply = cuda.tile_network(aff, lay, "apply") == "register"
+        assert reg_apply == (shape[2] != 7)
+        cpu = _chan_operands(rng, shape, bt, dtype)
+        w_tot = sched.totals_plain(cpu, aff, lay)
+        tree = sched.totals_tree_plain(cpu, aff, lay)
+        w_off = scan_engine.exclusive_chain(aff, w_tot)
+        assert all(same(x, y) for x, y in zip(tree, w_tot))
+        for offset in (0, 1):
+            gpu = tuple(_offset_copy(o, offset, cuda_device) for o in cpu)
+            what = (shape, offset)
+            cuda.reset_launches()
+            tot = cuda.totals(aff, gpu, lay)
+            torch.cuda.synchronize()
+            assert cuda.LAUNCHES["affine_totals"] == 1
+            shared_tot = cuda.totals(aff, gpu, lay, network="shared")
+            for x, y, z in zip(tot, w_tot, shared_tot):
+                assert same(x.cpu(), y) and same(x, z), what
+            offs, _ = cuda.chain(aff, tot)
+            for x, y in zip(offs, w_off):
+                assert same(x.cpu(), y), what
+            for exclusive in (False, True):
+                what = (shape, offset, exclusive)
+                cuda.reset_launches()
+                (got,) = cuda.apply(aff, gpu, offs, lay, exclusive)
+                torch.cuda.synchronize()
+                assert cuda.LAUNCHES["affine_apply"] == 1
+                (want,) = sched.apply_plain(cpu, w_off, aff, lay, exclusive)
+                assert same(got.cpu(), want), what
+                (shared,) = cuda.apply(aff, gpu, offs, lay, exclusive,
+                                       network="shared")
+                (dec,) = scan_engine.scan(gpu, aff, lay, schedule="decoupled",
+                                          exclusive=exclusive)
+                (carry,), _ = cuda.carry(aff, gpu, lay, exclusive)
+                (fo,) = cuda.fused(aff, gpu, lay, exclusive)
+                assert same(shared, got) and same(dec, got) and \
+                    same(carry, got) and same(fo, got), what
+        names = _kernel_names(lambda: scan_engine.scan(
+            gpu, aff, lay, schedule="decoupled"))
+        assert any("totals_chan_reduce_kernel<" in k for k in names), names
+        want = "apply_chan_reg_kernel<" if reg_apply else "::apply_kernel<"
+        assert any(want in k for k in names), names
+
+
+def test_cuda_affine_totals_apply_channels_networks_agree(cuda_device):
+    """At the SSD carry's tiling (256 steps; 32-channel strips for the
+    register apply, 16 for the shared one) the reduced and the network's
+    totals, and the register and the shared-memory apply, give the same
+    bits, and decoupled gives the carry's and the fused's, over lanes of
+    four tiles."""
+    rng = np.random.default_rng(25)
+    aff = monoids.AFFINE
+    lay = scan_engine.Channels(1, 1024, 2048, 256, 2048)
+    gpu = tuple(t.to(cuda_device) for t in _chan_operands(
+        rng, lay.shape, 256, torch.float32))
+    tot = cuda.totals(aff, gpu, lay)
+    shared_tot = cuda.totals(aff, gpu, lay, network="shared")
+    assert all(_same_bits(x, y) for x, y in zip(tot, shared_tot))
+    offs, _ = cuda.chain(aff, tot)
+    for exclusive in (False, True):
+        (reg,) = cuda.apply(aff, gpu, offs, lay, exclusive)
+        (shared,) = cuda.apply(aff, gpu, offs, lay, exclusive,
+                               network="shared")
+        (carry,), _ = cuda.carry(aff, gpu, lay, exclusive)
+        (fo,) = cuda.fused(aff, gpu, lay, exclusive)
+        assert _same_bits(reg, shared) and _same_bits(reg, carry) and \
+            _same_bits(reg, fo)
 
 
 def test_cuda_ssm_backward_runs_kernels(cuda_device):

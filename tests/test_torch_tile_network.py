@@ -166,12 +166,12 @@ NETWORKS = [
      "shared"),
     ("sum-channels-bt256", monoids.SUM, scan_engine.Channels(2, 512, 4, 256, 4),
      "shared"),
-    # the affine carry and fused on Channels tiles of 256 steps: the
-    # register carry and fused (carry_chan_reg_kernel,
-    # fused_chan_reg_kernel); its apply and tree stay shared
+    # the affine carry, apply and fused on Channels tiles of 256 steps:
+    # the register carry, apply and fused (carry_chan_reg_kernel,
+    # apply_chan_reg_kernel, fused_chan_reg_kernel); its tree stays shared
     ("affine-channels-bt256", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 256, 64),
-     {"carry": "register", "apply": "shared", "fused": "register",
+     {"carry": "register", "apply": "register", "fused": "register",
       "tree": "shared"}),
     ("affine-channels-bt64", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 64, 64), "shared"),
@@ -188,8 +188,8 @@ def _network(network, kernel):
 def test_tile_network_by_shape(name, spec, layout, network):
     """Rows tiles of 128·r elements take the register network for every
     spec but the affine pair; other tile lengths keep the shared-memory
-    ``tile_scan``, and so does Channels but for the affine carry and
-    fused (``tests/test_torch_chan_network.py``)."""
+    ``tile_scan``, and so does Channels but for the affine carry, apply
+    and fused (``tests/test_torch_chan_network.py``)."""
     for kernel in ("carry", "apply", "fused", "tree"):
         assert cuda.tile_network(spec, layout, kernel) == _network(network,
                                                                    kernel)
@@ -229,6 +229,43 @@ def test_wrappers_launch_the_tile_network(monkeypatch, kernel, name, spec,
     else:
         getattr(cuda, kernel)(spec, ops_, layout)
     assert nets == [(kernel, int(_network(network, kernel) == "register"))]
+
+
+# The totals of each NETWORKS case: the reduction without the scan
+# ("register": totals_reduce_kernel for the sum and the mask on Rows at
+# any tile length, totals_chan_reduce_kernel for the affine pair on
+# Channels tiles of 128, 256 and 512 steps) or the network's totals_kernel.
+TOTALS = {"sum-rows-bn128": "register", "sum-rows-bn2048": "register",
+          "sum-rows-bn2176": "register", "sum-rows-bn16384": "register",
+          "segsum-rows-bn2048": "shared", "mask-rows-bn2048": "register",
+          "sum-rows-bn96": "register", "sum-rows-bn200": "register",
+          "segsum-rows-bn64": "shared", "affine-rows-bn256": "shared",
+          "sum-channels-bt256": "shared", "affine-channels-bt256": "register",
+          "affine-channels-bt64": "shared"}
+
+
+@pytest.mark.parametrize("name,spec,layout,network", NETWORKS,
+                         ids=[c[0] for c in NETWORKS])
+def test_tile_network_totals_by_shape(monkeypatch, name, spec, layout,
+                                      network):
+    """``tile_network(..., "totals")`` chooses the reduction where a
+    kernel of it exists, and ``cuda.totals`` passes that choice (the C
+    interface's last argument before the stream), or the network it is
+    asked for; the launch is intercepted, so this runs on CPU tensors."""
+    assert set(TOTALS) == {c[0] for c in NETWORKS}
+    assert cuda.tile_network(spec, layout, "totals") == TOTALS[name]
+    nets = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: nets.append(
+                            (k, args[-1])))
+    ops_ = _wrapper_operands(spec, layout)
+    for asked in (None, "shared", "register"):
+        cuda.totals(spec, ops_, layout, network=asked)
+    assert nets == [("totals", int(TOTALS[name] == "register")),
+                    ("totals", 0), ("totals", 1)]
 
 
 def test_tile_network_follows_the_wrappers_tiling():

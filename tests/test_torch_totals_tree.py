@@ -13,8 +13,11 @@ XLA's CPU runtime flushes subnormal floats to zero (inputs and results),
 so the comparison with the reference runs the port's plain version with
 torch's flush mode on (``torch.set_flush_denormal``, one thread: the mode
 is per thread); the comparison with ``totals_plain`` keeps IEEE
-subnormals, as the card does. The kernel itself is held against both
-plain versions on the card in ``tests/test_torch_cuda_kernels.py``.
+subnormals, as the card does. The same holds for the affine pair on
+``Channels`` tiles of 128, 256 and 512 steps, whose totals the CUDA
+``totals_chan_reduce_kernel`` builds as each channel's balanced tree over
+its steps. The kernels themselves are held against both plain versions on
+the card in ``tests/test_torch_cuda_kernels.py``.
 """
 
 import jax
@@ -23,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_totals_data import BLOCKS, KINDS, TORCH_DTYPES, operands, same_bits
+from _torch_totals_data import (BLOCKS, KINDS, TORCH_DTYPES, affine_channels,
+                                operands, same_bits)
 from repro.kernels.scan_engine import monoids as jax_monoids
 from repro.kernels.scan_engine import schedules as jax_schedules
 from repro_torch.kernels import scan_engine
@@ -123,6 +127,57 @@ def test_totals_tree_plain_other_specs_and_channels(name, spec, layout):
     for g, w in zip(got, want):
         assert tuple(g.shape) == lay.chain_shape
         assert same_bits(g, w)
+
+
+# The affine pair on Channels at the tiles of the CUDA reduction
+# (totals_chan_reduce_kernel): the last element of a whole-tile
+# Hillis–Steele along time over a power-of-two tile is each channel's
+# balanced tree over its steps, the earlier subtree on the left.
+CHAN_TILES = (128, 256, 512)
+
+
+def _affine_case(bt, exact):
+    ops = affine_channels(bt, 5 * bt + exact, exact=exact,
+                          shape=(2, 3 * bt, 6))
+    return ops, scan_engine.Channels(2, 3 * bt, 6, bt, 6)
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("bt", CHAN_TILES)
+def test_totals_tree_plain_affine_channels(bt, exact):
+    """Gates with negative values and ±0.0, offsets with −0.0 at every tile
+    start: the tree's totals are the network's last elements bit for
+    bit, both leaves."""
+    ops, lay = _affine_case(bt, exact)
+    got = schedules.totals_tree_plain(ops, monoids.AFFINE, lay)
+    want = schedules.totals_plain(ops, monoids.AFFINE, lay)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == lay.chain_shape
+        assert same_bits(g, w)
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("bt", CHAN_TILES)
+def test_totals_tree_plain_affine_channels_vs_reference(bt, exact,
+                                                        flush_denormals):
+    """The reference's totals: the last step of its ``tile_scan`` along
+    time (axis 2 of the (B, chunks, bt, D) tiles), run op by op — under
+    ``jax.jit`` XLA contracts the affine combine into an FMA and folds
+    0.0 + x into x. The products of up to 512 gates in [0.5, 1) reach
+    subnormals, which XLA's CPU flushes: the port's side runs flushed too
+    (see ``flush_denormals``)."""
+    ops, lay = _affine_case(bt, exact)
+    tiles = schedules._tiles(monoids.AFFINE, ops, lay)
+    scanned = jax_schedules.tile_scan(
+        jax_monoids.AFFINE, tuple(jnp.asarray(t.numpy()) for t in tiles),
+        axis=2)
+    want = tuple(torch.from_numpy(np.array(s[:, :, -1])) for s in scanned)
+    got = schedules.totals_tree_plain(ops, monoids.AFFINE, lay)
+    net = schedules.totals_plain(ops, monoids.AFFINE, lay)
+    for g, n, w in zip(got, net, want):
+        assert same_bits(g, w)
+        assert same_bits(n, w)
 
 
 def test_totals_kinds_cover_every_reduced_dtype():

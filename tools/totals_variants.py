@@ -5,9 +5,10 @@ one card, in one process.
     PYTHONPATH=src python3 tools/totals_variants.py
 
 Each variant is ``csrc/scan_sum.cu`` with a few text edits (the launch's
-block size, the load hint, the integer loop's depth, and the network's
+block size, the load hint, the integer loop's depth), and "network" is
+the unedited source launched with ``network="shared"``: the network's
 ``totals_kernel`` for the same launches, which is what the sum and the
-mask ran before the reduction). All are compiled with ``nvcc`` together,
+mask ran before the reduction. All are compiled with ``nvcc`` together,
 into ``build/variants/<name>/``, then timed in turns (each variant, then
 again in reverse order) at chip_smoke's totals shapes: (1, 2^28) float32,
 bfloat16, int32 and int8 at block_n 2048, and the (1, 59990016) int32
@@ -31,8 +32,7 @@ from repro_torch.kernels.scan_engine import Rows, cuda, monoids, schedules
 
 VARIANTS = {
     "reduce": [],
-    "network": [("if constexpr (!kChan && S::kReduce) {",
-                 "if constexpr (false) {")],
+    "network": [],
     "ldg": [("__ldcs(", "__ldg(")],
     "threads128": [("constexpr int kReduceThreads = 256;",
                     "constexpr int kReduceThreads = 128;")],
@@ -109,13 +109,14 @@ def main() -> int:
         cuda.SOURCE, cuda.BUILD_DIR = dirs[name] / "scan_sum.cu", dirs[name]
         cuda.build()
         row = []
+        net = "shared" if name == "network" else None
         for c, spec, o, lay in cases:
-            (got,) = cuda.totals(spec, (o,), lay)
+            (got,) = cuda.totals(spec, (o,), lay, network=net)
             if not torch.equal(got.view(torch.int32),
                                want[c].view(torch.int32)):
                 raise SystemExit(f"variant {name}: {c} totals differ from "
                                  "totals_plain")
-            row.append(f"{c} {time_ms(lambda: cuda.totals(spec, (o,), lay)):.4f}")
+            row.append(f"{c} {time_ms(lambda: cuda.totals(spec, (o,), lay, network=net)):.4f}")
         print(f"{name:10s} " + "  ".join(row) + " ms")
     return 0
 
