@@ -14,10 +14,11 @@ first failure and prints no result):
      fold_fwd_tf32's, fold_dq_tf32's and fold_dkv_tf32's three
      instantiations each, d = 64, 128 and 256, among them; the 104 kernels
      of the register network, carry_reg_kernel, apply_reg_kernel,
-     fused_reg_kernel and tree_reg_kernel by spec and vector form, and the
-     18 each of the affine carry, apply and fused on Channels,
-     carry_chan_reg_kernel, apply_chan_reg_kernel and
-     fused_chan_reg_kernel, by dtype, tile and vector form, and of the
+     fused_reg_kernel and tree_reg_kernel by spec and vector form, the 13
+     of totals_reduce_kernel by spec, and the 18 each of the affine carry,
+     apply, fused and tree on Channels, carry_chan_reg_kernel,
+     apply_chan_reg_kernel, fused_chan_reg_kernel and
+     tree_chan_reg_kernel, by dtype, tile and vector form, and of the
      affine totals there, totals_chan_reduce_kernel, by dtype, tile and
      channels a thread, none may spill either);
   2. every sum kernel against its plain PyTorch version on the card,
@@ -32,16 +33,19 @@ first failure and prints no result):
      them; messy flags (negative, fractional, leading) through
      ``segmented_cumsum``; and the affine kernels on Channels (f32, bf16,
      f16; 1- to 32-channel strips; time tiles 64 to 8192), every schedule,
-     inclusive and exclusive, outputs and running totals; the sum's and
-     the mask's Rows totals (``totals_reduce_kernel``: the network's last
-     element built as its tree, no scan) bitwise against ``totals_plain``
-     and ``totals_tree_plain`` at block_n 128, 2048, 2176 and 16384 for
-     the six sum dtypes and the mask, signed zeros at tile starts, from an
-     aligned base and one element off; and, by the profiler's kernel
-     names, that those launch it, the affine pair on Channels tiles of
-     128, 256 and 512 steps ``totals_chan_reduce_kernel``, while the
-     segmented sum, the sum on Channels and the affine pair on Rows and on
-     other Channels tiles take the network's ``totals_kernel``; carry,
+     inclusive and exclusive, outputs and running totals; the Rows totals
+     of the sum, the segmented sum and the mask (``totals_reduce_kernel``:
+     the network's last element built as its tree, no scan) bitwise
+     against ``totals_plain`` and ``totals_tree_plain`` at block_n 128,
+     200, 384, 2048, 2176 and 16384 for the six sum dtypes, the mask and
+     the segmented sum in the six dtypes with flags on every tile's ends
+     or dense (and against the shared ``totals_kernel``), signed zeros at
+     tile starts, from an aligned base and one element off; and, by the
+     profiler's kernel names, that those launch it, the affine pair on
+     Channels tiles of 128, 256 and 512 steps
+     ``totals_chan_reduce_kernel``, while the sum on Channels and the
+     affine pair on Rows and on other Channels tiles take the network's
+     ``totals_kernel``; carry,
      apply, fused and tree on Rows in the register network
      (``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel``,
      ``tree_reg_kernel``: a warp a 128-element segment, Hillis-Steele or
@@ -56,17 +60,19 @@ first failure and prints no result):
      register kernels while block_n 200 and Channels launch
      ``carry_kernel`` / ``apply_kernel`` / ``fused_kernel`` /
      ``tree_kernel`` (the networks in shared memory), but the affine
-     carry, apply and fused on Channels, which launch
-     ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
-     ``fused_chan_reg_kernel``; and those kernels and
-     ``totals_chan_reduce_kernel`` at time tiles of 128, 256 and 512 steps
-     over three shapes and three dtypes, outputs and running totals
-     bitwise equal to ``carry_plain``, the totals to ``totals_plain``,
-     ``totals_tree_plain`` and the shared ``totals_kernel``, the chain's
-     offsets to ``exclusive_chain``, apply to ``apply_plain`` and the
-     shared ``apply_kernel``, decoupled == carry == fused == the
-     shared-memory ``fused_kernel`` launched by name, inclusive and
-     exclusive, aligned and one element off;
+     carry, apply, fused and tree on Channels, which launch
+     ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel``,
+     ``fused_chan_reg_kernel`` and ``tree_chan_reg_kernel``; and those
+     kernels and ``totals_chan_reduce_kernel`` at time tiles of 128, 256
+     and 512 steps over three shapes and three dtypes, outputs and
+     running totals bitwise equal to ``carry_plain``, the totals to
+     ``totals_plain``, ``totals_tree_plain`` and the shared
+     ``totals_kernel``, the chain's offsets to ``exclusive_chain``, apply
+     to ``apply_plain`` and the shared ``apply_kernel``, decoupled ==
+     carry == fused == the shared-memory ``fused_kernel`` launched by
+     name, the tree (outputs and running totals) to ``tree_plain`` and the
+     shared ``tree_kernel``, inclusive and exclusive, aligned and one
+     element off;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -112,6 +118,9 @@ first failure and prints no result):
      segmented sum and Q6's ~60M-row mask is held bitwise against
      decoupled and ``fused_plain`` (the segmented sum exclusive at
      block_n 16384 too), as every kernel is against its plain version;
+     Q1's segmented-sum totals, ``totals_reduce_kernel``, also beside the
+     network's ``totals_kernel`` it replaced, in turns and from graph
+     replays;
   6. the affine SSM path at zamba2-7b's width: the Mamba2 SSD
      across-chunk carry of ``src/repro/configs/zamba2_7b.py`` (112 heads
      x head_dim 64 x state 64 = 458,752 channels; ``ssm_chunk`` 128) for a
@@ -127,10 +136,11 @@ first failure and prints no result):
      beside the shared-memory ``carry_kernel`` it replaced; decoupled's
      totals and apply, ``totals_chan_reduce_kernel`` and
      ``apply_chan_reg_kernel``, beside the shared ``totals_kernel`` and
-     ``apply_kernel``, in turns and from graph replays; and the fused,
-     ``fused_chan_reg_kernel``, beside the shared-memory ``fused_kernel``,
-     each timed at the same shape in the same run and held bitwise
-     against it);
+     ``apply_kernel``, in turns and from graph replays; the fused,
+     ``fused_chan_reg_kernel``, beside the shared-memory ``fused_kernel``;
+     and the tree, ``tree_chan_reg_kernel``, beside the shared-memory
+     ``tree_kernel``, in turns and from graph replays; each timed at the
+     same shape in the same run and held bitwise against it);
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
@@ -181,8 +191,10 @@ first failure and prints no result):
      trace (host and device) of the (h) bf16 forward call shows where its
      host time goes beyond ``fold_fwd_tc``.
 
-The line before the last is one JSON object with a row per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with a row per kernel (the
+shared-memory kernels timed beside the kernels that replaced them in rows
+of their own, ``<name>_shared``, with 0 launches); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -469,11 +481,13 @@ def main() -> int:
         if regs:
             print(f"  ptxas {src.name}: {len(regs)} kernels, "
                   f"{min(regs)}-{max(regs)} registers, {spills} with spills")
-    # the sum's and the mask's totals reduction, by spec: registers, spills
+    # the totals reduction of the sum, the segmented sum and the mask, by
+    # spec: registers, spills
     entry, red, red_spills = None, [], 0
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"totals_reduce_kernelI(.+?)EEvPKv", line)
+            found = re.search(r"totals_reduce_kernelI(.+?)EEv\w*?7Tensors",
+                              line)
             entry = found and re.sub(r"NS_\d+|E+$", "", found[1])
         elif entry and "spill stores" in line:
             red_spills += spilled(line)
@@ -484,7 +498,7 @@ def main() -> int:
     if red:   # a cached build in build/ prints no report
         print(f"  ptxas totals_reduce_kernel registers: {', '.join(red)}; "
               f"{red_spills} with spills")
-        check(len(red) == 7 and red_spills == 0,
+        check(len(red) == 13 and red_spills == 0,
               f"ptxas: totals_reduce_kernel {red}, {red_spills} spill")
     # the register network (carry_reg_kernel, apply_reg_kernel,
     # fused_reg_kernel, tree_reg_kernel) by spec and vector form (1: vector
@@ -517,16 +531,18 @@ def main() -> int:
         check(len(regk) == 104 and not reg_spills,
               f"ptxas: register network {len(regk)} kernels, spills in "
               f"{reg_spills}")
-    # the affine carry, apply and fused on Channels in registers
-    # (carry_chan_reg_kernel, apply_chan_reg_kernel, fused_chan_reg_kernel)
-    # by dtype, slots a lane (bt / 32) and vector form, and the affine
-    # totals there (totals_chan_reduce_kernel) by dtype, tile and channels
-    # a thread: registers, spills
+    # the affine carry, apply, fused and tree on Channels in registers
+    # (carry_chan_reg_kernel, apply_chan_reg_kernel, fused_chan_reg_kernel,
+    # tree_chan_reg_kernel) by dtype, slots a lane (bt / 32) and vector
+    # form, and the affine totals there (totals_chan_reduce_kernel) by
+    # dtype, tile and channels a thread: registers, spills
     for kname, form in (("carry_chan_reg_kernel", "dtype, bt / 32, vector "
                          "form"),
                         ("apply_chan_reg_kernel", "dtype, bt / 32, vector "
                          "form"),
                         ("fused_chan_reg_kernel", "dtype, bt / 32, vector "
+                         "form"),
+                        ("tree_chan_reg_kernel", "dtype, bt / 32, vector "
                          "form"),
                         ("totals_chan_reduce_kernel", "dtype, bt, channels "
                          "a thread")):
@@ -724,56 +740,87 @@ def main() -> int:
           "outputs and running totals bitwise equal to the plain versions; "
           "messy flags (negative, fractional, leading) equal to the CPU")
 
-    # the sum's and the mask's Rows totals (totals_reduce_kernel): bitwise
-    # against the network's last element and its tree, every dtype, signed
-    # zeros at tile starts, cancelling pairs and subnormals, from an
-    # aligned base and one element off (a generator of its own, so the
-    # later phases' data stay as they were)
+    def offset_view(t, offset):
+        """A copy of t whose base lies ``offset`` elements past an
+        aligned allocation."""
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    # the Rows totals of the sum, the segmented sum and the mask
+    # (totals_reduce_kernel): bitwise against the network's last element
+    # and its tree, every dtype, signed zeros at tile starts, cancelling
+    # pairs and subnormals, the segmented sum's flags sparse (negative and
+    # non-unit among them) with one on every tile's first and last element,
+    # or dense, and against the network's totals_kernel
+    # (network="shared"), from an aligned base and one element off (a
+    # generator of its own, so the later phases' data stay as they were)
     g_red = torch.Generator(device=dev)
     g_red.manual_seed(args.seed + 1)
     n_red = 0
-    for bn in (128, 2048, 2176, 16384):
+    dtypes = ("float32", "bfloat16", "float16", "int32", "int16", "int8")
+    for bn in (128, 200, 384, 2048, 2176, 16384):
         n = -(-(1 << 20) // bn) * bn
-        for kind in ("float32", "bfloat16", "float16", "int32", "int16",
-                     "int8", "mask"):
+        for kind in dtypes + ("mask",) + tuple(
+                f"segsum-{f}-{d}" for d in dtypes for f in ("ends", "dense")):
+            dt = getattr(torch, kind.split("-")[-1]) if kind != "mask" \
+                else torch.int32
             if kind == "mask":
                 x = torch.randint(0, 2, (1, n), device=dev, generator=g_red,
                                   dtype=torch.int32)
-            elif kind.startswith("int"):
-                info = torch.iinfo(getattr(torch, kind))
+            elif not dt.is_floating_point:
+                info = torch.iinfo(dt)
                 x = torch.randint(info.min, info.max + 1, (1, n), device=dev,
-                                  generator=g_red).to(getattr(torch, kind))
+                                  generator=g_red).to(dt)
             else:
                 x = torch.randn((1, n), device=dev, generator=g_red) * 4
-                x[:, 1::97] = 1e-40 if kind != "float16" else 1e-6
+                x[:, 1::97] = 1e-40 if dt != torch.float16 else 1e-6
                 x[:, 5::89] = 3e4
                 x[:, 6::89] = -3e4
                 x[:, ::bn] = -0.0
                 x[:, bn::2 * bn] = 0.0
                 x[:, :bn] = -0.0
-                x = x.to(getattr(torch, kind))
+                x = x.to(dt)
+            ops_r = (x,)
             spec = monoids.mask(n) if kind == "mask" else SUM
+            if kind.startswith("segsum"):
+                spec, r = SEGSUM, torch.rand((1, n), device=dev,
+                                             generator=g_red)
+                if "dense" in kind:
+                    fl = torch.where(r < 0.25, -3, torch.where(r < 0.5, 1, 0))
+                else:
+                    fl = torch.where(r < 0.005, -3,
+                                     torch.where(r < 0.01, 2, 0))
+                    fl[:, ::bn] = 1
+                    fl[:, bn - 1::bn] = 7
+                ops_r = (x, fl.to(torch.int32))
             lay = Rows(1, n, 1, bn)
-            (want,) = schedules.totals_plain((x,), spec, lay)
-            (tree,) = schedules.totals_tree_plain((x,), spec, lay)
-            check(same_bits(tree, want), f"totals_tree_plain != totals_plain"
-                  f": {kind} bn={bn}")
+            want = schedules.totals_plain(ops_r, spec, lay)
+            tree = schedules.totals_tree_plain(ops_r, spec, lay)
+            check(all_same_bits(tree, want), f"totals_tree_plain != "
+                  f"totals_plain: {kind} bn={bn}")
             for offset in (0, 1):
-                buf = torch.empty(n + offset, dtype=x.dtype, device=dev)
-                xo = buf[offset:].view(1, n)
-                xo.copy_(x)
+                ops_o = tuple(offset_view(o, offset) for o in ops_r)
                 cuda.reset_launches()
-                (got,) = cuda.totals(spec, (xo,), lay)
+                got = cuda.totals(spec, ops_o, lay)
                 sync()
                 check(launched() == {cuda.kernel_name(spec.name, "totals")},
                       f"{kind} totals launched {launched()}")
-                check(same_bits(got, want), f"totals_reduce_kernel != "
+                check(all_same_bits(got, want), f"totals_reduce_kernel != "
                       f"totals_plain: {kind} bn={bn} offset {offset}")
+                if spec is SEGSUM:
+                    check(all_same_bits(got, cuda.totals(
+                        spec, ops_o, lay, network="shared")),
+                        f"totals_reduce_kernel != shared totals_kernel: "
+                        f"{kind} bn={bn} offset {offset}")
                 n_red += 1
-            del x, buf, xo, want, tree, got
-    print(f"phase 2 (totals_reduce_kernel): {n_red} launches (bn 128, 2048, "
-          "2176, 16384 x 6 sum dtypes and the mask x base aligned / one "
-          "element off) bitwise equal to totals_plain and totals_tree_plain")
+            del x, ops_r, ops_o, want, tree, got
+    print(f"phase 2 (totals_reduce_kernel): {n_red} launches (bn 128, 200, "
+          "384, 2048, 2176, 16384 x 6 sum dtypes, the mask and the "
+          "segmented sum in 6 dtypes x 2 flag patterns x base aligned / one "
+          "element off) bitwise equal to totals_plain and totals_tree_plain, "
+          "the segmented sum's to the shared totals_kernel too")
     # which kernel each spec's totals launch, by the profiler's names
     from torch.profiler import ProfilerActivity, profile
     ones = torch.ones((2, 4096), device=dev)
@@ -787,7 +834,10 @@ def main() -> int:
             (monoids.mask(4096), (zeros_i,), Rows(2, 4096, 1, 2048),
              "totals_reduce_kernel"),
             (SEGSUM, (ones, zeros_i), Rows(2, 4096, 1, 2048),
-             "totals_kernel"),
+             "totals_reduce_kernel"),
+            (SEGSUM, (ones[:, :600].contiguous(),
+                      zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200),
+             "totals_reduce_kernel"),
             (SUM, (ones_c,), chan, "totals_kernel"),
             (AFFINE, (ones_c, ones_c), Channels(2, 1024, 8, 128, 8),
              "totals_chan_reduce_kernel"),
@@ -809,9 +859,9 @@ def main() -> int:
         check(cuda.tile_network(spec, lay, "totals") == (
             "shared" if want == "totals_kernel" else "register"),
             f"tile_network totals {spec.name} {lay}")
-    print("totals kernels by the profiler: sum (f32, int8) and mask on Rows "
-          "-> totals_reduce_kernel; affine on Channels bt 128, 256, 512 -> "
-          "totals_chan_reduce_kernel; segsum on Rows, sum on Channels, "
+    print("totals kernels by the profiler: sum (f32, int8), segsum (bn 2048, "
+          "200) and mask on Rows -> totals_reduce_kernel; affine on Channels "
+          "bt 128, 256, 512 -> totals_chan_reduce_kernel; sum on Channels, "
           "affine on Channels bt 64 and on Rows -> totals_kernel")
 
     # carry, apply, fused and tree on Rows: the register network
@@ -848,12 +898,6 @@ def main() -> int:
         fl = torch.where(fl == 0, -3, torch.where(fl == 1, 2, 0))
         return SEGSUM, (x, fl.to(torch.int32))
 
-    def offset_view(t, offset):
-        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-        view = buf[offset:].view(t.shape)
-        view.copy_(t)
-        return view
-
     NET_KERNELS = ("carry", "apply", "fused", "tree")
 
     def launched_names(calls):
@@ -878,8 +922,8 @@ def main() -> int:
             names = {}
             for e in prof.key_averages():
                 found = re.search(
-                    r"((carry_chan|apply_chan|fused_chan|carry|apply|fused|"
-                    r"tree)(_reg)?_kernel)<", e.key)
+                    r"((carry_chan|apply_chan|fused_chan|tree_chan|carry|"
+                    r"apply|fused|tree)(_reg)?_kernel)<", e.key)
                 if e.device_type == torch.autograd.DeviceType.CUDA and found:
                     names[found[1]] = names.get(found[1], 0) + e.count
             if sum(names.values()) >= len(NET_KERNELS) * len(calls):
@@ -952,16 +996,16 @@ def main() -> int:
     # the shared-memory kernels: Rows tiles of 200 elements bitwise against
     # the plain versions (every schedule), and by the profiler's names with
     # Channels (the affine pair's kernels are held bitwise below): every
-    # Channels launch but the affine carry, apply and fused, which take
-    # carry_chan_reg_kernel, apply_chan_reg_kernel and fused_chan_reg_kernel
+    # Channels launch but the affine carry, apply, fused and tree, which
+    # take carry_chan_reg_kernel, apply_chan_reg_kernel,
+    # fused_chan_reg_kernel and tree_chan_reg_kernel
     calls = ((SUM, (ones[:, :600].contiguous(),), Rows(2, 600, 1, 200)),
              (SEGSUM, (ones[:, :600].contiguous(),
                        zeros_i[:, :600].contiguous()), Rows(2, 600, 1, 200)),
              (SUM, (ones_c,), chan), (AFFINE, (ones_c, ones_c), chan))
     for spec, _, lay in calls:
         for k in NET_KERNELS:
-            net = ("register" if spec is AFFINE
-                   and k in ("carry", "apply", "fused") else "shared")
+            net = "register" if spec is AFFINE else "shared"
             check(cuda.tile_network(spec, lay, k) == net,
                   f"tile_network {spec.name} {lay} {k}")
     lay200 = Rows(2, 600, 1, 200)
@@ -978,7 +1022,8 @@ def main() -> int:
     want = {f"{k}_kernel": len(calls) for k in NET_KERNELS}
     want.update(carry_kernel=len(calls) - 1, carry_chan_reg_kernel=1,
                 apply_kernel=len(calls) - 1, apply_chan_reg_kernel=1,
-                fused_kernel=len(calls) - 1, fused_chan_reg_kernel=1)
+                fused_kernel=len(calls) - 1, fused_chan_reg_kernel=1,
+                tree_kernel=len(calls) - 1, tree_chan_reg_kernel=1)
     check(names == want, f"bn 200 and Channels launched {names}, not {want}")
     print(f"phase 2 (register network): {n_reg} checks (carry + fused + "
           "tree + decoupled launch sets at bn 128, 2048, 2176, 16384, "
@@ -986,9 +1031,10 @@ def main() -> int:
           "equal to the plain versions, carry == decoupled == fused; by the "
           "profiler, bn 200 on Rows (sum, segsum) and Channels (sum, affine) "
           "launch carry_kernel / apply_kernel / fused_kernel / tree_kernel "
-          "(the networks in shared memory), but the affine carry, apply and "
-          "fused on Channels, carry_chan_reg_kernel, apply_chan_reg_kernel "
-          "and fused_chan_reg_kernel")
+          "(the networks in shared memory), but the affine carry, apply, "
+          "fused and tree on Channels, carry_chan_reg_kernel, "
+          "apply_chan_reg_kernel, fused_chan_reg_kernel and "
+          "tree_chan_reg_kernel")
     del ones, zeros_i, ones_c
 
     n_aff = 0
@@ -1009,14 +1055,16 @@ def main() -> int:
     print(f"phase 2 (affine): {n_aff} schedule runs, outputs and running "
           "totals bitwise equal to the plain versions")
 
-    # the affine carry, fused, totals and apply on Channels in registers
-    # (carry_chan_reg_kernel, fused_chan_reg_kernel,
-    # totals_chan_reduce_kernel, apply_chan_reg_kernel) at time tiles of
-    # 128, 256 and 512 steps: outputs and running totals bitwise equal to
-    # carry_plain, the totals to totals_plain, totals_tree_plain and the
-    # shared totals_kernel, the chain's offsets to exclusive_chain, apply to
-    # apply_plain and the shared apply_kernel, and decoupled == carry ==
-    # fused == the shared-memory fused_kernel launched by name, inclusive
+    # the affine carry, fused, totals, apply and tree on Channels in
+    # registers (carry_chan_reg_kernel, fused_chan_reg_kernel,
+    # totals_chan_reduce_kernel, apply_chan_reg_kernel,
+    # tree_chan_reg_kernel) at time tiles of 128, 256 and 512 steps:
+    # outputs and running totals bitwise equal to carry_plain, the totals to
+    # totals_plain, totals_tree_plain and the shared totals_kernel, the
+    # chain's offsets to exclusive_chain, apply to apply_plain and the
+    # shared apply_kernel, and decoupled == carry == fused == the
+    # shared-memory fused_kernel launched by name; the tree's outputs and
+    # running totals to tree_plain and the shared tree_kernel; inclusive
     # and exclusive, from aligned bases and one element off, on gates with
     # negative and signed-zero values and offsets with -0.0 at every tile
     # start (g_red's generator); the profiler names the kernels
@@ -1025,8 +1073,9 @@ def main() -> int:
         for shape in ((2, 8 * bt, 48), (1, 4 * bt, 1024), (1, 2 * bt, 4)):
             lay = Channels(*shape, bt, shape[2])
             check(all(cuda.tile_network(AFFINE, lay, k) == "register"
-                      for k in ("carry", "totals", "apply", "fused")),
-                  f"tile_network affine carry / totals / apply / fused {lay}")
+                      for k in ("carry", "totals", "apply", "fused", "tree")),
+                  f"tile_network affine carry / totals / apply / fused / "
+                  f"tree {lay}")
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 a = 0.6 + 0.4 * torch.rand(shape, device=dev, generator=g_red)
                 a[torch.rand(shape, device=dev, generator=g_red) < 0.05] *= -1
@@ -1045,6 +1094,8 @@ def main() -> int:
                         (a, b), AFFINE, lay, exclusive, return_totals=True)
                     (w_ap,) = schedules.apply_plain((a, b), w_off, AFFINE,
                                                     lay, exclusive)
+                    (w_tr,), w_trun = schedules.tree_plain(
+                        (a, b), AFFINE, lay, exclusive, return_totals=True)
                     for offset in (0, 1):
                         ops_o = (offset_view(a, offset),
                                  offset_view(b, offset))
@@ -1088,32 +1139,51 @@ def main() -> int:
                               and same_bits(fs, got),
                               f"affine carry / decoupled / fused (register, "
                               f"shared) differ: {what}")
+                        cuda.reset_launches()
+                        (tr,), trun = cuda.tree(AFFINE, ops_o, lay,
+                                                exclusive, True)
+                        sync()
+                        check(cuda.LAUNCHES["affine_tree"] == 1,
+                              f"affine tree {what}: {launched()}")
+                        (tsh_o,), tsh_run = cuda.tree(AFFINE, ops_o, lay,
+                                                      exclusive, True,
+                                                      network="shared")
+                        check(same_bits(tr, w_tr)
+                              and all_same_bits(trun, w_trun),
+                              f"tree_chan_reg_kernel != tree_plain: {what}")
+                        check(same_bits(tsh_o, tr)
+                              and all_same_bits(tsh_run, trun),
+                              f"tree_chan_reg_kernel != shared tree_kernel: "
+                              f"{what}")
                         n_chan += 1
                         del ops_o, got, run, fo, dec, fs, tot, tsh, offs, \
-                            ap, ash
-                    del w_out, w_run, w_ap
+                            ap, ash, tr, trun, tsh_o, tsh_run
+                    del w_out, w_run, w_ap, w_tr, w_trun
                 del w_tot, w_off
         names = launched_names(((AFFINE, (a, b), lay),))
         check(names.get("carry_chan_reg_kernel") == 1
               and names.get("apply_chan_reg_kernel") == 1
-              and names.get("fused_chan_reg_kernel") == 1,
-              f"affine carry / apply / fused bt={bt} launched {names}")
+              and names.get("fused_chan_reg_kernel") == 1
+              and names.get("tree_chan_reg_kernel") == 1,
+              f"affine carry / apply / fused / tree bt={bt} launched {names}")
         widths = [cuda.chan_reg_width(Channels(*sh, bt, sh[2]))
                   for sh in ((2, 8 * bt, 48), (1, 4 * bt, 1024),
                              (1, 2 * bt, 4))]
-        print(f"affine carry, apply and fused on Channels bt={bt} "
-              "(carry_chan_reg_kernel, apply_chan_reg_kernel and "
-              "fused_chan_reg_kernel by the profiler; strips of "
-              f"{widths} channels): == carry_plain bitwise, carry == "
-              "decoupled == fused == shared fused_kernel; totals "
-              "(totals_chan_reduce_kernel) == totals_plain == "
+        print(f"affine carry, apply, fused and tree on Channels bt={bt} "
+              "(carry_chan_reg_kernel, apply_chan_reg_kernel, "
+              "fused_chan_reg_kernel and tree_chan_reg_kernel by the "
+              f"profiler; strips of {widths} channels): == carry_plain "
+              "bitwise, carry == decoupled == fused == shared fused_kernel; "
+              "totals (totals_chan_reduce_kernel) == totals_plain == "
               "totals_tree_plain == shared totals_kernel, apply == "
-              "apply_plain == shared apply_kernel")
-    print(f"phase 2 (affine register carry, fused, totals and apply): "
+              "apply_plain == shared apply_kernel, tree == tree_plain == "
+              "shared tree_kernel (outputs, running totals)")
+    print(f"phase 2 (affine register carry, fused, totals, apply and tree): "
           f"{n_chan} checks (bt 128, 256, 512 x 3 shapes x 3 dtypes x "
           "inclusive / exclusive x aligned / one element off), outputs and "
-          "running totals bitwise equal to carry_plain, totals, offsets and "
-          "apply to the plain versions and the shared kernels")
+          "running totals bitwise equal to carry_plain and tree_plain, "
+          "totals, offsets and apply to the plain versions, each to the "
+          "shared kernel it replaced")
 
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
@@ -1551,6 +1621,33 @@ def main() -> int:
                   f", library "
                   f"{'none' if g_lib is None else f'{g_lib:.4f} ms'} a call")
 
+    def beside_shared(label, run, shape, calls=5):
+        """The kernel of the row kernel_row added last (``run(None)``)
+        beside the shared-memory kernel it replaced (``run("shared")``),
+        at the same shape in the same run (a comparison: these launches
+        come after the main path's): bitwise equal, then CUDA-event
+        medians in turns (shared, register, register, shared) and a CUDA
+        graph replay of each. The shared kernel gets a row of its own,
+        ``<name>_shared``: 0 launches, since the main path took the one
+        that replaced it."""
+        row = rows[-1]
+        check(all_same_bits(flat(run("shared")), flat(run(None))),
+              f"{label}: register != shared network at {shape}")
+        turns = [time_ms(lambda: run(net), 5)
+                 for net in ("shared", None, None, "shared")]
+        g_reg = graph_ms(lambda: run(None), calls=calls)
+        g_sh = graph_ms(lambda: run("shared"), calls=calls)
+        rows.append({**row, "name": row["name"] + "_shared", "launches": 0,
+                     "ms": statistics.median((turns[0], turns[3]))})
+        print(f"  {label} at {shape} in the same run: "
+              f"{row['ms']:.3f} / {turns[1]:.3f} / {turns[2]:.3f} ms "
+              f"(graph replay "
+              f"{'not measured' if g_reg is None else f'{g_reg:.4f} ms'}), "
+              f"the shared-memory kernel {turns[0]:.3f} / {turns[3]:.3f} ms "
+              f"(graph replay "
+              f"{'not measured' if g_sh is None else f'{g_sh:.4f} ms'}); "
+              f"bound {row['bound_ms']:.4f} ms; the two bitwise equal")
+
     # sum kernels at the prefix-sum main path's shapes
     lay_c = Rows(8192, 32768, 8, 8192)
     (tot,) = cuda.totals(SUM, (xa2,), lay_a)
@@ -1653,11 +1750,18 @@ def main() -> int:
     (so_v, so_f), _ = cuda.chain(SEGSUM, (st_v, st_f))
     c1 = st_v.numel()
     n1 = sv.numel()
+    check(cuda.tile_network(SEGSUM, lay1, "totals") == "register",
+          "Q1's segmented-sum totals should take totals_reduce_kernel")
     kernel_row("segsum_totals",
                lambda: cuda.totals(SEGSUM, (sv, sflags), lay1),
                lambda: schedules.totals_plain((sv, sflags), SEGSUM, lay1),
                8 * n1 + 8 * c1, n1, 5, None,
-               f"(4, {T1 + pad}) bn 2048", rel_launches)
+               f"(4, {T1 + pad}) bn 2048", rel_launches, graph=5)
+    beside_shared("segsum_totals (totals_reduce_kernel; shared: "
+                  "totals_kernel)",
+                  lambda net: cuda.totals(SEGSUM, (sv, sflags), lay1,
+                                          network=net),
+                  f"(4, {T1 + pad}) bn 2048")
     kernel_row("segsum_chain",
                lambda: cuda.chain(SEGSUM, (st_v, st_f))[0],
                lambda: schedules.exclusive_chain(SEGSUM, (st_v, st_f)),
@@ -1726,8 +1830,7 @@ def main() -> int:
           f"{cuda.chan_reg_width(lay_s)}-channel strips "
           "(carry_chan_reg_kernel; apply_chan_reg_kernel and "
           "fused_chan_reg_kernel too, the totals a reduction, "
-          "totals_chan_reduce_kernel), the tree in "
-          f"{cuda.channel_width(lay_s)}-channel strips")
+          "totals_chan_reduce_kernel, and tree_chan_reg_kernel)")
     check(route_ssd == "carry", "zamba2 SSD carry should route to carry")
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1831,29 +1934,6 @@ def main() -> int:
           "the SSD decoupled should take totals_chan_reduce_kernel and "
           "apply_chan_reg_kernel")
 
-    def beside_shared(kname, run):
-        """kname's kernel (``run(None)``, timed by kernel_row just before)
-        beside the shared-memory kernel it replaced (``run("shared")``),
-        at the same shape in the same run (a comparison: these launches
-        come after the main path's): bitwise equal, then CUDA-event
-        medians in turns (shared, register, register, shared) and a CUDA
-        graph replay of each."""
-        check(all_same_bits(flat(run("shared")), flat(run(None))),
-              f"SSD {kname}: register != shared network")
-        turns = [time_ms(lambda: run(net), 5)
-                 for net in ("shared", None, None, "shared")]
-        g_reg = graph_ms(lambda: run(None), calls=5)
-        g_sh = graph_ms(lambda: run("shared"), calls=5)
-        row = rows[-1]
-        print(f"  {kname} at {SSD_SHAPE} bt 256 in the same run: "
-              f"{row['ms']:.3f} / {turns[1]:.3f} / {turns[2]:.3f} ms "
-              f"(graph replay "
-              f"{'not measured' if g_reg is None else f'{g_reg:.4f} ms'}), "
-              f"the shared-memory kernel {turns[0]:.3f} / {turns[3]:.3f} ms "
-              f"(graph replay "
-              f"{'not measured' if g_sh is None else f'{g_sh:.4f} ms'}); "
-              f"bound {row['bound_ms']:.4f} ms; the two bitwise equal")
-
     kernel_row("affine_totals", lambda: cuda.totals(AFFINE, (a, b), lay_s),
                lambda: schedules.totals_plain((a, b), AFFINE, lay_s),
                8 * n_ssd + 8 * n_sc, 3 * n_ssd, 5, None,
@@ -1861,7 +1941,8 @@ def main() -> int:
     beside_shared("affine_totals (totals_chan_reduce_kernel; "
                   "shared: totals_kernel)",
                   lambda net: cuda.totals(AFFINE, (a, b), lay_s,
-                                          network=net))
+                                          network=net),
+                  f"{SSD_SHAPE} bt 256")
     kernel_row("affine_chain", lambda: cuda.chain(AFFINE, (at_, bt_))[0],
                lambda: schedules.exclusive_chain(AFFINE, (at_, bt_)),
                16 * n_sc, 3 * n_sc, 5, None,
@@ -1874,7 +1955,8 @@ def main() -> int:
     beside_shared("affine_apply (apply_chan_reg_kernel; shared: "
                   "apply_kernel)",
                   lambda net: cuda.apply(AFFINE, (a, b), (ao, bo), lay_s,
-                                         network=net))
+                                         network=net),
+                  f"{SSD_SHAPE} bt 256")
     check(cuda.tile_network(AFFINE, lay_s, "fused") == "register",
           "the SSD fused should take fused_chan_reg_kernel")
     kernel_row("affine_fused", lambda: cuda.fused(AFFINE, (a, b), lay_s),
@@ -1901,10 +1983,16 @@ def main() -> int:
           f"carry_chan_reg_kernel {carry_ms:.3f} ms; bound "
           f"{rows[-1]['bound_ms']:.4f} ms; register == shared == carry "
           "bitwise")
+    check(cuda.tile_network(AFFINE, lay_s, "tree") == "register",
+          "the SSD tree should take tree_chan_reg_kernel")
     kernel_row("affine_tree", lambda: cuda.tree(AFFINE, (a, b), lay_s)[0],
                lambda: schedules.tree_plain((a, b), AFFINE, lay_s),
                12 * n_ssd, 3 * n_ssd, 5, None, f"{SSD_SHAPE} bt 256",
-               aff_launches)
+               aff_launches, graph=5)
+    beside_shared("affine_tree (tree_chan_reg_kernel; shared: tree_kernel)",
+                  lambda net: cuda.tree(AFFINE, (a, b), lay_s,
+                                        network=net)[0],
+                  f"{SSD_SHAPE} bt 256")
     del a, b, at_, bt_, ao, bo
 
     # -- 7. the attention fold: gemma2-9b and phi3-medium-14b --------------

@@ -35,13 +35,14 @@
 //                  Channels strips, Rows tiles of other lengths, the
 //                  affine pair on Rows
 //   totals_kernel  scan_decoupled, totals pallas_call at :390
-//                  (body _totals_body :361): the segmented sum, the
-//                  affine pair on Rows and on Channels tiles of other
-//                  lengths, and the sum on Channels
+//                  (body _totals_body :361): the affine pair on Rows and
+//                  on Channels tiles of other lengths, and the sum and the
+//                  segmented sum on Channels
 //   totals_reduce_kernel
-//                  the same pallas_call for Rows tiles of the sum (every
-//                  dtype) and the mask: the network's last element built
-//                  as its tree, from registers, without the scan
+//                  the same pallas_call for Rows tiles of the sum and the
+//                  segmented sum (every dtype) and the mask: the network's
+//                  last element built as its tree, from registers, without
+//                  the scan
 //   totals_chan_reduce_kernel
 //                  the same pallas_call for the affine pair on Channels
 //                  tiles of 128, 256 and 512 steps: each channel's
@@ -70,11 +71,12 @@
 //                  the register network on the tiles carry_reg_kernel and
 //                  carry_chan_reg_kernel take, the shared-memory one on the
 //                  rest
-//   tree_reg_kernel, tree_kernel
+//   tree_reg_kernel, tree_chan_reg_kernel, tree_kernel
 //                  scan_tree, pallas_call at :605 (body _tree_body :557,
 //                  tree_scan :224, _blelloch :178): the Blelloch sweep in
 //                  registers by warp shuffles on the tiles carry_reg_kernel
-//                  takes, in shared memory on the rest
+//                  and carry_chan_reg_kernel take (on Channels carry's
+//                  walk), in shared memory on the rest
 //
 // Bound: device-memory bytes. A scan does one combine per element (the
 // affine one three flops), so on an H100 (3.35 TB/s, 67 TFLOP/s float32
@@ -93,10 +95,11 @@
 // and tree keep their next rounds' loads in flight while they scan the
 // current one, apply and fused keep a whole 2048-element tile's loads in
 // flight in a small block; totals_reduce_kernel keeps a warp's loads in
-// flight too. The affine carry and apply on Channels tiles of 128, 256
-// and 512 steps (carry_chan_reg_kernel, apply_chan_reg_kernel) stage each
-// tile's `width` adjacent channels by cp.async, two stages deep, and run
-// the network in registers; the affine fused on the same tiles
+// flight too. The affine carry, apply and tree on Channels tiles of 128,
+// 256 and 512 steps (carry_chan_reg_kernel, apply_chan_reg_kernel,
+// tree_chan_reg_kernel) stage each tile's `width` adjacent channels by
+// cp.async, two stages deep, and run the network (the tree's sweep) in
+// registers; the affine fused on the same tiles
 // (fused_chan_reg_kernel) stages its one tile so, two blocks an SM
 // overlapping each other's copies; the affine totals there
 // (totals_chan_reduce_kernel) build each channel's tree from registers,
@@ -530,7 +533,7 @@ struct SegSumSpec {
     static_cast<int32_t*>(g.f)[i] = static_cast<int32_t>(e.f);
   }
   static constexpr bool kExact = std::is_same<A, uint32_t>::value;
-  static constexpr bool kReduce = false;
+  static constexpr bool kReduce = true;   // Rows totals: totals_reduce_kernel
   static constexpr bool kReg = true;
   static constexpr bool kChanReg = false;
   static constexpr bool kPack = true;  // the value, and the flag in bit 2
@@ -611,8 +614,8 @@ struct AffineSpec {
   static constexpr bool kExact = false;
   static constexpr bool kReduce = false;
   static constexpr bool kReg = false;   // its wrappers lay it out on Channels
-  // carry, apply and fused on Channels tiles of 128, 256 and 512 steps run
-  // in registers, and the totals there are a reduction
+  // carry, apply, fused and tree on Channels tiles of 128, 256 and 512
+  // steps run in registers, and the totals there are a reduction
   static constexpr bool kChanReg = true;
   static constexpr bool kPack = false;  // 64 bits of payload
   __device__ static uint64_t pack(E) { return 0; }
@@ -823,10 +826,34 @@ totals_kernel(Tensors t, Leaves totals, Geom g) {
     S::put(totals, chain + c, net.last(s, c));
 }
 
-// totals, reduced: Rows tiles of the sum (every dtype) and the mask. The
-// same totals as totals_kernel's, without the scan: the last element of
-// tile_scan is a fixed tree of the tile's elements, so it is built
-// directly, from registers.
+// A warp shuffle of an element of any spec, word by word: from lane src,
+// and from lane l ^ mask.
+template <typename E>
+__device__ __forceinline__ E shfl_e(E x, int src) {
+  uint32_t w[sizeof(E) / 4];
+  memcpy(w, &x, sizeof(E));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
+    w[i] = __shfl_sync(0xffffffffu, w[i], src);
+  memcpy(&x, w, sizeof(E));
+  return x;
+}
+
+template <typename E>
+__device__ __forceinline__ E shfl_xor_e(E x, int mask) {
+  uint32_t w[sizeof(E) / 4];
+  memcpy(w, &x, sizeof(E));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
+    w[i] = __shfl_xor_sync(0xffffffffu, w[i], mask);
+  memcpy(&x, w, sizeof(E));
+  return x;
+}
+
+// totals, reduced: Rows tiles of the sum (every dtype), the segmented sum
+// (every dtype) and the mask. The same totals as totals_kernel's, without
+// the scan: the last element of tile_scan is a fixed tree of the tile's
+// elements, so it is built directly, from registers.
 //   bn > 128 and bn % 128 == 0: each 128-element segment's total t_q is
 //     the balanced tree over its elements (Hillis-Steele's last element of
 //     a power-of-two run never meets the identity); the tile's total is
@@ -837,49 +864,74 @@ totals_kernel(Tensors t, Leaves totals, Geom g) {
 //   otherwise: the balanced tree over the 2^ceil(log2 bn) slots ending
 //     at element bn - 1, identity-padded below element 0.
 // An identity slot gives the network's bits: I (+) I = I, and I (+) y is
-// the network's own identity combine (0.0f + -0.0f is +0.0f). Float
-// addition is commutative bit for bit, so an xor-shuffle butterfly builds
-// the balanced tree over the lanes in order, whichever lane of a pair
-// adds; a lane's run of 4 elements (one 16-byte float or 8-byte half
-// load) is its own subtree. A tree above 128 slots (the segment totals,
-// or 128-slot groups) is built the same way once each total is moved to
-// the lane that holds its slot (SlotTree). Integer totals wrap in uint32,
-// which is associative bit for bit: any order gives the bits, so 16-byte
-// loads (a scalar head and tail around them) and __reduce_add_sync.
-// Bound: device-memory bytes, read n and write one value a tile. One warp
-// reduces a tile, tiles strided over a grid that fills the card; a lane
-// issues the loads of kReduceBatch segments (float; 8 KB a warp at bn
-// 2048) or kReduceVecs 16-byte words (integer) before it combines any,
-// with evict-first hints (each byte is read once). The 16 segments of a
-// batch share one halving butterfly: 16 shuffles for 16 totals, not 80.
-// No shared memory, no block barrier.
+// the network's own identity combine (0.0f + -0.0f is +0.0f). The
+// segmented sum does not commute (a flag on the right kills the left
+// value), so every combine keeps the earlier subtree on the left: an
+// xor-shuffle butterfly builds the balanced tree over the lanes in order,
+// each lane of a pair combining the lower lane's subtree with the upper's
+// (xor_combine); a lane's run of 4 elements (one 16-byte float or 8-byte
+// half load, and for the segmented sum a 16-byte load of its flags) is its
+// own subtree. A tree above 128 slots (the segment totals, or 128-slot
+// groups) is built the same way once each total is moved to the lane that
+// holds its slot (SlotTree). Integer sums wrap in uint32, which is
+// associative and commutative bit for bit: any order gives the bits, so
+// 16-byte loads (a scalar head and tail around them) and
+// __reduce_add_sync; the integer segmented sum, associative but not
+// commutative, takes the tree.
+// Bound: device-memory bytes, read n (and n flags) and write one element a
+// tile. One warp reduces a tile, tiles strided over a grid that fills the
+// card; a lane issues the loads of kReduceBatch segments (8 KB a warp at
+// bn 2048 of float32, 16 KB with the flags) or kReduceVecs 16-byte words
+// (integer sum) before it combines any, with evict-first hints (each byte
+// is read once). The 16 segments of a batch share one halving butterfly:
+// 16 shuffles a word for 16 totals, not 80. No shared memory, no block
+// barrier.
 constexpr int kReduceThreads = 256;  // 8 warps, a tile each at a time
-constexpr int kReduceBatch = 16;     // float segments loaded ahead
+constexpr int kReduceBatch = 16;     // segments loaded ahead (tree)
 constexpr int kReduceVecs = 16;      // integer 16-byte loads ahead
 
 // The balanced tree over a lane's k (1, 2 or 4) slots.
-__device__ __forceinline__ float run_tree(const float (&v)[4], int k) {
-  return k == 4 ? (v[0] + v[1]) + (v[2] + v[3]) : k == 2 ? v[0] + v[1] : v[0];
+template <typename S>
+__device__ __forceinline__ typename S::E run_tree(const typename S::E (&v)[4],
+                                                  int k) {
+  return k == 4 ? S::combine(S::combine(v[0], v[1]), S::combine(v[2], v[3]))
+         : k == 2 ? S::combine(v[0], v[1])
+                  : v[0];
+}
+
+// Lane l's subtree combined with lane l ^ o's, in both lanes: the lower
+// lane's subtree (the earlier elements) on the left.
+template <typename S>
+__device__ __forceinline__ typename S::E xor_combine(typename S::E v, int o,
+                                                     int lane) {
+  const typename S::E p = shfl_xor_e(v, o);
+  return (lane & o) ? S::combine(p, v) : S::combine(v, p);
 }
 
 // The balanced tree over the first `lanes` (a power of two) lanes' values,
-// in each of them: at offset o, lane l combines with lane l ^ o.
-__device__ __forceinline__ float lanes_tree(float v, int lanes) {
-  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// in each of them.
+template <typename S>
+__device__ __forceinline__ typename S::E lanes_tree(typename S::E v,
+                                                    int lanes, int lane) {
+  for (int o = 1; o < lanes; o <<= 1) v = xor_combine<S>(v, o, lane);
   return v;
 }
 
 // One step of the batch butterfly: lanes at offset 8 / kHalf exchange
 // halves of their kHalf * 2 partial totals; the lower lane keeps the lower
-// half, the upper lane the upper, each combined with the partner's copy.
-template <int kHalf>
-__device__ __forceinline__ void halve(float (&a)[kReduceBatch], int lane) {
+// half, the upper lane the upper, each combined with the partner's copy,
+// the lower lane's (earlier) part on the left.
+template <typename S, int kHalf>
+__device__ __forceinline__ void halve(typename S::E (&a)[kReduceBatch],
+                                      int lane) {
+  using E = typename S::E;
   const bool up = lane & (8 / kHalf);
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    const float send = up ? a[i] : a[i + kHalf];
-    const float keep = up ? a[i + kHalf] : a[i];
-    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8 / kHalf);
+    const E send = up ? a[i] : a[i + kHalf];
+    const E keep = up ? a[i + kHalf] : a[i];
+    const E recv = shfl_xor_e(send, 8 / kHalf);
+    a[i] = up ? S::combine(recv, keep) : S::combine(keep, recv);
   }
 }
 
@@ -892,33 +944,41 @@ __device__ __forceinline__ int batch_lane(int u) {
 // each 4-element run's tree, then the halving butterfly at offsets 1, 2,
 // 4 and 8 and a last combine at offset 16 -- the tree over each segment's
 // 32 runs in order.
-__device__ __forceinline__ float batch_tree(const float (&v)[kReduceBatch][4],
-                                            int lane) {
-  float a[kReduceBatch];
+template <typename S>
+__device__ __forceinline__ typename S::E batch_tree(
+    const typename S::E (&v)[kReduceBatch][4], int lane) {
+  typename S::E a[kReduceBatch];
 #pragma unroll
-  for (int u = 0; u < kReduceBatch; ++u) a[u] = run_tree(v[u], 4);
-  halve<8>(a, lane);
-  halve<4>(a, lane);
-  halve<2>(a, lane);
-  halve<1>(a, lane);
-  return a[0] + __shfl_xor_sync(0xffffffffu, a[0], 16);
+  for (int u = 0; u < kReduceBatch; ++u) a[u] = run_tree<S>(v[u], 4);
+  halve<S, 8>(a, lane);
+  halve<S, 4>(a, lane);
+  halve<S, 2>(a, lane);
+  halve<S, 1>(a, lane);
+  return xor_combine<S>(a[0], 16, lane);
 }
 
 // A window of up to 128 slots (a power of two) over the warp, in order:
 // lane l holds slots [l k, l k + k) (k = 1, 2 or 4) of the first `lanes`
 // lanes; a slot never set holds the identity. total() is the balanced
 // tree over the window, in lane 0.
+template <typename S>
 struct SlotTree {
-  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int lanes, k, first;
-  __device__ SlotTree(int window, int lane)
-      : lanes(window < 32 ? window : 32), k(window / lanes), first(lane * k) {}
-  __device__ void set(int s, float t) {
+  typename S::E v[4];
+  int lanes, k, first, lane;
+  __device__ SlotTree(int window, int lane_)
+      : lanes(window < 32 ? window : 32), k(window / lanes),
+        first(lane_ * k), lane(lane_) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = S::identity();
+  }
+  __device__ void set(int s, typename S::E t) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (j < k && s == first + j) v[j] = t;
   }
-  __device__ float total() const { return lanes_tree(run_tree(v, k), lanes); }
+  __device__ typename S::E total() const {
+    return lanes_tree<S>(run_tree<S>(v, k), lanes, lane);
+  }
 };
 
 __device__ __forceinline__ int pow2_at_least(int n) {
@@ -927,68 +987,83 @@ __device__ __forceinline__ int pow2_at_least(int n) {
   return m;
 }
 
-// A lane-divisible tile's total, in lane 0: r segments from p, their
-// totals t_0 .. t_{r-2} into the slots pad .. of the window tree, t_{r-1}
-// kept apart.
-template <bool kVec, typename T>
-__device__ __forceinline__ float segmented_total(const T* p, int r, int lane) {
+// Whether the four elements from element i take vector loads: the values
+// aligned to four elements and the segmented flags (where there are any)
+// to 16 bytes.
+template <typename S>
+__device__ __forceinline__ bool runs_at(const Tensors& t, int64_t i) {
+  return aligned4(static_cast<const typename S::In*>(t.x) + i) &&
+         (t.y == nullptr || aligned4(static_cast<const int32_t*>(t.y) + i));
+}
+
+// A lane-divisible tile's total from element p, in lane 0: r segments,
+// their totals t_0 .. t_{r-2} into the slots pad .. of the window tree,
+// t_{r-1} kept apart.
+template <typename S, bool kVec>
+__device__ __forceinline__ typename S::E segmented_total(const Tensors& t,
+                                                         int64_t p, int r,
+                                                         int lane) {
+  using E = typename S::E;
   const int window = pow2_at_least(r), pad = window - (r - 1);
-  SlotTree upper(window, lane);
-  float last = 0.0f;
+  SlotTree<S> upper(window, lane);
+  E last = S::identity();
   for (int q0 = 0; q0 < r; q0 += kReduceBatch) {
-    float v[kReduceBatch][4];
+    E v[kReduceBatch][4];
 #pragma unroll
     for (int u = 0; u < kReduceBatch; ++u) {
       if (q0 + u < r) {
-        load4<kVec>(p + (q0 + u) * kLanes + 4 * lane, v[u]);
+        S::template load_run<kVec>(t, p + (q0 + u) * kLanes + 4 * lane, v[u]);
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[u][j] = 0.0f;
+        for (int j = 0; j < 4; ++j) v[u][j] = S::identity();
       }
     }
-    const float t = batch_tree(v, lane);
+    const E tt = batch_tree<S>(v, lane);
     // the segments of this batch whose slots this lane holds
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (j < upper.k) {   // uniform: every lane shuffles
         const int q = upper.first + j - pad;
-        const float tq = __shfl_sync(0xffffffffu, t, batch_lane((q - q0) & 15));
+        const E tq = shfl_e(tt, batch_lane((q - q0) & 15));
         if (q >= q0 && q < q0 + kReduceBatch && q < r - 1) upper.set(q + pad, tq);
       }
     }
     if (r - 1 < q0 + kReduceBatch)
-      last = __shfl_sync(0xffffffffu, t, batch_lane((r - 1 - q0) & 15));
+      last = shfl_e(tt, batch_lane((r - 1 - q0) & 15));
   }
-  return upper.total() + last;
+  return S::combine(upper.total(), last);
 }
 
-// A float tile's total, in lane 0 (see above).
-template <typename T>
-__device__ float tile_total_float(const T* p, int bn, int lane) {
+// The total of the tile of bn elements from element p, in lane 0, as a
+// tree of combines (see above).
+template <typename S>
+__device__ typename S::E tile_total_tree(const Tensors& t, int64_t p, int bn,
+                                         int lane) {
+  using E = typename S::E;
   if (bn > kLanes && bn % kLanes == 0) {
     const int r = bn / kLanes;
-    return aligned4(p) ? segmented_total<true>(p, r, lane)
-                       : segmented_total<false>(p, r, lane);
+    return runs_at<S>(t, p) ? segmented_total<S, true>(t, p, r, lane)
+                            : segmented_total<S, false>(t, p, r, lane);
   }
   // groups of up to 128 slots, k slots a lane over `lanes` lanes, and the
   // window tree over the groups' totals
   const int window = pow2_at_least(bn), pad = window - bn;
   const int group = window < kLanes ? window : kLanes;
   const int lanes = group < 32 ? group : 32, k = group / lanes;
-  SlotTree upper(window / group, lane);
+  SlotTree<S> upper(window / group, lane);
   for (int g0 = 0; g0 < window; g0 += group) {  // uniform: every lane shuffles
-    float v[4];
+    E v[4];
     const int e0 = g0 + lane * k - pad;  // the element of the lane's first slot
     if (lane < lanes && k == 4 && e0 >= 0) {
-      if (aligned4(p + e0)) load4<true>(p + e0, v);
-      else load4<false>(p + e0, v);
+      if (runs_at<S>(t, p + e0)) S::template load_run<true>(t, p + e0, v);
+      else S::template load_run<false>(t, p + e0, v);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        v[j] = lane < lanes && j < k && e0 + j >= 0 ? load_acc(p + e0 + j)
-                                                    : 0.0f;
+        v[j] = lane < lanes && j < k && e0 + j >= 0 ? S::load(t, p + e0 + j)
+                                                    : S::identity();
     }
-    upper.set(g0 / group, lanes_tree(run_tree(v, k), lanes));
+    upper.set(g0 / group, lanes_tree<S>(run_tree<S>(v, k), lanes, lane));
   }
   return upper.total();
 }
@@ -1043,19 +1118,22 @@ __device__ uint32_t tile_total_int(const T* p, int bn, int lane) {
 
 template <typename S>
 __global__ void __launch_bounds__(kReduceThreads)
-totals_reduce_kernel(const void* x, Leaves totals, int64_t tiles, int bn) {
+totals_reduce_kernel(Tensors t, Leaves totals, int64_t tiles, int bn) {
   using T = typename S::In;
+  using E = typename S::E;
   constexpr int kWarps = kReduceThreads / 32;
+  // the integer sum and the mask: one leaf that wraps, any order
+  constexpr bool kAnyOrder =
+      S::kExact && std::is_same<E, typename SumSpec<T>::E>::value;
   const int lane = threadIdx.x % 32;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
   for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
        tile < tiles; tile += stride) {
-    const T* p = static_cast<const T*>(x) + tile * bn;
-    typename S::E total;
-    if constexpr (std::is_same<typename S::A, float>::value)
-      total.v = tile_total_float(p, bn, lane);
+    E total;
+    if constexpr (kAnyOrder)
+      total.v = tile_total_int(static_cast<const T*>(t.x) + tile * bn, bn, lane);
     else
-      total.v = tile_total_int(p, bn, lane);
+      total = tile_total_tree<S>(t, tile * bn, bn, lane);
     if (lane == 0) S::put(totals, tile, total);
   }
 }
@@ -1686,17 +1764,6 @@ __host__ __device__ constexpr int fused_segs() {
   return kFusedWords * 4 / static_cast<int>(sizeof(typename S::E));
 }
 
-template <typename E>
-__device__ __forceinline__ E shfl_e(E x, int src) {
-  uint32_t w[sizeof(E) / 4];
-  memcpy(w, &x, sizeof(E));
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
-    w[i] = __shfl_sync(0xffffffffu, w[i], src);
-  memcpy(&x, w, sizeof(E));
-  return x;
-}
-
 // Hillis-Steele over the warp's 128 slots, lane l holding slots 4l .. 4l + 3
 // in x[0 .. 3], steps k = 1, 2, 4, ... below n: slot p takes x[p - k] (+)
 // x[p], identity (+) x[p] below k. Every new value of a step is computed
@@ -2124,16 +2191,6 @@ tree_kernel(Tensors t, Leaves running, Geom g, int m, int exclusive) {
 //     holding kCarrySegs segments each walks a row in rounds, one barrier
 //     a round, kRegAhead rounds' loads in flight, the carry in every
 //     thread.
-template <typename E>
-__device__ __forceinline__ E shfl_xor_e(E x, int mask) {
-  uint32_t w[sizeof(E) / 4];
-  memcpy(w, &x, sizeof(E));
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(E) / 4); ++i)
-    w[i] = __shfl_xor_sync(0xffffffffu, w[i], mask);
-  memcpy(&x, w, sizeof(E));
-  return x;
-}
 
 // The up-sweep over a warp's 128 slots (lane l: slots 4l .. 4l + 3 in x):
 // pairs (2i, 2i + 1) give combine(even, odd), level by level. Leaves the
@@ -2333,30 +2390,44 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
+// V adjacent channels' elements at word w of a staged tile's a and b
+// rows, one 8-byte (16-byte) read a leaf; and V floats written there.
+template <typename S, int V>
+__device__ __forceinline__ void chan_slot(typename S::E (&x)[V],
+                                          const float* sa, const float* sb,
+                                          int w) {
+  if constexpr (V == 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(sa + w);
+    const float4 b4 = *reinterpret_cast<const float4*>(sb + w);
+    x[0] = {a4.x, b4.x};
+    x[1] = {a4.y, b4.y};
+    x[2] = {a4.z, b4.z};
+    x[3] = {a4.w, b4.w};
+  } else {
+    const float2 a2 = *reinterpret_cast<const float2*>(sa + w);
+    const float2 b2 = *reinterpret_cast<const float2*>(sb + w);
+    x[0] = {a2.x, b2.x};
+    x[1] = {a2.y, b2.y};
+  }
+}
+template <int V>
+__device__ __forceinline__ void chan_put(float* sa, int w,
+                                         const float (&o)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(sa + w) = make_float4(o[0], o[1], o[2], o[3]);
+  else
+    *reinterpret_cast<float2*>(sa + w) = make_float2(o[0], o[1]);
+}
+
 // A lane's NS slots of V adjacent channels from a staged tile's a and b
 // rows (word wl + 32 C s for slot s: step lane + 32 s; the swizzle repeats
-// every 8 rows), one 8-byte (16-byte) read a slot and leaf.
+// every 8 rows).
 template <typename S, int NS, int V>
 __device__ __forceinline__ void chan_read(typename S::E (&x)[NS][V],
                                           const float* sa, const float* sb,
                                           int wl, int C) {
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const int w = wl + 32 * C * s;
-    if constexpr (V == 4) {
-      const float4 a4 = *reinterpret_cast<const float4*>(sa + w);
-      const float4 b4 = *reinterpret_cast<const float4*>(sb + w);
-      x[s][0] = {a4.x, b4.x};
-      x[s][1] = {a4.y, b4.y};
-      x[s][2] = {a4.z, b4.z};
-      x[s][3] = {a4.w, b4.w};
-    } else {
-      const float2 a2 = *reinterpret_cast<const float2*>(sa + w);
-      const float2 b2 = *reinterpret_cast<const float2*>(sb + w);
-      x[s][0] = {a2.x, b2.x};
-      x[s][1] = {a2.y, b2.y};
-    }
-  }
+  for (int s = 0; s < NS; ++s) chan_slot<S, V>(x[s], sa, sb, wl + 32 * C * s);
 }
 
 // Hillis-Steele over each channel's 32 NS steps, lane l holding steps
@@ -2406,11 +2477,7 @@ __device__ __forceinline__ void chan_emit(const typename S::E (&x)[NS][V],
   using P = typename S::E;
   const P id = S::identity();
   auto put = [&](int s, const float (&o)[V]) {
-    const int w = wl + 32 * C * s;
-    if constexpr (V == 4)
-      *reinterpret_cast<float4*>(sa + w) = make_float4(o[0], o[1], o[2], o[3]);
-    else
-      *reinterpret_cast<float2*>(sa + w) = make_float2(o[0], o[1]);
+    chan_put<V>(sa, wl + 32 * C * s, o);
   };
   if (exclusive) {
     P hi[V];
@@ -2439,21 +2506,114 @@ __device__ __forceinline__ void chan_emit(const typename S::E (&x)[NS][V],
   }
 }
 
-// The body of carry_chan_reg_kernel and apply_chan_reg_kernel: the block
-// walks tiles [j0, j1) of strip `strip` in time order through the
-// two-stage copies and the register network. left(j, left) gives tile j's
-// LEFT operand of each of the warp's channels (the carry, or the chain's
-// offset); it is called before the block waits for tile j's copies, so
-// that loads it issues are in flight with them. after(j, x) sees the
-// scanned tile (x: the inclusive network, lane 31's last slot each
-// channel's last element) once its outputs are in the stage.
-template <typename T, int NS, bool kVec, typename Left, typename After>
+// The Blelloch sweep over each channel's 32 NS steps (tree_scan's
+// association, as tree_kernel runs it; bt is a power of two, so no
+// padding), lane l holding steps l + 32 s in x[s]: the five lowest levels
+// of the up-sweep across lanes within each slot (the right lane of each
+// pair, (l + 1) mod 2d = 0, takes combine(left, right), as tree_up), so
+// that lane 31 of slot s holds the root of steps 32 s .. 32 s + 31; the
+// log2 NS upper levels of both sweeps over those roots in lane 31's
+// registers (the root is the up-sweep's total, then the identity at the
+// top); the five lowest levels of the down-sweep across lanes (the left
+// lane takes the parent, the right combine(parent, old left), as
+// tree_down). Leaves each step's exclusive value in x and each channel's
+// root in every lane.
+template <typename S, int NS, int V>
+__device__ __forceinline__ void chan_tree(typename S::E (&x)[NS][V],
+                                          typename S::E (&root)[V],
+                                          int lane) {
+  using P = typename S::E;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const P left = shfl_xor_e(x[s][v], d);
+        if ((lane & (2 * d - 1)) == 2 * d - 1) x[s][v] = S::combine(left, x[s][v]);
+      }
+#pragma unroll
+  for (int v = 0; v < V; ++v) root[v] = S::identity();
+  if (lane == 31) {
+#pragma unroll
+    for (int h = 1; h < NS; h <<= 1)
+#pragma unroll
+      for (int s = 2 * h - 1; s < NS; s += 2 * h)
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[s][v] = S::combine(x[s - h][v], x[s][v]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      root[v] = x[NS - 1][v];
+      x[NS - 1][v] = S::identity();
+    }
+#pragma unroll
+    for (int h = NS / 2; h >= 1; h >>= 1)
+#pragma unroll
+      for (int s = 2 * h - 1; s < NS; s += 2 * h)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const P parent = x[s][v], old_left = x[s - h][v];
+          x[s - h][v] = parent;
+          x[s][v] = S::combine(parent, old_left);
+        }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) root[v] = shfl_e(root[v], 31);
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+    const int k = (lane + 1) & (2 * d - 1);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const P other = shfl_xor_e(x[s][v], d);
+        if (k == 0) x[s][v] = S::combine(x[s][v], other);
+        else if (k == d) x[s][v] = other;
+      }
+  }
+}
+
+// The tree's outputs' b leaf into the stage's a rows (the lane's words, as
+// chan_read): left (+) excl, or left (+) (excl (+) x) with x read back
+// from the stage before its word is overwritten (each lane writes only
+// the words it reads), each channel's left the EARLIER operand.
+template <typename S, int NS, int V>
+__device__ __forceinline__ void chan_tree_emit(const typename S::E (&e)[NS][V],
+                                               const typename S::E (&left)[V],
+                                               float* sa, const float* sb,
+                                               int wl, int C, int exclusive) {
+  using P = typename S::E;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int w = wl + 32 * C * s;
+    float o[V];
+    if (exclusive) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) o[v] = S::combine(left[v], e[s][v]).b;
+    } else {
+      P x[V];
+      chan_slot<S, V>(x, sa, sb, w);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        o[v] = S::combine(left[v], S::combine(e[s][v], x[v])).b;
+    }
+    chan_put<V>(sa, w, o);
+  }
+}
+
+// The walk of carry_chan_reg_kernel, apply_chan_reg_kernel and
+// tree_chan_reg_kernel: the block walks tiles [j0, j1) of strip `strip` in
+// time order through the two-stage copies. before(j) is called before the
+// block waits for tile j's copies, so that loads it issues are in flight
+// with them (apply's offsets); tile(j, sa, sb, wl) runs the tile's
+// network on the staged a and b rows (wl: the lane's first word, as
+// chan_read) and leaves each output's b leaf in its word of the a rows,
+// for the coalesced stores.
+template <typename T, int NS, bool kVec, typename Before, typename Tile>
 __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
                                               uint32_t strip, int64_t j0,
-                                              int64_t j1, int exclusive,
-                                              Left left_of, After after) {
-  using S = AffineSpec<T>;
-  using P = typename S::E;   // an (a, b) pair
+                                              int64_t j1, Before before,
+                                              Tile tile) {
   constexpr int V = chan_reg_lanes(NS), BT = 32 * NS;
   // cp.async for float32 from aligned bases, else vector loads
   constexpr bool kAsync = kVec && std::is_same<T, float>::value;
@@ -2500,8 +2660,7 @@ __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
   for (int s = 0; s + 1 < kChanStages; ++s) load(j0 + s, s);
   for (int64_t j = j0; j < j1; ++j) {
     const int st = static_cast<int>((j - j0) % kChanStages);
-    P left[V];
-    left_of(j, left);
+    before(j);
     if constexpr (kAsync)
       asm volatile("cp.async.wait_group %0;" ::"n"(kChanStages - 2)
                    : "memory");
@@ -2509,11 +2668,7 @@ __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
     load(j + kChanStages - 1, static_cast<int>((j - j0 + kChanStages - 1) %
                                                kChanStages));
     float* sa = stage + st * 2 * words;
-    P x[NS][V];
-    chan_read<S, NS, V>(x, sa, sa + words, wl, C);
-    chan_scan<S, NS, V>(x, lane);
-    chan_emit<S, NS, V>(x, left, sa, wl, C, lane, exclusive);
-    after(j, x);
+    tile(j, sa, sa + words, wl);
     __syncthreads();   // every warp's outputs are in the stage
     int64_t dst = base + j * BT * g.d + g0;
     for (int w = w0; w < words; w += R * C, dst += R * g.d) {
@@ -2536,12 +2691,12 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
 #pragma unroll
   for (int v = 0; v < V; ++v) carry[v] = S::identity();
   chan_reg_walk<T, NS, kVec>(
-      t, g, blockIdx.x, 0, g.chunks, exclusive,
-      [&](int64_t, P (&left)[V]) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) left[v] = carry[v];
-      },
-      [&](int64_t j, const P (&x)[NS][V]) {
+      t, g, blockIdx.x, 0, g.chunks, [](int64_t) {},
+      [&](int64_t j, float* sa, const float* sb, int wl) {
+        P x[NS][V];
+        chan_read<S, NS, V>(x, sa, sb, wl, g.width);
+        chan_scan<S, NS, V>(x, lane);
+        chan_emit<S, NS, V>(x, carry, sa, wl, g.width, lane, exclusive);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
@@ -2573,20 +2728,64 @@ apply_chan_reg_kernel(Tensors t, Leaves offsets, Geom g, int walk,
   using S = AffineSpec<T>;
   using P = typename S::E;
   constexpr int V = chan_reg_lanes(NS);
-  const int c0 = threadIdx.x / 32 * V;
+  const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
   const uint32_t parts = static_cast<uint32_t>((g.chunks + walk - 1) / walk);
   const uint32_t strip = blockIdx.x / parts;
   const int64_t j0 = static_cast<int64_t>(blockIdx.x % parts) * walk;
   const int64_t j1 = j0 + walk < g.chunks ? j0 + walk : g.chunks;
   const int64_t cbase = chain_base<true>(g, strip);
+  P left[V];
   chan_reg_walk<T, NS, kVec>(
-      t, g, strip, j0, j1, exclusive,
-      [&](int64_t j, P (&left)[V]) {
+      t, g, strip, j0, j1,
+      [&](int64_t j) {
 #pragma unroll
         for (int v = 0; v < V; ++v)
           left[v] = S::get(offsets, cbase + j * g.d + c0 + v);
       },
-      [](int64_t, const P (&)[NS][V]) {});
+      [&](int64_t, float* sa, const float* sb, int wl) {
+        P x[NS][V];
+        chan_read<S, NS, V>(x, sa, sb, wl, g.width);
+        chan_scan<S, NS, V>(x, lane);
+        chan_emit<S, NS, V>(x, left, sa, wl, g.width, lane, exclusive);
+      });
+}
+
+// tree on Channels in registers: the affine pair's tree (kChanReg) on the
+// tiles carry_chan_reg_kernel takes, the shapes cuda.tile_network sends
+// here. carry_chan_reg_kernel's walk (the two-stage cp.async copies, the
+// swizzled stage, a warp two adjacent channels, lane l their steps l +
+// 32 s, each channel on its own) with tree_kernel's Blelloch sweep as the
+// network (chan_tree) and its emission and carry step: the output is
+// carry (+) excl, or carry (+) (excl (+) x) for the inclusive form, the
+// carry the LEFT operand, and the next carry carry (+) root, the
+// up-sweep's total; running totals as tree_kernel's. The bits of
+// tree_kernel and tree_plain. Bound: device-memory bytes, read 2 n and
+// write n, as the carry.
+template <typename T, int NS, bool kVec>
+__global__ void __launch_bounds__(chan_reg_threads(NS), 1)
+tree_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
+  using S = AffineSpec<T>;
+  using P = typename S::E;
+  constexpr int V = chan_reg_lanes(NS);
+  const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
+  const int64_t cbase = chain_base<true>(g, blockIdx.x);
+  P carry[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) carry[v] = S::identity();
+  chan_reg_walk<T, NS, kVec>(
+      t, g, blockIdx.x, 0, g.chunks, [](int64_t) {},
+      [&](int64_t j, float* sa, const float* sb, int wl) {
+        P x[NS][V], root[V];
+        chan_read<S, NS, V>(x, sa, sb, wl, g.width);
+        chan_tree<S, NS, V>(x, root, lane);
+        chan_tree_emit<S, NS, V>(x, carry, sa, sb, wl, g.width, exclusive);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          carry[v] = S::combine(carry[v], root[v]);
+          if (running.v != nullptr && lane == 0)
+            S::put(running, cbase + j * g.d + c0 + v, carry[v]);
+        }
+      });
 }
 
 // fused on Channels in registers: the affine pair's fused schedule
@@ -2778,8 +2977,8 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// The strips carry_chan_reg_kernel and apply_chan_reg_kernel take on
-// tiles of 32 NS steps: `width` channels, a multiple of 4 that divides D,
+// The strips carry_chan_reg_kernel, apply_chan_reg_kernel and
+// tree_chan_reg_kernel take on tiles of 32 NS steps: `width` channels, a multiple of 4 that divides D,
 // at most a block's (32 over bt 256); their stages' shared memory.
 template <int NS>
 bool chan_reg_takes(long long d, int width) {
@@ -2792,8 +2991,9 @@ size_t chan_reg_smem(int width) {
   return kChanStages * 2 * sizeof(float) * 32 * NS * width;
 }
 
-// carry_chan_reg_kernel over the strips chan_reg_takes; refuses any other.
-template <typename T, int NS>
+// carry_chan_reg_kernel (kTree: tree_chan_reg_kernel) over the strips
+// chan_reg_takes; refuses any other.
+template <typename T, int NS, bool kTree = false>
 int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
                     long long d, int width, int exclusive,
                     cudaStream_t stream) {
@@ -2801,8 +3001,13 @@ int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
   if (!chan_reg_takes<NS>(d, width)) return cudaErrorInvalidValue;
   const Geom g = make_geom(true, n, d, width, 32 * NS);
   const size_t smem = chan_reg_smem<NS>(width);
-  auto kern = chan_vec<T>(t) ? carry_chan_reg_kernel<T, NS, true>
-                             : carry_chan_reg_kernel<T, NS, false>;
+  void (*kern)(Tensors, Leaves, Geom, int);
+  if constexpr (kTree)
+    kern = chan_vec<T>(t) ? tree_chan_reg_kernel<T, NS, true>
+                          : tree_chan_reg_kernel<T, NS, false>;
+  else
+    kern = chan_vec<T>(t) ? carry_chan_reg_kernel<T, NS, true>
+                          : carry_chan_reg_kernel<T, NS, false>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(lanes_of(true, b, d, width)), 32 * width / V,
@@ -2887,9 +3092,8 @@ int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
 
 // net: the in-tile network the wrapper chose by shape (cuda.tile_network):
 // 1 the register network, for Rows tiles of 128 r elements of a kReg spec
-// (carry, apply, fused and tree) and, for carry, apply and fused, Channels
-// tiles of 128, 256 or 512 steps of a kChanReg spec (anything else is
-// refused); 0 the network in shared memory (tile_scan, or tree_kernel's
+// and Channels tiles of 128, 256 or 512 steps of a kChanReg spec (carry,
+// apply, fused and tree; anything else is refused); 0 the network in shared memory (tile_scan, or tree_kernel's
 // sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
@@ -2938,7 +3142,7 @@ int launch_carry(Tensors t, Leaves running, long long b, long long n,
 // A grid of as many blocks as the card holds at once (each warp strides
 // over the tiles), fewer where there are fewer tiles.
 template <typename S>
-int launch_totals_reduce(const void* x, Leaves totals, long long tiles,
+int launch_totals_reduce(const Tensors& t, Leaves totals, long long tiles,
                          int bn, cudaStream_t stream) {
   static int per_sm = 0;  // resident blocks per SM, once per instantiation
   cudaError_t err = cudaSuccess;
@@ -2952,13 +3156,13 @@ int launch_totals_reduce(const void* x, Leaves totals, long long tiles,
   const long long need = (tiles + warps - 1) / warps;
   const long long fill = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   totals_reduce_kernel<S><<<static_cast<unsigned>(need < fill ? need : fill),
-                            kReduceThreads, 0, stream>>>(x, totals, tiles, bn);
+                            kReduceThreads, 0, stream>>>(t, totals, tiles, bn);
   return cudaGetLastError();
 }
 
 // net (cuda.tile_network's choice for "totals"): 1 the reduction without
-// the scan, totals_reduce_kernel for Rows tiles of the sum and the mask
-// (kReduce) and totals_chan_reduce_kernel for Channels tiles of 128, 256
+// the scan, totals_reduce_kernel for Rows tiles of the sum, the segmented
+// sum and the mask (kReduce) and totals_chan_reduce_kernel for Channels tiles of 128, 256
 // or 512 steps of the affine pair (kChanReg); anything else is refused.
 // 0 the network's totals_kernel.
 template <typename S, bool kChan>
@@ -2967,7 +3171,7 @@ int launch_totals(Tensors t, Leaves totals, long long b, long long n,
                   cudaStream_t stream) {
   if (net) {
     if constexpr (!kChan && S::kReduce) {
-      return launch_totals_reduce<S>(t.x, totals, b * (n / bn), bn, stream);
+      return launch_totals_reduce<S>(t, totals, b * (n / bn), bn, stream);
     } else if constexpr (kChan && S::kChanReg) {
       using T = typename S::In;
       switch (bn) {
@@ -3125,6 +3329,21 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
                                     reg_threads(bn, kCarrySegs, kRegWarps), 0,
                                     stream>>>(t, running, g, exclusive);
       return cudaGetLastError();
+    } else if constexpr (kChan && S::kChanReg) {
+      using T = typename S::In;
+      switch (bn) {
+        case 128:
+          return launch_chan_reg<T, 4, true>(t, running, b, n, d, width,
+                                             exclusive, stream);
+        case 256:
+          return launch_chan_reg<T, 8, true>(t, running, b, n, d, width,
+                                             exclusive, stream);
+        case 512:
+          return launch_chan_reg<T, 16, true>(t, running, b, n, d, width,
+                                              exclusive, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
     } else {
       return cudaErrorInvalidValue;
     }
@@ -3175,9 +3394,8 @@ int launch_tree(Tensors t, Leaves running, long long b, long long n,
 extern "C" {
 
 // net (carry, apply, fused, tree): 1 the register network (Rows tiles of
-// 128 r elements, no affine; for carry, apply and fused also the affine
-// pair on Channels tiles of 128, 256 or 512 steps), 0 the shared-memory
-// network. net (totals): 1 the reduction (see launch_totals), 0 the
+// 128 r elements, no affine; the affine pair on Channels tiles of 128, 256
+// or 512 steps), 0 the shared-memory network. net (totals): 1 the reduction (see launch_totals), 0 the
 // network's totals_kernel.
 int scan_carry(int spec, int dtype, int chan, const void* x, const void* y,
                void* out, void* run_v, void* run_f, long long b, long long n,

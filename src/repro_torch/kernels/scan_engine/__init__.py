@@ -19,13 +19,13 @@ from repro_torch.kernels.scan_engine.layouts import (Channels, KVBlocks,
                                                      block_live)
 from repro_torch.kernels.scan_engine.schedules import (
     RESOLVABLE, SCHEDULES, exclusive_chain, fold_carry, fold_chain,
-    fold_decoupled, resolve_schedule, scan, scan_carry, scan_decoupled,
-    scan_fused, scan_tree, tile_scan, tree_scan)
+    fold_decoupled, fused_native_available, resolve_schedule, scan,
+    scan_carry, scan_decoupled, scan_fused, scan_tree, tile_scan, tree_scan)
 
 __all__ = [
     "Channels", "KVBlocks", "QBlocks", "RESOLVABLE", "Rows", "SCHEDULES",
     "block_live", "cuda", "cuda_fold", "exclusive_chain", "fold_carry",
-    "fold_chain", "fold_decoupled", "monoids", "resolve_schedule", "scan",
-    "scan_carry", "scan_decoupled", "scan_fused", "scan_tree", "tile_scan",
-    "tree_scan",
+    "fold_chain", "fold_decoupled", "fused_native_available", "monoids",
+    "resolve_schedule", "scan", "scan_carry", "scan_decoupled",
+    "scan_fused", "scan_tree", "tile_scan", "tree_scan",
 ]

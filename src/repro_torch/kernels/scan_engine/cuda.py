@@ -12,20 +12,21 @@ a CUDA kernel — the sum, the segmented sum (values and int32 flags), the
 compact mask (int32 mask, int32 destinations) and the affine recurrence
 (gates a and offsets b of one float dtype) — on ``Rows`` (2-D) and
 ``Channels`` (3-D) layouts. Every kernel but the chain runs the form
-that ``tile_network`` chooses by shape. ``totals`` of the sum and the
-mask on ``Rows`` launch ``totals_reduce_kernel``, and of the affine pair
-on ``Channels`` tiles of 128, 256 and 512 steps
+that ``tile_network`` chooses by shape. ``totals`` of the sum, the
+segmented sum and the mask on ``Rows`` launch ``totals_reduce_kernel``,
+and of the affine pair on ``Channels`` tiles of 128, 256 and 512 steps
 ``totals_chan_reduce_kernel`` (the network's last element built as its
 tree, without the scan); every other ``totals`` launches the network's
 ``totals_kernel``. ``carry``, ``apply``, ``fused`` and ``tree`` run
 ``carry_reg_kernel``, ``apply_reg_kernel``, ``fused_reg_kernel`` and
 ``tree_reg_kernel`` (registers and warp shuffles) on ``Rows`` tiles of
 128·r elements, ``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and
-``tree_kernel`` (shared memory) otherwise, but for the affine carry,
-apply and fused on ``Channels`` tiles of 128, 256 and 512 steps, which
-run ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
-``fused_chan_reg_kernel`` (each channel's network by warp shuffles, the
-tiles staged by ``cp.async``). Both forms of a kernel count under the
+``tree_kernel`` (shared memory) otherwise, but for the affine pair on
+``Channels`` tiles of 128, 256 and 512 steps, which runs
+``carry_chan_reg_kernel``, ``apply_chan_reg_kernel``,
+``fused_chan_reg_kernel`` and ``tree_chan_reg_kernel`` (each channel's
+network, or the tree's sweep, by warp shuffles, the tiles staged by
+``cp.async``). Both forms of a kernel count under the
 same key. Each
 wrapper below takes the spec and its
 operands as the engine passes them, checks device, dtype, contiguity and
@@ -194,8 +195,9 @@ def channel_width(layout: Channels) -> int:
 
 
 def chan_reg_width(layout: Channels) -> int:
-    """Channels a block of the register carry and fused
-    (``carry_chan_reg_kernel``, ``fused_chan_reg_kernel``) takes: the
+    """Channels a block of the register carry, apply, fused and tree
+    (``carry_chan_reg_kernel``, ``apply_chan_reg_kernel``,
+    ``fused_chan_reg_kernel``, ``tree_chan_reg_kernel``) takes: the
     widest power of two up to ``MAX_WIDTH`` that divides D and keeps the
     tile within ``CHAN_REG_TILE`` elements: 32 channels, rows
     of 128 bytes of float32, at 128 and 256 steps (rows of 64 bytes held
@@ -215,15 +217,17 @@ def tile_network(spec, layout, kernel: str) -> str:
     warp a 128-element segment, Hillis–Steele or the Blelloch sweep by
     warp shuffles) for ``Rows`` tiles whose length is a multiple of 128,
     of every spec but the affine pair (its wrappers lay it out on
-    ``Channels``), and for the affine pair's carry, apply and fused on
-    ``Channels`` tiles of ``CHAN_REG_TILES`` steps whose
+    ``Channels``), and for the affine pair's carry, apply, fused and tree
+    on ``Channels`` tiles of ``CHAN_REG_TILES`` steps whose
     ``chan_reg_width`` is a multiple of 4 channels
-    (``carry_chan_reg_kernel`` and ``apply_chan_reg_kernel``: a warp two
-    channels, lane l holding steps l + 32 s, the carry or the chain's
-    offsets on the left; ``fused_chan_reg_kernel``: a warp four, a tile a
-    block, its offset by the look-back); for ``totals``, the reduction
-    without the scan (``totals_reduce_kernel`` for ``Rows`` tiles of any
-    length of the sum and the mask, ``totals_chan_reduce_kernel`` for the
+    (``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
+    ``tree_chan_reg_kernel``: a warp two channels, lane l holding steps
+    l + 32 s, the carry or the chain's offsets on the left, the tree's
+    Blelloch sweep across lanes and then over lane 31's registers;
+    ``fused_chan_reg_kernel``: a warp four, a tile a block, its offset by
+    the look-back); for ``totals``, the reduction without the scan
+    (``totals_reduce_kernel`` for ``Rows`` tiles of any length of the sum,
+    the segmented sum and the mask, ``totals_chan_reduce_kernel`` for the
     affine pair on ``Channels`` tiles of ``CHAN_REG_TILES`` steps, any
     D); ``"shared"`` (``carry_kernel``, ``totals_kernel``,
     ``apply_kernel``, ``fused_kernel``, ``tree_kernel``: the network in
@@ -236,12 +240,11 @@ def tile_network(spec, layout, kernel: str) -> str:
     if isinstance(layout, Channels):
         if spec.name != "affine" or layout.bt not in CHAN_REG_TILES:
             return "shared"
-        if kernel == "totals" or (kernel != "tree"
-                                  and chan_reg_width(layout) % 4 == 0):
+        if kernel == "totals" or chan_reg_width(layout) % 4 == 0:
             return "register"
         return "shared"
     if kernel == "totals":
-        return "register" if spec.name in ("sum", "mask") else "shared"
+        return "shared" if spec.name == "affine" else "register"
     if layout.bn % 128 == 0 and spec.name != "affine":
         return "register"
     return "shared"
@@ -375,7 +378,8 @@ def totals(spec, operands, layout, network=None):
     leaf in its accumulation dtype: each tile's network's last element.
     Which kernel builds it is ``tile_network(spec, layout, "totals")``'s
     choice, made there alone: ``"register"``, the reduction without the
-    scan (``totals_reduce_kernel`` on ``Rows`` for the sum and the mask,
+    scan (``totals_reduce_kernel`` on ``Rows`` for the sum, the segmented
+    sum and the mask,
     ``totals_chan_reduce_kernel`` on ``Channels`` for the affine pair at
     ``CHAN_REG_TILES`` steps), or ``"shared"``, the network's
     ``totals_kernel``. ``network`` as in ``carry``."""
@@ -476,18 +480,20 @@ def fused(spec, operands, layout, exclusive=False, network=None):
     return (out,)
 
 
-def tree(spec, operands, layout, exclusive=False, return_totals=False):
+def tree(spec, operands, layout, exclusive=False, return_totals=False,
+         network=None):
     """Tree schedule: carry's lane walk, Blelloch sweep inside each tile.
-    Returns ``(outputs, running totals or None)``."""
+    Returns ``(outputs, running totals or None)``. ``network`` as in
+    ``carry``."""
+    network = _network(spec, layout, "tree", network)
     code, x, y = _operands(spec, operands, layout)
     out = _out(spec, x, y, layout)
     running = (_new_leaves(spec, x, y, layout.chain_shape)
                if return_totals else None)
     if x.numel():
-        geo = _geometry(layout)
+        geo = _geometry(layout, network)
         _launch(spec, "tree", build().scan_tree, x.device, code,
                 DTYPE_CODES[x.dtype], geo[0], x.data_ptr(), _ptr(y),
                 out.data_ptr(), *_ptrs(running), *geo[1:], int(exclusive),
-                spec.sentinel or 0,
-                int(tile_network(spec, layout, "tree") == "register"))
+                spec.sentinel or 0, int(network == "register"))
     return (out,), running

@@ -515,6 +515,59 @@ def tree_scan_warps(spec, leaves, round_segs=16):
             tuple(t[..., None] for t in total))
 
 
+def tree_scan_chan_warps(spec, leaves):
+    """``tree_scan`` of ``Channels`` tiles along time (axis -2, channels
+    last; bt = 32·NS steps, a multiple of 32) as the CUDA
+    ``tree_chan_reg_kernel`` organizes a channel's tile: (..., NS slots,
+    32 lanes, channels), lane l holding steps l + 32·slot. The five lowest
+    levels of the up-sweep across lanes within each slot (the right lane
+    of a pair takes ``combine(left, right)``), the upper levels of both
+    sweeps over lane 31's slot roots (the root is the up-sweep's total,
+    then the identity at the top), the five lowest levels of the
+    down-sweep across lanes (the left lane takes the parent, the right
+    ``combine(parent, old left)``). Returns ``(exclusive scan, total)`` as
+    ``tree_scan(spec, leaves, -2)`` does. Tests use it; the schedules never
+    do."""
+    bt = leaves[0].shape[-2]
+    ns = bt // 32
+    x = tuple(v.unflatten(-2, (ns, 32)) for v in leaves)
+    lane = torch.arange(32)[:, None]
+
+    def lanes_xor(xs, d):
+        return tuple(v.index_select(-2, _LANE ^ d) for v in xs)
+
+    d = 1
+    while d < 32:
+        x = _where((lane & (2 * d - 1)) == 2 * d - 1,
+                   spec.combine(lanes_xor(x, d), x), x)
+        d *= 2
+    roots = [tuple(v[..., s, 31, :] for v in x) for s in range(ns)]
+    h = 1
+    while h < ns:
+        for s in range(2 * h - 1, ns, 2 * h):
+            roots[s] = spec.combine(roots[s - h], roots[s])
+        h *= 2
+    total = roots[-1]
+    roots[-1] = tuple(torch.full_like(t, f) for t, f in zip(total, spec.fills))
+    h = ns // 2
+    while h >= 1:
+        for s in range(2 * h - 1, ns, 2 * h):
+            parent, old_left = roots[s], roots[s - h]
+            roots[s - h], roots[s] = parent, spec.combine(parent, old_left)
+        h //= 2
+    top = tuple(torch.stack([r[i] for r in roots], -2)[..., None, :]
+                for i in range(len(leaves)))                 # (..., ns, 1, D)
+    x = _where(lane == 31, top, x)
+    d = 16
+    while d >= 1:
+        other = lanes_xor(x, d)
+        k = (torch.arange(32)[:, None] + 1) & (2 * d - 1)
+        x = _where(k == 0, spec.combine(x, other), _where(k == d, other, x))
+        d //= 2
+    return (tuple(v.flatten(-3, -2) for v in x),
+            tuple(t.unsqueeze(-2) for t in total))
+
+
 def apply_plain(operands, offsets, spec, layout, exclusive=False):
     """Plain ``apply``: rescan each tile and combine its chunk offset."""
     elems = _tiles(spec, operands, layout)
@@ -595,6 +648,19 @@ PLAIN = {"carry": carry_plain, "decoupled": decoupled_plain,
 
 def _on_cuda(operands) -> bool:
     return any(o.is_cuda for o in operands)
+
+
+def fused_native_available() -> bool:
+    """Whether the single-launch fused kernel can run here: False off
+    CUDA; on a CUDA device, whether the kernel library is there (built
+    now, or found built, from ``csrc/scan_sum.cu``)."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        cuda.build()
+    except RuntimeError:
+        return False
+    return True
 
 
 def scan_carry(operands, spec, layout, *, exclusive=False,

@@ -129,18 +129,17 @@ CHANNEL_NETWORKS = [
 @pytest.mark.parametrize("name,layout,network", CHANNEL_NETWORKS,
                          ids=[c[0] for c in CHANNEL_NETWORKS])
 def test_tile_network_affine_channels(name, layout, network):
-    """The affine carry, apply and fused on Channels take the register
-    network at 128, 256 and 512 steps over strips of a multiple of four
-    channels, and the shared one elsewhere; the affine totals take the
-    reduction (``"register"``) at those tiles whatever the strip, since
-    it does not run in strips; tree keeps the shared network, and so does
-    the sum on Channels, its totals included."""
-    for kernel in ("carry", "apply", "fused"):
+    """The affine carry, apply, fused and tree on Channels take the
+    register network at 128, 256 and 512 steps over strips of a multiple
+    of four channels, and the shared one elsewhere; the affine totals take
+    the reduction (``"register"``) at those tiles whatever the strip,
+    since it does not run in strips; the sum on Channels keeps the shared
+    network, its totals included."""
+    for kernel in ("carry", "apply", "fused", "tree"):
         assert cuda.tile_network(AFFINE, layout, kernel) == network
     reduced = layout.bt in cuda.CHAN_REG_TILES
     assert cuda.tile_network(AFFINE, layout, "totals") == (
         "register" if reduced else "shared")
-    assert cuda.tile_network(AFFINE, layout, "tree") == "shared"
     for kernel in ("carry", "totals", "apply", "fused", "tree"):
         assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
 
@@ -156,9 +155,8 @@ def test_tile_network_refuses_other_kernels():
 def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     """``cuda.carry`` passes the kernel ``tile_network``'s choice, or the
     network it is asked for (to time the two at one shape), and apply,
-    fused and tree of the affine pair pass theirs (apply and fused the
-    register network, as carry; tree the shared one); the launch is
-    intercepted, so this runs on CPU tensors."""
+    fused and tree of the affine pair pass theirs (the register network,
+    as carry); the launch is intercepted, so this runs on CPU tensors."""
     nets = []
     monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
     lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
@@ -177,7 +175,7 @@ def test_carry_launches_the_network(monkeypatch, name, layout, _, network):
     cuda.fused(AFFINE, (x, x), small)
     cuda.tree(AFFINE, (x, x), small)
     assert nets == [("carry", int(want == "register")), ("apply", 1),
-                    ("fused", 1), ("tree", 0)]
+                    ("fused", 1), ("tree", 1)]
     with pytest.raises(ValueError, match="unknown tile network"):
         cuda.carry(AFFINE, (x, x), small, network="warp")
 

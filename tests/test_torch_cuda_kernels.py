@@ -478,11 +478,12 @@ def _kernel_names(fn):
 
 
 def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
-    """SUM (every dtype) and MASK on Rows launch ``totals_reduce_kernel``
-    and never the network's ``totals_kernel``; AFFINE on Channels tiles of
-    256 steps launches ``totals_chan_reduce_kernel``; SEGSUM, AFFINE on
-    Rows and on Channels tiles of 64 steps, and SUM on Channels launch
-    ``totals_kernel``. The launch counters keep their keys."""
+    """SUM (every dtype), SEGSUM and MASK on Rows launch
+    ``totals_reduce_kernel`` and never the network's ``totals_kernel``;
+    AFFINE on Channels tiles of 256 steps launches
+    ``totals_chan_reduce_kernel``; AFFINE on Rows and on Channels tiles of
+    64 steps, and SUM on Channels launch ``totals_kernel``. The launch
+    counters keep their keys."""
     rows = scan_engine.Rows(2, 4096, 1, 2048)
     chan = scan_engine.Channels(2, 1024, 8, 256, 8)
     chan64 = scan_engine.Channels(2, 1024, 8, 64, 8)
@@ -492,7 +493,7 @@ def test_cuda_totals_launch_reduce_kernel_for_sum_and_mask(cuda_device):
              for dt in cuda.DTYPE_CODES]
     calls += [
         (monoids.mask(4096), (flags,), rows, "totals_reduce_kernel"),
-        (monoids.SEGMENTED_SUM, (ones, flags), rows, "totals_kernel"),
+        (monoids.SEGMENTED_SUM, (ones, flags), rows, "totals_reduce_kernel"),
         (monoids.SUM, (torch.ones(chan.shape, device=cuda_device),), chan,
          "totals_kernel"),
         (monoids.AFFINE, (torch.ones(chan.shape, device=cuda_device),) * 2,
@@ -682,9 +683,9 @@ def test_cuda_apply_tree_network_by_shape(cuda_device):
     128·r elements launch ``apply_reg_kernel`` / ``tree_reg_kernel`` for
     the sum (every dtype), the segmented sum and the mask, at block_n 128
     to 16384; the affine apply on Channels tiles of 256 steps launches
-    ``apply_chan_reg_kernel``; other tile lengths, the affine pair on
-    Rows, the sum on Channels and the affine tree launch ``apply_kernel``
-    / ``tree_kernel``. ``cuda.tile_network`` names the same choice, and
+    ``apply_chan_reg_kernel`` and its tree ``tree_chan_reg_kernel``; other
+    tile lengths, the affine pair on Rows and the sum on Channels launch
+    ``apply_kernel`` / ``tree_kernel``. ``cuda.tile_network`` names the same choice, and
     the launch counters keep their keys."""
     ones = torch.ones((2, 32768), device=cuda_device)
     flags = torch.zeros((2, 32768), dtype=torch.int32, device=cuda_device)
@@ -1044,6 +1045,192 @@ def test_cuda_affine_totals_apply_channels_networks_agree(cuda_device):
         (fo,) = cuda.fused(aff, gpu, lay, exclusive)
         assert _same_bits(reg, shared) and _same_bits(reg, carry) and \
             _same_bits(reg, fo)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+@pytest.mark.parametrize("bt", cuda.CHAN_REG_TILES)
+def test_cuda_affine_tree_channels_register_bitwise(cuda_device, bt, dtype):
+    """The affine tree on Channels tiles of 128, 256 and 512 steps runs
+    ``tree_chan_reg_kernel`` and gives ``tree_plain``'s outputs and
+    running totals bit for bit, and the shared ``tree_kernel``'s
+    (``network="shared"``), inclusive and exclusive, from aligned bases
+    and bases one element off, over strips whose ``chan_reg_width`` is 4,
+    8, 16 and (but at bt 512) 32 channels."""
+    rng = np.random.default_rng(bt + 26)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    aff = monoids.AFFINE
+    widths = set()
+    for shape in ((1, 2 * bt, 4), (2, 3 * bt, 24), (2, 4 * bt, 48),
+                  (1, 3 * bt, 96)):
+        lay = scan_engine.Channels(*shape, bt, shape[2])
+        assert cuda.tile_network(aff, lay, "tree") == "register"
+        widths.add(cuda.chan_reg_width(lay))
+        cpu = _chan_operands(rng, shape, bt, dtype)
+        for offset in (0, 1):
+            gpu = tuple(_offset_copy(o, offset, cuda_device) for o in cpu)
+            for exclusive in (False, True):
+                what = (shape, offset, exclusive)
+                cuda.reset_launches()
+                (got,), run = cuda.tree(aff, gpu, lay, exclusive, True)
+                torch.cuda.synchronize()
+                assert cuda.LAUNCHES["affine_tree"] == 1
+                (want,), w_run = sched.tree_plain(cpu, aff, lay, exclusive,
+                                                  True)
+                assert same(got.cpu(), want), what
+                for x, y in zip(run, w_run):
+                    assert same(x.cpu(), y), what
+                (sh,), sh_run = cuda.tree(aff, gpu, lay, exclusive, True,
+                                          network="shared")
+                assert same(sh, got), what
+                for x, y in zip(sh_run, run):
+                    assert same(x, y), what
+    # strips of 32 channels where the tile's 32 bt elements fit in
+    # CHAN_REG_TILE (bt 128 and 256), of 16 at bt 512
+    assert widths == {w for w in (4, 8, 16, 32)
+                      if w * bt <= cuda.CHAN_REG_TILE}
+    names = _kernel_names(lambda: cuda.tree(aff, gpu, lay))
+    assert any("tree_chan_reg_kernel<" in k for k in names), names
+
+
+def test_cuda_affine_tree_channels_networks_agree(cuda_device):
+    """At the SSD carry's tiling (256 steps; 32-channel strips for the
+    register tree, 16 for the shared one) the two trees give the same
+    bits, outputs and running totals, over lanes of four tiles."""
+    rng = np.random.default_rng(26)
+    lay = scan_engine.Channels(1, 1024, 2048, 256, 2048)
+    gpu = tuple(t.to(cuda_device) for t in _chan_operands(
+        rng, lay.shape, 256, torch.float32))
+    for exclusive in (False, True):
+        reg = cuda.tree(monoids.AFFINE, gpu, lay, exclusive, True)
+        shared = cuda.tree(monoids.AFFINE, gpu, lay, exclusive, True,
+                           network="shared")
+        for x, y in zip((reg[0][0],) + reg[1], (shared[0][0],) + shared[1]):
+            assert _same_bits(x, y)
+
+
+def test_cuda_tree_launch_chan_reg_kernel_for_affine_channels(cuda_device):
+    """By the profiler's names: the affine tree on Channels tiles of 128,
+    256 and 512 steps over strips of a multiple of four channels launches
+    ``tree_chan_reg_kernel`` (by dtype, slots a lane and vector form);
+    tiles of 64 steps and strips of two channels launch the shared
+    ``tree_kernel``, as ``network="shared"`` does at any shape. The launch
+    counter keeps its key."""
+    calls = []
+    for bt in cuda.CHAN_REG_TILES:
+        for dt in (torch.float32, torch.bfloat16):
+            lay = scan_engine.Channels(1, 2 * bt, 8, bt, 8)
+            ops = (torch.ones(lay.shape, dtype=dt, device=cuda_device),) * 2
+            calls.append((ops, lay, None,
+                          f"tree_chan_reg_kernel<{_CT[dt]}, {bt // 32}, "))
+            calls.append((ops, lay, "shared", "tree_kernel<"))
+    for lay in (scan_engine.Channels(1, 512, 8, 64, 8),
+                scan_engine.Channels(1, 512, 2, 256, 2)):
+        ops = (torch.ones(lay.shape, device=cuda_device),) * 2
+        calls.append((ops, lay, None, "tree_kernel<"))
+    for ops, lay, network, want in calls:
+        cuda.reset_launches()
+        names = _kernel_names(lambda: cuda.tree(monoids.AFFINE, ops, lay,
+                                                network=network))
+        assert cuda.LAUNCHES["affine_tree"] == 1
+        hits = [k for k in names if "tree" in k]
+        assert len(hits) == 1 and want in hits[0], (lay, network, names)
+        assert ("tree_chan_reg_kernel<" in hits[0]) == (
+            (network or cuda.tile_network(monoids.AFFINE, lay, "tree"))
+            == "register")
+
+
+# dtype names in the profiler's kernel names
+_CT = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+       torch.float16: "__half"}
+
+
+def _segsum_flags(rng, kind, n, bn):
+    if kind == "sparse":
+        f = np.where(rng.random((2, n)) < 0.01, rng.choice([1, -3, 2], (2, n)),
+                     0)
+    elif kind == "dense":
+        f = np.where(rng.random((2, n)) < 0.5, rng.choice([1, -3, 2], (2, n)),
+                     0)
+    else:
+        f = np.zeros((2, n), np.int64)
+        f[:, ::bn] = 1
+        f[:, bn - 1::bn] = -7
+    return torch.from_numpy(f.astype(np.int32))
+
+
+# The segmented sum's reduced totals: Q1's tile, ragged, lane-divisible
+# and the largest tiles, and a few short ones; a tile of one element is
+# left out, since its total is the element itself with its flag as given
+# (the plain version keeps -3 where every kernel keeps flag != 0, which no
+# output can tell apart).
+SEG_TOTALS_BLOCKS = (2, 3, 64, 127, 128, 129, 200, 256, 384, 640, 2048,
+                     2176, 16384)
+
+
+@pytest.mark.parametrize("flags", ("sparse", "dense", "ends"))
+@pytest.mark.parametrize("bn", SEG_TOTALS_BLOCKS)
+@pytest.mark.parametrize("kind", totals_data.KINDS[:6])
+def test_cuda_segsum_totals_reduce_bitwise_vs_plain(cuda_device, kind, bn,
+                                                    flags):
+    """The segmented sum's Rows totals (``totals_reduce_kernel``) against
+    ``totals_plain``, ``totals_tree_plain`` and the network's
+    ``totals_kernel`` (``network="shared"``) bitwise, both leaves, every
+    value dtype, flags sparse, dense and on every tile's first and last
+    element, from aligned bases and from bases one element off."""
+    n = 3 * bn
+    rng = np.random.default_rng(bn + 29)
+    cpu = (totals_data.operands(kind, 2, n, bn, bn + 30),
+           _segsum_flags(rng, flags, n, bn))
+    spec = monoids.SEGMENTED_SUM
+    lay = scan_engine.Rows(2, n, 1, bn)
+    assert cuda.tile_network(spec, lay, "totals") == "register"
+    want = scan_engine.schedules.totals_plain(cpu, spec, lay)
+    tree = scan_engine.schedules.totals_tree_plain(cpu, spec, lay)
+    assert all(totals_data.same_bits(x, y) for x, y in zip(tree, want))
+    for offset in (0, 1):
+        gpu = tuple(_offset_copy(o, offset, cuda_device) for o in cpu)
+        cuda.reset_launches()
+        got = cuda.totals(spec, gpu, lay)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES == {**{k: 0 for k in cuda.LAUNCHES},
+                                 "segsum_totals": 1}
+        shared = cuda.totals(spec, gpu, lay, network="shared")
+        for x, y, z in zip(got, want, shared):
+            assert totals_data.same_bits(x.cpu(), y), (offset, x.dtype)
+            assert totals_data.same_bits(x, z), (offset, x.dtype)
+
+
+def test_cuda_totals_launch_reduce_kernel_for_segsum(cuda_device):
+    """By the profiler's names: the segmented sum's totals on Rows launch
+    ``totals_reduce_kernel`` for every value dtype at tiles of 128·r
+    elements and of other lengths, and ``network="shared"`` the
+    network's ``totals_kernel``; on Channels they stay on
+    ``totals_kernel``. The launch counter keeps its key."""
+    spec = monoids.SEGMENTED_SUM
+    calls = []
+    for dt in cuda.DTYPE_CODES:
+        for lay in (scan_engine.Rows(2, 4096, 1, 2048),
+                    scan_engine.Rows(2, 600, 1, 200)):
+            ops = (torch.ones(lay.shape, dtype=dt, device=cuda_device),
+                   torch.zeros(lay.shape, dtype=torch.int32,
+                               device=cuda_device))
+            calls.append((ops, lay, None, "totals_reduce_kernel<"))
+            calls.append((ops, lay, "shared", "totals_kernel<"))
+    chan = scan_engine.Channels(2, 1024, 8, 256, 8)
+    calls.append(((torch.ones(chan.shape, device=cuda_device),
+                   torch.zeros(chan.shape, dtype=torch.int32,
+                               device=cuda_device)), chan, None,
+                  "totals_kernel<"))
+    for ops, lay, network, want in calls:
+        cuda.reset_launches()
+        names = _kernel_names(lambda: cuda.totals(spec, ops, lay,
+                                                  network=network))
+        assert cuda.LAUNCHES["segsum_totals"] == 1
+        hits = [k for k in names if "totals" in k]
+        assert len(hits) == 1 and want in hits[0] and \
+            "SegSumSpec" in hits[0], (ops[0].dtype, lay, network, names)
 
 
 def test_cuda_ssm_backward_runs_kernels(cuda_device):

@@ -1,6 +1,11 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the reference package."""
+``chip_smoke.py``) imports JAX or the reference package. Its public
+surfaces mirror the reference's, read from the reference's source (the
+flash-attention package, the scan engine's ``__all__`` and its monoid
+registry), and the reference tests' uses of the registry run on the
+port."""
 
+import ast
 import os
 import pathlib
 import re
@@ -138,3 +143,116 @@ def test_flash_attention_package_mirrors_reference():
         want = all_re.search((ref_dir / name).read_text()).group(1)
         got = all_re.search((port_dir / name).read_text()).group(1)
         assert sorted(eval(got)) == sorted(eval(want)), name
+
+
+def _reference_all(path):
+    all_re = re.compile(r"^__all__ = (\[[^\]]*\])", re.M | re.S)
+    return set(eval(all_re.search(path.read_text()).group(1)))
+
+
+def _module_names(path):
+    """The public names a module defines at its top level (functions,
+    classes and assignments), read from its source."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_scan_engine_all_mirrors_reference():
+    """The engine's ``__all__`` holds the reference's (read from its
+    source: no JAX import), ``fused_native_available`` among them, and
+    adds only the two kernel modules; every name resolves."""
+    from repro_torch.kernels import scan_engine
+    ref = _reference_all(ROOT / "src" / "repro" / "kernels" / "scan_engine"
+                         / "__init__.py")
+    assert "fused_native_available" in ref
+    assert set(scan_engine.__all__) - ref == {"cuda", "cuda_fold"}
+    assert ref <= set(scan_engine.__all__)
+    for name in scan_engine.__all__:
+        assert hasattr(scan_engine, name), name
+
+
+def test_monoids_mirror_reference():
+    """``monoids`` defines the reference's names (``softmax_pair`` and the
+    five-entry ``REGISTRY`` among them), and its registry the same keys."""
+    from repro_torch.kernels.scan_engine import monoids
+    ref_path = ROOT / "src" / "repro" / "kernels" / "scan_engine" / \
+        "monoids.py"
+    ref = _module_names(ref_path)
+    assert {"softmax_pair", "REGISTRY"} <= ref
+    assert ref <= _module_names(PKG / "kernels" / "scan_engine" /
+                                "monoids.py")
+    keys = re.search(r"^REGISTRY = \{(.*?)^\}", ref_path.read_text(),
+                     re.M | re.S).group(1)
+    assert set(re.findall(r'"(\w+)":', keys)) == set(monoids.REGISTRY)
+
+
+def test_fused_native_available_off_cuda(monkeypatch):
+    """False off CUDA, without building anything; on a CUDA device it
+    reports whether the kernel library builds or is there."""
+    import torch
+    from repro_torch.kernels.scan_engine import cuda, schedules
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cuda, "build", lambda: pytest.fail("built"))
+    assert schedules.fused_native_available() is False
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(cuda, "build", no_nvcc)
+    assert schedules.fused_native_available() is False
+    monkeypatch.setattr(cuda, "build", lambda: object())
+    assert schedules.fused_native_available() is True
+
+
+# The reference tests' uses of the registration surface, re-run on the
+# port (tests/test_flash_engine.py::test_softmax_pair_registered_with_engine,
+# tests/test_scan_engine.py::test_registry_covers_five_families and
+# ::test_tree_fold_routes_to_carry_fold).
+
+
+def test_port_softmax_pair_registered_with_engine():
+    from repro_torch.core.scan import assoc
+    from repro_torch.kernels import scan_engine
+    assert "softmax_pair" in scan_engine.monoids.REGISTRY
+    spec = scan_engine.monoids.REGISTRY["softmax_pair"]()
+    assert isinstance(spec, assoc.KernelSpec)
+    assert spec.n_leaves == 3              # (m, l, acc) payload triple
+    assert spec.transform is not None and spec.finalize is not None
+    assert not spec.supports_exclusive
+
+
+def test_port_registry_covers_five_families():
+    from repro_torch.core.scan import assoc
+    from repro_torch.kernels import scan_engine
+    assert set(scan_engine.monoids.REGISTRY) == {
+        "sum", "segmented_sum", "affine", "mask", "softmax_pair"}
+    for name, factory in scan_engine.monoids.REGISTRY.items():
+        spec = factory()
+        assert isinstance(spec, assoc.KernelSpec)
+        assert len(spec.fills) == spec.n_leaves
+
+
+def test_port_tree_fold_routes_to_carry_fold():
+    """Carried-payload monoids have no in-block element axis to
+    tree-organize: schedule='tree' runs the carry fold, same bits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import scan_engine
+    rng = np.random.default_rng(26)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 128, 16))
+                                .astype(np.float32)) for _ in range(3))
+    spec = scan_engine.monoids.softmax_pair(scale=0.25)
+    lay = scan_engine.KVBlocks(bh=2, bh_kv=2, tq=128, tk=128, d=16,
+                               bq=128, bk=64)
+    out_t = scan_engine.scan((q, k, v), spec, lay, schedule="tree")
+    out_c = scan_engine.scan((q, k, v), spec, lay, schedule="carry")
+    assert len(out_t) == len(out_c)
+    for a, b in zip(out_t, out_c):
+        assert torch.equal(a, b)

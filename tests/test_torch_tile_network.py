@@ -166,13 +166,13 @@ NETWORKS = [
      "shared"),
     ("sum-channels-bt256", monoids.SUM, scan_engine.Channels(2, 512, 4, 256, 4),
      "shared"),
-    # the affine carry, apply and fused on Channels tiles of 256 steps:
-    # the register carry, apply and fused (carry_chan_reg_kernel,
-    # apply_chan_reg_kernel, fused_chan_reg_kernel); its tree stays shared
+    # the affine carry, apply, fused and tree on Channels tiles of 256
+    # steps: the register kernels (carry_chan_reg_kernel,
+    # apply_chan_reg_kernel, fused_chan_reg_kernel, tree_chan_reg_kernel)
     ("affine-channels-bt256", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 256, 64),
      {"carry": "register", "apply": "register", "fused": "register",
-      "tree": "shared"}),
+      "tree": "register"}),
     ("affine-channels-bt64", monoids.AFFINE,
      scan_engine.Channels(1, 1024, 64, 64, 64), "shared"),
 ]
@@ -188,8 +188,8 @@ def _network(network, kernel):
 def test_tile_network_by_shape(name, spec, layout, network):
     """Rows tiles of 128·r elements take the register network for every
     spec but the affine pair; other tile lengths keep the shared-memory
-    ``tile_scan``, and so does Channels but for the affine carry, apply
-    and fused (``tests/test_torch_chan_network.py``)."""
+    ``tile_scan``, and so does Channels but for the affine carry, apply,
+    fused and tree (``tests/test_torch_chan_network.py``)."""
     for kernel in ("carry", "apply", "fused", "tree"):
         assert cuda.tile_network(spec, layout, kernel) == _network(network,
                                                                    kernel)
@@ -232,14 +232,15 @@ def test_wrappers_launch_the_tile_network(monkeypatch, kernel, name, spec,
 
 
 # The totals of each NETWORKS case: the reduction without the scan
-# ("register": totals_reduce_kernel for the sum and the mask on Rows at
-# any tile length, totals_chan_reduce_kernel for the affine pair on
-# Channels tiles of 128, 256 and 512 steps) or the network's totals_kernel.
+# ("register": totals_reduce_kernel for the sum, the segmented sum and the
+# mask on Rows at any tile length, totals_chan_reduce_kernel for the
+# affine pair on Channels tiles of 128, 256 and 512 steps) or the
+# network's totals_kernel.
 TOTALS = {"sum-rows-bn128": "register", "sum-rows-bn2048": "register",
           "sum-rows-bn2176": "register", "sum-rows-bn16384": "register",
-          "segsum-rows-bn2048": "shared", "mask-rows-bn2048": "register",
+          "segsum-rows-bn2048": "register", "mask-rows-bn2048": "register",
           "sum-rows-bn96": "register", "sum-rows-bn200": "register",
-          "segsum-rows-bn64": "shared", "affine-rows-bn256": "shared",
+          "segsum-rows-bn64": "register", "affine-rows-bn256": "shared",
           "sum-channels-bt256": "shared", "affine-channels-bt256": "register",
           "affine-channels-bt64": "shared"}
 

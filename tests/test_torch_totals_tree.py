@@ -1,13 +1,13 @@
 """``totals_tree_plain``: decoupled's chunk totals without the scan.
 
-The CUDA ``totals_reduce_kernel`` (Rows tiles of the sum in every dtype
-and of the compact mask) builds each tile's total as the tree of
-combines that makes the last element of the in-tile network, without
-running the network. ``totals_tree_plain`` is that association in torch
-ops. It must be bitwise equal to ``totals_plain`` (the network's last
-element) and to the reference's: the last element of the reference's
-``tile_scan`` over the same tiles, which is what its ``_totals_body``
-writes. NaNs compare as NaN.
+The CUDA ``totals_reduce_kernel`` (Rows tiles of the sum and the
+segmented sum in every dtype and of the compact mask) builds each tile's
+total as the tree of combines that makes the last element of the in-tile
+network, without running the network. ``totals_tree_plain`` is that
+association in torch ops. It must be bitwise equal to ``totals_plain``
+(the network's last element) and to the reference's: the last element of
+the reference's ``tile_scan`` over the same tiles, which is what its
+``_totals_body`` writes. NaNs compare as NaN.
 
 XLA's CPU runtime flushes subnormal floats to zero (inputs and results),
 so the comparison with the reference runs the port's plain version with
@@ -184,3 +184,69 @@ def test_totals_kinds_cover_every_reduced_dtype():
     """The kinds swept here are the dtypes the CUDA reduction takes."""
     from repro_torch.kernels.scan_engine import cuda
     assert {TORCH_DTYPES[k] for k in KINDS} == set(cuda.DTYPE_CODES)
+
+
+# The segmented sum on Rows, which totals_reduce_kernel builds too: every
+# dtype the kernel takes, tiles of one segment short of 256, three
+# segments, the main path's 2048, a ragged 17 segments and the largest
+# tile, flags sparse, dense, and on every tile's first and last element
+# (non-unit and negative flags among them). A flag on the right kills the
+# left value, so the tree keeps the earlier subtree on the left.
+SEG_KINDS = KINDS[:6]
+SEG_BLOCKS = (200, 384, 2048, 2176, 16384)
+SEG_FLAGS = ("sparse", "dense", "ends")
+SEG_CASES = [(k, bn, f) for k in SEG_KINDS for bn in SEG_BLOCKS
+             for f in SEG_FLAGS]
+SEG_IDS = [f"segsum-{k}-bn{bn}-{f}" for k, bn, f in SEG_CASES]
+
+
+def _segsum_case(kind, bn, flags, seed):
+    """((values, flags), spec, layout): two rows of three tiles."""
+    n = 3 * bn
+    x = operands(kind, 2, n, bn, seed)
+    rng = np.random.default_rng(seed + 1)
+    if flags == "sparse":
+        f = np.where(rng.random((2, n)) < 0.01,
+                     rng.choice([1, -3, 2], (2, n)), 0)
+    elif flags == "dense":
+        f = np.where(rng.random((2, n)) < 0.5,
+                     rng.choice([1, -3, 2], (2, n)), 0)
+    else:
+        f = np.zeros((2, n), np.int64)
+        f[:, ::bn] = 1
+        f[:, bn - 1::bn] = -7
+        f[1, bn] = 0              # one tile flagged at its end alone
+    ops = (x, torch.from_numpy(f.astype(np.int32)))
+    return ops, monoids.SEGMENTED_SUM, scan_engine.Rows(2, n, 1, bn)
+
+
+@pytest.mark.parametrize("kind,bn,flags", SEG_CASES, ids=SEG_IDS)
+def test_totals_tree_plain_segsum_bitwise_vs_totals_plain(kind, bn, flags):
+    ops, spec, lay = _segsum_case(kind, bn, flags, 74)
+    got = schedules.totals_tree_plain(ops, spec, lay)
+    want = schedules.totals_plain(ops, spec, lay)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == lay.chain_shape
+        assert same_bits(g, w)
+
+
+@pytest.mark.parametrize("kind,bn,flags", SEG_CASES, ids=SEG_IDS)
+def test_totals_tree_plain_segsum_bitwise_vs_reference(kind, bn, flags,
+                                                        flush_denormals):
+    """The last element of the reference's ``tile_scan`` of every tile,
+    both leaves, in the accumulation dtypes."""
+    ops, spec, lay = _segsum_case(kind, bn, flags, 75)
+    tiles = tuple(t.reshape(-1, bn)
+                  for t in schedules._tiles(spec, ops, lay))
+    last = jax.jit(lambda v, f: tuple(s[:, -1] for s in jax_schedules.tile_scan(
+        jax_monoids.SEGMENTED_SUM, (v, f), axis=1)))(
+            *(jnp.asarray(t.numpy()) for t in tiles))
+    want = tuple(torch.from_numpy(np.array(w)).reshape(lay.chain_shape)
+                 for w in last)
+    got = schedules.totals_tree_plain(ops, spec, lay)
+    net = schedules.totals_plain(ops, spec, lay)
+    for g, n_, w in zip(got, net, want):
+        assert g.dtype == w.dtype
+        assert same_bits(g, w)
+        assert same_bits(n_, w)

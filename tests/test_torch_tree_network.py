@@ -18,8 +18,14 @@ flush mode on one thread, as ``test_torch_totals_tree.py`` does. The
 reference runs op by op, not under ``jax.jit``: XLA's algebraic
 simplifier folds the down-sweep's first combine, identity ⊕ x with a
 constant identity, into x, which keeps a -0.0 that the combine as written
-turns into +0.0. The kernel itself is held against ``tree_plain`` on the
-card in ``tests/test_torch_cuda_kernels.py``.
+turns into +0.0. ``tree_chan_reg_kernel`` runs the affine pair's
+``tree_scan`` on ``Channels`` tiles of 128, 256 and 512 steps in carry's
+register walk: lane l holds steps l + 32 s of a channel, the five lowest
+levels of both sweeps run across lanes within each slot, the upper levels
+over lane 31's slot roots in its registers; ``tree_scan_chan_warps``
+states that organization, held bitwise against ``tree_scan`` and the
+reference's. The kernels themselves are held against ``tree_plain`` on
+the card in ``tests/test_torch_cuda_kernels.py``.
 """
 
 import jax
@@ -28,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_totals_data import operands, same_bits
+from _torch_totals_data import affine_channels, operands, same_bits
 from repro.kernels.scan_engine import monoids as jax_monoids
 from repro.kernels.scan_engine import schedules as jax_schedules
 from repro_torch.kernels import scan_engine
@@ -157,3 +163,72 @@ def test_tree_scan_warps_gives_tree_plain(kind):
                                              return_totals=True)
         assert _all_same(outs, w_outs), exclusive
         assert _all_same(spec.combine(carries, roots), w_run), exclusive
+
+
+# The affine tree on Channels tiles of 128, 256 and 512 steps, as the CUDA
+# tree_chan_reg_kernel organizes it (schedules.tree_scan_chan_warps: lane
+# l holding steps l + 32 s, the five lowest levels across lanes, the upper
+# levels over lane 31's slot roots), on gates with negative values and
+# ±0.0 and offsets with -0.0 at every tile start (normal), or exact-valued
+# gates and offsets (exact).
+CHAN_TILES = (128, 256, 512)
+
+
+def _chan_tiles(bt, exact, seed, chunks=3):
+    ops = affine_channels(bt, seed, exact=exact, shape=(2, chunks * bt, 6))
+    lay = scan_engine.Channels(2, chunks * bt, 6, bt, 6)
+    return ops, lay, schedules._tiles(monoids.AFFINE, ops, lay)
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("bt", CHAN_TILES)
+def test_tree_scan_chan_warps_bitwise_vs_tree_scan(bt, exact):
+    _, _, tiles = _chan_tiles(bt, exact, 3 * bt + exact)
+    excl, total = schedules.tree_scan_chan_warps(monoids.AFFINE, tiles)
+    w_excl, w_total = schedules.tree_scan(monoids.AFFINE, tiles, 2)
+    assert _all_same(excl, w_excl)
+    assert _all_same(total, w_total)
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("bt", CHAN_TILES)
+def test_tree_scan_chan_warps_bitwise_vs_reference(bt, exact,
+                                                   flush_denormals):
+    """The reference's ``tree_scan`` along time (axis 2 of the (B,
+    chunks, bt, D) tiles), op by op: under ``jax.jit`` XLA contracts the
+    affine combine into an FMA and folds 0.0 + x into x. Op by op, with
+    subnormals flushed as XLA's CPU does, the bits agree on normal data
+    too, which is more than the reference's own affine tolerance
+    (rtol = atol = 2e-4, ``tests/test_kernels.py``) asks; exact data agree
+    in any mode."""
+    _, _, tiles = _chan_tiles(bt, exact, 5 * bt + exact)
+    jl = tuple(jnp.asarray(t.numpy()) for t in tiles)
+    w_excl, w_total = jax_schedules.tree_scan(jax_monoids.AFFINE, jl, axis=2)
+    w_excl = tuple(torch.from_numpy(np.array(w)) for w in w_excl)
+    w_total = tuple(torch.from_numpy(np.array(w)) for w in w_total)
+    excl, total = schedules.tree_scan_chan_warps(monoids.AFFINE, tiles)
+    for got, want in zip(excl + total, w_excl + w_total):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    assert _all_same(excl, w_excl) and _all_same(total, w_total)
+
+
+@pytest.mark.parametrize("exclusive", (False, True))
+@pytest.mark.parametrize("bt", CHAN_TILES)
+def test_tree_chan_network_gives_tree_plain(bt, exclusive):
+    """The emulation's exclusive scan and totals, put through tree's carry
+    (the carry the LEFT operand, carry = carry ⊕ root) and emission, give
+    ``tree_plain``'s outputs and running totals over lanes of four
+    tiles."""
+    aff = monoids.AFFINE
+    ops, lay, tiles = _chan_tiles(bt, False, 7 * bt, chunks=4)
+    excl, total = schedules.tree_scan_chan_warps(aff, tiles)
+    roots = tuple(t.select(2, 0) for t in total)
+    carries = schedules.exclusive_chain(aff, roots)
+    sel = excl if exclusive else aff.combine(excl, tiles)
+    outs = schedules._emit(aff, ops, lay, tiles,
+                           schedules._offset(aff, carries, sel))
+    w_outs, w_run = schedules.tree_plain(ops, aff, lay, exclusive,
+                                         return_totals=True)
+    assert _all_same(outs, w_outs)
+    assert _all_same(aff.combine(carries, roots), w_run)
