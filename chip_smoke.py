@@ -72,7 +72,12 @@ first failure and prints no result):
      carry == fused == the shared-memory ``fused_kernel`` launched by
      name, the tree (outputs and running totals) to ``tree_plain`` and the
      shared ``tree_kernel``, inclusive and exclusive, aligned and one
-     element off;
+     element off; and the paper's Observation 5 at the (b) batch, (8192,
+     32768): its library oracles ``scan(algorithm="vertical",
+     variant=1|2)`` and ``"tree"`` on the card beside ``"horizontal"`` and
+     ``"kernel"``, int32 bitwise equal to ``torch.cumsum`` and float32
+     within 1e-4 of float64, each timed on the host clock beside the
+     card's name and power limit;
   3. the prefix-sum main path through ``repro_torch.core.scan.cumsum`` at
      a column store's size — (a) one column of 2^28 float32 (auto: kernel,
      fused: ONE launch of the fused kernel, shown by the launch counters
@@ -122,7 +127,7 @@ first failure and prints no result):
      network's ``totals_kernel`` it replaced, in turns and from graph
      replays;
   6. the affine SSM path at zamba2-7b's width: the Mamba2 SSD
-     across-chunk carry of ``src/repro/configs/zamba2_7b.py`` (112 heads
+     across-chunk carry of zamba2-7b (``repro_torch.configs``: 112 heads
      x head_dim 64 x state 64 = 458,752 channels; ``ssm_chunk`` 128) for a
      131,072-token prefill, (1, 1024, 458752) float32 with per-(chunk,
      head) gates in (0.5, 1] and random chunk states from ``--seed``,
@@ -140,7 +145,9 @@ first failure and prints no result):
      ``fused_chan_reg_kernel``, beside the shared-memory ``fused_kernel``;
      and the tree, ``tree_chan_reg_kernel``, beside the shared-memory
      ``tree_kernel``, in turns and from graph replays; each timed at the
-     same shape in the same run and held bitwise against it);
+     same shape in the same run and held bitwise against it; the chain,
+     ``chain_chan_kernel``, also from a graph replay, and its offsets
+     bitwise against its first form's loop, a thread a channel);
   7. the attention fold (``src/repro_torch/csrc/attn_fold.cu``: fold_fwd,
      fold_dq, fold_dkv, and fold_chain, whose softmax-pair and sum
      forms are counted apart as fold_chain and fold_chain_sum; and
@@ -187,7 +194,11 @@ first failure and prints no result):
      float32 ``fold_fwd_tf32``, ``fold_dq_tf32`` and ``fold_dkv_tf32``
      are timed at (h) and (f), the 3xTF32 forms at (h) also from a CUDA
      graph replay, each beside the SIMT kernel it replaced, launched by
-     name at the same shape in the same run; one ``torch.profiler``
+     name at the same shape in the same run; the softmax pair's chain,
+     ``fold_chain``, at (g) and at (f)'s local layer (16 splits, bf16
+     out with the statistics), bitwise equal to its plain version and to
+     its first form's loop (a thread a (row, column)), also from CUDA
+     graph replays; one ``torch.profiler``
      trace (host and device) of the (h) bf16 forward call shows where its
      host time goes beyond ``fold_fwd_tc``.
 
@@ -251,24 +262,18 @@ Q6_FROM, Q6_TO = 731, 1096    # [1994-01-01, 1995-01-01)
 Q1_SHIP_MAX = 2436            # 1998-12-01 - 90 days = 1998-09-02
 Q3_DATE = 1169                # 1995-03-15
 ROW_GROUP = 1 << 18           # rows of one column-store row group
-# zamba2-7b's Mamba2 SSD across-chunk carry (src/repro/configs/zamba2_7b.py:
-# ssm_heads 112, ssm_head_dim 64, ssm_state 64, ssm_chunk 128) for a
-# 131,072-token prefill: (B, chunks, H * P * N).
-SSD_SHAPE = (1, 131072 // 128, 112 * 64 * 64)
+# zamba2-7b's Mamba2 SSD across-chunk carry for a 131,072-token prefill:
+# (B, chunks, H * P * N) (model_cells).
+SSD_PREFILL = 131072
 # The reference tests' tolerance of a float32 affine scan
 # (tests/test_kernels.py::test_ssm_scan_shapes_dtypes).
 AFFINE_TOL = 2e-4
 # Float sums of the relational phase against float64: float32 rounding
 # along a chain of ~10^4 chunk totals stays near 1e-6 relative.
 REL_SUM_TOL = 1e-4
-# gemma2-9b's attention (src/repro/configs/gemma2_9b.py:17-33): 16 q heads,
-# 8 kv heads of 256, logit softcap 50, local layers' window 4096, at a
-# training sequence of 8192 (max_seq_len).
-GEMMA = dict(hq=16, hkv=8, d=256, softcap=50.0, window=4096, t=8192)
-# phi3-medium-14b's attention (src/repro/configs/phi3_medium_14b.py): 40 q
-# heads, 10 kv heads of 128, no softcap or window; a batch of 4 decoding
-# against its 131,072-token max_seq_len cache, and a 4096-token prefill.
-PHI3 = dict(hq=40, hkv=10, d=128, batch=4, cache=131072, prefill=4096)
+# phi3-medium-14b: a batch of 4 decoding against a cache of its
+# max_seq_len, and a 4096-token prefill (model_cells).
+PHI3_BATCH, PHI3_PREFILL = 4, 4096
 # Attention tolerances, (atol, rtol) of an allclose. float32: the reference
 # tests' own, carry vs decoupled forward (tests/test_flash_engine.py:99),
 # gradients (tests/test_flash_backward.py:102), the fold against dense
@@ -311,6 +316,27 @@ def rate(table, name):
     raise SmokeFailure(f"no data-sheet rate for {name!r}")
 
 
+def model_cells():
+    """The (e)-(h) cells' widths, from ``repro_torch.configs``: zamba2-7b's
+    SSD carry (ssm_heads 112 x ssm_head_dim 64 x ssm_state 64 channels,
+    ssm_chunk 128), gemma2-9b's attention (16 q / 8 kv heads of 256, logit
+    softcap 50, local layers' window 4096, at a training sequence of its
+    max_seq_len 8192) and phi3-medium-14b's (40 q / 10 kv heads of 128, no
+    softcap or window, a cache of its max_seq_len 131,072)."""
+    from repro_torch import configs
+    z = configs.get_config("zamba2-7b")
+    g = configs.get_config("gemma2-9b")
+    p = configs.get_config("phi3-medium-14b")
+    ssd = (1, SSD_PREFILL // z.ssm_chunk,
+           z.ssm_heads * z.ssm_head_dim * z.ssm_state)
+    gemma = dict(hq=g.num_heads, hkv=g.num_kv_heads, d=g.head_dim,
+                 softcap=g.attn_softcap, window=g.sliding_window,
+                 t=g.max_seq_len)
+    phi3 = dict(hq=p.num_heads, hkv=p.num_kv_heads, d=p.head_dim,
+                batch=PHI3_BATCH, cache=p.max_seq_len, prefill=PHI3_PREFILL)
+    return ssd, gemma, phi3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -336,7 +362,7 @@ def main() -> int:
           "TF32 must be off")
 
     from repro_torch import relational as rel
-    from repro_torch.core.scan import api, policy
+    from repro_torch.core.scan import api, assoc, policy
     from repro_torch.kernels.compact import ops as kc_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -353,6 +379,7 @@ def main() -> int:
     from repro_torch.relational import groupby as rel_groupby
     from repro_torch.relational.partition import apply_plan
 
+    SSD_SHAPE, GEMMA, PHI3 = model_cells()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device=dev)
@@ -440,6 +467,15 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
+    def close_to_f64(y, x, what, axis=-1):
+        ref = torch.cumsum(x.double(), dim=axis)
+        check(y.shape == x.shape and y.dtype == x.dtype, f"{what}: shape")
+        check(bool(torch.isfinite(y).all()), f"{what}: non-finite output")
+        err = (y.double() - ref).abs().max().item()
+        tol = REL_TOL * ref.abs().max().item()
+        check(err <= tol, f"{what}: max err {err} > tol {tol}")
+        return err
+
     def rel_err(got, want):
         got, want = got.double(), want.double()
         return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
@@ -448,7 +484,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -622,6 +659,23 @@ def main() -> int:
         print(f"  ptxas: {len(tc_entries)} tensor-core kernels, "
               f"{', '.join(dq_entries + tf32_entries)} among them, none "
               "spills")
+    # the two chains (chain_chan_kernel, fold_chain_softmax_kernel):
+    # registers of each instantiation, and no spill
+    for kname, log in (("chain_chan_kernel", cuda.build_log),
+                       ("fold_chain_softmax_kernel", cuda_fold.build_log)):
+        entry, used, spills = None, [], 0
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = kname in line
+            elif entry and "spill stores" in line:
+                spills += spilled(line)
+            elif entry and "Used" in line and "registers" in line:
+                used.append(int(line.split("Used")[1].split("registers")[0]))
+                entry = None
+        if used:   # a cached build prints no report
+            print(f"  ptxas {kname}: {len(used)} kernels, "
+                  f"{min(used)}-{max(used)} registers, {spills} with spills")
+            check(spills == 0, f"ptxas: {kname} spills")
 
     # -- 2. every kernel vs its plain version, bitwise ---------------------
     kernel = {"carry": schedules.scan_carry,
@@ -1185,6 +1239,33 @@ def main() -> int:
           "totals, offsets and apply to the plain versions, each to the "
           "shared kernel it replaced")
 
+    # the paper's Observation 5 at the (b) batch: its library oracles,
+    # vertical (V1, V2) and tree, beside horizontal and the kernel, on the
+    # card (one PyTorch op a step): int32 bitwise against torch.cumsum,
+    # float32 within REL_TOL of float64; host clock around one call
+    xo = normals((8192, 32768))
+    xi = randint(-1000, 1000, (8192, 32768))
+    want_i = torch.cumsum(xi, -1, dtype=torch.int32)
+    obs5 = []
+    for label, kw in (("vertical V1", dict(algorithm="vertical", variant=1)),
+                      ("vertical V2", dict(algorithm="vertical", variant=2)),
+                      ("tree", dict(algorithm="tree")),
+                      ("horizontal", dict(algorithm="horizontal")),
+                      ("kernel", dict(algorithm="kernel"))):
+        check(same_bits(api.cumsum(xi, **kw), want_i),
+              f"(b) int32 {label} != torch.cumsum")
+        y, ms = wall_ms(lambda: api.cumsum(xo, **kw))
+        check(y.is_cuda, f"(b) {label} left the card")
+        err = close_to_f64(y, xo, f"(b) float32 {label}")
+        obs5.append(f"{label} {ms:.2f} ms (max err {err:.3g})")
+        del y
+    del xo, xi, want_i
+    torch.cuda.empty_cache()   # the oracles' many small steps' blocks
+    print(f"(b) 8192 x 32768, {card}: the oracles on the card, int32 == "
+          f"torch.cumsum bitwise, float32 within {REL_TOL} of float64 (of "
+          f"the largest prefix); host clock around one call: "
+          + "; ".join(obs5))
+
     # -- 3. the prefix-sum main path, with launch counts -------------------
     na = 1 << 28
     xa = normals((na,))
@@ -1240,15 +1321,6 @@ def main() -> int:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
     for k in USES[sched_g]:
         check(launches[k] > fwd[k], f"backward did not launch {k}")
-
-    def close_to_f64(y, x, what, axis=-1):
-        ref = torch.cumsum(x.double(), dim=axis)
-        check(y.shape == x.shape and y.dtype == x.dtype, f"{what}: shape")
-        check(bool(torch.isfinite(y).all()), f"{what}: non-finite output")
-        err = (y.double() - ref).abs().max().item()
-        tol = REL_TOL * ref.abs().max().item()
-        check(err <= tol, f"{what}: max err {err} > tol {tol}")
-        return err
 
     err_a = close_to_f64(ya, xa, "(a) fused")
     err_b = close_to_f64(yb, xb, "(b) carry")
@@ -1946,7 +2018,15 @@ def main() -> int:
     kernel_row("affine_chain", lambda: cuda.chain(AFFINE, (at_, bt_))[0],
                lambda: schedules.exclusive_chain(AFFINE, (at_, bt_)),
                16 * n_sc, 3 * n_sc, 5, None,
-               f"{tuple(at_.shape)} totals", aff_launches)
+               f"{tuple(at_.shape)} totals", aff_launches, graph=True)
+    # the first form's loop (a thread a (batch, channel), chunk by
+    # chunk), transcribed: chain_chan_kernel keeps its bits
+    acc_a, acc_b = torch.ones_like(at_[:, 0]), torch.zeros_like(bt_[:, 0])
+    for c in range(at_.shape[1]):
+        check(same_bits(ao[:, c], acc_a) and same_bits(bo[:, c], acc_b),
+              f"affine_chain != its first form at chunk {c}")
+        acc_a, acc_b = acc_a * at_[:, c], at_[:, c] * acc_b + bt_[:, c]
+    del acc_a, acc_b
     kernel_row("affine_apply",
                lambda: cuda.apply(AFFINE, (a, b), (ao, bo), lay_s),
                lambda: schedules.apply_plain((a, b), (ao, bo), AFFINE, lay_s),
@@ -2488,11 +2568,16 @@ def main() -> int:
     # each fold kernel's time at its main-path shape (bf16; float32 for
     # the SIMT forward, dq and dk/dv, which bf16 no longer reaches there)
     def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
-                 library, shape, reps=3, tol=BF16_TOL):
+                 library, shape, reps=3, tol=BF16_TOL, bitwise=False,
+                 graph=False):
+        """``bitwise``: the kernel also gives the plain version's bits;
+        ``graph``: also the kernel's time from a CUDA graph replay."""
         got, want = flat(run()), flat(run_plain())
         sync()
         ok, err = allclose(got, want, tol)
         check(ok, f"{rname}: kernel vs plain at the main-path shape: {err}")
+        check(not bitwise or all_same_bits(got, want),
+              f"{rname}: kernel != plain bitwise at the main-path shape")
         del got, want
         ms = time_ms(run, reps)
         plain_ms = time_ms(run_plain, 1, warmup=0)
@@ -2519,6 +2604,30 @@ def main() -> int:
               f"{plain_ms:10.3f} ms  bound {b_ms:.4f} ms ({b_by}; float32 "
               f"non-tensor {flops / f32_peak * 1e3:.3f} ms)  library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+        if graph:
+            g_ms = graph_ms(run)
+            print(f"  {rname} from a CUDA graph replay (20 calls, no host "
+                  f"launch cost): "
+                  f"{'not measured' if g_ms is None else f'{g_ms:.4f} ms'} "
+                  "a call")
+
+    def softmax_chain_first_form(tot, lay, out_dts):
+        """fold_chain_softmax_kernel's first form (a thread a (row,
+        column)), transcribed: from (NEG_INF, 0, 0), mn = max(m,
+        m2), the weights exp(m - mn), exp(m2 - mn), l and acc folded split
+        by split, then acc / l (l == 0 guarded) and the row's (m, l)."""
+        m2, l2, a2 = tot
+        m = torch.full_like(m2[:, 0], assoc.NEG_INF)
+        l, acc = torch.zeros_like(l2[:, 0]), torch.zeros_like(a2[:, 0])
+        for s_ in range(m2.shape[1]):
+            mn = torch.maximum(m, m2[:, s_])
+            w1, w2 = torch.exp(m - mn), torch.exp(m2[:, s_] - mn)
+            l = l * w1 + l2[:, s_] * w2
+            acc = acc * w1 + a2[:, s_] * w2
+            m = mn
+        outs = (acc / torch.where(l == 0.0, 1.0, l), m, l)[:len(out_dts)]
+        return tuple(lay.unchain_out(o).to(dt)
+                     for o, dt in zip(outs, out_dts))
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -2579,6 +2688,20 @@ def main() -> int:
                          nbytes(*tot_b) + out_b, nbytes(*tot_b) // 4, None,
                          f"{shape}, 16 splits")
                 del tot_b
+            # the forward's chain and finalize (fold_chain), with the
+            # statistics, as the decoupled forward runs it
+            tot_f = cuda_fold.fold_totals(spec, ops_f, lay)
+            dts = (bf16, torch.float32, torch.float32)
+            attn_row("fold_chain_local", "fold_chain", "chain",
+                     lambda: cuda_fold.chain(spec, tot_f, lay, dts),
+                     lambda: schedules.fold_finalize_plain(spec, lay, tot_f,
+                                                           dts),
+                     nbytes(*tot_f, *outs), 6 * tot_f[2].numel(), None,
+                     f"{shape}, 16 splits", bitwise=True, graph=True)
+            check(all_same_bits(cuda_fold.chain(spec, tot_f, lay, dts),
+                                softmax_chain_first_form(tot_f, lay, dts)),
+                  "(f) local fold_chain != its first form")
+            del tot_f
         if splits == 1:
             fold_ms = sum(r["ms"] for r in rows[-3:])
 
@@ -2612,7 +2735,10 @@ def main() -> int:
              lambda: schedules.fold_finalize_plain(spec_g, lay_g, tot_g,
                                                    (bf16,)),
              split_b + nb_ * p_hq * 8 * p_d * 2, 6 * split_b // 4, None,
-             "(g) 160x8 rows x 16 splits", reps=5)
+             "(g) 160x8 rows x 16 splits", reps=5, bitwise=True, graph=True)
+    check(all_same_bits(cuda_fold.chain(spec_g, tot_g, lay_g, (bf16,)),
+                        softmax_chain_first_form(tot_g, lay_g, (bf16,))),
+          "(g) fold_chain != its first form")
     dec_ms = rows[-2]["ms"] + rows[-1]["ms"]
     print(f"(g) decode: split pass + chain {dec_ms:.3f} ms; "
           f"scaled_dot_product_attention(enable_gqa=True) {lib_g:.3f} ms "

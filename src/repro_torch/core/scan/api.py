@@ -24,17 +24,13 @@ from repro_torch.core.scan import blocked as _blocked
 from repro_torch.core.scan import horizontal as _horizontal
 from repro_torch.core.scan import policy
 from repro_torch.core.scan import reference as _reference
+from repro_torch.core.scan import tree as _tree
+from repro_torch.core.scan import vertical as _vertical
 
 Pytree = Any
 
 _ALGORITHMS = ("auto", "ref", "horizontal", "vertical", "tree", "blocked",
                "two_pass", "kernel")
-
-# Library oracles of the reference that this package does not have yet.
-_NOT_PORTED = {
-    "vertical": "ROADMAP Queue 1 item 4 (vertical SIMD oracle)",
-    "tree": "ROADMAP Queue 1 item 4 (tree SIMD oracle)",
-}
 
 
 def scan(
@@ -66,10 +62,6 @@ def scan(
         if algorithm == "kernel":
             kw.setdefault("schedule", choice.schedule)
 
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported yet: "
-            f"{_NOT_PORTED[algorithm]}")
     if algorithm == "kernel":
         from repro_torch.kernels.scan_blocked import ops as kernel_ops
 
@@ -82,6 +74,13 @@ def scan(
     if algorithm == "horizontal":
         kw.pop("block_size", None)
         return _horizontal.scan_horizontal(elems, monoid, axis, exclusive)
+    if algorithm == "vertical":
+        kw.pop("block_size", None)
+        return _vertical.scan_vertical(elems, monoid, axis,
+                                       exclusive=exclusive, **kw)
+    if algorithm == "tree":
+        kw.pop("block_size", None)
+        return _tree.scan_tree(elems, monoid, axis, exclusive)
     if algorithm == "blocked":
         return _blocked.scan_blocked(elems, monoid, axis,
                                      exclusive=exclusive, **kw)

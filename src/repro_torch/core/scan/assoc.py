@@ -634,8 +634,20 @@ SOFTMAX_PAIR = Monoid(
 )
 
 
+# Matrix-affine monoid for matrix-state recurrences (mLSTM, a general
+# SSM): elements (a, B) with a scalar (or broadcastable) decay a and a
+# matrix update B, H' = a * H + B. AFFINE's composition law, with a
+# broadcast over B; no kernel spec.
+MATRIX_AFFINE = Monoid(
+    "matrix_affine",
+    _affine_kcombine,
+    lambda x: (torch.ones_like(x[0]), torch.zeros_like(x[1])),
+)
+
+
 REGISTRY: dict[str, Monoid] = {
-    m.name: m for m in (SUM, PROD, MAX, MIN, AFFINE, SOFTMAX_PAIR)}
+    m.name: m for m in (SUM, PROD, MAX, MIN, AFFINE, SOFTMAX_PAIR,
+                        MATRIX_AFFINE)}
 
 
 def get(op: "str | Monoid") -> Monoid:

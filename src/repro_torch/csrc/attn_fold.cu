@@ -22,8 +22,9 @@
 //                     head sum is the fold itself: no atomics)
 //   fold_chain_*      fold_chain (schedules.py:631) and the finalize: the
 //                     split-KV chain over the chunks' published payloads,
-//                     one thread per (row, column), left to right from the
-//                     identity
+//                     left to right from the identity: a warp a row for
+//                     the softmax pair, a thread a (row, column) for the
+//                     sums
 // Each fold kernel runs both schedules of the reference's fold
 // (kernels/scan_engine/schedules.py): with one split it is fold_carry
 // (pallas_call at :722, body _fold_carry_body :677 and _fold_step :650)
@@ -550,29 +551,144 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The split-KV chain of the forward: (m, l, acc) chunks combined left to
 // right from the identity, then acc / l (and the statistics). Chain
-// buffers are (row blocks, splits, tile, dim); one thread per output
-// (row, column).
-template <typename T>
-__global__ void fold_chain_softmax_kernel(long long rows, int splits,
-                                          int tile, int d, FoldPtrs p) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= rows * d) return;
-  const long long row = e / d;
-  const int c = e % d;
+// buffers are (row blocks, splits, tile, dim).
+//   * A warp takes a row. Its lanes cover the row's d columns V at a time
+//     (V = 4: one 16-byte load a lane and split at d = 128, two at d = 256;
+//     any d that is not a multiple of 4, or a base that is not 16-byte
+//     aligned, takes V = 1), K column groups a lane.
+//   * The splits go in groups of kChainGroup: lane j reads split j's
+//     (m, l), and every lane issues the group's acc loads, and those of
+//     the next group, before it folds the group.
+//   * The running max is taken in split order by every lane from the
+//     shuffled m's; lane j then computes split j's two weights
+//     expf(m - mn) and expf(m2 - mn) once for the row, and the fold reads
+//     them by shuffle. l folds beside acc in the same order.
+// Bits: the weights, the fold (__fmul_rn, __fadd_rn, left to right from
+// the identity) and the guarded divide are the one-thread-a-column form's
+// to the bit; only who computes them moved. Bound: device-memory
+// bytes, each chunk's acc read once and the output written once.
+constexpr int kChainWarps = 4;   // rows a block
+constexpr int kChainGroup = 8;   // splits whose loads are in flight together
+
+// V consecutive floats through the read-only path, cached as usual: the
+// split pass has just written the partials, and they are still in L2.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<unsigned*>(&lo);
+    w.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = w;
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+template <typename T, int V, int K>
+__global__ void __launch_bounds__(32 * kChainWarps)
+fold_chain_softmax_kernel(long long rows, int splits, int tile, int d,
+                          FoldPtrs p) {
+  constexpr int G = kChainGroup;
+  const long long row = (long long)blockIdx.x * kChainWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
   const long long rb = row / tile;
   const int i = row % tile;
-  float m = kNegInf, l = 0.f, acc = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const long long t = (rb * splits + s) * tile + i;
-    const float m2 = p.c0[t], l2 = p.c1[t], a2 = p.c2[t * d + c];
-    const float mn = fmaxf(m, m2);
-    const float a1 = expf(m - mn), b1 = expf(m2 - mn);
-    l = __fadd_rn(__fmul_rn(l, a1), __fmul_rn(l2, b1));
-    acc = __fadd_rn(__fmul_rn(acc, a1), __fmul_rn(a2, b1));
-    m = mn;
+  const float* __restrict__ pm = p.c0;
+  const float* __restrict__ pl = p.c1;
+  const float* __restrict__ pa = p.c2;
+  // split s of the row: (m, l) at (rb splits + s) tile + i, acc d times that
+  const long long t0 = rb * splits * tile + i;
+  struct Group {
+    float m2, l2;        // lane j: split j's (m, l)
+    float a[G][K][V];    // every lane: its columns of the group's acc
+  };
+  auto load = [&](int s0, Group& g) {
+    const int s = s0 + lane;
+    g.m2 = kNegInf;
+    g.l2 = 0.f;
+    if (lane < G && s < splits) {
+      g.m2 = __ldg(pm + t0 + (long long)s * tile);
+      g.l2 = __ldg(pl + t0 + (long long)s * tile);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = (k * 32 + lane) * V;
+        if (s0 + u < splits && c < d)
+          load_vec<V>(pa + (t0 + (long long)(s0 + u) * tile) * d + c, g.a[u][k]);
+      }
+  };
+  float m = kNegInf, l = 0.f, acc[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+  Group cur, next;
+  load(0, cur);
+  for (int s0 = 0; s0 < splits; s0 += G) {
+    if (s0 + G < splits) load(s0 + G, next);
+    // the running max in split order; lane j keeps split j's (m, mn)
+    float mj = m, mnj = m;
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const float m2 = __shfl_sync(0xffffffffu, cur.m2, u);
+      if (s0 + u < splits) {
+        const float mn = fmaxf(m, m2);
+        if (lane == u) {
+          mj = m;
+          mnj = mn;
+        }
+        m = mn;
+      }
+    }
+    const float wa = expf(mj - mnj), wb = expf(cur.m2 - mnj);
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const float a1 = __shfl_sync(0xffffffffu, wa, u);
+      const float b1 = __shfl_sync(0xffffffffu, wb, u);
+      const float l2 = __shfl_sync(0xffffffffu, cur.l2, u);
+      if (s0 + u < splits) {
+        l = __fadd_rn(__fmul_rn(l, a1), __fmul_rn(l2, b1));
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[k][v] = __fadd_rn(__fmul_rn(acc[k][v], a1),
+                                  __fmul_rn(cur.a[u][k][v], b1));
+      }
+    }
+    cur = next;
   }
-  store_as(static_cast<T*>(p.out0) + e, acc / (l == 0.f ? 1.f : l));
-  if (p.m_out && c == 0) {
+  const float safe = l == 0.f ? 1.f : l;
+  T* out = static_cast<T*>(p.out0) + row * d;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = (k * 32 + lane) * V;
+    if (c >= d) continue;
+    float o[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = acc[k][v] / safe;
+    store_vec<V>(out + c, o);
+  }
+  if (p.m_out && lane == 0) {
     p.m_out[row] = m;
     p.l_out[row] = l;
   }
@@ -639,6 +755,29 @@ cudaError_t run_dkv(const FoldArgs& a, const FoldPtrs& p, cudaStream_t st) {
   return launch(fold_dkv_kernel<T, DC>,
                 dim3((unsigned)a.bh_kv * a.nk * nsub, a.splits), smem, st, a,
                 p);
+}
+
+// fold_chain_softmax_kernel, a warp a row: four columns a lane where d is
+// a multiple of 4 and the chain's acc and the output are 16- (8-) byte
+// aligned, else one; K groups of 32 V columns cover d <= 256.
+template <typename T>
+cudaError_t launch_chain_softmax(long long rows, int splits, int tile, int d,
+                                 const FoldPtrs& p, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((rows + kChainWarps - 1) / kChainWarps);
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.c2) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.out0) % (4 * sizeof(T)) == 0;
+  constexpr int kT = 32 * kChainWarps;
+  if (vec && d <= 128)
+    fold_chain_softmax_kernel<T, 4, 1><<<blocks, kT, 0, st>>>(rows, splits,
+                                                              tile, d, p);
+  else if (vec)
+    fold_chain_softmax_kernel<T, 4, 2><<<blocks, kT, 0, st>>>(rows, splits,
+                                                              tile, d, p);
+  else
+    fold_chain_softmax_kernel<T, 1, 8><<<blocks, kT, 0, st>>>(rows, splits,
+                                                              tile, d, p);
+  return cudaGetLastError();
 }
 
 // The register tile of the head dim: the smallest DC with DC * TX >= d.
@@ -722,13 +861,13 @@ int attn_fold_chain(int kind, int dtype, long long rows, int splits, int tile,
   const long long n = rows * d;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (n == 0) return cudaSuccess;
-  if (kind == 0 && dtype == 0)
-    fold_chain_softmax_kernel<float><<<blocks, kThreads, 0, st>>>(
-        rows, splits, tile, d, *p);
-  else if (kind == 0 && dtype == 1)
-    fold_chain_softmax_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        rows, splits, tile, d, *p);
-  else if (kind == 1 && dtype == 0)
+  if (kind == 0 && (dtype == 0 || dtype == 1)) {
+    if (d > 256) return cudaErrorInvalidValue;
+    return dtype == 0 ? launch_chain_softmax<float>(rows, splits, tile, d, *p, st)
+                      : launch_chain_softmax<__nv_bfloat16>(rows, splits, tile,
+                                                           d, *p, st);
+  }
+  if (kind == 1 && dtype == 0)
     fold_chain_sum_kernel<float><<<blocks, kThreads, 0, st>>>(
         rows, splits, tile, d, *p);
   else if (kind == 1 && dtype == 1)

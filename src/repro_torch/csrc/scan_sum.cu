@@ -58,7 +58,8 @@
 //                  float add, not bytes), integer specs, whose uint32
 //                  combines associate exactly, scan in parallel
 //                  (chain_scan_kernel). chain_chan_kernel: the same chain
-//                  for Channels, one thread per (batch, channel)
+//                  for Channels, one thread per (batch, channel), each
+//                  group of four chunks' loads in flight together
 //   apply_reg_kernel, apply_chan_reg_kernel, apply_kernel
 //                  scan_decoupled, apply pallas_call at :405 (body
 //                  _apply_body :371): the register network on the tiles
@@ -1467,21 +1468,45 @@ chain_scan_kernel(Leaves totals, Leaves offsets, Leaves running,
 }
 
 // chain (Channels): the same chain for each (batch row, channel), one
-// thread each, reading and writing its (B, chunks, D) entries with loads
-// coalesced across channels.
+// thread each, left to right from the identity, reading and writing its
+// (B, chunks, D) entries with loads coalesced across channels. The thread
+// walks its chunks in groups of kChainChanGroup and issues all of a
+// group's loads before it folds and stores the group, so the loads are in
+// flight together and no store waits on one. (The first form loaded,
+// stored and combined chunk by chunk, each load behind the last store,
+// since the compiler must assume the leaves alias.) At the SSD carry's
+// totals, from L2, on an H100 80GB HBM3 at 700 W (tools/chain_variants.py),
+// four channels a thread with 16-byte loads and stores ran slower, ~0.0103
+// ms against 0.0064, and so did this kernel in groups of eight chunks,
+// ~0.0097.
+// Bits: offsets[c] = the fold before chunk c, running[c] = combine(that,
+// totals[c]), the first form's and exclusive_chain's. Bound: device-memory
+// bytes, the totals read once and the offsets (and running totals)
+// written once.
+constexpr int kChainChanGroup = 4;   // chunks whose loads are in flight together
+
 template <typename S>
 __global__ void chain_chan_kernel(Leaves totals, Leaves offsets, Leaves running,
                                   int64_t batch, int64_t chunks, int64_t d) {
   using E = typename S::E;
+  constexpr int G = kChainChanGroup;
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= batch * d) return;
   const int64_t base = (lane / d) * chunks * d + lane % d;
   E acc = S::identity();
-  for (int64_t c = 0; c < chunks; ++c) {
-    const E tot = S::get(totals, base + c * d);
-    S::put(offsets, base + c * d, acc);
-    if (running.v != nullptr) S::put(running, base + c * d, S::combine(acc, tot));
-    acc = S::combine(acc, tot);
+  for (int64_t c0 = 0; c0 < chunks; c0 += G) {
+    E tot[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (c0 + u < chunks) tot[u] = S::get(totals, base + (c0 + u) * d);
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (c0 + u >= chunks) break;
+      const int64_t at = base + (c0 + u) * d;
+      S::put(offsets, at, acc);
+      acc = S::combine(acc, tot[u]);
+      if (running.v != nullptr) S::put(running, at, acc);
+    }
   }
 }
 
@@ -3203,7 +3228,7 @@ int launch_chain(Leaves totals, Leaves offsets, Leaves running, long long b,
                  long long chunks, long long d, cudaStream_t stream) {
   if (kChan) {
     const long long lanes = b * d;
-    chain_chan_kernel<S><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0,
+    chain_chan_kernel<S><<<static_cast<unsigned>((lanes + 127) / 128), 128, 0,
                            stream>>>(totals, offsets, running, b, chunks, d);
   } else if constexpr (S::kExact) {
     // whole warps, enough to give each thread 32 bytes of totals a step

@@ -22,9 +22,9 @@ fold (``core/scan/assoc``):
   fold_dkv_tf32
                the same on the tensor cores, float32, as fold_dq_tf32
   fold_chain   the split-KV chain and finalize of any of the three: one
-               ``__global__`` function for the softmax pair (counted as
-               ``fold_chain``) and one for the sums of the two backward
-               specs (counted as ``fold_chain_sum``)
+               ``__global__`` function for the softmax pair (a warp a
+               row; counted as ``fold_chain``) and one for the sums of
+               the two backward specs (counted as ``fold_chain_sum``)
 
 ``fold_form`` chooses between the SIMT and tensor-core form of a fold
 from dtype, head dim and block sizes: bfloat16 takes the tensor-core form
@@ -505,6 +505,10 @@ def chain(spec, totals, layout, out_dts):
     if out_dts[0] not in DTYPE_CODES or (
             spec.name == "softmax_bwd_dkv" and out_dts[1] != out_dts[0]):
         raise TypeError(f"no CUDA fold chain for output dtypes {out_dts}")
+    softmax = spec.name == "softmax_pair"
+    if softmax and layout.d > MAX_D:
+        raise ValueError(f"the softmax chain takes head dims up to {MAX_D}, "
+                         f"got {layout.d}")
     outs = tuple(torch.empty(layout.out_shape_for(i), dtype=dt,
                              device=t0.device)
                  for i, dt in enumerate(out_dts))
@@ -512,7 +516,6 @@ def chain(spec, totals, layout, out_dts):
     for name, t in zip(("c0", "c1", "c2"), totals):
         setattr(ptrs, name, t.data_ptr())
     ptrs.out0 = outs[0].data_ptr()
-    softmax = spec.name == "softmax_pair"
     if softmax and len(outs) == 3:
         ptrs.m_out, ptrs.l_out = outs[1].data_ptr(), outs[2].data_ptr()
     elif not softmax and len(outs) == 2:

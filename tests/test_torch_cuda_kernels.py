@@ -2129,3 +2129,173 @@ def test_cuda_tf32_fwd_split_payload_vs_float64(cuda_device, case):
     for a, b in zip(tot, want):
         assert _allclose(a.double(), b, ATTN_TOL[torch.float32][0]), \
             (a.cpu().double() - b).abs().max().item()
+
+
+# The two chains rebuilt for the card: the affine pair's chain on
+# Channels (chain_chan_kernel: a thread a channel, each group of four
+# chunks' loads issued before the group is folded and stored) and the
+# softmax pair's split-KV chain with its finalize
+# (fold_chain_softmax_kernel: a warp a row, four columns a lane where d
+# and the bases allow, the weights once a row). Each is held bitwise
+# against its plain version run on the card and against a torch
+# transcript of its first form's loop (chunk by chunk; a thread a (row,
+# column)), whose bits it keeps.
+
+# (name, (B, chunks, D), base one element off, running totals): one, four,
+# nine and seventeen chunks (groups of four: a ragged one, one full, two
+# full and a ragged one, four full and one more)
+AFFINE_CHAIN_CASES = [
+    ("ssd_like", (1, 4, 4096), False, False),
+    ("d_not_4", (2, 9, 30), False, True),
+    ("d7_one_chunk", (3, 1, 7), False, True),
+    ("nine_chunks", (2, 9, 1024), False, True),
+    ("seventeen_chunks_off", (1, 17, 512), True, True),
+    ("one_chunk_off", (2, 1, 64), True, False),
+]
+
+
+def _affine_chain_first_form(a, b):
+    """The chain's first form, a thread a (batch, channel): offsets[c] =
+    acc, then acc = acc ⊕ totals[c] (a1 a2, a2 b1 + b2) from (1, 0), chunk
+    by chunk; running[c] = acc."""
+    acc_a, acc_b = torch.ones_like(a[:, 0]), torch.zeros_like(b[:, 0])
+    oa, ob, ra, rb = (torch.empty_like(a) for _ in range(4))
+    for c in range(a.shape[1]):
+        oa[:, c], ob[:, c] = acc_a, acc_b
+        acc_a, acc_b = acc_a * a[:, c], a[:, c] * acc_b + b[:, c]
+        ra[:, c], rb[:, c] = acc_a, acc_b
+    return (oa, ob), (ra, rb)
+
+
+@pytest.mark.parametrize("case", AFFINE_CHAIN_CASES,
+                         ids=[c[0] for c in AFFINE_CHAIN_CASES])
+def test_cuda_affine_chain_channels_bitwise(cuda_device, case):
+    """chain_chan_kernel against ``exclusive_chain`` on the card and the
+    first form's loop, offsets and running totals bitwise, one launch,
+    the same bits again; zeros, signed zeros and subnormals among the
+    totals."""
+    name, shape, off, with_running = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    a = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    a.flat[::13] = 0.0
+    b.flat[::7] = -0.0
+    b.flat[::11] = 1e-39
+    tot = []
+    for v in (a, b):
+        t = torch.from_numpy(v).to(cuda_device)
+        if off:   # a base one element past the allocation's alignment
+            t = torch.empty(t.numel() + 1, device=cuda_device)[1:].view(
+                shape).copy_(t)
+        tot.append(t)
+    tot = tuple(tot)
+    cuda.reset_launches()
+    offs, run = cuda.chain(monoids.AFFINE, tot, with_running)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["affine_chain"] == 1
+    assert sum(cuda.LAUNCHES.values()) == 1
+    plain = scan_engine.schedules.exclusive_chain(monoids.AFFINE, tot)
+    first, first_run = _affine_chain_first_form(*tot)
+    for x, y, z in zip(offs, plain, first):
+        assert _same_bits(x, y) and _same_bits(x, z), name
+    if with_running:
+        for x, y, z in zip(run, monoids.AFFINE.combine(plain, tot),
+                           first_run):
+            assert _same_bits(x, y) and _same_bits(x, z), name
+    again, _ = cuda.chain(monoids.AFFINE, tot)
+    for x, y in zip(offs, again):
+        assert _same_bits(x, y), name
+
+
+# (name, row blocks, bq, d, splits, output dtype, statistics)
+FOLD_CHAIN_CASES = [
+    ("decode_d128", 20, 8, 128, 16, torch.bfloat16, False),
+    ("d256_f32_stats", 6, 16, 256, 16, torch.float32, True),
+    ("d7_three_splits", 5, 8, 7, 3, torch.float32, True),
+    ("d130_seventeen", 4, 8, 130, 17, torch.bfloat16, True),
+    ("d36_one_split", 7, 8, 36, 1, torch.float32, False),
+    ("d64_seventeen_bf16", 3, 16, 64, 17, torch.bfloat16, True),
+    ("d100_nine", 4, 8, 100, 9, torch.float32, True),
+]
+
+
+def _softmax_chain_first_form(m2, l2, a2, lay, out_dts):
+    """The chain's first form, a thread a (row, column): from (NEG_INF, 0,
+    0), mn = max(m, m2), the weights exp(m - mn) and exp(m2 - mn), l and
+    acc folded with them split by split, then acc / l (l == 0 guarded)
+    and the row's (m, l)."""
+    m = torch.full_like(m2[:, 0], assoc.NEG_INF)
+    l, acc = torch.zeros_like(l2[:, 0]), torch.zeros_like(a2[:, 0])
+    for s in range(m2.shape[1]):
+        mn = torch.maximum(m, m2[:, s])
+        a1, b1 = torch.exp(m - mn), torch.exp(m2[:, s] - mn)
+        l = l * a1 + l2[:, s] * b1
+        acc = acc * a1 + a2[:, s] * b1
+        m = mn
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    outs = (out, m, l)[:len(out_dts)]
+    return tuple(lay.unchain_out(o).to(dt) for o, dt in zip(outs, out_dts))
+
+
+@pytest.mark.parametrize("case", FOLD_CHAIN_CASES,
+                         ids=[c[0] for c in FOLD_CHAIN_CASES])
+def test_cuda_fold_chain_softmax_bitwise(cuda_device, case):
+    """fold_chain_softmax_kernel against ``fold_finalize_plain`` on the
+    card and the first form's loop, bitwise: outputs and statistics, one
+    launch, the same bits again; masked chunks (NEG_INF, 0, 0) and fully
+    masked rows among the partials, d a multiple of 4 or not, one to
+    seventeen splits, and an output one element off 16-byte alignment."""
+    name, blocks, bq, d, splits, out_dt, stats = case
+    lay = scan_engine.KVBlocks(bh=blocks, bh_kv=blocks, tq=bq, tk=16 * splits,
+                               d=d, bq=bq, bk=16, splits=splits,
+                               out_dims=(d, 1, 1) if stats else None)
+    spec = assoc.softmax_pair_kernel_spec(scale=0.25, with_stats=stats)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    shp = lay.chain_shape_for(0)
+    m2 = (4 * rng.standard_normal(shp)).astype(np.float32)
+    l2 = rng.uniform(0.5, 3.0, shp).astype(np.float32)
+    a2 = rng.standard_normal(lay.chain_shape_for(2)).astype(np.float32)
+    masked = rng.random(shp[:3]) < 0.25
+    masked[0] = True   # every chunk of row block 0 masked: l == 0, out 0
+    m2[masked] = assoc.NEG_INF
+    l2[masked] = 0.0
+    a2[masked] = 0.0
+    tot = tuple(torch.from_numpy(v).to(cuda_device) for v in (m2, l2, a2))
+    out_dts = (out_dt, torch.float32, torch.float32) if stats else (out_dt,)
+    cuda_fold.reset_launches()
+    got = cuda_fold.chain(spec, tot, lay, out_dts)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_chain"] == 1
+    assert sum(cuda_fold.LAUNCHES.values()) == 1
+    plain = scan_engine.schedules.fold_finalize_plain(spec, lay, tot, out_dts)
+    first = _softmax_chain_first_form(*tot, lay, out_dts)
+    assert len(got) == len(plain) == len(out_dts)
+    for x, y, z in zip(got, plain, first):
+        assert _same_bits(x, y) and _same_bits(x, z), name
+    assert not got[0][0].any()   # head 0: every chunk masked
+    again = cuda_fold.chain(spec, tot, lay, out_dts)
+    for x, y in zip(got, again):
+        assert _same_bits(x, y), name
+
+
+def test_cuda_fold_chain_softmax_unaligned_output(cuda_device, monkeypatch):
+    """An output base off 16-byte alignment takes the one-column-a-lane
+    form with the same bits as the aligned four-column one."""
+    lay = scan_engine.KVBlocks(bh=4, bh_kv=4, tq=8, tk=64, d=128, bq=8,
+                               bk=16, splits=4)
+    spec = assoc.softmax_pair_kernel_spec(scale=0.25)
+    rng = np.random.default_rng(27)
+    tot = tuple(torch.from_numpy(rng.uniform(0.5, 2.0, lay.chain_shape_for(i))
+                                 .astype(np.float32)).to(cuda_device)
+                for i in range(3))
+    (want,) = cuda_fold.chain(spec, tot, lay, (torch.float32,))
+    real_empty = torch.empty
+
+    def shifted(shape, **kw):   # the output one element past alignment
+        n = int(np.prod(shape))
+        return real_empty(n + 1, **kw)[1:].view(shape)
+    monkeypatch.setattr(torch, "empty", shifted)
+    (got,) = cuda_fold.chain(spec, tot, lay, (torch.float32,))
+    monkeypatch.setattr(torch, "empty", real_empty)
+    assert got.data_ptr() % 16 != 0
+    assert _same_bits(got, want)

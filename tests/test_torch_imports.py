@@ -67,6 +67,30 @@ ATTENTION_MODULES = (
 )
 
 
+# The modules of the scan core's vertical and tree oracles and of the
+# model configurations: each must be found by the import sweep and be
+# free of JAX and the reference on its own.
+CORE_CONFIG_MODULES = (
+    "repro_torch.core.scan",
+    "repro_torch.core.scan.api",
+    "repro_torch.core.scan.tree",
+    "repro_torch.core.scan.vertical",
+    "repro_torch.configs",
+    "repro_torch.configs.shapes",
+    "repro_torch.configs.gemma3_12b",
+    "repro_torch.configs.gemma2_9b",
+    "repro_torch.configs.phi3_medium_14b",
+    "repro_torch.configs.stablelm_12b",
+    "repro_torch.configs.granite_moe_1b_a400m",
+    "repro_torch.configs.qwen3_moe_235b_a22b",
+    "repro_torch.configs.xlstm_125m",
+    "repro_torch.configs.zamba2_7b",
+    "repro_torch.configs.llava_next_mistral_7b",
+    "repro_torch.configs.seamless_m4t_large_v2",
+    "repro_torch.models.config",
+)
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -86,6 +110,7 @@ def test_importing_every_module_loads_no_jax():
     assert "repro_torch.kernels.scan_engine.schedules" in mods
     assert set(RELATIONAL_MODULES) <= set(mods)
     assert set(ATTENTION_MODULES) <= set(mods)
+    assert set(CORE_CONFIG_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -131,6 +156,16 @@ def test_attention_module_imports_no_jax(module):
     assert FORBIDDEN.findall(path.read_text()) == []
 
 
+@pytest.mark.parametrize("module", CORE_CONFIG_MODULES)
+def test_core_config_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    assert FORBIDDEN.findall(path.read_text()) == []
+
+
 def test_flash_attention_package_mirrors_reference():
     """Same module names and the same ``__all__`` as the reference's
     ``kernels/flash_attention`` (read from its source: no JAX import)."""
@@ -143,6 +178,40 @@ def test_flash_attention_package_mirrors_reference():
         want = all_re.search((ref_dir / name).read_text()).group(1)
         got = all_re.search((port_dir / name).read_text()).group(1)
         assert sorted(eval(got)) == sorted(eval(want)), name
+
+
+def test_core_scan_package_mirrors_reference():
+    """``core.scan``: the reference's modules and ``__all__`` (read from
+    its source), but the distributed forms (``distributed.py``,
+    ``scan_sharded``, ``make_sharded_cumsum``), which wait for the
+    ``torch.distributed`` slice; every name resolves."""
+    from repro_torch.core import scan
+    ref_dir = ROOT / "src" / "repro" / "core" / "scan"
+    port_dir = PKG / "core" / "scan"
+    assert sorted(p.name for p in port_dir.glob("*.py")) == sorted(
+        p.name for p in ref_dir.glob("*.py") if p.name != "distributed.py")
+    ref = _reference_all(ref_dir / "__init__.py")
+    assert set(scan.__all__) == ref - {"scan_sharded", "make_sharded_cumsum"}
+    assert {"MATRIX_AFFINE", "SOFTMAX_PAIR", "scan_tree",
+            "scan_vertical"} <= set(scan.__all__)
+    for name in scan.__all__:
+        assert hasattr(scan, name), name
+
+
+def test_configs_package_mirrors_reference():
+    """``configs``: the reference's modules and ``__all__`` (read from
+    its source), and ``models/config.py`` beside them."""
+    from repro_torch import configs
+    ref_dir = ROOT / "src" / "repro" / "configs"
+    port_dir = PKG / "configs"
+    assert sorted(p.name for p in port_dir.glob("*.py")) == \
+        sorted(p.name for p in ref_dir.glob("*.py"))
+    assert set(configs.__all__) == _reference_all(ref_dir / "__init__.py")
+    for name in configs.__all__:
+        assert hasattr(configs, name), name
+    assert (PKG / "models" / "config.py").exists()
+    assert _module_names(PKG / "models" / "config.py") == _module_names(
+        ROOT / "src" / "repro" / "models" / "config.py")
 
 
 def _reference_all(path):
