@@ -202,6 +202,30 @@ first failure and prints no result):
      trace (host and device) of the (h) bf16 forward call shows where its
      host time goes beyond ``fold_fwd_tc``.
 
+  8. zamba2-7b (cell (i)) at full width, all 81 layers, bf16, random
+     weights from ``--seed``, serving two requests on the card through the
+     port's models (``repro_torch.models``) and paged KV cache
+     (``repro_torch.serve.paging``, ``serve.decode``): the parameter count, weight bytes and
+     peak memory; each prompt (4096 and 2500 tokens from ``--seed``)
+     prefilled alone into a 4352-position cache with
+     ``attn_impl="flash"`` and the SSD carry on the kernels, 27 fold
+     launches (``fold_fwd``: bf16 at head dim 112 has no tensor-core form)
+     and 54 affine carry launches a prefill, checked; the first
+     shared-attention fold and Mamba2 carry of the first prefill captured
+     as the engine gets them and held against their plain versions (the
+     fold to bf16's (atol, rtol), the carry bitwise), with their rows in
+     the kernels line (their launches the two prefills'); every fold and
+     carry call of both prefills held against its plain version on its
+     own operands, in a prefill of its own; the whole prefill again on the
+     plain routes, the last logits' relative L2 error
+     under ``SERVE_L2_BOUND``; 16 greedy steps of both requests together
+     with a per-row ``cache_len``, through the rows' caches side by side
+     and through page pools from ``PageAllocator`` / ``PageTable`` /
+     ``scatter_prefix``, tokens and logits bitwise equal; host-clock
+     medians of prefill and decode, and one ``torch.profiler`` window per
+     stage (prefill, contiguous and paged decode step) with device busy
+     and the top kernels, the prefill's naming the fold kernel.
+
 The line before the last is one JSON object with a row per kernel (the
 shared-memory kernels timed beside the kernels that replaced them in rows
 of their own, ``<name>_shared``, with 0 launches); the last line is
@@ -284,6 +308,22 @@ PHI3_BATCH, PHI3_PREFILL = 4, 4096
 # an atol for the float32 differences of near-zero sums.
 FWD_TOL, GRAD_TOL, DENSE_TOL = (1e-5, 1e-5), (1e-4, 1e-4), (2e-3, 2e-3)
 BF16_TOL = (1e-3, 2 ** -6)
+# (i) zamba2-7b serving: two prompts of 4096 and 2500 tokens prefilled
+# alone into caches of 4352 positions (a multiple of the engine's page of
+# 16 tokens), then 16 greedy steps of both. The bound on the relative L2
+# error of the prefill's last logits, kernel routes against plain routes
+# (PERF.md §4): both round bf16 activations alike and differ by the
+# float32 association inside attention and the SSD carry, one bf16
+# rounding (2^-9 relative) of each differing output, a random walk over
+# the 81 layers' residual additions, about four such outputs a layer:
+# sqrt(81 x 4) x 2^-9 = 0.035. The card reads 0.038 at seed 0; the bound
+# 2^-4 leaves a margin of 1.6 over it. A fault in one layer's kernel call
+# moves these logits by little more than that noise
+# (tools/serve_fault_l2.py), so the phase also holds every kernel call of
+# the prefill against its plain version.
+SERVE_PROMPTS, SERVE_MAX_LEN, SERVE_PAGE, SERVE_STEPS = (4096, 2500), 4352, \
+    16, 16
+SERVE_L2_BOUND = 2.0 ** -4
 ATTN_REPLACES = {
     "carry": "src/repro/kernels/scan_engine/schedules.py:722",
     "split": "src/repro/kernels/scan_engine/schedules.py:778",
@@ -350,6 +390,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     # float32 products in full float32 everywhere (the plain versions'
     # torch.matmul included), before any check
@@ -876,7 +917,6 @@ def main() -> int:
           "element off) bitwise equal to totals_plain and totals_tree_plain, "
           "the segmented sum's to the shared totals_kernel too")
     # which kernel each spec's totals launch, by the profiler's names
-    from torch.profiler import ProfilerActivity, profile
     ones = torch.ones((2, 4096), device=dev)
     zeros_i = torch.zeros((2, 4096), dtype=torch.int32, device=dev)
     chan = Channels(2, 1024, 8, 256, 8)
@@ -901,13 +941,22 @@ def main() -> int:
             (AFFINE, (ones_c, ones_c), Channels(2, 1024, 8, 64, 8),
              "totals_kernel"),
             (AFFINE, (ones, ones), Rows(2, 4096, 1, 2048), "totals_kernel")):
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            cuda.totals(spec, ops, lay)
+        # the window opens with a kernel that is not counted, and one that
+        # recorded no totals kernel is taken again, three times at most, as
+        # launched_names does (this is the run's first profiler window, and
+        # the first launch after the profiler starts has gone unrecorded)
+        for _ in range(3):
             sync()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "totals" in e.key]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device=dev).add_(1)
+                sync()
+                cuda.totals(spec, ops, lay)
+                sync()
+            names = [e.key for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "totals" in e.key]
+            if names:
+                break
         check(len(names) == 1 and want + "<" in names[0],
               f"{spec.name} {type(lay).__name__} totals launched {names}")
         check(cuda.tile_network(spec, lay, "totals") == (
@@ -1648,14 +1697,15 @@ def main() -> int:
     rows = []
 
     def kernel_row(kname, run, run_plain, nbytes, ops, reps, library,
-                   shape, counts, floor_steps=None, graph=False):
+                   shape, counts, floor_steps=None, graph=False, base=None):
         """Time kernel ``kname`` against its plain version (bitwise
         first); ``floor_steps``: the dependent combines of a chain that
         folds on one thread, printed as a latency floor of ~4 SM cycles
         each (a float add's) at the card's maximum SM clock; ``graph``:
         also print the kernel's and the library call's times from CUDA
         graph replays (``graph_ms``), for kernels of a few microseconds (an
-        int: the calls a graph holds, 20 for True)."""
+        int: the calls a graph holds, 20 for True); ``base``: the kernel
+        (a ``REPLACES`` key) where the row's name does not end in it."""
         got, want = flat(run()), flat(run_plain())
         sync()
         check(all_same_bits(got, want), f"{kname}: kernel != plain at the "
@@ -1667,7 +1717,8 @@ def main() -> int:
         plain_ms = time_ms(run_plain, 1, warmup=0)
         lib_ms = None if library is None else time_ms(library, reps)
         b_ms, b_by = bound_ms(nbytes, ops)
-        base = "chain" if kname == "chain_int32" else kname.split("_")[-1]
+        base = base or ("chain" if kname == "chain_int32"
+                        else kname.split("_")[-1])
         rows.append({
             "name": kname, "route": "cuda", "source": CU_SOURCE,
             "replaces": REPLACES[base], "launches": counts[kname],
@@ -2569,9 +2620,11 @@ def main() -> int:
     # the SIMT forward, dq and dk/dv, which bf16 no longer reaches there)
     def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
                  library, shape, reps=3, tol=BF16_TOL, bitwise=False,
-                 graph=False):
+                 graph=False, launches=None):
         """``bitwise``: the kernel also gives the plain version's bits;
-        ``graph``: also the kernel's time from a CUDA graph replay."""
+        ``graph``: also the kernel's time from a CUDA graph replay;
+        ``launches``: the kernel's launches on its main path where that is
+        not the attention phase's."""
         got, want = flat(run()), flat(run_plain())
         sync()
         ok, err = allclose(got, want, tol)
@@ -2597,7 +2650,8 @@ def main() -> int:
         rows.append({
             "name": rname, "route": "cuda", "source": source,
             "replaces": ATTN_REPLACES[replaces],
-            "launches": attn_launches[kernel], "max_abs_err": err, "ms": ms,
+            "launches": (attn_launches[kernel] if launches is None
+                         else launches), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
         print(f"kernel {rname:20s} {shape:30s}: {ms:9.3f} ms  plain "
@@ -2935,6 +2989,281 @@ def main() -> int:
               f"plain| {tf32_row['max_abs_err']:.3g}, |SIMT - plain| "
               f"{rows[-1]['max_abs_err']:.3g}")
     del ops_f32, outs_f32, ops_bf32
+
+    # -- 8. zamba2-7b serves two requests (cell (i)) -----------------------
+    torch.cuda.empty_cache()
+    from repro_torch.serve import decode as serving
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.kernels import scan_engine
+
+    zcfg = configs.get_config("zamba2-7b")
+    z_periods = zcfg.num_layers // len(zcfg.layer_pattern)
+    n_mamba = z_periods * zcfg.layer_pattern.count("mamba")
+    n_shared = z_periods * zcfg.layer_pattern.count("shared_attn")
+    check((zcfg.num_layers, zcfg.d_model, zcfg.num_heads, zcfg.head_dim,
+           zcfg.dtype, n_mamba, n_shared) == (81, 3584, 32, 112, "bfloat16",
+                                              54, 27),
+          f"zamba2-7b's config is not the full model: {zcfg}")
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zgen = torch.Generator(device=dev)
+    zgen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = lm.init_lm(zcfg, generator=zgen, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"(i) zamba2-7b on {card}: {n_params} parameters "
+          f"(ModelConfig.param_count {zcfg.param_count()}, which counts no "
+          f"norm weight), {w_bytes / 2**30:.2f} GiB of weights (bf16 and "
+          f"float32), random init from --seed in {init_s:.1f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          " GiB")
+    lens = torch.tensor(SERVE_PROMPTS, device=dev)
+    prompts = [torch.randint(0, zcfg.vocab_size, (n,), device=dev,
+                             generator=zgen) for n in SERVE_PROMPTS]
+    # the routes the prefill will take at each prompt's shape
+    attn_sched = [fa_ops.resolved_attention_schedule(
+        (1, zcfg.num_heads, n, zcfg.head_dim), n, cores=sms)
+        for n in SERVE_PROMPTS]
+    fold_kernel = cuda_fold.fold_form("fold_fwd", torch.bfloat16,
+                                      zcfg.head_dim, 128, 128)
+    ssd_width = zcfg.ssm_heads * zcfg.ssm_head_dim * zcfg.ssm_state
+    ssd_sched = [ssm_ops.resolved_schedule(
+        (1, -(-n // zcfg.ssm_chunk), ssd_width), cores=sms)
+        for n in SERVE_PROMPTS]
+    print(f"(i) routes: attention {attn_sched} -> {fold_kernel} (bf16 at "
+          f"head dim {zcfg.head_dim}: not a tensor-core dim, "
+          f"{cuda_fold.TC_DIMS}), SSD carry over {ssd_width} channels "
+          f"{ssd_sched}")
+    check(attn_sched == ["carry"] * 2 and ssd_sched == ["carry"] * 2,
+          f"(i) prefill routes {attn_sched} / {ssd_sched}, want carry")
+
+    # the main path: each request prefilled alone (the first one's first
+    # shared-attention fold and Mamba2 carry captured as the engine gets
+    # them: operands, spec, layout), with the launches of each prefill
+    # counted
+    captured = {}
+    real_scan = scan_engine.scan
+
+    def engine_spy(operands, spec, layout, **kw):
+        key = "fold" if spec.attn is not None else spec.name
+        captured.setdefault(key, (operands, spec, layout))
+        return real_scan(operands, spec, layout, **kw)
+
+    scan_key = cuda.kernel_name("affine", "carry")
+    pre, pre_launches = [], []
+    scan_engine.scan = engine_spy
+    try:
+        for p in prompts:
+            cuda.reset_launches()
+            cuda_fold.reset_launches()
+            with torch.no_grad():
+                pre.append(wall_ms(lambda: lm.prefill(
+                    model, p[None], zcfg, SERVE_MAX_LEN, attn_impl="flash")))
+            sync()
+            pre_launches.append((
+                {k: v for k, v in cuda_fold.LAUNCHES.items() if v},
+                {k: v for k, v in cuda.LAUNCHES.items() if v}))
+    finally:
+        scan_engine.scan = real_scan
+    for n, (folds, scans) in zip(SERVE_PROMPTS, pre_launches):
+        print(f"(i) prefill {n}: fold launches {folds}, scan launches "
+              f"{scans}")
+        check(folds == {fold_kernel: n_shared},
+              f"(i) prefill {n}: fold launches {folds}, want {n_shared} of "
+              f"{fold_kernel}")
+        check(scans == {scan_key: n_mamba},
+              f"(i) prefill {n}: scan launches {scans}, want {n_mamba} of "
+              f"{scan_key}")
+    serve_launches = {fold_kernel: 2 * n_shared, scan_key: 2 * n_mamba}
+    peak_pre = torch.cuda.max_memory_allocated(dev)
+
+    # the captured kernel calls against their plain versions
+    ops_z, spec_z, lay_z = captured["fold"]
+    check(cuda_fold.fold_form("fold_fwd", ops_z[0].dtype, lay_z.d, lay_z.bq,
+                              lay_z.bk) == fold_kernel,
+          "(i) the captured attention fold takes another kernel")
+    out_z = cuda_fold.fold(spec_z, ops_z, lay_z)[0]
+    flops_z = 4 * lay_z.bq * lay_z.bk * lay_z.d * lay_z.bh * \
+        lay_z.active_cells()
+    shape_z = f"(i) {lay_z.bh}x{lay_z.tq}x{lay_z.d} bf16"
+    at = spec_z.attn
+    qs, ks, vs = (t[None] for t in ops_z)   # kv heads == heads here
+    check(lay_z.group == 1, "(i) zamba2's attention has no kv groups")
+    attn_row("fold_fwd_zamba2_prefill", fold_kernel, "carry",
+             lambda: cuda_fold.fold(spec_z, ops_z, lay_z)[0],
+             lambda: schedules.fold_carry_plain(ops_z, spec_z, lay_z),
+             nbytes(*ops_z, *out_z), flops_z,
+             lambda: F.scaled_dot_product_attention(
+                 qs, ks, vs, is_causal=at.causal, scale=at.scale),
+             shape_z, launches=serve_launches[fold_kernel])
+    del out_z, qs, ks, vs
+    ops_c, _, lay_c = captured["affine"]
+    net_c = cuda.tile_network(AFFINE, lay_c, "carry")
+    print(f"(i) the SSD carry's tiles of {lay_c.bt} chunks take the "
+          f"{net_c} network (" + ("carry_chan_reg_kernel" if net_c ==
+                                  "register" else "carry_kernel") + ")")
+    n_z = ops_c[0].numel()
+    kernel_row("affine_carry_zamba2_prefill",
+               lambda: cuda.carry(AFFINE, ops_c, lay_c)[0],
+               lambda: schedules.carry_plain(ops_c, AFFINE, lay_c),
+               12 * n_z, 3 * n_z, 5, None,
+               f"{tuple(ops_c[0].shape)} bt {lay_c.bt}",
+               {"affine_carry_zamba2_prefill": serve_launches[scan_key]},
+               base="carry")
+    del captured, ops_z, ops_c
+
+    # every fold and carry call of each prefill held against its plain
+    # version on the operands the engine gets, as the rows above hold the
+    # first ones: a faulty call in one layer of 81 moves the last logits
+    # by little more than bf16's noise (PERF.md §4), so the whole
+    # prefill's L2 below cannot stand for these checks (their launches
+    # are not the main path's)
+    def engine_check(operands, spec, layout, **kw):
+        out = real_scan(operands, spec, layout, **kw)
+        if spec.attn is not None:
+            ok, err = allclose(out, schedules.fold_carry_plain(
+                operands, spec, layout), BF16_TOL)
+            checked.append(("fold", err))
+            check(ok, f"(i) fold call {len(checked)}: kernel vs plain {err}")
+        elif spec.name == "affine":
+            plain = schedules.carry_plain(operands, AFFINE, layout)
+            checked.append(("affine", 0.0))
+            check(all_same_bits(out, plain),
+                  f"(i) carry call {len(checked)}: kernel != plain bitwise")
+        return out
+
+    scan_engine.scan = engine_check
+    try:
+        for n, p in zip(SERVE_PROMPTS, prompts):
+            checked = []
+            with torch.no_grad():
+                lm.prefill(model, p[None], zcfg, SERVE_MAX_LEN,
+                           attn_impl="flash")
+            kinds = [k for k, _ in checked]
+            check((kinds.count("fold"), kinds.count("affine")) ==
+                  (n_shared, n_mamba), f"(i) prefill {n}: checked {kinds}")
+            print(f"(i) prefill {n}: all {n_shared} fold calls within "
+                  f"{BF16_TOL} of their plain versions (max |diff| "
+                  f"{max(e for k, e in checked if k == 'fold'):.3g}), all "
+                  f"{n_mamba} carry calls bitwise equal to theirs")
+    finally:
+        scan_engine.scan = real_scan
+    del checked
+
+    # the whole prefill again on the plain routes (dense attention, the
+    # chunked SSD): the relative L2 error of the last position's logits
+    plain_ms, l2 = [], []
+    for p, (lg, _) in zip(prompts, (r for r, _ in pre)):
+        with torch.no_grad():
+            (lp, _), ms = wall_ms(lambda: lm.prefill(
+                model, p[None], zcfg, SERVE_MAX_LEN, ssm_impl="chunked"))
+        plain_ms.append(ms)
+        l2.append(((lg - lp).norm() / lp.norm()).item())
+        del lp
+    torch.cuda.empty_cache()
+    print(f"(i) prefill logits, kernel routes vs plain routes: relative L2 "
+          f"{', '.join(f'{e:.4g}' for e in l2)} (bound {SERVE_L2_BOUND}); "
+          f"plain prefill {', '.join(f'{t:.0f}' for t in plain_ms)} ms")
+    check(all(e <= SERVE_L2_BOUND for e in l2),
+          f"(i) prefill logits: relative L2 {l2} past {SERVE_L2_BOUND}")
+
+    # prefill times: the main path's call and two more of each request
+    pre_ms = []
+    for p, (_, ms0) in zip(prompts, pre):
+        more = []
+        for _ in range(2):
+            with torch.no_grad():
+                _, ms = wall_ms(lambda: lm.prefill(
+                    model, p[None], zcfg, SERVE_MAX_LEN, attn_impl="flash"))
+            more.append(ms)
+        pre_ms.append(statistics.median([ms0] + more))
+
+    # 16 greedy steps of both requests together, per-row lengths: (a)
+    # through the rows' caches side by side, (b) through page pools
+    caches = [c for (_, c), _ in pre]
+    first = torch.cat([lg.argmax(-1) for (lg, _), _ in pre])
+
+    def timed(step_ms):
+        def run(fn):
+            out, ms = wall_ms(fn)
+            step_ms.append(ms)
+            return out
+        return run
+
+    ms_a, ms_b = [], []
+    cuda.reset_launches()
+    with torch.no_grad():
+        contig = serving.contiguous_cache(caches)
+        tok_a, lg_a = serving.greedy_decode(model, zcfg, contig, lens, first,
+                                            SERVE_STEPS, run=timed(ms_a))
+        del contig
+        paged, alloc, table = serving.paged_cache(
+            zcfg, caches, lens, SERVE_MAX_LEN, SERVE_PAGE, SERVE_STEPS)
+        alloc_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        tok_b, lg_b = serving.greedy_decode(model, zcfg, paged, lens, first,
+                                            SERVE_STEPS, run=timed(ms_b))
+    print(f"(i) paged install: {alloc.in_use} pages of {SERVE_PAGE} "
+          f"tokens for lengths {SERVE_PROMPTS} + {SERVE_STEPS} steps "
+          f"(table {table.table.shape}), the allocator's scans on "
+          f"{alloc.device}: launches {alloc_launches}")
+    check(torch.equal(tok_a, tok_b) and same_bits(lg_a, lg_b),
+          "(i) paged decode != contiguous decode bitwise")
+    check(bool(torch.isfinite(lg_a).all()) and lg_a.shape == (
+        SERVE_STEPS, 2, zcfg.vocab_size), "(i) decode logits")
+    print(f"(i) decode: {SERVE_STEPS} greedy steps of 2 requests, tokens "
+          f"and logits bitwise equal through the contiguous cache and the "
+          f"pages; tokens {tok_a.tolist()}")
+
+    # one profiler window per stage: device busy and the top kernels
+    def stage_profile(label, fn):
+        """{kernel: device ms} of one call of ``fn`` under torch.profiler
+        (CPU and CUDA activities)."""
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        names = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            names[ev.key] = names.get(ev.key, 0.0) + us / 1e3
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+        print(f"(i) profile {label}: device busy {sum(names.values()):.3f} "
+              "ms; top: " + ", ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
+        return names
+
+    with torch.no_grad():
+        prof_pre = stage_profile("prefill 4096", lambda: lm.prefill(
+            model, prompts[0][None], zcfg, SERVE_MAX_LEN, attn_impl="flash"))
+        step_in = (first[:, None], serving.contiguous_cache(caches), lens)
+        stage_profile("decode step (contiguous)", lambda: lm.decode_step(
+            model, step_in[0], step_in[1], step_in[2], zcfg))
+        stage_profile("decode step (paged)", lambda: lm.decode_step(
+            model, step_in[0], paged, step_in[2], zcfg))
+    fold_ms = sum(t for n, t in prof_pre.items() if "fold_fwd" in n)
+    check(fold_ms > 0, "(i) the prefill profile names no fold kernel with "
+          "device time")
+    step_a, step_b = statistics.median(ms_a), statistics.median(ms_b)
+    print(f"(i) zamba2-7b serve on {card}: prefill "
+          + ", ".join(f"{n} tokens {t:.1f} ms" for n, t in
+                      zip(SERVE_PROMPTS, pre_ms))
+          + f" (host clock, median of 3); decode step {step_a:.2f} ms "
+          f"contiguous, {step_b:.2f} ms paged (median of {SERVE_STEPS}), "
+          f"{2e3 / step_a:.1f} / {2e3 / step_b:.1f} tokens/s; fold kernels "
+          f"in the prefill profile {fold_ms:.3f} ms; peak device memory "
+          f"{peak_pre / 2**30:.2f} GiB (prefill), "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (all)")
+    del model, pre, caches, paged, step_in, lg_a, lg_b
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.scan_blocked import ops
 from repro_torch.kernels.scan_engine import cuda, cuda_fold, monoids
 from repro_torch.kernels.segscan import ops as seg_ops
+from repro_torch.serve import decode
 
 SCHEDULES4 = ("carry", "decoupled", "fused", "tree")
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -2299,3 +2300,78 @@ def test_cuda_fold_chain_softmax_unaligned_output(cuda_device, monkeypatch):
     monkeypatch.setattr(torch, "empty", real_empty)
     assert got.data_ptr() % 16 != 0
     assert _same_bits(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the models on the card, at SMOKE widths
+# ---------------------------------------------------------------------------
+
+
+def _smoke_model(arch, dtype, device, seed=5):
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return cfg, lm.init_lm(cfg, generator=g, device=device), g
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma2-9b"])
+def test_cuda_model_paged_decode_bitwise_equals_contiguous(cuda_device,
+                                                           arch):
+    """Two requests prefilled alone through the kernel routes (flash, the
+    SSM scan), then 6 greedy bf16 steps of both with per-row lengths:
+    tokens and logits bitwise equal through the contiguous cache and
+    through pages from PageAllocator / PageTable / scatter_prefix."""
+    cfg, model, g = _smoke_model(arch, "bfloat16", cuda_device)
+    lens = torch.tensor([40, 13], device=cuda_device)
+    prompts = [torch.randint(0, cfg.vocab_size, (int(n),), generator=g,
+                             device=cuda_device) for n in lens]
+    max_len, ps, steps = 64, 8, 6
+    with torch.no_grad():
+        pre = decode.prefill_each(model, cfg, prompts, max_len,
+                                  attn_impl="flash")
+        first = torch.cat([lg.argmax(-1) for lg, _ in pre])
+        caches = [c for _, c in pre]
+        contig = decode.contiguous_cache(caches)
+        paged, _, _ = decode.paged_cache(cfg, caches, lens, max_len, ps,
+                                         steps)
+        t_c, l_c = decode.greedy_decode(model, cfg, contig, lens, first,
+                                        steps)
+        t_p, l_p = decode.greedy_decode(model, cfg, paged, lens, first,
+                                        steps)
+    assert torch.equal(t_c, t_p)
+    assert torch.equal(l_c.view(torch.int32), l_p.view(torch.int32))
+    assert bool(torch.isfinite(l_c).all())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma2-9b"])
+def test_cuda_model_kernel_routes_match_plain_routes(cuda_device, arch):
+    """float32 prefill + one decode step through the fold kernels and the
+    SSM scan kernels (their launches counted) against the same model's
+    plain routes (dense attention, the chunked SSD) on the card, within
+    1e-4 of the logits' largest magnitude (the CPU tests' bar)."""
+    from repro_torch.models import lm
+    cfg, model, g = _smoke_model(arch, "float32", cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g,
+                         device=cuda_device)
+    out = {}
+    with torch.no_grad():
+        for route, kw in (("kernel", dict(attn_impl="flash",
+                                          ssm_impl="kernel")),
+                          ("plain", dict(ssm_impl="chunked"))):
+            cuda.reset_launches()
+            cuda_fold.reset_launches()
+            lg, cache = lm.prefill(model, toks[:, :64], cfg, 72, **kw)
+            dl, _ = lm.decode_step(model, toks[:, 64:], cache,
+                                   torch.tensor(64, device=cuda_device), cfg,
+                                   ssm_impl=kw["ssm_impl"])
+            out[route] = (lg, dl, sum(cuda.LAUNCHES.values()),
+                          sum(cuda_fold.LAUNCHES.values()))
+    (lk, dk, scans, folds), (lp, dp, _, plain_folds) = out["kernel"], \
+        out["plain"]
+    assert folds > 0 and plain_folds == 0
+    assert (scans > 0) == (arch == "zamba2-7b")
+    for got, want in ((lk, lp), (dk, dp)):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) < 1e-4
+

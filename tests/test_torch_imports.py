@@ -91,6 +91,32 @@ CORE_CONFIG_MODULES = (
 )
 
 
+# The modules of the models slice (the single-device sharding surface, the
+# layers, blocks, LM and weight bridge, and the paged KV cache): each must
+# be found by the import sweep and be free of JAX and the reference on its
+# own.
+MODEL_SERVE_MODULES = (
+    "repro_torch.dist",
+    "repro_torch.dist.sharding",
+    "repro_torch.models.blocks",
+    "repro_torch.models.convert",
+    "repro_torch.models.lm",
+    "repro_torch.models.layers.attention",
+    "repro_torch.models.layers.common",
+    "repro_torch.models.layers.embedding",
+    "repro_torch.models.layers.frontend",
+    "repro_torch.models.layers.mlp",
+    "repro_torch.models.layers.moe",
+    "repro_torch.models.layers.norms",
+    "repro_torch.models.layers.rope",
+    "repro_torch.models.layers.ssm",
+    "repro_torch.models.layers.xlstm",
+    "repro_torch.serve",
+    "repro_torch.serve.decode",
+    "repro_torch.serve.paging",
+)
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -111,6 +137,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(RELATIONAL_MODULES) <= set(mods)
     assert set(ATTENTION_MODULES) <= set(mods)
     assert set(CORE_CONFIG_MODULES) <= set(mods)
+    assert set(MODEL_SERVE_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -164,6 +191,64 @@ def test_core_config_module_imports_no_jax(module):
     if not path.exists():
         path = (PKG.parent / rel).with_suffix(".py")
     assert FORBIDDEN.findall(path.read_text()) == []
+
+
+@pytest.mark.parametrize("module", MODEL_SERVE_MODULES)
+def test_model_serve_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    assert FORBIDDEN.findall(path.read_text()) == []
+
+
+def test_dist_exports_a_subset_of_reference():
+    """``dist``: the reference's ``__all__`` (read from its source) but the
+    multi-device names, which wait for the torch.distributed slice; the
+    single-device surface of ``sharding.py`` beside them."""
+    from repro_torch import dist
+    ref = _reference_all(ROOT / "src" / "repro" / "dist" / "__init__.py")
+    assert set(dist.__all__) == ref - {"sanitize_spec", "shard_map",
+                                       "spec_for_params"}
+    for name in dist.__all__:
+        assert hasattr(dist, name), name
+    for name in ("current_mesh", "current_rules", "use_mesh", "resolve",
+                 "shard", "DEFAULT_RULES"):
+        assert hasattr(dist.sharding, name), name
+
+
+def test_serve_exports_the_reference_paging_names():
+    """``serve``: exactly the names the reference's ``serve`` exports from
+    ``paging`` (its engine, steps, sampling, stats and faults wait), and
+    ``paging`` defines every public name of the reference's module."""
+    from repro_torch import serve
+    ref_dir = ROOT / "src" / "repro" / "serve"
+    ref = _reference_all(ref_dir / "__init__.py")
+    block = re.search(r"from repro\.serve\.paging import \((.*?)\)",
+                      (ref_dir / "__init__.py").read_text(), re.S).group(1)
+    paging_names = set(re.findall(r"\w+", block))
+    assert paging_names <= ref
+    assert set(serve.__all__) == paging_names
+    for name in serve.__all__:
+        assert hasattr(serve, name), name
+    assert _module_names(ref_dir / "paging.py") <= _module_names(
+        PKG / "serve" / "paging.py")
+
+
+def test_models_mirror_reference():
+    """``models``: the reference's layer modules, ``blocks.py`` and
+    ``lm.py`` (``encdec.py`` waits), plus ``convert.py``; ``lm.py``
+    defines the reference's forward functions."""
+    ref_dir = ROOT / "src" / "repro" / "models"
+    port_dir = PKG / "models"
+    assert sorted(p.name for p in (port_dir / "layers").glob("*.py")) == \
+        sorted(p.name for p in (ref_dir / "layers").glob("*.py"))
+    assert sorted(p.name for p in port_dir.glob("*.py")) == sorted(
+        [p.name for p in ref_dir.glob("*.py") if p.name != "encdec.py"]
+        + ["convert.py"])
+    assert {"init_lm", "init_cache", "forward", "prefill", "decode_step",
+            "chunked_ce_loss", "lm_loss"} <= _module_names(port_dir / "lm.py")
 
 
 def test_flash_attention_package_mirrors_reference():
