@@ -187,7 +187,10 @@ first failure and prints no result):
      the contiguous one, bitwise (at (f) in bf16 and (g); the float32
      ``fold_fwd_tf32`` at (h) and (f)); count_cells equal to the analytic
      live
-     cells; fully masked rows exactly 0 with zero gradients; then each
+     cells; fully masked rows exactly 0 with zero gradients; the bf16
+     forward at zamba2-7b's head dim 112 (``fold_fwd_tc`` at D 128), 32
+     heads on a ragged 2500-token prompt, under carry and through the
+     split pass and the chain, against the plain folds; then each
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
      ``scaled_dot_product_attention`` (not for gemma2's softcap); in
@@ -209,12 +212,19 @@ first failure and prints no result):
      peak memory; each prompt (4096 and 2500 tokens from ``--seed``)
      prefilled alone into a 4352-position cache with
      ``attn_impl="flash"`` and the SSD carry on the kernels, 27 fold
-     launches (``fold_fwd``: bf16 at head dim 112 has no tensor-core form)
-     and 54 affine carry launches a prefill, checked; the first
-     shared-attention fold and Mamba2 carry of the first prefill captured
-     as the engine gets them and held against their plain versions (the
-     fold to bf16's (atol, rtol), the carry bitwise), with their rows in
-     the kernels line (their launches the two prefills'); every fold and
+     launches (``fold_fwd_tc``: bf16 at head dim 112 runs at D 128, the
+     columns past 112 read as zeros; none of the SIMT ``fold_fwd``) and
+     54 affine carry launches a prefill, checked, the 4096-token
+     prefill's carries (tiles of 32 chunks) on the register network
+     (``carry_chan_reg_kernel``, a thread a channel), the 2500-token
+     one's (tiles of 24) on the shared ``carry_kernel``; the first
+     shared-attention fold of the first prefill and the first Mamba2
+     carry of each captured as the engine gets them and held against
+     their plain versions (the fold to bf16's (atol, rtol), the carries
+     bitwise), with their rows in the kernels line (their launches the
+     two prefills'), each beside the first form it replaced at the same
+     shape (the SIMT ``fold_fwd`` by name, the shared ``carry_kernel``
+     in turns); every fold and
      carry call of both prefills held against its plain version on its
      own operands, in a prefill of its own; the whole prefill again on the
      plain routes, the last logits' relative L2 error
@@ -224,7 +234,8 @@ first failure and prints no result):
      ``scatter_prefix``, tokens and logits bitwise equal; host-clock
      medians of prefill and decode, and one ``torch.profiler`` window per
      stage (prefill, contiguous and paged decode step) with device busy
-     and the top kernels, the prefill's naming the fold kernel.
+     and the top kernels, the prefill's naming ``fold_fwd_tc_kernel`` and
+     ``carry_chan_reg_kernel`` and neither first form.
 
 The line before the last is one JSON object with a row per kernel (the
 shared-memory kernels timed beside the kernels that replaced them in rows
@@ -613,17 +624,15 @@ def main() -> int:
     # (carry_chan_reg_kernel, apply_chan_reg_kernel, fused_chan_reg_kernel,
     # tree_chan_reg_kernel) by dtype, slots a lane (bt / 32) and vector
     # form, and the affine totals there (totals_chan_reduce_kernel) by
-    # dtype, tile and channels a thread: registers, spills
-    for kname, form in (("carry_chan_reg_kernel", "dtype, bt / 32, vector "
-                         "form"),
-                        ("apply_chan_reg_kernel", "dtype, bt / 32, vector "
-                         "form"),
-                        ("fused_chan_reg_kernel", "dtype, bt / 32, vector "
-                         "form"),
-                        ("tree_chan_reg_kernel", "dtype, bt / 32, vector "
-                         "form"),
-                        ("totals_chan_reduce_kernel", "dtype, bt, channels "
-                         "a thread")):
+    # dtype, tile and channels a thread: registers, spills; the carry also
+    # at bt 32, a thread a channel (one vector form: three more kernels)
+    for kname, form, count in (
+            ("carry_chan_reg_kernel", "dtype, bt / 32, vector form", 21),
+            ("apply_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
+            ("fused_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
+            ("tree_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
+            ("totals_chan_reduce_kernel", "dtype, bt, channels a thread",
+             18)):
         entry, chan, chan_spills = None, [], []
         for line in cuda.build_log.splitlines():
             if "Compiling entry function" in line:
@@ -641,7 +650,7 @@ def main() -> int:
         if chan:   # a cached build in build/ prints no report
             print(f"  ptxas {kname} ({len(chan)} kernels: {form}): "
                   f"{', '.join(chan)}; with spills: {chan_spills or 'none'}")
-            check(len(chan) == 18 and not chan_spills,
+            check(len(chan) == count and not chan_spills,
                   f"ptxas: {kname} {len(chan)} kernels, spills in "
                   f"{chan_spills}")
     # the tensor-core forms, kernel by kernel: registers, stack, spills
@@ -2383,6 +2392,50 @@ def main() -> int:
     print("(f) use_kv_bounds off == on bitwise (forward, dq, dk, dv); (g) "
           f"a random permutation of the {nkb} cache pages through "
           "kv_block_map == the contiguous cache bitwise")
+    # the bf16 forward at zamba2-7b's head dim 112 (fold_fwd_tc at D 128,
+    # the columns past 112 read as zeros) on a ragged 2500-token prompt,
+    # as its second request has: the carry fold, and the split pass
+    # ((m, l) and payload against the plain split pass) then the chain,
+    # each against the plain folds (these launches are not the main
+    # path's)
+    z_h, z_d, z_t = 32, 112, 2500
+    qz, kz, vz = (normals((1, z_h, z_t, z_d), bf16) for _ in range(3))
+    e_z = {}
+    for sched in ("carry", "decoupled"):
+        ops_zt, kw_zt = fa_ops.kernel_inputs(qz, kz, vz, fa_ops.FlashConfig(
+            scale=z_d ** -0.5, causal=True, window=None, softcap=None,
+            block_q=128, block_k=128, schedule=sched, kv_splits=None,
+            use_kv_bounds=True))
+        spec_zt, lay_zt = forward_fold(ops_zt[0].shape, ops_zt[1].shape,
+                                       return_stats=True, **kw_zt)
+        check(cuda_fold.fold_form("fold_fwd", bf16, z_d, lay_zt.bq,
+                                  lay_zt.bk) == "fold_fwd_tc"
+              and (lay_zt.splits > 1) == (sched == "decoupled"),
+              f"d 112 {sched}: form or splits ({lay_zt.splits})")
+        want = schedules.fold_carry_plain(ops_zt, spec_zt, lay_zt)
+        before = cuda_fold.LAUNCHES["fold_fwd_tc"]
+        if sched == "carry":
+            got = cuda_fold.fold(spec_zt, ops_zt, lay_zt)[0]
+        else:
+            tot = cuda_fold.fold_totals(spec_zt, ops_zt, lay_zt)
+            ok, e_z["split"] = allclose(tot, schedules.fold_totals_plain(
+                ops_zt, spec_zt, lay_zt), BF16_TOL)
+            check(ok, f"d 112 split pass vs plain: {e_z['split']}")
+            got = cuda_fold.chain(spec_zt, tot, lay_zt,
+                                  (bf16, torch.float32, torch.float32))
+            del tot
+        sync()
+        check(cuda_fold.LAUNCHES["fold_fwd_tc"] == before + 1,
+              f"d 112 {sched}: fold_fwd_tc not launched once")
+        ok, e_z[sched] = allclose(got, want, BF16_TOL)
+        check(ok, f"d 112 {sched} vs plain: {e_z[sched]}")
+        del got, want, ops_zt
+    del qz, kz, vz
+    print(f"(i)-width attention, bf16 at d 112 ({z_h} heads, ragged Tq "
+          f"{z_t}, causal) through fold_fwd_tc at D 128 against the plain "
+          f"folds (max |diff|; (atol, rtol) {BF16_TOL}): carry "
+          f"{e_z['carry']:.3g}; decoupled split pass {e_z['split']:.3g}, "
+          f"through the chain {e_z['decoupled']:.3g}")
     # fully masked rows (q past kv_len + window): exactly 0, zero grads
     qm, km, vm = (normals((g_hq if i == 0 else g_hkv, 1024, g_d), bf16)
                   for i in range(3))
@@ -3036,22 +3089,28 @@ def main() -> int:
         (1, -(-n // zcfg.ssm_chunk), ssd_width), cores=sms)
         for n in SERVE_PROMPTS]
     print(f"(i) routes: attention {attn_sched} -> {fold_kernel} (bf16 at "
-          f"head dim {zcfg.head_dim}: not a tensor-core dim, "
-          f"{cuda_fold.TC_DIMS}), SSD carry over {ssd_width} channels "
-          f"{ssd_sched}")
+          f"head dim {zcfg.head_dim}, run at D "
+          f"{cuda_fold.tc_dim(zcfg.head_dim)}, the columns past "
+          f"{zcfg.head_dim} read as zeros), SSD carry over {ssd_width} "
+          f"channels {ssd_sched}")
     check(attn_sched == ["carry"] * 2 and ssd_sched == ["carry"] * 2,
           f"(i) prefill routes {attn_sched} / {ssd_sched}, want carry")
+    check(fold_kernel == "fold_fwd_tc",
+          f"(i) the bf16 forward at d {zcfg.head_dim} takes {fold_kernel}")
 
-    # the main path: each request prefilled alone (the first one's first
+    # the main path: each request prefilled alone (each one's first
     # shared-attention fold and Mamba2 carry captured as the engine gets
-    # them: operands, spec, layout), with the launches of each prefill
-    # counted
-    captured = {}
+    # them: operands, spec, layout; the in-tile network of every carry
+    # noted), with the launches of each prefill counted
+    captured, carry_nets = {}, []
     real_scan = scan_engine.scan
 
     def engine_spy(operands, spec, layout, **kw):
         key = "fold" if spec.attn is not None else spec.name
-        captured.setdefault(key, (operands, spec, layout))
+        captured.setdefault((key, len(pre)), (operands, spec, layout))
+        if spec.name == "affine":
+            carry_nets.append((len(pre), layout.bt, cuda.tile_network(
+                AFFINE, layout, "carry")))
         return real_scan(operands, spec, layout, **kw)
 
     scan_key = cuda.kernel_name("affine", "carry")
@@ -3081,9 +3140,20 @@ def main() -> int:
               f"{scan_key}")
     serve_launches = {fold_kernel: 2 * n_shared, scan_key: 2 * n_mamba}
     peak_pre = torch.cuda.max_memory_allocated(dev)
+    # the carry's network by prefill: tiles of 32 chunks (4096 tokens)
+    # take the register carry, of 24 (2500 tokens: 20 chunks, rounded to
+    # 8 by ssm_scan) the shared carry_kernel
+    by_net = {}
+    for i, bt, net in carry_nets:
+        by_net[i, bt, net] = by_net.get((i, bt, net), 0) + 1
+    print(f"(i) SSD carries by (prefill, tile, network): {by_net}")
+    check(by_net == {(0, 32, "register"): n_mamba, (1, 24, "shared"): n_mamba},
+          f"(i) carries by (prefill, tile, network) {by_net}")
+    carry_launches = {"affine_carry_zamba2_prefill": n_mamba,
+                      "affine_carry_zamba2_prefill2500": n_mamba}
 
     # the captured kernel calls against their plain versions
-    ops_z, spec_z, lay_z = captured["fold"]
+    ops_z, spec_z, lay_z = captured["fold", 0]
     check(cuda_fold.fold_form("fold_fwd", ops_z[0].dtype, lay_z.d, lay_z.bq,
                               lay_z.bk) == fold_kernel,
           "(i) the captured attention fold takes another kernel")
@@ -3094,27 +3164,46 @@ def main() -> int:
     at = spec_z.attn
     qs, ks, vs = (t[None] for t in ops_z)   # kv heads == heads here
     check(lay_z.group == 1, "(i) zamba2's attention has no kv groups")
+    sdpa_z = (lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=at.causal, scale=at.scale))
     attn_row("fold_fwd_zamba2_prefill", fold_kernel, "carry",
              lambda: cuda_fold.fold(spec_z, ops_z, lay_z)[0],
              lambda: schedules.fold_carry_plain(ops_z, spec_z, lay_z),
-             nbytes(*ops_z, *out_z), flops_z,
-             lambda: F.scaled_dot_product_attention(
-                 qs, ks, vs, is_causal=at.causal, scale=at.scale),
-             shape_z, launches=serve_launches[fold_kernel])
+             nbytes(*ops_z, *out_z), flops_z, sdpa_z, shape_z, reps=5,
+             launches=serve_launches[fold_kernel])
+    tc_row = rows[-1]
+    # the SIMT forward it replaced, by name at the same shape (0 launches
+    # on the main path), then the tensor-core form again: in turns
+    attn_row("fold_fwd_simt_zamba2_prefill", "fold_fwd", "carry",
+             lambda: cuda_fold.fold(spec_z, ops_z, lay_z,
+                                    form="fold_fwd")[0],
+             lambda: schedules.fold_carry_plain(ops_z, spec_z, lay_z),
+             nbytes(*ops_z, *out_z), flops_z, sdpa_z, shape_z, launches=0)
+    tc_again = time_ms(lambda: cuda_fold.fold(spec_z, ops_z, lay_z)[0], 5)
+    print(f"  (i) bf16 forward at d {lay_z.d} in the same run: {fold_kernel} "
+          f"{tc_row['ms']:.3f} / {tc_again:.3f} ms, SIMT fold_fwd "
+          f"{rows[-1]['ms']:.3f} ms, SDPA {tc_row['library_ms']:.3f} ms; "
+          f"bound {tc_row['bound_ms']:.4f} ms; max |tc - plain| "
+          f"{tc_row['max_abs_err']:.3g}, |SIMT - plain| "
+          f"{rows[-1]['max_abs_err']:.3g}")
     del out_z, qs, ks, vs
-    ops_c, _, lay_c = captured["affine"]
-    net_c = cuda.tile_network(AFFINE, lay_c, "carry")
-    print(f"(i) the SSD carry's tiles of {lay_c.bt} chunks take the "
-          f"{net_c} network (" + ("carry_chan_reg_kernel" if net_c ==
-                                  "register" else "carry_kernel") + ")")
-    n_z = ops_c[0].numel()
-    kernel_row("affine_carry_zamba2_prefill",
-               lambda: cuda.carry(AFFINE, ops_c, lay_c)[0],
-               lambda: schedules.carry_plain(ops_c, AFFINE, lay_c),
-               12 * n_z, 3 * n_z, 5, None,
-               f"{tuple(ops_c[0].shape)} bt {lay_c.bt}",
-               {"affine_carry_zamba2_prefill": serve_launches[scan_key]},
-               base="carry")
+    for i, rname in enumerate(carry_launches):
+        ops_c, _, lay_c = captured["affine", i]
+        net_c = cuda.tile_network(AFFINE, lay_c, "carry")
+        print(f"(i) prefill {SERVE_PROMPTS[i]}: the SSD carry's tiles of "
+              f"{lay_c.bt} chunks take the {net_c} network (" +
+              ("carry_chan_reg_kernel" if net_c == "register"
+               else "carry_kernel") + ")")
+        n_z = ops_c[0].numel()
+        shape_c = f"{tuple(ops_c[0].shape)} bt {lay_c.bt}"
+        kernel_row(rname, lambda: cuda.carry(AFFINE, ops_c, lay_c)[0],
+                   lambda: schedules.carry_plain(ops_c, AFFINE, lay_c),
+                   12 * n_z, 3 * n_z, 5, None, shape_c, carry_launches,
+                   base="carry")
+        if net_c == "register":   # the shared carry_kernel it replaced
+            beside_shared(f"(i) {rname}",
+                          lambda net: cuda.carry(AFFINE, ops_c, lay_c,
+                                                 network=net)[0], shape_c)
     del captured, ops_z, ops_c
 
     # every fold and carry call of each prefill held against its plain
@@ -3252,6 +3341,16 @@ def main() -> int:
     fold_ms = sum(t for n, t in prof_pre.items() if "fold_fwd" in n)
     check(fold_ms > 0, "(i) the prefill profile names no fold kernel with "
           "device time")
+    carry_ms = sum(t for n, t in prof_pre.items()
+                   if "carry_chan_reg_kernel" in n)
+    check(any("fold_fwd_tc_kernel" in n for n in prof_pre) and carry_ms > 0
+          and not any("carry_kernel<" in n or "fold_fwd_kernel" in n
+                      for n in prof_pre),
+          "(i) the 4096-token prefill profile should name fold_fwd_tc_kernel "
+          "and carry_chan_reg_kernel and neither first form: "
+          f"{sorted(n for n in prof_pre if 'fold' in n or 'carry' in n)}")
+    print(f"(i) prefill 4096 profile: fold_fwd_tc_kernel {fold_ms:.3f} ms, "
+          f"carry_chan_reg_kernel {carry_ms:.3f} ms")
     step_a, step_b = statistics.median(ms_a), statistics.median(ms_b)
     print(f"(i) zamba2-7b serve on {card}: prefill "
           + ", ".join(f"{n} tokens {t:.1f} ms" for n, t in

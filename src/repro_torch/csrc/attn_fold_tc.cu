@@ -44,7 +44,11 @@
 // Geometry. The layout's (bq, bk) cells stay the unit of liveness, of
 // count_cells and of the element the combine sees. The forward splits a
 // cell's bk = 128 kv rows into two 64-row ring slots of k and two of v;
-// dq streams the cell's v slots, then its k slots. A dk/dv block takes 64
+// at a head dim d that is not whole 64-column panels (zamba2's 112,
+// stablelm's 160) it runs at the next D of 64, 128 or 256, its tensor
+// maps over the real d so that TMA reads the columns past d as zeros (no
+// padded copy), and stores d columns a row (products 128/112 of the work
+// at d 112); dq streams the cell's v slots, then its k slots. A dk/dv block takes 64
 // kv rows and up to 128 columns of dk and dv and walks each q block in
 // chunks of 64 rows with two warpgroups: one forms
 // sᵀ, pᵀ and dv, and hands p·g (g = tanh' under softcap, else 1) through
@@ -780,23 +784,25 @@ __global__ void __launch_bounds__(FwdTiles<D, NWG>::kThreads, 1)
           p.c0[cr] = m_c[i];
           p.c1[cr] = l_c[i];
         }
-        float* dst = p.c2 + cr * D + 2 * quad;
+        float* dst = p.c2 + cr * a.d + 2 * quad;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(dst + 8 * j) =
-              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          if (8 * j < a.d)   // columns past d are zeros, never stored
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
         continue;
       }
       // l == 0 marks a fully masked row (or an empty fold): acc is 0 there
       const long long row = h * a.tq + (long long)qi * a.bq + qr[i];
       const float inv = recip(l_c[i] == 0.f ? 1.f : l_c[i]);
       __nv_bfloat16* dst =
-          static_cast<__nv_bfloat16*>(p.out0) + row * D + 2 * quad;
+          static_cast<__nv_bfloat16*>(p.out0) + row * a.d + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
-                                  acc[4 * j + 2 * i + 1] * inv);
+        if (8 * j < a.d)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                    acc[4 * j + 2 * i + 1] * inv);
       if (p.m_out && quad == 0) {
         p.m_out[row] = m_c[i];
         p.l_out[row] = l_c[i];
@@ -2705,9 +2711,10 @@ cudaError_t run_fwd(const FoldArgs& a, const FoldPtrs& p, int smem,
   memset(&maps, 0, sizeof maps);
   const int rows = a.bq < 64 ? a.bq : 64;
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
-  if (!heads_map(&maps.q, p.q, D, a.tq, a.bh, rows, 64 / rows) ||
-      !rows_map(&maps.k, p.k, D, (long long)a.bh_kv * a.tk) ||
-      !rows_map(&maps.v, p.v, D, (long long)a.bh_kv * a.tk))
+  // the maps span the real d: a box's columns past it read as zeros
+  if (!heads_map(&maps.q, p.q, a.d, a.tq, a.bh, rows, 64 / rows) ||
+      !rows_map(&maps.k, p.k, a.d, (long long)a.bh_kv * a.tk) ||
+      !rows_map(&maps.v, p.v, a.d, (long long)a.bh_kv * a.tk))
     return cudaErrorInvalidPitchValue;
   const int nb = (a.group * a.bq + 63) / 64 / NWG;
   return launch(fold_fwd_tc_kernel<D, NWG>,
@@ -2824,17 +2831,23 @@ cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
 extern "C" {
 
 // Forward fold (softmax_pair) on KVBlocks, bf16: p->c0 set, the split
-// pass; else finalize into out0 (and m_out / l_out). Takes d in {64, 128,
-// 256}, bk in {64, 128}, bq = 128 or bq in {8, 16, 32, 64}; two q tiles
-// per block at bq = 128 and d <= 128, else one.
+// pass; else finalize into out0 (and m_out / l_out). Takes d a multiple of
+// 16 up to 256, run on the instantiation at D = 64, 128 or 256, the
+// smallest that holds it (cuda_fold.tc_dim): the TMA boxes stay 64
+// columns, their columns past d come in as zeros (they add nothing to
+// q·kᵀ and give zero columns of p·v), and the outputs are stored to d
+// columns at stride d; bk in {64, 128}, bq = 128 or bq in {8, 16, 32,
+// 64}; two q tiles per block at bq = 128 and D <= 128, else one.
 int attn_fold_fwd_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bq_ok = a->bq == 128 || a->bq == 64 || a->bq == 32 ||
                      a->bq == 16 || a->bq == 8;
-  if (!bq_ok || (a->bk != 64 && a->bk != 128)) return cudaErrorInvalidValue;
+  if (!bq_ok || (a->bk != 64 && a->bk != 128) || a->d < 16 ||
+      a->d % 16 != 0 || a->d > 256)
+    return cudaErrorInvalidValue;
   const bool two = a->bq == 128;
-  switch (a->d) {
+  switch (a->d <= 64 ? 64 : a->d <= 128 ? 128 : 256) {
     case 64:
       return two ? run_fwd<64, 2>(*a, *p, smem, st)
                  : run_fwd<64, 1>(*a, *p, smem, st);

@@ -30,7 +30,9 @@
 //                  the same pallas_call for the affine pair on Channels
 //                  tiles of 128, 256 and 512 steps: each channel's
 //                  Hillis-Steele by warp shuffles, a warp two channels,
-//                  the tiles staged by cp.async (below)
+//                  the tiles staged by cp.async (below); on tiles of 32
+//                  steps (the carry alone) a thread a channel, its tile
+//                  in registers
 //   carry_kernel   the same pallas_call for every other tile: other
 //                  Channels strips, Rows tiles of other lengths, the
 //                  affine pair on Rows
@@ -100,7 +102,8 @@
 // 256 and 512 steps (carry_chan_reg_kernel, apply_chan_reg_kernel,
 // tree_chan_reg_kernel) stage each tile's `width` adjacent channels by
 // cp.async, two stages deep, and run the network (the tree's sweep) in
-// registers; the affine fused on the same tiles
+// registers (the carry on tiles of 32 steps: a thread a channel, its 64
+// loads in flight, no staging); the affine fused on the same tiles
 // (fused_chan_reg_kernel) stages its one tile so, two blocks an SM
 // overlapping each other's copies; the affine totals there
 // (totals_chan_reduce_kernel) build each channel's tree from registers,
@@ -2704,31 +2707,75 @@ __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
   }
 }
 
+// carry on Channels at tiles of 32 steps (NS = 1: the SSD carry of a
+// 4096-token prefill, 32 chunks of 128 tokens, is one tile a channel).
+// A thread a channel: its tile's 32 (a, b) pairs in registers, each step's
+// load and store coalesced across the block's adjacent channels, all 64
+// loads in flight at once; chan_scan's rounds within the thread (round k:
+// x[i - k] (+) x[i], the identity combine below k, i from the top so that
+// every combine reads the round's old values), so tile_scan's bits with
+// no shared memory and no barrier; 128 registers, no spill. The warp
+// network over the staged tile (the walk below at NS = 1: a block of 512
+// threads one tile, with nothing to overlap) took 0.116 ms at the SSD
+// carry (1, 32, 458752), 0.085 at four blocks an SM, against 0.064 for
+// this form and a bound of 0.053 (CUDA graph replays, PERF.md,
+// tools/chan_variants.py --bt32). Bound: bytes, 2 n read and n written.
+constexpr int kChanCarryThreads = 128;   // threads a block, at most
+
 template <typename T, int NS, bool kVec>
 __global__ void __launch_bounds__(chan_reg_threads(NS), 1)
 carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   using S = AffineSpec<T>;
   using P = typename S::E;
-  constexpr int V = chan_reg_lanes(NS);
-  const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
-  const int64_t cbase = chain_base<true>(g, blockIdx.x);
-  P carry[V];
+  if constexpr (NS == 1) {
+    // channel ch of the b x d: the launch covers them exactly
+    const int64_t ch =
+        static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t row = ch / g.d, c = ch % g.d;
+    const int64_t cbase = row * g.chunks * g.d + c;
+    const P id = S::identity();
+    P carry = id;
+    int64_t at = row * g.n * g.d + c;
+    for (int64_t j = 0; j < g.chunks; ++j, at += 32 * g.d) {
+      P x[32];
 #pragma unroll
-  for (int v = 0; v < V; ++v) carry[v] = S::identity();
-  chan_reg_walk<T, NS, kVec>(
-      t, g, blockIdx.x, 0, g.chunks, [](int64_t) {},
-      [&](int64_t j, float* sa, const float* sb, int wl) {
-        P x[NS][V];
-        chan_read<S, NS, V>(x, sa, sb, wl, g.width);
-        chan_scan<S, NS, V>(x, lane);
-        chan_emit<S, NS, V>(x, carry, sa, wl, g.width, lane, exclusive);
+      for (int i = 0; i < 32; ++i) x[i] = S::load(t, at + i * g.d);
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
-          if (running.v != nullptr && lane == 0)
-            S::put(running, cbase + j * g.d + c0 + v, carry[v]);
-        }
-      });
+      for (int k = 1; k < 32; k <<= 1)
+#pragma unroll
+        for (int i = 31; i >= 0; --i)
+          x[i] = S::combine(i >= k ? x[i >= k ? i - k : 0] : id, x[i]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        S::emit(t, at + i * g.d,
+                S::combine(carry, exclusive ? (i > 0 ? x[i > 0 ? i - 1 : 0]
+                                                     : id)
+                                            : x[i]));
+      carry = S::combine(carry, x[31]);
+      if (running.v != nullptr) S::put(running, cbase + j * g.d, carry);
+    }
+  } else {
+    constexpr int V = chan_reg_lanes(NS);
+    const int lane = threadIdx.x % 32, c0 = threadIdx.x / 32 * V;
+    const int64_t cbase = chain_base<true>(g, blockIdx.x);
+    P carry[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) carry[v] = S::identity();
+    chan_reg_walk<T, NS, kVec>(
+        t, g, blockIdx.x, 0, g.chunks, [](int64_t) {},
+        [&](int64_t j, float* sa, const float* sb, int wl) {
+          P x[NS][V];
+          chan_read<S, NS, V>(x, sa, sb, wl, g.width);
+          chan_scan<S, NS, V>(x, lane);
+          chan_emit<S, NS, V>(x, carry, sa, wl, g.width, lane, exclusive);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            carry[v] = S::combine(carry[v], shfl_e(x[NS - 1][v], 31));
+            if (running.v != nullptr && lane == 0)
+              S::put(running, cbase + j * g.d + c0 + v, carry[v]);
+          }
+        });
+  }
 }
 
 // apply on Channels in registers: the affine pair's apply (kChanReg) on
@@ -3017,26 +3064,38 @@ size_t chan_reg_smem(int width) {
 }
 
 // carry_chan_reg_kernel (kTree: tree_chan_reg_kernel) over the strips
-// chan_reg_takes; refuses any other.
+// chan_reg_takes; refuses any other. At NS = 1 the carry runs a thread a
+// channel: blocks of the most threads, up to kChanCarryThreads, that
+// divide the b x d channels (a multiple of 4), so that the grid covers
+// them exactly.
 template <typename T, int NS, bool kTree = false>
 int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
                     long long d, int width, int exclusive,
                     cudaStream_t stream) {
-  constexpr int V = chan_reg_lanes(NS);
   if (!chan_reg_takes<NS>(d, width)) return cudaErrorInvalidValue;
   const Geom g = make_geom(true, n, d, width, 32 * NS);
-  const size_t smem = chan_reg_smem<NS>(width);
-  void (*kern)(Tensors, Leaves, Geom, int);
-  if constexpr (kTree)
-    kern = chan_vec<T>(t) ? tree_chan_reg_kernel<T, NS, true>
-                          : tree_chan_reg_kernel<T, NS, false>;
-  else
-    kern = chan_vec<T>(t) ? carry_chan_reg_kernel<T, NS, true>
-                          : carry_chan_reg_kernel<T, NS, false>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<static_cast<unsigned>(lanes_of(true, b, d, width)), 32 * width / V,
-         smem, stream>>>(t, running, g, exclusive);
+  if constexpr (NS == 1 && !kTree) {
+    int threads = kChanCarryThreads;
+    while ((b * d) % threads != 0) threads >>= 1;
+    if (b * d / threads >= (1LL << 31)) return cudaErrorInvalidValue;
+    carry_chan_reg_kernel<T, 1, true>
+        <<<static_cast<unsigned>(b * d / threads), threads, 0, stream>>>(
+            t, running, g, exclusive);
+  } else {
+    const size_t smem = chan_reg_smem<NS>(width);
+    void (*kern)(Tensors, Leaves, Geom, int);
+    if constexpr (kTree)
+      kern = chan_vec<T>(t) ? tree_chan_reg_kernel<T, NS, true>
+                            : tree_chan_reg_kernel<T, NS, false>;
+    else
+      kern = chan_vec<T>(t) ? carry_chan_reg_kernel<T, NS, true>
+                            : carry_chan_reg_kernel<T, NS, false>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(lanes_of(true, b, d, width)),
+           32 * width / chan_reg_lanes(NS), smem, stream>>>(t, running, g,
+                                                           exclusive);
+  }
   return cudaGetLastError();
 }
 
@@ -3118,7 +3177,7 @@ int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
 // net: the in-tile network the wrapper chose by shape (cuda.tile_network):
 // 1 the register network, for Rows tiles of 128 r elements of a kReg spec
 // and Channels tiles of 128, 256 or 512 steps of a kChanReg spec (carry,
-// apply, fused and tree; anything else is refused); 0 the network in shared memory (tile_scan, or tree_kernel's
+// apply, fused and tree; the carry also of 32; anything else is refused); 0 the network in shared memory (tile_scan, or tree_kernel's
 // sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
@@ -3139,6 +3198,9 @@ int launch_carry(Tensors t, Leaves running, long long b, long long n,
       return cudaGetLastError();
     } else if constexpr (kChan && S::kChanReg) {
       switch (bn) {
+        case 32:   // the carry alone (cuda.CHAN_CARRY_TILES)
+          return launch_chan_reg<typename S::In, 1>(t, running, b, n, d, width,
+                                                    exclusive, stream);
         case 128:
           return launch_chan_reg<typename S::In, 4>(t, running, b, n, d, width,
                                                     exclusive, stream);

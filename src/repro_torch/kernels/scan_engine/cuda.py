@@ -22,8 +22,8 @@ tree, without the scan); every other ``totals`` launches the network's
 ``tree_reg_kernel`` (registers and warp shuffles) on ``Rows`` tiles of
 128·r elements, ``carry_kernel``, ``apply_kernel``, ``fused_kernel`` and
 ``tree_kernel`` (shared memory) otherwise, but for the affine pair on
-``Channels`` tiles of 128, 256 and 512 steps, which runs
-``carry_chan_reg_kernel``, ``apply_chan_reg_kernel``,
+``Channels`` tiles of 128, 256 and 512 steps (the carry also of 32),
+which runs ``carry_chan_reg_kernel``, ``apply_chan_reg_kernel``,
 ``fused_chan_reg_kernel`` and ``tree_chan_reg_kernel`` (each channel's
 network, or the tree's sweep, by warp shuffles, the tiles staged by
 ``cp.async``). Both forms of a kernel count under the
@@ -90,6 +90,9 @@ MAX_CHANNEL_TILE = 4096
 # tiles at most (two stages of (a, b) in 128 KB of shared memory).
 CHAN_REG_TILES = (128, 256, 512)
 CHAN_REG_TILE = 8192
+# The carry's alone: also tiles of 32 steps (a 4096-token prefill's SSD
+# carry, 32 chunks a channel), a thread a channel holding its tile.
+CHAN_CARRY_TILES = (32,) + CHAN_REG_TILES
 
 _lib = None
 build_log = ""  # the compiler's output of the last build in this process
@@ -223,7 +226,9 @@ def tile_network(spec, layout, kernel: str) -> str:
     (``carry_chan_reg_kernel``, ``apply_chan_reg_kernel`` and
     ``tree_chan_reg_kernel``: a warp two channels, lane l holding steps
     l + 32 s, the carry or the chain's offsets on the left, the tree's
-    Blelloch sweep across lanes and then over lane 31's registers;
+    Blelloch sweep across lanes and then over lane 31's registers; the
+    carry alone also on tiles of 32 steps, ``CHAN_CARRY_TILES``, a thread
+    a channel holding its tile;
     ``fused_chan_reg_kernel``: a warp four, a tile a block, its offset by
     the look-back); for ``totals``, the reduction without the scan
     (``totals_reduce_kernel`` for ``Rows`` tiles of any length of the sum,
@@ -238,7 +243,8 @@ def tile_network(spec, layout, kernel: str) -> str:
     if kernel not in ("carry", "totals", "apply", "fused", "tree"):
         raise ValueError(f"no tile network for the {kernel!r} kernel")
     if isinstance(layout, Channels):
-        if spec.name != "affine" or layout.bt not in CHAN_REG_TILES:
+        tiles = CHAN_CARRY_TILES if kernel == "carry" else CHAN_REG_TILES
+        if spec.name != "affine" or layout.bt not in tiles:
             return "shared"
         if kernel == "totals" or chan_reg_width(layout) % 4 == 0:
             return "register"

@@ -79,7 +79,10 @@ MAX_SPLITS = 65535  # grid.y
 # The tensor-core forms' range: head dims that are whole 64-column
 # (128-byte) TMA boxes, KV cells of one or two 64-row wgmma tiles, and q
 # blocks of two 64-row tiles or (forward) the rows of several heads
-# packed into one tile.
+# packed into one tile. The bfloat16 forward also takes a head dim that
+# is a multiple of 16 between them (zamba2's 112, stablelm's 160), on the
+# instantiation of the next of these dims (``tc_dim``), the columns past
+# d read as zeros by TMA.
 TC_DIMS = (64, 128, 256)
 TC_BK = (64, 128)
 TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
@@ -185,12 +188,20 @@ def build_tc() -> ctypes.CDLL:
     return lib
 
 
+def tc_dim(d: int) -> int:
+    """The head dim of the tensor-core instantiation that runs head dim
+    ``d``: the smallest of ``TC_DIMS`` that holds it (112 -> 128, 160 ->
+    256)."""
+    return next(t for t in TC_DIMS if t >= d)
+
+
 def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     """The kernel that runs fold ``kernel`` ("fold_fwd", "fold_dq" or
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
-    ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``,
-    bk in ``TC_BK`` and bq in ``TC_BQ``; ``fold_fwd_tf32`` /
+    ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``
+    (the forward: d any multiple of 16, run at ``tc_dim(d)``), bk in
+    ``TC_BK`` and bq in ``TC_BQ``; ``fold_fwd_tf32`` /
     ``fold_dq_tf32`` / ``fold_dkv_tf32`` for float32 with d in
     ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32 products keep ~22
     bits of each operand, where the float32 bars against the plain
@@ -206,7 +217,8 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
         raise ValueError(
             f"the fold kernels take head dim <= {MAX_D} and KV blocks of "
             f"<= {MAX_BK} rows, got d={d} bk={bk}")
-    if (dtype == torch.bfloat16 and kernel in TC_BQ and d in TC_DIMS
+    tc_d = d in TC_DIMS or (kernel == "fold_fwd" and d % 16 == 0)
+    if (dtype == torch.bfloat16 and kernel in TC_BQ and tc_d
             and bk in TC_BK and bq in TC_BQ[kernel]):
         return kernel + "_tc"
     if (dtype == torch.float32 and d in TF32_DIMS and bk in TC_BK
@@ -248,7 +260,9 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
     warpgroups' partial row max and sum, and the combine's two scales);
     a stage is 32 columns of k for each of the cell's 64-row kv tiles
     (split into hi, over the raw floats, and lo), or 64 columns of v of
-    one kv tile for each warpgroup's accᵀ tile, 32 KB either way."""
+    one kv tile for each warpgroup's accᵀ tile, 32 KB either way. The
+    bfloat16 forms are laid out at ``tc_dim(d)``, the instantiation that
+    runs ``d``."""
     if form in TF32_FORMS:
         if d not in TF32_DIMS:
             raise ValueError(f"{form} takes d in {TF32_DIMS}")
@@ -267,6 +281,7 @@ def tc_tiling(form: str, d: int, bq: int) -> dict:
                     stage_bytes=stage,
                     smem=1024 + resident + stages * stage
                     + 8 * (2 * stages + 1))
+    d = tc_dim(d)
     tile = d // 64 * PANEL_BYTES
     if form == "fold_fwd_tc":
         wgs = 2 if bq == 128 and d <= 128 else 1

@@ -28,6 +28,8 @@ themselves are held against the plain versions on the card in
 is chosen by shape in ``cuda.tile_network``, tested here.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,6 +144,46 @@ def test_tile_network_affine_channels(name, layout, network):
         "register" if reduced else "shared")
     for kernel in ("carry", "totals", "apply", "fused", "tree"):
         assert cuda.tile_network(monoids.SUM, layout, kernel) == "shared"
+
+
+@pytest.mark.parametrize("layout", [
+    scan_engine.Channels(1, 32, 458752, 32, 512),   # a 4096-token prefill
+    scan_engine.Channels(2, 96, 48, 32, 48),
+    scan_engine.Channels(1, 64, 4, 32, 4)], ids=("ssd", "w16", "w4"))
+def test_tile_network_carry_alone_at_bt32(layout):
+    """Tiles of 32 steps: the affine carry takes the register network
+    (``CHAN_CARRY_TILES``: a thread a channel), while apply, fused, tree
+    and the totals keep the shared network (``CHAN_REG_TILES`` stays 128,
+    256 and 512); at 64 steps the carry is shared too; strips of two
+    channels keep the shared carry, as at the other tiles."""
+    assert 32 in cuda.CHAN_CARRY_TILES and 32 not in cuda.CHAN_REG_TILES
+    assert cuda.tile_network(AFFINE, layout, "carry") == "register"
+    for kernel in ("apply", "fused", "tree", "totals"):
+        assert cuda.tile_network(AFFINE, layout, kernel) == "shared"
+    for other in (dataclasses.replace(layout, t=2 * layout.t, bt=64),
+                  scan_engine.Channels(1, 64, 6, 32, 6)):
+        assert cuda.tile_network(AFFINE, other, "carry") == "shared"
+
+
+def test_wrappers_launch_the_networks_at_bt32(monkeypatch):
+    """At tiles of 32 steps ``cuda.carry`` passes its kernel the register
+    network and apply, fused and tree the shared one (the launch
+    intercepted, so this runs on CPU tensors)."""
+    nets = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: nets.append(
+                            (k, args[-1])))
+    small = scan_engine.Channels(1, 64, 64, 32, 64)
+    x = torch.ones(small.shape)
+    cuda.carry(AFFINE, (x, x), small)
+    offs = cuda._new_leaves(AFFINE, x, x, small.chain_shape)
+    cuda.apply(AFFINE, (x, x), offs, small)
+    cuda.fused(AFFINE, (x, x), small)
+    cuda.tree(AFFINE, (x, x), small)
+    assert nets == [("carry", 1), ("apply", 0), ("fused", 0), ("tree", 0)]
 
 
 def test_tile_network_refuses_other_kernels():

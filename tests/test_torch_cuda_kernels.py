@@ -455,14 +455,18 @@ def _kernel_names(fn):
     and the window opens with a fill kernel of its own, left out of the
     names (the profiler has missed the first launch of its window). A
     window that recorded no kernel of fn (CUPTI dropped its records: none
-    at all, or the fill kernel alone) is profiled again, three times at
-    most, the launch counters put back first, so that they show one call
-    of fn."""
+    at all, or the fill kernel alone) is profiled again, six times at
+    most and a second apart (three windows in a row came back empty once
+    in each of two runs), the launch counters put back first, so that
+    they show one call of fn."""
+    import time
     from torch.profiler import ProfilerActivity, profile
     cuda.build()
     opener = torch.zeros(1, device="cuda")
     counts = dict(cuda.LAUNCHES)
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         cuda.LAUNCHES.update(counts)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -873,6 +877,72 @@ def test_cuda_affine_carry_channels_networks_agree(cuda_device):
                         network="shared")
     for x, y in zip((reg[0][0],) + reg[1], (shared[0][0],) + shared[1]):
         assert _same_bits(x, y)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+def test_cuda_affine_carry_channels_bt32_bitwise(cuda_device, dtype):
+    """The affine carry on Channels tiles of 32 steps (the SSD carry of a
+    4096-token prefill) runs ``carry_chan_reg_kernel`` (by the profiler's
+    names: a thread a channel) and gives ``carry_plain``'s outputs and
+    running totals bit for bit, inclusive and exclusive, from aligned
+    bases and bases one element off, over T = 32 k and over strips of 4
+    to 32 channels, blocks covering the channels exactly at any multiple
+    of four; apply, fused, tree and the totals at these tiles keep the
+    shared network; the scan of T = 32 k + 5 steps (ssm_scan, padded with
+    the identity to 32 (k + 1)) gives the plain version's bits."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    rng = np.random.default_rng(32)
+    sched = scan_engine.schedules
+    same = totals_data.same_bits
+    for shape in ((2, 128, 48), (1, 32, 4), (1, 96, 96), (3, 64, 12),
+                  (1, 32, 4100), (2, 32, 256)):
+        lay = scan_engine.Channels(*shape, 32, shape[2])
+        assert cuda.tile_network(monoids.AFFINE, lay, "carry") == "register"
+        for kernel in ("apply", "fused", "tree", "totals"):
+            assert cuda.tile_network(monoids.AFFINE, lay, kernel) == "shared"
+        cpu = _chan_operands(rng, shape, 32, dtype)
+        for offset in (0, 1):
+            gpu = []
+            for o in cpu:
+                buf = torch.empty(o.numel() + offset, dtype=o.dtype,
+                                  device=cuda_device)
+                gpu.append(buf[offset:].view(o.shape))
+                gpu[-1].copy_(o)
+            gpu = tuple(gpu)
+            for exclusive in (False, True):
+                what = (shape, offset, exclusive)
+                cuda.reset_launches()
+                (got,), run = cuda.carry(monoids.AFFINE, gpu, lay, exclusive,
+                                         True)
+                torch.cuda.synchronize()
+                assert cuda.LAUNCHES["affine_carry"] == 1
+                (want,), w_run = sched.carry_plain(cpu, monoids.AFFINE, lay,
+                                                   exclusive, True)
+                assert same(got.cpu(), want), what
+                for x, y in zip(run, w_run):
+                    assert same(x.cpu(), y), what
+                (shared,), _ = cuda.carry(monoids.AFFINE, gpu, lay,
+                                          exclusive, network="shared")
+                assert same(shared, got), what
+    for t in (37, 101):   # 32 k + 5 steps
+        a, b = _chan_operands(rng, (2, t, 64), 32, dtype)
+        cuda.reset_launches()
+        got = ssm_ops.ssm_scan(a.to(cuda_device), b.to(cuda_device),
+                               block_t=32, schedule="carry")
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["affine_carry"] == 1
+        assert same(got.cpu(), ssm_ops.ssm_scan(a, b, block_t=32,
+                                                schedule="carry")), t
+    lay = scan_engine.Channels(1, 64, 256, 32, 256)
+    ops_ = tuple(torch.ones(lay.shape, dtype=dtype, device=cuda_device)
+                 for _ in range(2))
+    names = _kernel_names(lambda: cuda.carry(monoids.AFFINE, ops_, lay))
+    assert any(f"carry_chan_reg_kernel<{_CT[dtype]}, 1, " in k
+               for k in names), names
+    names = _kernel_names(lambda: cuda.carry(monoids.AFFINE, ops_, lay,
+                                             network="shared"))
+    assert any("carry_kernel<" in k for k in names), names
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
@@ -1738,6 +1808,153 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
         assert not bool(out[:, 96:].any()) and bool(out[:, :96].any())
         for t in grads:
             assert bool(torch.isfinite(t).all()) and not bool(t.any())
+
+
+# head dims that are not whole 64-column panels: the bf16 forward runs at
+# the next of 64, 128 and 256 (cuda_fold.tc_dim), dq and dk/dv stay SIMT
+NONPANEL_CASES = [
+    # (name, Hkv, group, Tq, Tk, D, causal, window, kv_len, softcap, bq, bk)
+    ("d112_causal", 2, 1, 256, 256, 112, True, None, None, None, 128, 128),
+    ("d112_gqa2_window_cap_bk64", 1, 2, 256, 384, 112, True, 96, None, 30.0,
+     128, 64),
+    ("d112_bq64_kv_tail", 2, 1, 192, 320, 112, False, None, 290, None, 64,
+     64),
+    ("d96_gqa4_causal_kv_tail", 1, 4, 256, 256, 96, True, None, 200, None,
+     128, 128),
+    ("d160_window_softcap", 1, 2, 256, 256, 160, True, 64, None, 50.0, 128,
+     128),
+    ("d160_bq64_bk64_causal", 2, 1, 128, 256, 160, True, None, None, None,
+     64, 64),
+    # decode: a GQA group's q rows packed into one 64-row tile
+    ("decode_d112_gqa4", 2, 4, 8, 1024, 112, False, None, 1000, None, 8,
+     128),
+    ("decode_d160_gqa2_bq16_cap", 1, 2, 16, 512, 160, False, None, 500,
+     50.0, 16, 64),
+    ("decode_d96_gqa8_two_tiles", 1, 8, 16, 256, 96, False, None, None,
+     None, 16, 128),
+]
+
+
+def _canaries(monkeypatch):
+    """Every float output the fold wrappers allocate on the card gets 64
+    elements past its end, and the whole buffer starts as NaN: a store
+    past column d of the last row lands in the canary, a row or column
+    left unstored stays NaN. Returns the (buffer, length) list to check
+    with ``_canaries_intact``."""
+    real = torch.empty
+    made = []
+
+    def empty(*shape, dtype=None, device=None, **kw):
+        if (device is None or torch.device(device).type != "cuda" or kw
+                or dtype not in (torch.float32, torch.bfloat16)):
+            return real(*shape, dtype=dtype, device=device, **kw)
+        shape = tuple(shape[0]) if len(shape) == 1 and isinstance(
+            shape[0], (tuple, list, torch.Size)) else shape
+        n = int(np.prod(shape))
+        buf = real(n + 64, dtype=dtype, device=device).fill_(float("nan"))
+        made.append((buf, n))
+        return buf[:n].view(shape)
+
+    monkeypatch.setattr(cuda_fold.torch, "empty", empty)
+    return made
+
+
+def _canaries_intact(made):
+    return all(bool(torch.isnan(buf[n:]).all()) for buf, n in made)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+@pytest.mark.parametrize("case", NONPANEL_CASES,
+                         ids=[c[0] for c in NONPANEL_CASES])
+def test_cuda_tc_fwd_non_panel_dims_vs_plain(cuda_device, monkeypatch, case,
+                                             schedule):
+    """The bf16 forward at head dims 112, 96 and 160 runs ``fold_fwd_tc``
+    (at D 128, 128 and 256; the columns past d read as zeros) and meets
+    the bf16 bar against the plain fold, the split pass against the plain
+    split pass and through the chain; nothing is stored past column d
+    and every output element is stored (canaries after each output, NaN
+    before the launch); dq and dk/dv at these dims run the SIMT kernels,
+    counted under ``fold_dq`` and ``fold_dkv``, within the same bar."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_folds, forward_fold)
+    from repro_torch.kernels.scan_engine import schedules
+    name, hkv, g, tq, tk, d, causal, window, kv_len, cap, bq, bk = case
+    q, k, v, do = _tc_inputs(case)
+    kw = dict(group=g, scale=d ** -0.5, causal=causal, window=window,
+              softcap=cap, kv_len=kv_len, block_q=bq, block_k=bk,
+              schedule=schedule)
+    spec, lay = forward_fold(q.shape, k.shape, return_stats=True, **kw)
+    assert lay.splits > 1 or schedule == "carry"
+    assert cuda_fold.fold_form("fold_fwd", torch.bfloat16, d, bq, bk) == \
+        "fold_fwd_tc"
+    made = _canaries(monkeypatch)
+    dts = (torch.bfloat16, torch.float32, torch.float32)
+    cuda_fold.reset_launches()
+    got = _tc_fold(spec, tuple(t.to(cuda_device) for t in (q, k, v)), lay,
+                   schedule, dts)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
+    assert made and _canaries_intact(made)
+    want = schedules.fold_carry_plain((q, k, v), spec, lay)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert not bool(torch.isnan(a).any())
+        assert _allclose(a, b, BF16_TOL)
+    if bq < 64:
+        return
+    out, m, l = want
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ops_b = (q, k, v, do, m, l, delta)
+    for kernel, (sp, ly) in zip(("fold_dq", "fold_dkv"),
+                                backward_folds(q.shape, k.shape, **kw)):
+        assert cuda_fold.fold_form(kernel, torch.bfloat16, d, bq, bk) == \
+            kernel
+        cuda_fold.reset_launches()
+        got = _tc_fold(sp, tuple(t.to(cuda_device) for t in ops_b), ly,
+                       schedule, (torch.bfloat16,) * len(ly.out_dims))
+        torch.cuda.synchronize()
+        assert cuda_fold.LAUNCHES[kernel] == 1
+        assert cuda_fold.LAUNCHES[kernel + "_tc"] == 0
+        for a, b in zip(got, schedules.fold_carry_plain(ops_b, sp, ly)):
+            assert _allclose(a, b, BF16_TOL)
+    assert _canaries_intact(made)
+
+
+@pytest.mark.parametrize("schedule", ("carry", "decoupled"))
+def test_cuda_tc_fwd_d112_ragged_through_flash_attention(cuda_device,
+                                                         schedule):
+    """zamba2's shared attention at a small width: 4 heads of 112, a
+    ragged 300 tokens (padded to the blocks by the wrapper), causal,
+    through ``flash_attention`` and autograd against the plain route on
+    CPU copies: the forward launches ``fold_fwd_tc``, the backward the
+    SIMT dq and dk/dv; the outputs within the bf16 bar, bitwise equal to
+    themselves on a repeat."""
+    rng = np.random.default_rng(112)
+    q, k, v, go = (torch.from_numpy(rng.standard_normal(
+        (1, 4, 300, 112)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    kw = dict(schedule=schedule)
+    res = []
+    for device in ("cpu", cuda_device):
+        ts = [t.to(device).requires_grad_() for t in (q, k, v)]
+        cuda_fold.reset_launches()
+        out = fa_ops.flash_attention(*ts, **kw)
+        grads = torch.autograd.grad(out, ts, go.to(device))
+        res.append((out.detach(),) + grads)
+    torch.cuda.synchronize()
+    assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_fwd"] == 0
+    assert cuda_fold.LAUNCHES["fold_dq"] == 1
+    assert cuda_fold.LAUNCHES["fold_dkv"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq_tc"] == 0
+    assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 0
+    for a, b in zip(res[1], res[0]):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _allclose(a, b, BF16_TOL)
+    again = fa_ops.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), **kw)
+    assert torch.equal(again, res[1][0])
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)

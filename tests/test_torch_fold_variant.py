@@ -62,7 +62,22 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_dq", F32, 128, 8, 128, "fold_dq"),           # bq 8
     ("fold_dq", F32, 256, 32, 64, "fold_dq"),           # bq 32
     ("fold_dq", BF16, 128, 8, 128, "fold_dq"),          # dq: bq 64/128
-    ("fold_fwd", BF16, 32, 128, 128, "fold_fwd"),       # d not 64/128/256
+    ("fold_fwd", BF16, 32, 128, 128, "fold_fwd_tc"),    # at D 64
+    # head dims that are not whole panels: the bf16 forward at the next
+    # tensor-core dim, dq, dk/dv and float32 SIMT
+    ("fold_fwd", BF16, 112, 128, 128, "fold_fwd_tc"),   # zamba2-7b
+    ("fold_fwd", BF16, 112, 8, 128, "fold_fwd_tc"),     # its decode step
+    ("fold_fwd", BF16, 96, 128, 128, "fold_fwd_tc"),
+    ("fold_fwd", BF16, 160, 128, 128, "fold_fwd_tc"),   # stablelm-12b
+    ("fold_fwd", BF16, 160, 16, 64, "fold_fwd_tc"),
+    ("fold_fwd", BF16, 120, 128, 128, "fold_fwd"),      # not a multiple of 16
+    ("fold_dq", BF16, 112, 128, 128, "fold_dq"),
+    ("fold_dkv", BF16, 112, 128, 128, "fold_dkv"),
+    ("fold_dq", BF16, 160, 64, 64, "fold_dq"),
+    ("fold_dkv", BF16, 96, 128, 128, "fold_dkv"),
+    ("fold_fwd", F32, 112, 128, 128, "fold_fwd"),
+    ("fold_dq", F32, 112, 128, 128, "fold_dq"),
+    ("fold_dkv", F32, 112, 128, 128, "fold_dkv"),
     ("fold_fwd", BF16, 128, 128, 32, "fold_fwd"),       # bk not 64/128
     ("fold_fwd", BF16, 128, 104, 128, "fold_fwd"),      # bq 104
     ("fold_dkv", BF16, 128, 8, 128, "fold_dkv"),        # dk/dv: bq 64/128
@@ -205,6 +220,48 @@ def test_tf32_fwd_tiling_fits_shared_memory(d, bq):
 def test_tf32_tiling_refuses_other_dims(form):
     with pytest.raises(ValueError, match=form):
         cuda_fold.tc_tiling(form, 32, 128)
+
+
+@pytest.mark.parametrize("d,at", [(112, 128), (96, 128), (80, 128),
+                                  (160, 256), (192, 256), (32, 64)])
+@pytest.mark.parametrize("bq", cuda_fold.TC_BQ["fold_fwd"])
+def test_tc_tiling_non_panel_dims(d, at, bq):
+    """The bf16 forward at a head dim between the panel dims is laid out
+    as the instantiation it runs on (the C side refuses any other shared
+    memory size)."""
+    assert cuda_fold.tc_dim(d) == at
+    assert cuda_fold.tc_tiling("fold_fwd_tc", d, bq) == \
+        cuda_fold.tc_tiling("fold_fwd_tc", at, bq)
+
+
+@pytest.mark.parametrize("causal,window,kv_len,softcap", [
+    (True, None, None, None), (True, 96, None, 30.0),
+    (False, None, 200, None)])
+def test_zero_columns_give_the_fold_at_d(causal, window, kv_len, softcap):
+    """What ``fold_fwd_tc`` relies on at a head dim d that is not whole
+    panels, in plain PyTorch: q, k and v padded with zero columns to
+    ``tc_dim(d)``, folded with d's scale, give the fold at d back in the
+    first d columns (zeros past them), and the same row statistics,
+    within the float32 bar (1e-5): the zero columns add nothing to q·kᵀ
+    and give zero columns of p·v."""
+    d, at = 112, cuda_fold.tc_dim(112)
+    rng = np.random.default_rng(112)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((4, 256, d), (2, 256, d), (2, 256, d)))
+    kw = dict(group=2, scale=d ** -0.5, causal=causal, window=window,
+              kv_len=kv_len, softcap=softcap, block_q=128, block_k=128)
+    spec, lay = forward_fold(q.shape, k.shape, return_stats=True, **kw)
+    want = schedules.fold_carry_plain((q, k, v), spec, lay)
+    pad = tuple(torch.nn.functional.pad(t, (0, at - d)) for t in (q, k, v))
+    spec_p, lay_p = forward_fold(pad[0].shape, pad[1].shape,
+                                 return_stats=True, **kw)
+    assert spec_p.attn.scale == spec.attn.scale == d ** -0.5
+    got = schedules.fold_carry_plain(pad, spec_p, lay_p)
+    assert not bool(got[0][..., d:].any())
+    torch.testing.assert_close(got[0][..., :d], want[0], atol=1e-5,
+                               rtol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def test_tc_tiling_refuses_other_kernels():
