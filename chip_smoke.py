@@ -215,9 +215,9 @@ first failure and prints no result):
      launches (``fold_fwd_tc``: bf16 at head dim 112 runs at D 128, the
      columns past 112 read as zeros; none of the SIMT ``fold_fwd``) and
      54 affine carry launches a prefill, checked, the 4096-token
-     prefill's carries (tiles of 32 chunks) on the register network
-     (``carry_chan_reg_kernel``, a thread a channel), the 2500-token
-     one's (tiles of 24) on the shared ``carry_kernel``; the first
+     prefill's carries (tiles of 32 chunks) and the 2500-token one's
+     (tiles of 24) on the register network (``carry_chan_reg_kernel``, a
+     thread a channel); the first
      shared-attention fold of the first prefill and the first Mamba2
      carry of each captured as the engine gets them and held against
      their plain versions (the fold to bf16's (atol, rtol), the carries
@@ -237,6 +237,30 @@ first failure and prints no result):
      and the top kernels, the prefill's naming ``fold_fwd_tc_kernel`` and
      ``carry_chan_reg_kernel`` and neither first form.
 
+  9. zamba2-7b training (cell (j)) at full width, cut to 6 layers (two
+     periods of mamba, mamba, shared_attn; all 81 would need ~89 GB for
+     weights, gradients, masters and moments), bf16, random weights from
+     ``--seed``: four AdamW steps of ``repro_torch.train.make_train_step``
+     on ``SyntheticDataset`` batches of 2 x 4096 tokens, flash attention
+     and the SSM kernel, remat, two microbatches. Each step's launches are
+     counted and checked (``fold_fwd_tc`` 8, the SIMT ``fold_dq`` and
+     ``fold_dkv`` 4 each at head dim 112, the affine carry 24 on
+     ``carry_chan_reg_kernel``: forward, remat's recomputation and the
+     backward's scan); the first fold forward, dq, dk/dv and the first
+     carry of each direction are captured as the engine gets them and held
+     against their plain versions (bf16's bar; the carries bitwise), with
+     their rows in the kernels line beside their bounds and SDPA's
+     forward and backward; step 0's loss and gradients on the plain
+     routes (blockwise attention, the chunked SSD) within
+     ``TRAIN_L2_BOUND`` / ``TRAIN_LOSS_BOUND`` of the kernel routes';
+     every step's loss finite, batch 0's loss lower after the steps, and
+     every float32 master with a gradient or a decay moved; the host-clock
+     step time, tokens/s, peak memory and one profiler window of a step
+     (device busy, top kernels). Then ``Trainer`` on zamba2-7b's SMOKE
+     config: 8 steps with checkpoints every 4 into a temporary directory,
+     a restart from step 4 reaching step 8 with the uninterrupted run's
+     bits.
+
 The line before the last is one JSON object with a row per kernel (the
 shared-memory kernels timed beside the kernels that replaced them in rows
 of their own, ``<name>_shared``, with 0 launches); the last line is
@@ -248,11 +272,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -335,6 +361,22 @@ BF16_TOL = (1e-3, 2 ** -6)
 SERVE_PROMPTS, SERVE_MAX_LEN, SERVE_PAGE, SERVE_STEPS = (4096, 2500), 4352, \
     16, 16
 SERVE_L2_BOUND = 2.0 ** -4
+# (j) zamba2-7b training: 6 layers (two periods) at full width, two
+# sequences of 4096 tokens a step in two microbatches, four steps. The
+# bounds on the kernel routes against the plain routes at step 0 (PERF.md
+# §4): both round the same bf16 activations and gradients at the same
+# places and differ by the float32 association inside attention (flash
+# against blockwise) and the SSD carry (kernel against chunked), one bf16
+# rounding (2^-9 relative) of each differing output, a random walk over
+# about four such outputs a layer forward and four backward in 6 layers:
+# sqrt(6 x 4 x 2) x 2^-9 = 0.0135 for the gradients' relative L2 (all
+# leaves concatenated); the bound 2^-4 leaves a margin of 4.6. The loss,
+# a mean over 8192 tokens of the logits' cross-entropy, moves by at most
+# the forward's half of that walk, sqrt(6 x 4) x 2^-9 = 0.0096 relative;
+# the bound 2^-6 leaves 1.6.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = \
+    6, 4096, 2, 2, 4
+TRAIN_L2_BOUND, TRAIN_LOSS_BOUND = 2.0 ** -4, 2.0 ** -6
 ATTN_REPLACES = {
     "carry": "src/repro/kernels/scan_engine/schedules.py:722",
     "split": "src/repro/kernels/scan_engine/schedules.py:778",
@@ -625,9 +667,11 @@ def main() -> int:
     # tree_chan_reg_kernel) by dtype, slots a lane (bt / 32) and vector
     # form, and the affine totals there (totals_chan_reduce_kernel) by
     # dtype, tile and channels a thread: registers, spills; the carry also
-    # at bt 32, a thread a channel (one vector form: three more kernels)
+    # at bt 8, 16, 24 and 32, a thread a channel (one vector form: twelve
+    # more kernels, the tile after the vector form)
     for kname, form, count in (
-            ("carry_chan_reg_kernel", "dtype, bt / 32, vector form", 21),
+            ("carry_chan_reg_kernel", "dtype, bt / 32, vector form, bt",
+             30),
             ("apply_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
             ("fused_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
             ("tree_chan_reg_kernel", "dtype, bt / 32, vector form", 18),
@@ -637,9 +681,12 @@ def main() -> int:
         for line in cuda.build_log.splitlines():
             if "Compiling entry function" in line:
                 found = re.search(kname + r"I(f|13__nv_bfloat16|"
-                                  r"6__half)Li(\d+)EL[bi](\d+)E", line)
+                                  r"6__half)Li(\d+)EL[bi](\d+)E(?:Li(\d+)E)?",
+                                  line)
                 dt = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
-                entry = found and f"<{dt[found[1]]}, {found[2]}, {found[3]}>"
+                entry = found and "<" + ", ".join(
+                    [dt[found[1]], found[2], found[3]]
+                    + ([found[4]] if found[4] else [])) + ">"
             elif entry and "spill stores" in line:
                 if spilled(line):
                     chan_spills.append(entry)
@@ -3141,13 +3188,14 @@ def main() -> int:
     serve_launches = {fold_kernel: 2 * n_shared, scan_key: 2 * n_mamba}
     peak_pre = torch.cuda.max_memory_allocated(dev)
     # the carry's network by prefill: tiles of 32 chunks (4096 tokens)
-    # take the register carry, of 24 (2500 tokens: 20 chunks, rounded to
-    # 8 by ssm_scan) the shared carry_kernel
+    # and of 24 (2500 tokens: 20 chunks, rounded to 8 by ssm_scan) take
+    # the register carry, a thread a channel; no shared carry is left
     by_net = {}
     for i, bt, net in carry_nets:
         by_net[i, bt, net] = by_net.get((i, bt, net), 0) + 1
     print(f"(i) SSD carries by (prefill, tile, network): {by_net}")
-    check(by_net == {(0, 32, "register"): n_mamba, (1, 24, "shared"): n_mamba},
+    check(by_net == {(0, 32, "register"): n_mamba,
+                     (1, 24, "register"): n_mamba},
           f"(i) carries by (prefill, tile, network) {by_net}")
     carry_launches = {"affine_carry_zamba2_prefill": n_mamba,
                       "affine_carry_zamba2_prefill2500": n_mamba}
@@ -3309,7 +3357,7 @@ def main() -> int:
           f"pages; tokens {tok_a.tolist()}")
 
     # one profiler window per stage: device busy and the top kernels
-    def stage_profile(label, fn):
+    def stage_profile(label, fn, cell="(i)"):
         """{kernel: device ms} of one call of ``fn`` under torch.profiler
         (CPU and CUDA activities)."""
         sync()
@@ -3326,7 +3374,7 @@ def main() -> int:
                 us = getattr(ev, "self_cuda_time_total", 0)
             names[ev.key] = names.get(ev.key, 0.0) + us / 1e3
         top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
-        print(f"(i) profile {label}: device busy {sum(names.values()):.3f} "
+        print(f"{cell} profile {label}: device busy {sum(names.values()):.3f} "
               "ms; top: " + ", ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
         return names
 
@@ -3363,6 +3411,330 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (all)")
     del model, pre, caches, paged, step_in, lg_a, lg_b
     torch.cuda.empty_cache()
+
+    # -- 9. zamba2-7b trains (cell (j)) ------------------------------------
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models import convert
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    jcfg = dataclasses.replace(zcfg, num_layers=TRAIN_LAYERS)
+    j_periods = jcfg.num_layers // len(jcfg.layer_pattern)
+    j_width = jcfg.ssm_heads * jcfg.ssm_head_dim * jcfg.ssm_state
+    check((jcfg.d_model, jcfg.num_heads, jcfg.head_dim, jcfg.d_ff, j_width,
+           jcfg.vocab_size, jcfg.dtype, j_periods) == (
+               3584, 32, 112, 14336, 458752, 32000, "bfloat16", 2),
+          f"(j) zamba2-7b's training config is not at full width: {jcfg}")
+    full_n = sum(p.numel() for p in lm.LM(zcfg, device="meta").parameters())
+    j_n = sum(p.numel() for p in lm.LM(jcfg, device="meta").parameters())
+    print(f"(j) zamba2-7b training on {card}: full width, depth cut from "
+          f"{zcfg.num_layers} to {jcfg.num_layers} layers ({j_periods} "
+          f"periods of {jcfg.layer_pattern}): {j_n} parameters; all "
+          f"{zcfg.num_layers} layers hold {full_n} parameters, x 16 bytes "
+          f"(bf16 weight and gradient, float32 master, mu and nu) = "
+          f"{full_n * 16 / 1e9:.0f} GB, past one card's 80 GB")
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jgen = torch.Generator(device=dev)
+    jgen.manual_seed(args.seed)
+    params = train_step.init_params(jcfg, generator=jgen, device=dev)
+    opt = adamw.adamw_init(params)
+    check(sum(t.numel() for t in adamw.tree_leaves(params)) == j_n,
+          "(j) the train step's tree holds another parameter count")
+    ds = SyntheticDataset(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab_size=jcfg.vocab_size, seed=args.seed), device=dev)
+    tcfg_j = train_step.TrainStepConfig(
+        attn_impl="flash", ssm_impl="kernel", remat=True,
+        microbatches=TRAIN_MICRO, warmup_steps=1, total_steps=TRAIN_STEPS)
+    fn_j = train_step.make_train_step(jcfg, tcfg_j)
+    # the routes at the microbatch's shape
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    j_attn = fa_ops.resolved_attention_schedule(
+        (micro, jcfg.num_heads, TRAIN_SEQ, jcfg.head_dim), TRAIN_SEQ,
+        cores=sms)
+    j_chunks = TRAIN_SEQ // jcfg.ssm_chunk
+    j_ssd = ssm_ops.resolved_schedule((micro, j_chunks, j_width), cores=sms)
+    j_forms = {k: cuda_fold.fold_form(k, torch.bfloat16, jcfg.head_dim,
+                                      128, 128)
+               for k in ("fold_fwd", "fold_dq", "fold_dkv")}
+    print(f"(j) routes at ({micro}, {TRAIN_SEQ}): attention {j_attn} -> "
+          f"{j_forms}, SSD carry over {j_width} channels {j_ssd} (tiles "
+          f"of {j_chunks} chunks)")
+    check(j_attn == "carry" and j_ssd == "carry"
+          and j_forms == {"fold_fwd": "fold_fwd_tc", "fold_dq": "fold_dq",
+                          "fold_dkv": "fold_dkv"},
+          f"(j) routes {j_attn} / {j_ssd} / {j_forms}")
+    # a step's launches: per microbatch and period the shared block's
+    # forward fold twice (remat recomputes it), dq and dk/dv once, each
+    # Mamba2 layer's carry three times (forward, recomputation, backward)
+    calls = TRAIN_MICRO * j_periods
+    j_mamba = calls * jcfg.layer_pattern.count("mamba")
+    want_folds = {"fold_fwd_tc": 2 * calls, "fold_dq": calls,
+                  "fold_dkv": calls}
+    want_scans = {scan_key: 3 * j_mamba}
+
+    def batch_loss(tree, batch):
+        """Batch's loss under ``tree`` (no gradient), through an LM whose
+        parameters are views of the tree's leaves."""
+        skel = lm.LM(jcfg, device="meta")
+        skel.load_state_dict(convert.flat_params(tree), assign=True)
+        with torch.no_grad():
+            return lm.lm_loss(skel, batch, jcfg, attn_impl="flash",
+                              ssm_impl="kernel")[0].item()
+
+    batch0 = ds.batch_at(0)
+    loss_before = batch_loss(params, batch0)
+
+    # the main path: four steps, each one's launches counted; the engine's
+    # first fold forward, dq and dk/dv and first carry of each direction
+    # captured as it gets them (the direction by the SSM scan's backward),
+    # the network of every carry noted
+    captured, j_nets, in_bwd = {}, {}, [0]
+    real_ssm_bwd = ssm_ops._SSMScan.backward
+
+    def ssm_bwd(ctx, g):
+        in_bwd[0] += 1
+        try:
+            return real_ssm_bwd(ctx, g)
+        finally:
+            in_bwd[0] -= 1
+
+    def train_spy(operands, spec, layout, **kw):
+        role = spec.name
+        if spec.name == "affine":
+            role = "affine_bwd" if in_bwd[0] else "affine_fwd"
+            net = (role, layout.bt, cuda.tile_network(AFFINE, layout,
+                                                      "carry"))
+            j_nets[net] = j_nets.get(net, 0) + 1
+        captured.setdefault(role, (operands, spec, layout))
+        return real_scan(operands, spec, layout, **kw)
+
+    params0, losses, step_ms, step_launches = params, [], [], []
+    scan_engine.scan = train_spy
+    ssm_ops._SSMScan.backward = staticmethod(ssm_bwd)
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = ds.batch_at(i)
+            cuda.reset_launches()
+            cuda_fold.reset_launches()
+            (params, opt, metrics), ms = wall_ms(
+                lambda: fn_j(params, opt, batch, torch.tensor(i)))
+            step_launches.append((
+                {k: v for k, v in cuda_fold.LAUNCHES.items() if v},
+                {k: v for k, v in cuda.LAUNCHES.items() if v}))
+            losses.append(metrics["loss"].item())
+            step_ms.append(ms)
+            print(f"(j) step {i}: loss {losses[-1]:.5f}, grad norm "
+                  f"{metrics['grad_norm'].item():.4g}, lr "
+                  f"{metrics['lr'].item():.3g}, {ms:.0f} ms; launches "
+                  f"{step_launches[-1]}")
+    finally:
+        scan_engine.scan = real_scan
+        ssm_ops._SSMScan.backward = staticmethod(real_ssm_bwd)
+    peak_train = torch.cuda.max_memory_allocated(dev)
+    del metrics
+    for i, (folds, scans) in enumerate(step_launches):
+        check(folds == want_folds and scans == want_scans,
+              f"(j) step {i}: launches {folds} / {scans}, want {want_folds}"
+              f" / {want_scans}")
+    print(f"(j) carries by (direction, tile, network) over the "
+          f"{TRAIN_STEPS} steps: {j_nets}")
+    check(j_nets == {("affine_fwd", j_chunks, "register"):
+                     2 * j_mamba * TRAIN_STEPS,
+                     ("affine_bwd", j_chunks, "register"):
+                     j_mamba * TRAIN_STEPS},
+          f"(j) carries by (direction, tile, network) {j_nets}")
+    check(all(math.isfinite(x) for x in losses), f"(j) losses {losses}")
+    train_launches = {k: v * TRAIN_STEPS for k, v in want_folds.items()}
+
+    # training works: batch 0's loss fell, and every parameter with a
+    # gradient (mu != 0) or a decay (a leaf of 2 dimensions or more,
+    # nonzero) moved: its float32 master left the initial weights (the
+    # elements that came back to their initial bits, where the updates of
+    # a noisy gradient cancelled, are counted)
+    loss_after = batch_loss(params, batch0)
+    print(f"(j) batch 0's loss: {loss_before:.5f} before the steps, "
+          f"{loss_after:.5f} after")
+    check(loss_after < loss_before, f"(j) batch 0's loss {loss_before} -> "
+          f"{loss_after} did not fall")
+    unmoved, n_need, back = [], 0, 0
+    for i, (w0, w, mu) in enumerate(zip(adamw.tree_leaves(params0),
+                                        adamw.tree_leaves(opt.master),
+                                        adamw.tree_leaves(opt.mu))):
+        need = mu != 0
+        if w0.dim() >= 2:
+            need |= w0 != 0
+        if bool(need.any()):
+            n_need += 1
+            same = need & (w == w0.float())
+            back += int(same.sum())
+            if bool(same.all()):
+                unmoved.append(i)
+    print(f"(j) {n_need - len(unmoved)} of {n_need} parameters with a "
+          f"gradient or a decay moved ({back} of their elements are back "
+          f"at their initial bits)")
+    check(not unmoved, f"(j) parameters {unmoved} did not move")
+
+    # step 0 again on both routes (the plain: blockwise attention, the
+    # chunked SSD, the reference's training defaults): loss and gradients
+    module_j = train_step._LossAndGrad(jcfg, lm.lm_loss)
+    cuda.reset_launches()
+    cuda_fold.reset_launches()
+    l_k, _, g_k = train_step._accumulate_grads(module_j, params0, batch0,
+                                               tcfg_j)
+    l_p, _, g_p = train_step._accumulate_grads(
+        module_j, params0, batch0, dataclasses.replace(
+            tcfg_j, attn_impl=None, ssm_impl="chunked"))
+    sync()
+    num = sum(((a - b).double() ** 2).sum() for a, b in zip(
+        adamw.tree_leaves(g_k), adamw.tree_leaves(g_p)))
+    den = sum((b.double() ** 2).sum() for b in adamw.tree_leaves(g_p))
+    g_l2 = (num / den).sqrt().item()
+    l_rel = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+    print(f"(j) step 0, kernel routes vs plain routes (blockwise "
+          f"attention, chunked SSD): loss {l_k.item():.6f} / "
+          f"{l_p.item():.6f} (relative {l_rel:.3g}, bound "
+          f"{TRAIN_LOSS_BOUND}), gradients' relative L2 {g_l2:.4g} (bound "
+          f"{TRAIN_L2_BOUND}); the kernel route's loss again "
+          f"{'==' if l_k.item() == losses[0] else '!='} step 0's")
+    check(l_rel <= TRAIN_LOSS_BOUND and g_l2 <= TRAIN_L2_BOUND,
+          f"(j) kernel vs plain routes: loss {l_rel}, gradients {g_l2}")
+    del g_k, g_p, module_j, params0
+
+    # one more step in a profiler window: device busy and the top kernels
+    batch = ds.batch_at(TRAIN_STEPS)
+    prof_j = stage_profile("train step", lambda: fn_j(
+        params, opt, batch, torch.tensor(TRAIN_STEPS)), cell="(j)")
+    busy_j = sum(prof_j.values())
+    del params, opt, batch, batch0
+    torch.cuda.empty_cache()
+
+    # the captured kernel calls against their plain versions, and their
+    # rows: the forward fold beside SDPA's forward, dq and dk/dv beside
+    # SDPA's backward (dq, dk, dv) at the same shape, bf16, causal
+    ops_f, spec_f, lay_f = captured["softmax_pair"]
+    at = spec_f.attn
+    check(lay_f.group == 1, "(j) zamba2's attention has no kv groups")
+    live_j = lay_f.bh * lay_f.active_cells()
+    cell_j = lay_f.bq * lay_f.bk
+    shape_j = f"(j) {lay_f.bh}x{lay_f.tq}x{lay_f.d} bf16 causal"
+    qs, ks, vs = (t[None].detach().requires_grad_(True)
+                  for t in ops_f[:3])
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=at.causal,
+                                         scale=at.scale)
+    out_f = cuda_fold.fold(spec_f, ops_f, lay_f)[0]
+    attn_row("fold_fwd_tc_zamba2_train", "fold_fwd_tc", "carry",
+             lambda: cuda_fold.fold(spec_f, ops_f, lay_f)[0],
+             lambda: schedules.fold_carry_plain(ops_f, spec_f, lay_f),
+             nbytes(*ops_f, *out_f), 4 * cell_j * lay_f.d * live_j,
+             lambda: F.scaled_dot_product_attention(
+                 qs.detach(), ks.detach(), vs.detach(), is_causal=at.causal,
+                 scale=at.scale), shape_j, reps=5,
+             launches=train_launches["fold_fwd_tc"])
+    del out_f
+    bwd_ms = {}
+    for kernel, fl in (("fold_dq", 6), ("fold_dkv", 8)):
+        ops_b, spec_b, lay_b = captured["softmax_bwd_" + kernel[5:]]
+        check(cuda_fold.fold_form(kernel, ops_b[0].dtype, lay_b.d, lay_b.bq,
+                                  lay_b.bk) == kernel,
+              f"(j) the captured {kernel} takes another form")
+        do_s = ops_b[3][None]
+        out_b = cuda_fold.fold(spec_b, ops_b, lay_b)[0]
+        attn_row(f"{kernel}_zamba2_train", kernel, "carry",
+                 lambda: cuda_fold.fold(spec_b, ops_b, lay_b)[0],
+                 lambda: schedules.fold_carry_plain(ops_b, spec_b, lay_b),
+                 nbytes(*ops_b, *out_b), fl * cell_j * lay_b.d * live_j,
+                 lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s,
+                                             retain_graph=True),
+                 shape_j, launches=train_launches[kernel])
+        bwd_ms[kernel] = rows[-1]
+        del out_b, ops_b
+    del o_s, qs, ks, vs, ops_f
+    carry_rows = {}
+    for role, rname in (("affine_fwd", "affine_carry_zamba2_train"),
+                        ("affine_bwd", "affine_carry_zamba2_train_bwd")):
+        ops_c, _, lay_c = captured[role]
+        n_c = ops_c[0].numel()
+        kernel_row(rname, lambda: cuda.carry(AFFINE, ops_c, lay_c)[0],
+                   lambda: schedules.carry_plain(ops_c, AFFINE, lay_c),
+                   nbytes(*ops_c) + n_c * ops_c[1].element_size(), 3 * n_c,
+                   5, None, f"{tuple(ops_c[0].shape)} bt {lay_c.bt}",
+                   {rname: j_nets[role, j_chunks, "register"]},
+                   graph=True, base="carry")
+        carry_rows[role] = rows[-1]
+        del ops_c
+    del captured
+    torch.cuda.empty_cache()
+
+    # the Trainer on zamba2-7b's SMOKE config: 8 steps with checkpoints
+    # every 4, then a restart from step 4 to step 8, bitwise (attention
+    # under carry, as at (j): these few rows alone would take split-KV)
+    scfg = configs.get_smoke_config("zamba2-7b")
+    fn_s = train_step.make_train_step(scfg, dataclasses.replace(
+        tcfg_j, attn_schedule="carry", total_steps=8))
+    ds_s = SyntheticDataset(DataConfig(
+        seq_len=256, global_batch=2, vocab_size=scfg.vocab_size,
+        seed=args.seed), device=dev)
+
+    def smoke_state():
+        sgen = torch.Generator(device=dev)
+        sgen.manual_seed(args.seed)
+        p = train_step.init_params(scfg, generator=sgen, device=dev)
+        return p, adamw.adamw_init(p)
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        run_a = Trainer(fn_s, ds_s, TrainerConfig(
+            total_steps=8, checkpoint_every=4, log_every=100,
+            checkpoint_dir=os.path.join(ckdir, "a")))
+        p_a, o_a = run_a.run(*smoke_state())
+        like_p, like_o = smoke_state()
+        bundle = restore_checkpoint(os.path.join(ckdir, "a"), 4,
+                                    {"params": like_p, "opt": like_o})
+        run_b = Trainer(fn_s, ds_s, TrainerConfig(
+            total_steps=8, checkpoint_every=100, log_every=100,
+            checkpoint_dir=os.path.join(ckdir, "b")))
+        p_b, o_b = run_b.run(bundle["params"], bundle["opt"], start_step=4)
+        start, p_r, _ = run_a.maybe_restore(like_p, like_o)
+    differ = [i for i, (a, b) in enumerate(zip(
+        adamw.tree_leaves({"p": p_a, **o_a._asdict()}),
+        adamw.tree_leaves({"p": p_b, **o_b._asdict()})))
+        if not same_bits(a, b)]
+    print(f"(j) SMOKE Trainer: losses "
+          f"{[round(h['loss'], 5) for h in run_a.history]}; restarted "
+          f"from step 4: steps {[h['step'] for h in run_b.history]}, "
+          f"{len(differ)} leaves of parameters and state differ from the "
+          f"uninterrupted run's bits; the latest commit is step {start}")
+    check(not differ and start == 8 and all_same_bits(
+        adamw.tree_leaves(p_r), adamw.tree_leaves(p_a)),
+          f"(j) restart from step 4: leaves {differ} differ")
+    check([h["step"] for h in run_b.history] == [4, 5, 6, 7],
+          f"(j) the restarted run's steps {run_b.history}")
+    del p_a, o_a, p_b, o_b, p_r, like_p, like_o, bundle
+
+    step_j = statistics.median(step_ms[1:])
+    dq_row, dkv_row = bwd_ms["fold_dq"], bwd_ms["fold_dkv"]
+    print(f"(j) zamba2-7b training ({TRAIN_LAYERS} layers at full width, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_MICRO} "
+          f"microbatches, remat) on {card}: step {step_j:.0f} ms (host "
+          f"clock, median of steps 1-{TRAIN_STEPS - 1}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_j * 1e3:.0f} tokens/s; device "
+          f"busy {busy_j:.1f} ms in the profiled step; peak device memory "
+          f"{peak_train / 2**30:.2f} GiB over the steps, "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB in the "
+          f"phase; SIMT bf16 backward at d {jcfg.head_dim}: fold_dq "
+          f"{dq_row['ms']:.3f} ms (bound {dq_row['bound_ms']:.4f}), "
+          f"fold_dkv {dkv_row['ms']:.3f} ms (bound "
+          f"{dkv_row['bound_ms']:.4f}), SDPA backward (dq, dk, dv) "
+          f"{dq_row['library_ms']:.3f} ms; the SSD carry at bt "
+          f"{j_chunks}: forward {carry_rows['affine_fwd']['ms']:.4f} ms, "
+          f"backward {carry_rows['affine_bwd']['ms']:.4f} ms (bound "
+          f"{carry_rows['affine_bwd']['bound_ms']:.4f}); phase "
+          f"{time.perf_counter() - t_phase:.0f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,6 @@
+from repro_torch.checkpoint.manager import (CheckpointManager, latest_step,
+                                            restore_checkpoint,
+                                            save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

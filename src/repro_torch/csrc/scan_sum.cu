@@ -102,8 +102,8 @@
 // 256 and 512 steps (carry_chan_reg_kernel, apply_chan_reg_kernel,
 // tree_chan_reg_kernel) stage each tile's `width` adjacent channels by
 // cp.async, two stages deep, and run the network (the tree's sweep) in
-// registers (the carry on tiles of 32 steps: a thread a channel, its 64
-// loads in flight, no staging); the affine fused on the same tiles
+// registers (the carry on tiles of 8 to 32 steps: a thread a channel,
+// its whole tile's loads in flight, no staging); the affine fused on the same tiles
 // (fused_chan_reg_kernel) stages its one tile so, two blocks an SM
 // overlapping each other's copies; the affine totals there
 // (totals_chan_reduce_kernel) build each channel's tree from registers,
@@ -2707,10 +2707,11 @@ __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
   }
 }
 
-// carry on Channels at tiles of 32 steps (NS = 1: the SSD carry of a
-// 4096-token prefill, 32 chunks of 128 tokens, is one tile a channel).
-// A thread a channel: its tile's 32 (a, b) pairs in registers, each step's
-// load and store coalesced across the block's adjacent channels, all 64
+// carry on Channels at tiles of BT = 8, 16, 24 or 32 steps (NS = 1: the
+// SSD carry of a 4096-token prefill, 32 chunks of 128 tokens, is one tile
+// a channel; of a 2500-token one 24, of a 1024-token training row 8).
+// A thread a channel: its tile's BT (a, b) pairs in registers, each step's
+// load and store coalesced across the block's adjacent channels, all 2 BT
 // loads in flight at once; chan_scan's rounds within the thread (round k:
 // x[i - k] (+) x[i], the identity combine below k, i from the top so that
 // every combine reads the round's old values), so tile_scan's bits with
@@ -2722,12 +2723,13 @@ __device__ __forceinline__ void chan_reg_walk(const Tensors& t, const Geom& g,
 // tools/chan_variants.py --bt32). Bound: bytes, 2 n read and n written.
 constexpr int kChanCarryThreads = 128;   // threads a block, at most
 
-template <typename T, int NS, bool kVec>
+template <typename T, int NS, bool kVec, int BT = 32 * NS>
 __global__ void __launch_bounds__(chan_reg_threads(NS), 1)
 carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
   using S = AffineSpec<T>;
   using P = typename S::E;
   if constexpr (NS == 1) {
+    static_assert(BT % 8 == 0 && BT <= 32, "a thread holds 8 to 32 steps");
     // channel ch of the b x d: the launch covers them exactly
     const int64_t ch =
         static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -2736,22 +2738,22 @@ carry_chan_reg_kernel(Tensors t, Leaves running, Geom g, int exclusive) {
     const P id = S::identity();
     P carry = id;
     int64_t at = row * g.n * g.d + c;
-    for (int64_t j = 0; j < g.chunks; ++j, at += 32 * g.d) {
-      P x[32];
+    for (int64_t j = 0; j < g.chunks; ++j, at += BT * g.d) {
+      P x[BT];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) x[i] = S::load(t, at + i * g.d);
+      for (int i = 0; i < BT; ++i) x[i] = S::load(t, at + i * g.d);
 #pragma unroll
-      for (int k = 1; k < 32; k <<= 1)
+      for (int k = 1; k < BT; k <<= 1)
 #pragma unroll
-        for (int i = 31; i >= 0; --i)
+        for (int i = BT - 1; i >= 0; --i)
           x[i] = S::combine(i >= k ? x[i >= k ? i - k : 0] : id, x[i]);
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
+      for (int i = 0; i < BT; ++i)
         S::emit(t, at + i * g.d,
                 S::combine(carry, exclusive ? (i > 0 ? x[i > 0 ? i - 1 : 0]
                                                      : id)
                                             : x[i]));
-      carry = S::combine(carry, x[31]);
+      carry = S::combine(carry, x[BT - 1]);
       if (running.v != nullptr) S::put(running, cbase + j * g.d, carry);
     }
   } else {
@@ -3065,20 +3067,20 @@ size_t chan_reg_smem(int width) {
 
 // carry_chan_reg_kernel (kTree: tree_chan_reg_kernel) over the strips
 // chan_reg_takes; refuses any other. At NS = 1 the carry runs a thread a
-// channel: blocks of the most threads, up to kChanCarryThreads, that
-// divide the b x d channels (a multiple of 4), so that the grid covers
-// them exactly.
-template <typename T, int NS, bool kTree = false>
+// channel over tiles of BT steps: blocks of the most threads, up to
+// kChanCarryThreads, that divide the b x d channels (a multiple of 4), so
+// that the grid covers them exactly.
+template <typename T, int NS, bool kTree = false, int BT = 32 * NS>
 int launch_chan_reg(Tensors t, Leaves running, long long b, long long n,
                     long long d, int width, int exclusive,
                     cudaStream_t stream) {
   if (!chan_reg_takes<NS>(d, width)) return cudaErrorInvalidValue;
-  const Geom g = make_geom(true, n, d, width, 32 * NS);
+  const Geom g = make_geom(true, n, d, width, BT);
   if constexpr (NS == 1 && !kTree) {
     int threads = kChanCarryThreads;
     while ((b * d) % threads != 0) threads >>= 1;
     if (b * d / threads >= (1LL << 31)) return cudaErrorInvalidValue;
-    carry_chan_reg_kernel<T, 1, true>
+    carry_chan_reg_kernel<T, 1, true, BT>
         <<<static_cast<unsigned>(b * d / threads), threads, 0, stream>>>(
             t, running, g, exclusive);
   } else {
@@ -3177,8 +3179,9 @@ int launch_fused_chan_reg(Tensors t, uint64_t* state, Leaves agg, Leaves incl,
 // net: the in-tile network the wrapper chose by shape (cuda.tile_network):
 // 1 the register network, for Rows tiles of 128 r elements of a kReg spec
 // and Channels tiles of 128, 256 or 512 steps of a kChanReg spec (carry,
-// apply, fused and tree; the carry also of 32; anything else is refused); 0 the network in shared memory (tile_scan, or tree_kernel's
-// sweep).
+// apply, fused and tree; the carry also of 8, 16, 24 and 32; anything
+// else is refused); 0 the network in shared memory (tile_scan, or
+// tree_kernel's sweep).
 template <typename S, bool kChan>
 int launch_carry(Tensors t, Leaves running, long long b, long long n,
                  long long d, int width, int bn, int exclusive, int net,
@@ -3198,9 +3201,19 @@ int launch_carry(Tensors t, Leaves running, long long b, long long n,
       return cudaGetLastError();
     } else if constexpr (kChan && S::kChanReg) {
       switch (bn) {
-        case 32:   // the carry alone (cuda.CHAN_CARRY_TILES)
-          return launch_chan_reg<typename S::In, 1>(t, running, b, n, d, width,
-                                                    exclusive, stream);
+        // the carry alone (cuda.CHAN_CARRY_TILES): a thread a channel
+        case 8:
+          return launch_chan_reg<typename S::In, 1, false, 8>(
+              t, running, b, n, d, width, exclusive, stream);
+        case 16:
+          return launch_chan_reg<typename S::In, 1, false, 16>(
+              t, running, b, n, d, width, exclusive, stream);
+        case 24:
+          return launch_chan_reg<typename S::In, 1, false, 24>(
+              t, running, b, n, d, width, exclusive, stream);
+        case 32:
+          return launch_chan_reg<typename S::In, 1, false, 32>(
+              t, running, b, n, d, width, exclusive, stream);
         case 128:
           return launch_chan_reg<typename S::In, 4>(t, running, b, n, d, width,
                                                     exclusive, stream);

@@ -90,9 +90,10 @@ MAX_CHANNEL_TILE = 4096
 # tiles at most (two stages of (a, b) in 128 KB of shared memory).
 CHAN_REG_TILES = (128, 256, 512)
 CHAN_REG_TILE = 8192
-# The carry's alone: also tiles of 32 steps (a 4096-token prefill's SSD
-# carry, 32 chunks a channel), a thread a channel holding its tile.
-CHAN_CARRY_TILES = (32,) + CHAN_REG_TILES
+# The carry's alone: also tiles of 8, 16, 24 and 32 steps (the SSD carry of
+# a 1024-token training row, 8 chunks a channel, of a 2500-token prefill,
+# 24, of a 4096-token one, 32), a thread a channel holding its tile.
+CHAN_CARRY_TILES = (8, 16, 24, 32) + CHAN_REG_TILES
 
 _lib = None
 build_log = ""  # the compiler's output of the last build in this process
@@ -227,8 +228,8 @@ def tile_network(spec, layout, kernel: str) -> str:
     ``tree_chan_reg_kernel``: a warp two channels, lane l holding steps
     l + 32 s, the carry or the chain's offsets on the left, the tree's
     Blelloch sweep across lanes and then over lane 31's registers; the
-    carry alone also on tiles of 32 steps, ``CHAN_CARRY_TILES``, a thread
-    a channel holding its tile;
+    carry alone also on tiles of 8, 16, 24 and 32 steps,
+    ``CHAN_CARRY_TILES``, a thread a channel holding its tile;
     ``fused_chan_reg_kernel``: a warp four, a tile a block, its offset by
     the look-back); for ``totals``, the reduction without the scan
     (``totals_reduce_kernel`` for ``Rows`` tiles of any length of the sum,

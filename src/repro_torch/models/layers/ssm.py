@@ -216,9 +216,14 @@ def _ssd_chunked(xs, Bm, Cm, dt, da, chunk, h_prev, impl):
     A_tot = A[:, :, -1]                               # (B,nc,H)
 
     # Intra-chunk (causal masked) contribution, L[i,j] = exp(A_i - A_j).
+    # The mask goes on before the exp (the reference's after it): above the
+    # diagonal A_i - A_j is a sum of decay magnitudes, whose exp overflows
+    # past 88 and then gives a NaN gradient (inf x 0); exp(-inf) = 0 gives
+    # the same forward bits.
     rel = A[:, :, :, None, :] - A[:, :, None, :, :]   # (B,nc,Q,Q,H)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
-    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], rel,
+                              float("-inf")))
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)      # (B,nc,Q,Q)
     W = CB[..., None] * L * dtc[:, :, None, :, :]     # (B,nc,Q,Q,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", W, xs)

@@ -11,8 +11,8 @@ whose leaves stack the periods on axis 0.
 
 The cross-entropy loss is computed in SEQUENCE CHUNKS so the (B, S, V)
 logits tensor is never materialized: an online logsumexp over chunks.
-These are the forward functions; the reference's ``remat`` (activation
-checkpointing for its trainer) waits for the trainer's slice.
+``remat=True`` checkpoints each period's body (the reference's remat of
+its layer-scan body): the backward runs the period's forward again.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.dist import shard
@@ -120,6 +121,8 @@ def forward(
     attn_impl: Optional[str] = None,
     attn_schedule: str = "auto",
     ssm_impl: Optional[str] = None,
+    remat: bool = False,
+    unroll: bool = False,
 ):
     """tokens (B, S) [+ frontend embeds (B, F, E)] -> (hidden, aux, cache).
 
@@ -128,6 +131,11 @@ def forward(
     count and ``cache_len`` the count of valid cache entries — a scalar,
     or a PER-ROW (B,) tensor (each row gets its own positions and masking
     extent). ``ssm_impl`` overrides the SSM layers' scan route.
+    ``remat=True`` runs each period under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are not kept, and the backward
+    recomputes them. ``unroll`` has no effect here: it shapes the
+    reference's compiled layer scan for its dry run, and the port's loop
+    over periods is unrolled already.
     """
     x = embed_tokens(params, tokens, cfg)
     if embeds is not None:
@@ -146,9 +154,13 @@ def forward(
     aux = blk.zero_aux(x.device)
     new_caches = []
     for p in range(len(params.blocks)):
-        x, a, new_c = _run_period(params, cfg, p, x, x0, positions, cache,
-                                  cache_len, attn_impl, attn_schedule,
-                                  ssm_impl)
+        args = (params, cfg, p, x, x0, positions, cache, cache_len,
+                attn_impl, attn_schedule, ssm_impl)
+        if remat:
+            x, a, new_c = torch.utils.checkpoint.checkpoint(
+                _run_period, *args, use_reentrant=False)
+        else:
+            x, a, new_c = _run_period(*args)
         aux = {k: aux[k] + a[k] for k in aux}
         new_caches.append(new_c)
     x = apply_norm(params.final_norm, x, cfg)
@@ -181,14 +193,17 @@ def chunked_ce_loss(params, hidden, labels, mask, cfg: ModelConfig,
     return total / count.clamp_min(1.0)
 
 
-def lm_loss(params, batch: dict, cfg: ModelConfig, *, loss_chunk: int = 512,
-            attn_impl: Optional[str] = None, attn_schedule: str = "auto",
-            ssm_impl: Optional[str] = None):
+def lm_loss(params, batch: dict, cfg: ModelConfig, *, remat: bool = False,
+            loss_chunk: int = 512, attn_impl: Optional[str] = None,
+            attn_schedule: str = "auto", ssm_impl: Optional[str] = None,
+            unroll: bool = False):
     """batch: tokens (B,S) int, labels (B,S) int, mask (B,S) float,
-    optional embeds (B,F,E). Returns (loss, metrics)."""
+    optional embeds (B,F,E). Returns (loss, metrics). ``remat`` and
+    ``unroll`` as in ``forward``."""
     hidden, aux, _ = forward(
         params, batch["tokens"], cfg, embeds=batch.get("embeds"),
-        attn_impl=attn_impl, attn_schedule=attn_schedule, ssm_impl=ssm_impl)
+        attn_impl=attn_impl, attn_schedule=attn_schedule, ssm_impl=ssm_impl,
+        remat=remat, unroll=unroll)
     embeds = batch.get("embeds")
     F = embeds.shape[1] if embeds is not None else 0
     ce = chunked_ce_loss(params, hidden[:, F:], batch["labels"],

@@ -186,6 +186,105 @@ def test_wrappers_launch_the_networks_at_bt32(monkeypatch):
     assert nets == [("carry", 1), ("apply", 0), ("fused", 0), ("tree", 0)]
 
 
+SHORT_TILES = (8, 16, 24)
+
+
+@pytest.mark.parametrize("layout", [
+    (1, 458752, 512),   # the SSD carry's width, 16-channel strips
+    (2, 48, 48),
+    (1, 4, 4)], ids=("ssd", "w16", "w4"))
+@pytest.mark.parametrize("bt", SHORT_TILES)
+def test_tile_network_carry_alone_at_short_tiles(bt, layout):
+    """Tiles of 8, 16 and 24 steps (the SSD carry of a 1024-token training
+    row and of a 2500-token prefill, 24 chunks after ``ssm_scan`` rounds
+    20 up to 8) take the register carry as 32 does (``CHAN_CARRY_TILES``:
+    a thread a channel), while apply, fused, tree and the totals keep the
+    shared network; tiles of 40 steps, and strips of two channels, keep
+    the shared carry."""
+    b, d, width = layout
+    lay = scan_engine.Channels(b, 3 * bt, d, bt, width)
+    assert bt in cuda.CHAN_CARRY_TILES and bt not in cuda.CHAN_REG_TILES
+    assert cuda.tile_network(AFFINE, lay, "carry") == "register"
+    for kernel in ("apply", "fused", "tree", "totals"):
+        assert cuda.tile_network(AFFINE, lay, kernel) == "shared"
+    for other in (scan_engine.Channels(b, 120, d, 40, width),
+                  scan_engine.Channels(1, 3 * bt, 6, bt, 6)):
+        assert cuda.tile_network(AFFINE, other, "carry") == "shared"
+
+
+@pytest.mark.parametrize("bt", SHORT_TILES)
+def test_wrappers_launch_the_networks_at_short_tiles(monkeypatch, bt):
+    """At tiles of 8, 16 and 24 steps ``cuda.carry`` passes its kernel the
+    register network and apply, fused and tree the shared one (the launch
+    intercepted, so this runs on CPU tensors), with the tile's steps as
+    the block the C interface gets."""
+    nets = []
+    monkeypatch.setattr(cuda, "_on_cuda", lambda t: None)
+    lib = type("Lib", (), {f"scan_{k}": None for k in cuda.KERNELS})
+    monkeypatch.setattr(cuda, "build", lambda: lib)
+    monkeypatch.setattr(cuda, "_launch",
+                        lambda spec_, k, fn, device, *args: nets.append(
+                            (k, args[-1], args[-4])))
+    small = scan_engine.Channels(1, 2 * bt, 64, bt, 64)
+    x = torch.ones(small.shape)
+    cuda.carry(AFFINE, (x, x), small)
+    offs = cuda._new_leaves(AFFINE, x, x, small.chain_shape)
+    cuda.apply(AFFINE, (x, x), offs, small)
+    cuda.fused(AFFINE, (x, x), small)
+    cuda.tree(AFFINE, (x, x), small)
+    assert [(k, net) for k, net, _ in nets] == [
+        ("carry", 1), ("apply", 0), ("fused", 0), ("tree", 0)]
+    assert nets[0][2] == bt
+
+
+def _thread_a_channel_carry(ops, bt, exclusive):
+    """``carry_chan_reg_kernel`` at NS = 1 in torch ops: each channel's
+    tile of ``bt`` steps in a thread's registers, round k (1, 2, 4, ...
+    below bt) x[i] = x[i - k] (+) x[i] from the top, the identity on the
+    left below k; the emission combine(carry, x[i]) (exclusive: x[i - 1],
+    the identity at i = 0); carry = carry (+) x[bt - 1] after each tile,
+    from the identity, stored as the tile's running total."""
+    a, b = ops
+    B, T, D = a.shape
+    one, zero = torch.ones(B, D), torch.zeros(B, D)
+    carry, outs, running = (one, zero), ([], []), ([], [])
+    for j in range(T // bt):
+        x = [(a[:, j * bt + i], b[:, j * bt + i]) for i in range(bt)]
+        k = 1
+        while k < bt:
+            for i in range(bt - 1, -1, -1):
+                x[i] = AFFINE.combine(x[i - k] if i >= k else (one, zero),
+                                      x[i])
+            k *= 2
+        for i in range(bt):
+            sel = (x[i - 1] if i > 0 else (one, zero)) if exclusive else x[i]
+            for o, v in zip(outs, AFFINE.combine(carry, sel)):
+                o.append(v)
+        carry = AFFINE.combine(carry, x[bt - 1])
+        for r, v in zip(running, carry):
+            r.append(v)
+    return ((torch.stack(outs[1], 1),),    # the output: the offset leaf
+            tuple(torch.stack(r, 1) for r in running))
+
+
+@pytest.mark.parametrize("exact", (False, True), ids=("normal", "exact"))
+@pytest.mark.parametrize("exclusive", (False, True))
+@pytest.mark.parametrize("bt", SHORT_TILES + (32,))
+def test_thread_a_channel_carry_gives_carry_plain(bt, exclusive, exact):
+    """The register carry's organization at tiles of 8 to 32 steps (a
+    thread a channel) gives ``carry_plain``'s outputs and running totals
+    bit for bit, signed zeros included (-0.0 at every tile start, the
+    identity combine's +0.0), inclusive and exclusive; the kernel itself
+    is held so on the card (``tests/test_torch_cuda_kernels.py -k
+    carry_channels_short``)."""
+    ops = _operands(bt, 3 * bt + 1, exact, shape=(2, 3 * bt, 8))
+    lay = scan_engine.Channels(2, 3 * bt, 8, bt, 8)
+    got, run = _thread_a_channel_carry(ops, bt, exclusive)
+    want, w_run = schedules.carry_plain(ops, AFFINE, lay, exclusive, True)
+    assert _all_same(got, want) and _all_same(run, w_run)
+    assert bool(torch.signbit(ops[1][:, ::bt]).all())
+
+
 def test_tile_network_refuses_other_kernels():
     with pytest.raises(ValueError, match="no tile network"):
         cuda.tile_network(AFFINE, CHANNEL_NETWORKS[0][1], "chain")

@@ -879,29 +879,21 @@ def test_cuda_affine_carry_channels_networks_agree(cuda_device):
         assert _same_bits(x, y)
 
 
-@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
-                                   torch.float16), ids=str)
-def test_cuda_affine_carry_channels_bt32_bitwise(cuda_device, dtype):
-    """The affine carry on Channels tiles of 32 steps (the SSD carry of a
-    4096-token prefill) runs ``carry_chan_reg_kernel`` (by the profiler's
-    names: a thread a channel) and gives ``carry_plain``'s outputs and
-    running totals bit for bit, inclusive and exclusive, from aligned
-    bases and bases one element off, over T = 32 k and over strips of 4
-    to 32 channels, blocks covering the channels exactly at any multiple
-    of four; apply, fused, tree and the totals at these tiles keep the
-    shared network; the scan of T = 32 k + 5 steps (ssm_scan, padded with
-    the identity to 32 (k + 1)) gives the plain version's bits."""
+def _carry_thread_a_channel_bitwise(cuda_device, dtype, bt):
+    """The affine carry on Channels tiles of ``bt`` (8 to 32) steps, a
+    thread a channel, against ``carry_plain`` and the shared network: see
+    the tests below."""
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    rng = np.random.default_rng(32)
+    rng = np.random.default_rng(bt)
     sched = scan_engine.schedules
     same = totals_data.same_bits
-    for shape in ((2, 128, 48), (1, 32, 4), (1, 96, 96), (3, 64, 12),
-                  (1, 32, 4100), (2, 32, 256)):
-        lay = scan_engine.Channels(*shape, 32, shape[2])
+    for shape in ((2, 4 * bt, 48), (1, bt, 4), (1, 3 * bt, 96),
+                  (3, 2 * bt, 12), (1, bt, 4100), (2, bt, 256)):
+        lay = scan_engine.Channels(*shape, bt, shape[2])
         assert cuda.tile_network(monoids.AFFINE, lay, "carry") == "register"
         for kernel in ("apply", "fused", "tree", "totals"):
             assert cuda.tile_network(monoids.AFFINE, lay, kernel) == "shared"
-        cpu = _chan_operands(rng, shape, 32, dtype)
+        cpu = _chan_operands(rng, shape, bt, dtype)
         for offset in (0, 1):
             gpu = []
             for o in cpu:
@@ -925,16 +917,16 @@ def test_cuda_affine_carry_channels_bt32_bitwise(cuda_device, dtype):
                 (shared,), _ = cuda.carry(monoids.AFFINE, gpu, lay,
                                           exclusive, network="shared")
                 assert same(shared, got), what
-    for t in (37, 101):   # 32 k + 5 steps
-        a, b = _chan_operands(rng, (2, t, 64), 32, dtype)
+    for t in (bt + 5, 3 * bt + 5):   # bt k + 5 steps
+        a, b = _chan_operands(rng, (2, t, 64), bt, dtype)
         cuda.reset_launches()
         got = ssm_ops.ssm_scan(a.to(cuda_device), b.to(cuda_device),
-                               block_t=32, schedule="carry")
+                               block_t=bt, schedule="carry")
         torch.cuda.synchronize()
         assert cuda.LAUNCHES["affine_carry"] == 1
-        assert same(got.cpu(), ssm_ops.ssm_scan(a, b, block_t=32,
+        assert same(got.cpu(), ssm_ops.ssm_scan(a, b, block_t=bt,
                                                 schedule="carry")), t
-    lay = scan_engine.Channels(1, 64, 256, 32, 256)
+    lay = scan_engine.Channels(1, 2 * bt, 256, bt, 256)
     ops_ = tuple(torch.ones(lay.shape, dtype=dtype, device=cuda_device)
                  for _ in range(2))
     names = _kernel_names(lambda: cuda.carry(monoids.AFFINE, ops_, lay))
@@ -943,6 +935,34 @@ def test_cuda_affine_carry_channels_bt32_bitwise(cuda_device, dtype):
     names = _kernel_names(lambda: cuda.carry(monoids.AFFINE, ops_, lay,
                                              network="shared"))
     assert any("carry_kernel<" in k for k in names), names
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+def test_cuda_affine_carry_channels_bt32_bitwise(cuda_device, dtype):
+    """The affine carry on Channels tiles of 32 steps (the SSD carry of a
+    4096-token prefill) runs ``carry_chan_reg_kernel`` (by the profiler's
+    names: a thread a channel) and gives ``carry_plain``'s outputs and
+    running totals bit for bit, inclusive and exclusive, from aligned
+    bases and bases one element off, over T = 32 k and over strips of 4
+    to 32 channels, blocks covering the channels exactly at any multiple
+    of four; apply, fused, tree and the totals at these tiles keep the
+    shared network; the scan of T = 32 k + 5 steps (ssm_scan, padded with
+    the identity to 32 (k + 1)) gives the plain version's bits."""
+    _carry_thread_a_channel_bitwise(cuda_device, dtype, 32)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16), ids=str)
+@pytest.mark.parametrize("bt", (8, 16, 24))
+def test_cuda_affine_carry_channels_short_tiles_bitwise(cuda_device, bt,
+                                                        dtype):
+    """The same at tiles of 8, 16 and 24 steps (the SSD carry of a
+    1024-token training row and of a 2500-token prefill): a thread a
+    channel holding its tile, ``carry_plain``'s bits, signed zeros at
+    every tile start, inclusive and exclusive, running totals, aligned
+    and one element off; ssm_scan at T = bt k + 5 with block_t = bt."""
+    _carry_thread_a_channel_bitwise(cuda_device, dtype, bt)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
@@ -1819,6 +1839,9 @@ NONPANEL_CASES = [
      128, 64),
     ("d112_bq64_kv_tail", 2, 1, 192, 320, 112, False, None, 290, None, 64,
      64),
+    # zamba2's training backward: causal with a ragged tail of keys
+    ("d112_causal_kv_tail", 2, 1, 256, 256, 112, True, None, 250, None,
+     128, 128),
     ("d96_gqa4_causal_kv_tail", 1, 4, 256, 256, 96, True, None, 200, None,
      128, 128),
     ("d160_window_softcap", 1, 2, 256, 256, 160, True, 64, None, 50.0, 128,
@@ -2592,3 +2615,152 @@ def test_cuda_model_kernel_routes_match_plain_routes(cuda_device, arch):
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) < 1e-4
 
+
+
+# ---------------------------------------------------------------------------
+# training on the card, at SMOKE widths with zamba2's head dim
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(dtype, device):
+    """zamba2-7b's SMOKE config (mamba, mamba, shared_attn over two
+    periods) with its full model's head dim of 112, its parameters from a
+    seed on the CPU and a copy on ``device``, a step on flash (the carry
+    schedule, as at full width: these few rows alone would take the
+    split-KV form) and the SSM kernel with remat and two microbatches, and
+    a batch of the synthetic pipeline on each."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import adamw
+    from repro_torch.train import step
+    cfg = dataclasses.replace(configs.get_smoke_config("zamba2-7b"),
+                              num_heads=2, num_kv_heads=2, head_dim=112,
+                              dtype=dtype)
+    params = step.init_params(cfg, generator=torch.Generator().manual_seed(
+        7), device="cpu")
+    on_card = adamw.tree_map(lambda t: t.to(device), params)
+    dcfg = DataConfig(seq_len=256, global_batch=2, vocab_size=cfg.vocab_size,
+                      seed=7)
+    tcfg = step.TrainStepConfig(attn_impl="flash", attn_schedule="carry",
+                                ssm_impl="kernel", remat=True,
+                                microbatches=2, warmup_steps=1,
+                                total_steps=4)
+    batches = (SyntheticDataset(dcfg, device="cpu").batch_at(0),
+               SyntheticDataset(dcfg, device=device).batch_at(0))
+    return cfg, tcfg, (params, on_card), batches
+
+
+def _train_launches(cfg, tcfg, dtype):
+    """The kernels one step launches, by name: per microbatch and period
+    the shared block's forward fold twice (the remat recomputes it), dq
+    and dk/dv once, and each Mamba2 layer's SSD carry three times (the
+    forward, its recomputation and the backward's scan)."""
+    periods = cfg.num_layers // len(cfg.layer_pattern)
+    calls = tcfg.microbatches * periods
+    mamba = calls * cfg.layer_pattern.count("mamba")
+    fold = {k: cuda_fold.fold_form(k, dtype, cfg.head_dim, 128, 128)
+            for k in ("fold_fwd", "fold_dq", "fold_dkv")}
+    return ({fold["fold_fwd"]: 2 * calls, fold["fold_dq"]: calls,
+             fold["fold_dkv"]: calls},
+            {cuda.kernel_name("affine", "carry"): 3 * mamba})
+
+
+def test_cuda_train_step_f32_matches_cpu_plain(cuda_device):
+    """One train step (flash and the SSM kernel, remat, two microbatches,
+    AdamW) of a float32 hybrid at head dim 112 on the card against the
+    same step on CPU copies (the plain versions): loss within 1e-5,
+    gradients within 1e-4 and the stepped parameters and master weights
+    within 1e-4 (the CPU tests' bars); the kernels launched by name."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step
+    cfg, tcfg, (cpu, gpu), (b_cpu, b_gpu) = _train_setup("float32",
+                                                         cuda_device)
+    module = step._LossAndGrad(cfg, step.loss_fn_for(cfg))
+    cuda.reset_launches()
+    cuda_fold.reset_launches()
+    loss, _, grads = step._accumulate_grads(module, gpu, b_gpu, tcfg)
+    torch.cuda.synchronize()
+    want_folds, want_scans = _train_launches(cfg, tcfg, torch.float32)
+    assert {k: v for k, v in cuda_fold.LAUNCHES.items() if v} == want_folds
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want_scans
+    l_cpu, _, g_cpu = step._accumulate_grads(module, cpu, b_cpu, tcfg)
+    assert abs(loss.item() - l_cpu.item()) < 1e-5
+    for g, w in zip(adamw.tree_leaves(grads), adamw.tree_leaves(g_cpu)):
+        assert float((g.cpu() - w).abs().max()) < 1e-4
+    fn = step.make_train_step(cfg, tcfg)
+    out = [fn(p, adamw.adamw_init(p), b, torch.tensor(1))
+           for p, b in ((gpu, b_gpu), (cpu, b_cpu))]
+    (p_g, s_g, m_g), (p_c, s_c, m_c) = out
+    assert abs(m_g["loss"].item() - m_c["loss"].item()) < 1e-5
+    for a, b in zip(adamw.tree_leaves({"p": p_g, "m": s_g.master}),
+                    adamw.tree_leaves({"p": p_c, "m": s_c.master})):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) < 1e-4
+
+
+def test_cuda_train_step_bf16_launches_and_trains(cuda_device):
+    """The same step in bf16 launches the tensor-core forward at D 128 and
+    the SIMT dq and dk/dv at d 112, counted by name, gives a finite loss
+    within 1e-2 of the CPU plain step's (both round the same activations
+    to bf16; the float32 association inside the matmuls and kernels moves
+    a rounding, about 2^-9 of a logit, and the mean over 512 tokens), and
+    moves every float32 master whose gradient is not zero."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step
+    cfg, tcfg, (cpu, gpu), (b_cpu, b_gpu) = _train_setup("bfloat16",
+                                                         cuda_device)
+    want_folds, want_scans = _train_launches(cfg, tcfg, torch.bfloat16)
+    assert set(want_folds) == {"fold_fwd_tc", "fold_dq", "fold_dkv"}
+    fn = step.make_train_step(cfg, tcfg)
+    s0 = adamw.adamw_init(gpu)
+    cuda.reset_launches()
+    cuda_fold.reset_launches()
+    p1, s1, m1 = fn(gpu, s0, b_gpu, torch.tensor(1))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_fold.LAUNCHES.items() if v} == want_folds
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want_scans
+    _, _, m_c = fn(cpu, adamw.adamw_init(cpu), b_cpu, torch.tensor(1))
+    assert bool(torch.isfinite(m1["loss"]))
+    assert abs(m1["loss"].item() - m_c["loss"].item()) < 1e-2
+    for old, new, mu in zip(adamw.tree_leaves(s0.master),
+                            adamw.tree_leaves(s1.master),
+                            adamw.tree_leaves(s1.mu)):
+        assert bool((new != old)[mu.abs() > 1e-6].all())
+    assert all(p.dtype == q.dtype for p, q in zip(adamw.tree_leaves(gpu),
+                                                  adamw.tree_leaves(p1)))
+
+
+def test_cuda_train_checkpoint_bf16_roundtrip(cuda_device, tmp_path):
+    """A train state of card tensors (bf16 parameters, float32 masters and
+    moments, the int32 step) saved through ``CheckpointManager`` (the
+    host snapshot, the writer thread) restores onto the card with the
+    same bits and dtypes; bf16 leaves are stored as uint16 bits under the
+    logical dtype ``bfloat16``."""
+    import json
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    params = {"w": torch.randn(5, 7, generator=g, device=cuda_device)
+              .bfloat16(), "n": {"scale": torch.randn(
+                  7, generator=g, device=cuda_device)}}
+    params["w"][0, :3] = torch.tensor([float("nan"), -0.0, float("inf")])
+    state = adamw.adamw_init(params)
+    bundle = {"params": params, "opt": state}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(3, bundle, extra={"loss": 1.5})
+    mgr.wait()
+    like = adamw.tree_map(torch.zeros_like, params)
+    step_, tree, extra = mgr.restore_latest(
+        {"params": like, "opt": adamw.adamw_init(like)})
+    assert step_ == 3 and extra == {"loss": 1.5}
+    for a, b in zip(adamw.tree_leaves({"p": params, **state._asdict()}),
+                    adamw.tree_leaves({"p": tree["params"],
+                                       **tree["opt"]._asdict()})):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        assert torch.equal(a.view(view), b.view(view))
+    manifest = json.loads((tmp_path / "step_3" / "manifest.json")
+                          .read_text())
+    dtypes = {leaf["name"]: leaf["dtype"] for leaf in manifest["leaves"]}
+    assert dtypes["params.w"] == "bfloat16"
+    assert np.load(tmp_path / "step_3" / "params.w.npy").dtype == np.uint16

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the reference package. Its public
+``chip_smoke.py``) imports JAX or the reference package (nor, in the
+training slice, ``ml_dtypes``). Its public
 surfaces mirror the reference's, read from the reference's source (the
 flash-attention package, the scan engine's ``__all__`` and its monoid
 registry), and the reference tests' uses of the registry run on the
@@ -117,6 +118,31 @@ MODEL_SERVE_MODULES = (
 )
 
 
+# The modules of the training slice (optimizer, data pipeline and packing,
+# train step and trainer, checkpointing): each must be found by the import
+# sweep and be free of JAX and the reference on its own.
+TRAINING_MODULES = (
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.manager",
+    "repro_torch.data",
+    "repro_torch.data.packing",
+    "repro_torch.data.pipeline",
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.optim.compression",
+    "repro_torch.optim.schedule",
+    "repro_torch.train",
+    "repro_torch.train.step",
+    "repro_torch.train.trainer",
+)
+
+# The reference's names of the training packages that wait for the
+# torch.distributed slice (ROADMAP Queue 1 item 8): a collective inside
+# shard_map, the batch's and the step's mesh shardings.
+WAITING_FOR_DISTRIBUTED = {"compressed_psum", "make_batch_specs",
+                           "shardings_for"}
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -138,6 +164,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(ATTENTION_MODULES) <= set(mods)
     assert set(CORE_CONFIG_MODULES) <= set(mods)
     assert set(MODEL_SERVE_MODULES) <= set(mods)
+    assert set(TRAINING_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -201,6 +228,58 @@ def test_model_serve_module_imports_no_jax(module):
     if not path.exists():
         path = (PKG.parent / rel).with_suffix(".py")
     assert FORBIDDEN.findall(path.read_text()) == []
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_module_imports_no_jax(module):
+    assert module in set(_modules())
+    rel = pathlib.Path(*module.split("."))
+    path = PKG.parent / rel / "__init__.py"
+    if not path.exists():
+        path = (PKG.parent / rel).with_suffix(".py")
+    text = path.read_text()
+    assert FORBIDDEN.findall(text) == []
+    assert re.findall(r"^\s*(?:import|from) ml_dtypes", text, re.M) == []
+
+
+@pytest.mark.parametrize("package", ("optim", "data", "train", "checkpoint"))
+def test_training_package_mirrors_reference(package):
+    """``optim``, ``data``, ``train`` and ``checkpoint``: the reference's
+    modules and ``__all__`` (read from its source) but the names that wait
+    for the torch.distributed slice (``make_batch_specs``; ``optim``'s
+    ``__all__`` never held ``compressed_psum``); each module defines the
+    reference module's public names but those (``compressed_psum``,
+    ``shardings_for``) and the ``Pytree`` type alias; every name
+    resolves."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{package}")
+    ref_dir = ROOT / "src" / "repro" / package
+    port_dir = PKG / package
+    assert sorted(p.name for p in port_dir.glob("*.py")) == \
+        sorted(p.name for p in ref_dir.glob("*.py"))
+    ref = _reference_all(ref_dir / "__init__.py")
+    assert set(mod.__all__) == ref - WAITING_FOR_DISTRIBUTED
+    for name in mod.__all__:
+        assert hasattr(mod, name), name
+    for path in ref_dir.glob("*.py"):
+        if path.name == "__init__.py":
+            continue
+        missing = _module_names(path) - _module_names(port_dir / path.name)
+        assert missing <= WAITING_FOR_DISTRIBUTED | {"Pytree"}, \
+            (path.name, missing)
+
+
+def test_lm_takes_remat_and_unroll():
+    """``models/lm.py``'s ``forward`` and ``lm_loss`` take the reference's
+    ``remat`` and ``unroll`` keywords with its defaults; ``convert`` has
+    ``tree_from_lm``."""
+    import inspect
+    from repro_torch.models import convert, lm
+    for fn in (lm.forward, lm.lm_loss):
+        params = inspect.signature(fn).parameters
+        assert params["remat"].default is False, fn
+        assert params["unroll"].default is False, fn
+    assert callable(convert.tree_from_lm)
 
 
 def test_dist_exports_a_subset_of_reference():

@@ -171,3 +171,26 @@ def test_lm_loss_matches_reference():
               "dropped_fraction"):
         assert abs(float(gm[k]) - float(wm[k])) < F32_TOL * max(
             abs(float(wm[k])), 1.0), k
+
+
+@pytest.mark.parametrize("arch,dtype", [("zamba2-7b", "bfloat16"),
+                                        ("gemma2-9b", "float32"),
+                                        ("xlstm-125m", "bfloat16")])
+def test_tree_from_lm_round_trips_bitwise(arch, dtype):
+    """``convert.tree_from_lm`` gives the reference's tree back from the
+    port's model: the same structure, dtypes (bf16 as ``ml_dtypes``'
+    bfloat16, loaded here beside the reference) and bits as the tree the
+    model was built from, periods stacked on axis 0; and
+    ``lm_from_tree(tree_from_lm(lm))`` holds the model's bits."""
+    from repro_torch.models import convert
+    jcfg, tcfg, params, m = models(arch, dtype)
+    tree, ref = convert.tree_from_lm(m, tcfg), np_tree(params)
+    assert jax.tree_util.tree_structure(tree) == \
+        jax.tree_util.tree_structure(ref)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    back = convert.lm_from_tree(tree, tcfg, device="cpu")
+    for (n, p), (n2, q) in zip(m.named_parameters(), back.named_parameters()):
+        assert n == n2 and p.dtype == q.dtype
+        assert torch.equal(p.view(torch.uint8), q.view(torch.uint8)), n
