@@ -188,9 +188,11 @@ first failure and prints no result):
      ``fold_fwd_tf32`` at (h) and (f)); count_cells equal to the analytic
      live
      cells; fully masked rows exactly 0 with zero gradients; the bf16
-     forward at zamba2-7b's head dim 112 (``fold_fwd_tc`` at D 128), 32
-     heads on a ragged 2500-token prompt, under carry and through the
-     split pass and the chain, against the plain folds; then each
+     forward, dq and dk/dv at zamba2-7b's head dim 112 (``fold_fwd_tc``,
+     ``fold_dq_tc`` and ``fold_dkv_tc`` at D 128), 32 heads on a ragged
+     2500-token prompt, under carry and through the split pass (its
+     payloads at stride 112) and the chain, against the plain folds;
+     then each
      fold kernel's time beside its bound, its plain version and, where
      one PyTorch call computes the same function,
      ``scaled_dot_product_attention`` (not for gemma2's softcap); in
@@ -243,23 +245,28 @@ first failure and prints no result):
      ``--seed``: four AdamW steps of ``repro_torch.train.make_train_step``
      on ``SyntheticDataset`` batches of 2 x 4096 tokens, flash attention
      and the SSM kernel, remat, two microbatches. Each step's launches are
-     counted and checked (``fold_fwd_tc`` 8, the SIMT ``fold_dq`` and
-     ``fold_dkv`` 4 each at head dim 112, the affine carry 24 on
-     ``carry_chan_reg_kernel``: forward, remat's recomputation and the
-     backward's scan); the first fold forward, dq, dk/dv and the first
-     carry of each direction are captured as the engine gets them and held
-     against their plain versions (bf16's bar; the carries bitwise), with
-     their rows in the kernels line beside their bounds and SDPA's
-     forward and backward; step 0's loss and gradients on the plain
-     routes (blockwise attention, the chunked SSD) within
+     counted and checked (``fold_fwd_tc`` 8, ``fold_dq_tc`` and
+     ``fold_dkv_tc`` 4 each, all at D 128 for head dim 112, none of the
+     SIMT forms; the affine carry 24 on ``carry_chan_reg_kernel``:
+     forward, remat's recomputation and the backward's scan); the first
+     fold forward, dq, dk/dv and the first carry of each direction are
+     captured as the engine gets them and held against their plain
+     versions (bf16's bar; the carries bitwise; dq and dk/dv with dO
+     and delta scaled by a power of two to unit RMS, and each output
+     also within 2^-6 of its max |plain|), with their rows in the
+     kernels line beside their bounds and SDPA's forward and backward,
+     dq and dk/dv also beside the SIMT ``fold_dq`` and ``fold_dkv`` they
+     replaced, launched by name (0 launches); step 0's loss and gradients
+     on the plain routes (blockwise attention, the chunked SSD) within
      ``TRAIN_L2_BOUND`` / ``TRAIN_LOSS_BOUND`` of the kernel routes';
      every step's loss finite, batch 0's loss lower after the steps, and
      every float32 master with a gradient or a decay moved; the host-clock
      step time, tokens/s, peak memory and one profiler window of a step
-     (device busy, top kernels). Then ``Trainer`` on zamba2-7b's SMOKE
-     config: 8 steps with checkpoints every 4 into a temporary directory,
-     a restart from step 4 reaching step 8 with the uninterrupted run's
-     bits.
+     (device busy, top kernels), naming ``fold_dq_tc_kernel`` and
+     ``fold_dkv_tc_kernel`` and neither SIMT backward kernel. Then
+     ``Trainer`` on zamba2-7b's SMOKE config: 8 steps with checkpoints
+     every 4 into a temporary directory, a restart from step 4 reaching
+     step 8 with the uninterrupted run's bits.
 
 The line before the last is one JSON object with a row per kernel (the
 shared-memory kernels timed beside the kernels that replaced them in rows
@@ -2439,12 +2446,13 @@ def main() -> int:
     print("(f) use_kv_bounds off == on bitwise (forward, dq, dk, dv); (g) "
           f"a random permutation of the {nkb} cache pages through "
           "kv_block_map == the contiguous cache bitwise")
-    # the bf16 forward at zamba2-7b's head dim 112 (fold_fwd_tc at D 128,
-    # the columns past 112 read as zeros) on a ragged 2500-token prompt,
-    # as its second request has: the carry fold, and the split pass
-    # ((m, l) and payload against the plain split pass) then the chain,
-    # each against the plain folds (these launches are not the main
-    # path's)
+    # the bf16 forward, dq and dk/dv at zamba2-7b's head dim 112
+    # (fold_fwd_tc, fold_dq_tc and fold_dkv_tc at D 128, the columns past
+    # 112 read as zeros) on a ragged 2500-token prompt, as its second
+    # request has: the carry fold, and the split pass (payloads against
+    # the plain split pass, at stride 112) then the chain, each against
+    # the plain folds (these launches are not the main path's); dq and
+    # dk/dv on the plain forward's (out, m, l) and a random dO
     z_h, z_d, z_t = 32, 112, 2500
     qz, kz, vz = (normals((1, z_h, z_t, z_d), bf16) for _ in range(3))
     e_z = {}
@@ -2476,13 +2484,49 @@ def main() -> int:
               f"d 112 {sched}: fold_fwd_tc not launched once")
         ok, e_z[sched] = allclose(got, want, BF16_TOL)
         check(ok, f"d 112 {sched} vs plain: {e_z[sched]}")
-        del got, want, ops_zt
+        ops_zb = bwd_operands(*ops_zt, *want)
+        del got, want
+        for kern, (spec_b, lay_b) in zip(
+                ("fold_dq", "fold_dkv"),
+                backward_folds(ops_zt[0].shape, ops_zt[1].shape, **kw_zt)):
+            form = kern + "_tc"
+            check(cuda_fold.fold_form(kern, bf16, z_d, lay_b.bq, lay_b.bk)
+                  == form and (lay_b.splits > 1) == (sched == "decoupled"),
+                  f"d 112 {sched} {kern}: form or splits ({lay_b.splits})")
+            want = schedules.fold_carry_plain(ops_zb, spec_b, lay_b)
+            before = dict(cuda_fold.LAUNCHES)
+            if sched == "carry":
+                got = cuda_fold.fold(spec_b, ops_zb, lay_b)[0]
+            else:
+                tot = cuda_fold.fold_totals(spec_b, ops_zb, lay_b)
+                ok, e_z[form, "split"] = allclose(
+                    tot, schedules.fold_totals_plain(ops_zb, spec_b, lay_b),
+                    BF16_TOL)
+                check(ok, f"d 112 {form} split pass vs plain: "
+                      f"{e_z[form, 'split']}")
+                got = cuda_fold.chain(spec_b, tot, lay_b,
+                                      (bf16,) * len(lay_b.out_dims))
+                del tot
+            sync()
+            check(cuda_fold.LAUNCHES[form] == before[form] + 1
+                  and cuda_fold.LAUNCHES[kern] == before[kern],
+                  f"d 112 {sched}: {form} not launched once, or {kern} "
+                  "launched")
+            ok, e_z[form, sched] = allclose(got, want, BF16_TOL)
+            check(ok, f"d 112 {form} {sched} vs plain: {e_z[form, sched]}")
+            del got, want
+        del ops_zt, ops_zb
     del qz, kz, vz
     print(f"(i)-width attention, bf16 at d 112 ({z_h} heads, ragged Tq "
-          f"{z_t}, causal) through fold_fwd_tc at D 128 against the plain "
-          f"folds (max |diff|; (atol, rtol) {BF16_TOL}): carry "
-          f"{e_z['carry']:.3g}; decoupled split pass {e_z['split']:.3g}, "
-          f"through the chain {e_z['decoupled']:.3g}")
+          f"{z_t}, causal) through fold_fwd_tc, fold_dq_tc and fold_dkv_tc "
+          f"at D 128 against the plain folds (max |diff|; (atol, rtol) "
+          f"{BF16_TOL}): forward carry {e_z['carry']:.3g}, decoupled split "
+          f"pass {e_z['split']:.3g}, through the chain "
+          f"{e_z['decoupled']:.3g}; " + "; ".join(
+              f"{f} carry {e_z[f, 'carry']:.3g}, split pass "
+              f"{e_z[f, 'split']:.3g}, through the chain "
+              f"{e_z[f, 'decoupled']:.3g}"
+              for f in ("fold_dq_tc", "fold_dkv_tc")))
     # fully masked rows (q past kv_len + window): exactly 0, zero grads
     qm, km, vm = (normals((g_hq if i == 0 else g_hkv, 1024, g_d), bf16)
                   for i in range(3))
@@ -2720,15 +2764,25 @@ def main() -> int:
     # the SIMT forward, dq and dk/dv, which bf16 no longer reaches there)
     def attn_row(rname, kernel, replaces, run, run_plain, nbytes, flops,
                  library, shape, reps=3, tol=BF16_TOL, bitwise=False,
-                 graph=False, launches=None):
+                 graph=False, launches=None, rel=None):
         """``bitwise``: the kernel also gives the plain version's bits;
         ``graph``: also the kernel's time from a CUDA graph replay;
         ``launches``: the kernel's launches on its main path where that is
-        not the attention phase's."""
+        not the attention phase's; ``rel``: also hold each output's
+        max |got - want| within rel x its max |want|, a bar that scales
+        with the outputs."""
         got, want = flat(run()), flat(run_plain())
         sync()
         ok, err = allclose(got, want, tol)
         check(ok, f"{rname}: kernel vs plain at the main-path shape: {err}")
+        for i, (a, b) in enumerate(zip(got, want) if rel else ()):
+            w_max = b.double().abs().max().item()
+            d_max = (a.double() - b.double()).abs().max().item()
+            print(f"  {rname} output {i}: max |kernel - plain| {d_max:.4g}, "
+                  f"max |plain| {w_max:.4g} (bar {rel:.4g} x max |plain|)")
+            check(w_max > 0 and d_max <= rel * w_max,
+                  f"{rname} output {i}: max |diff| {d_max} against max "
+                  f"|plain| {w_max}")
         check(not bitwise or all_same_bits(got, want),
               f"{rname}: kernel != plain bitwise at the main-path shape")
         del got, want
@@ -3466,16 +3520,16 @@ def main() -> int:
           f"{j_forms}, SSD carry over {j_width} channels {j_ssd} (tiles "
           f"of {j_chunks} chunks)")
     check(j_attn == "carry" and j_ssd == "carry"
-          and j_forms == {"fold_fwd": "fold_fwd_tc", "fold_dq": "fold_dq",
-                          "fold_dkv": "fold_dkv"},
+          and j_forms == {"fold_fwd": "fold_fwd_tc", "fold_dq": "fold_dq_tc",
+                          "fold_dkv": "fold_dkv_tc"},
           f"(j) routes {j_attn} / {j_ssd} / {j_forms}")
     # a step's launches: per microbatch and period the shared block's
     # forward fold twice (remat recomputes it), dq and dk/dv once, each
     # Mamba2 layer's carry three times (forward, recomputation, backward)
     calls = TRAIN_MICRO * j_periods
     j_mamba = calls * jcfg.layer_pattern.count("mamba")
-    want_folds = {"fold_fwd_tc": 2 * calls, "fold_dq": calls,
-                  "fold_dkv": calls}
+    want_folds = {"fold_fwd_tc": 2 * calls, "fold_dq_tc": calls,
+                  "fold_dkv_tc": calls}
     want_scans = {scan_key: 3 * j_mamba}
 
     def batch_loss(tree, batch):
@@ -3611,12 +3665,20 @@ def main() -> int:
     prof_j = stage_profile("train step", lambda: fn_j(
         params, opt, batch, torch.tensor(TRAIN_STEPS)), cell="(j)")
     busy_j = sum(prof_j.values())
+    check(any("fold_dq_tc_kernel" in n for n in prof_j)
+          and any("fold_dkv_tc_kernel" in n for n in prof_j)
+          and not any("fold_dq_kernel" in n or "fold_dkv_kernel" in n
+                      for n in prof_j),
+          "(j) the train step's profile should name fold_dq_tc_kernel and "
+          "fold_dkv_tc_kernel and neither SIMT backward kernel: "
+          f"{sorted(n for n in prof_j if 'fold' in n)}")
     del params, opt, batch, batch0
     torch.cuda.empty_cache()
 
     # the captured kernel calls against their plain versions, and their
     # rows: the forward fold beside SDPA's forward, dq and dk/dv beside
-    # SDPA's backward (dq, dk, dv) at the same shape, bf16, causal
+    # SDPA's backward (dq, dk, dv) at the same shape, bf16, causal, and
+    # beside the SIMT forms they replaced, by name (0 launches)
     ops_f, spec_f, lay_f = captured["softmax_pair"]
     at = spec_f.attn
     check(lay_f.group == 1, "(j) zamba2's attention has no kv groups")
@@ -3640,19 +3702,34 @@ def main() -> int:
     bwd_ms = {}
     for kernel, fl in (("fold_dq", 6), ("fold_dkv", 8)):
         ops_b, spec_b, lay_b = captured["softmax_bwd_" + kernel[5:]]
+        form = kernel + "_tc"
         check(cuda_fold.fold_form(kernel, ops_b[0].dtype, lay_b.d, lay_b.bq,
-                                  lay_b.bk) == kernel,
+                                  lay_b.bk) == form,
               f"(j) the captured {kernel} takes another form")
         do_s = ops_b[3][None]
+        # dq, dk and dv are linear in (dO, delta). The captured cotangent
+        # gives gradients of about 1e-6, below BF16_TOL's atol; dO and
+        # delta scaled by a power of two that brings dO to unit RMS give
+        # the captured call's outputs times that power, bit for bit, at
+        # values the bar tells apart. Each output is also held within
+        # 2^-6 of its max |plain| (one bf16 ulp is 2^-7 of it).
+        rms = ops_b[3].float().pow(2).mean().sqrt().item()
+        check(rms > 0, f"(j) the captured {kernel}'s dO is zero")
+        unit = 2.0 ** -round(math.log2(rms))
+        ops_b = ops_b[:3] + (ops_b[3] * unit,) + ops_b[4:6] + (
+            ops_b[6] * unit,)
         out_b = cuda_fold.fold(spec_b, ops_b, lay_b)[0]
-        attn_row(f"{kernel}_zamba2_train", kernel, "carry",
-                 lambda: cuda_fold.fold(spec_b, ops_b, lay_b)[0],
-                 lambda: schedules.fold_carry_plain(ops_b, spec_b, lay_b),
-                 nbytes(*ops_b, *out_b), fl * cell_j * lay_b.d * live_j,
-                 lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s,
-                                             retain_graph=True),
-                 shape_j, launches=train_launches[kernel])
-        bwd_ms[kernel] = rows[-1]
+        for f_, launches in ((form, train_launches[form]), (kernel, 0)):
+            attn_row(f"{f_}_zamba2_train", f_, "carry",
+                     lambda: cuda_fold.fold(spec_b, ops_b, lay_b,
+                                            form=f_)[0],
+                     lambda: schedules.fold_carry_plain(ops_b, spec_b,
+                                                        lay_b),
+                     nbytes(*ops_b, *out_b), fl * cell_j * lay_b.d * live_j,
+                     lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s,
+                                                 retain_graph=True),
+                     shape_j, launches=launches, rel=2 ** -6)
+            bwd_ms[f_] = rows[-1]
         del out_b, ops_b
     del o_s, qs, ks, vs, ops_f
     carry_rows = {}
@@ -3717,7 +3794,7 @@ def main() -> int:
     del p_a, o_a, p_b, o_b, p_r, like_p, like_o, bundle
 
     step_j = statistics.median(step_ms[1:])
-    dq_row, dkv_row = bwd_ms["fold_dq"], bwd_ms["fold_dkv"]
+    dq_row, dkv_row = bwd_ms["fold_dq_tc"], bwd_ms["fold_dkv_tc"]
     print(f"(j) zamba2-7b training ({TRAIN_LAYERS} layers at full width, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_MICRO} "
           f"microbatches, remat) on {card}: step {step_j:.0f} ms (host "
@@ -3726,9 +3803,11 @@ def main() -> int:
           f"busy {busy_j:.1f} ms in the profiled step; peak device memory "
           f"{peak_train / 2**30:.2f} GiB over the steps, "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB in the "
-          f"phase; SIMT bf16 backward at d {jcfg.head_dim}: fold_dq "
-          f"{dq_row['ms']:.3f} ms (bound {dq_row['bound_ms']:.4f}), "
-          f"fold_dkv {dkv_row['ms']:.3f} ms (bound "
+          f"phase; bf16 backward at d {jcfg.head_dim} (D 128): fold_dq_tc "
+          f"{dq_row['ms']:.3f} ms (SIMT fold_dq "
+          f"{bwd_ms['fold_dq']['ms']:.3f}; bound "
+          f"{dq_row['bound_ms']:.4f}), fold_dkv_tc {dkv_row['ms']:.3f} ms "
+          f"(SIMT fold_dkv {bwd_ms['fold_dkv']['ms']:.3f}; bound "
           f"{dkv_row['bound_ms']:.4f}), SDPA backward (dq, dk, dv) "
           f"{dq_row['library_ms']:.3f} ms; the SSD carry at bt "
           f"{j_chunks}: forward {carry_rows['affine_fwd']['ms']:.4f} ms, "

@@ -1046,23 +1046,26 @@ __global__ void __launch_bounds__(256, 1)
     for (int i = 0; i < 2; ++i) {
       const int kr = 64 * sub + tile_row(tid, i);   // kv row of the block
       const int col = DC * cp + 2 * quad;
+      // rows at stride d; columns past d are zeros, never stored
       if (p.c0) {
         float* dst = (wg == 0 ? p.c1 : p.c0) +
                      (((long long)(hk * a.nk + jb) * a.splits + blockIdx.y) *
-                          a.bk + kr) * D + col;
+                          a.bk + kr) * a.d + col;
 #pragma unroll
         for (int j = 0; j < DC / 8; ++j)
-          *reinterpret_cast<float2*>(dst + 8 * j) =
-              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          if (DC * cp + 8 * j < a.d)
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
       } else {
         __nv_bfloat16* dst =
             static_cast<__nv_bfloat16*>(wg == 0 ? p.out1 : p.out0) +
-            ((long long)hk * a.tk + (long long)jb * a.bk + kr) * D + col;
+            ((long long)hk * a.tk + (long long)jb * a.bk + kr) * a.d + col;
 #pragma unroll
         for (int j = 0; j < DC / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * i],
-                                    acc[4 * j + 2 * i + 1]);
+          if (DC * cp + 8 * j < a.d)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * i],
+                                      acc[4 * j + 2 * i + 1]);
       }
     }
     if (!p.c0 && p.counts && wg == 1 && sub == 0 && cp == 0 && tid == 0)
@@ -2587,22 +2590,25 @@ __global__ void __launch_bounds__(256, 1)
       for (int i = 0; i < 2; ++i) {
         const int r = 64 * sub + tile_row(tid, i);   // row of the q block
         const int col = DC * wg + 2 * quad;
+        // rows at stride d; columns past d are zeros, never stored
         if (p.c0) {  // split pass: publish the chunk's dq
           float* dst =
               p.c0 + ((((long long)h * a.nq + qi) * a.splits + blockIdx.y) *
-                          a.bq + r) * D + col;
+                          a.bq + r) * a.d + col;
 #pragma unroll
           for (int j = 0; j < DC / 8; ++j)
-            *reinterpret_cast<float2*>(dst + 8 * j) =
-                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+            if (DC * wg + 8 * j < a.d)
+              *reinterpret_cast<float2*>(dst + 8 * j) =
+                  make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
         } else {
           __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out0) +
-                               (qrow0 + tile_row(tid, i)) * D + col;
+                               (qrow0 + tile_row(tid, i)) * a.d + col;
 #pragma unroll
           for (int j = 0; j < DC / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * i],
-                                      acc[4 * j + 2 * i + 1]);
+            if (DC * wg + 8 * j < a.d)
+              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                  __floats2bfloat162_rn(acc[4 * j + 2 * i],
+                                        acc[4 * j + 2 * i + 1]);
         }
       }
     }
@@ -2732,10 +2738,11 @@ cudaError_t run_dkv(const FoldArgs& a, const FoldPtrs& p, int smem,
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   const long long q_rows = (long long)a.bh * a.tq;
   const long long kv_rows = (long long)a.bh_kv * a.tk;
-  if (!rows_map(&maps.q, p.q, D, q_rows) ||
-      !rows_map(&maps.dout, p.dout, D, q_rows) ||
-      !rows_map(&maps.k, p.k, D, kv_rows) ||
-      !rows_map(&maps.v, p.v, D, kv_rows))
+  // the maps span the real d: a box's columns past it read as zeros
+  if (!rows_map(&maps.q, p.q, a.d, q_rows) ||
+      !rows_map(&maps.dout, p.dout, a.d, q_rows) ||
+      !rows_map(&maps.k, p.k, a.d, kv_rows) ||
+      !rows_map(&maps.v, p.v, a.d, kv_rows))
     return cudaErrorInvalidPitchValue;
   return launch(fold_dkv_tc_kernel<D>,
                 dim3((unsigned)(a.bh_kv * a.nk * (a.bk / 64) * (D / G::kDC)),
@@ -2815,10 +2822,11 @@ cudaError_t run_dq(const FoldArgs& a, const FoldPtrs& p, int smem,
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   const long long q_rows = (long long)a.bh * a.tq;
   const long long kv_rows = (long long)a.bh_kv * a.tk;
-  if (!rows_map(&maps.q, p.q, D, q_rows) ||
-      !rows_map(&maps.dout, p.dout, D, q_rows) ||
-      !rows_map(&maps.k, p.k, D, kv_rows) ||
-      !rows_map(&maps.v, p.v, D, kv_rows))
+  // the maps span the real d: a box's columns past it read as zeros
+  if (!rows_map(&maps.q, p.q, a.d, q_rows) ||
+      !rows_map(&maps.dout, p.dout, a.d, q_rows) ||
+      !rows_map(&maps.k, p.k, a.d, kv_rows) ||
+      !rows_map(&maps.v, p.v, a.d, kv_rows))
     return cudaErrorInvalidPitchValue;
   return launch(fold_dq_tc_kernel<D>,
                 dim3((unsigned)(a.bh * a.nq * (a.bq / 64)),
@@ -2882,14 +2890,19 @@ int attn_fold_fwd_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
 }
 
 // Backward dk/dv fold on QBlocks, bf16: out0 = dk, out1 = dv, or the split
-// pass into c0 (dk) and c1 (dv). Takes d in {64, 128, 256}, bk and bq in
-// {64, 128}.
+// pass into c0 (dk) and c1 (dv). Takes d a multiple of 16 up to 256, run
+// on the instantiation at D = 64, 128 or 256, the smallest that holds it
+// (cuda_fold.tc_dim): the TMA boxes' columns past d come in as zeros (they
+// add nothing to k·qᵀ or v·dOᵀ and give zero columns of dk and dv), and
+// dk, dv and the split payloads are stored to d columns at stride d; bk
+// and bq in {64, 128}.
 int attn_fold_dkv_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128) ||
+      a->d < 16 || a->d % 16 != 0 || a->d > 256)
     return cudaErrorInvalidValue;
-  switch (a->d) {
+  switch (a->d <= 64 ? 64 : a->d <= 128 ? 128 : 256) {
     case 64:
       return run_dkv<64>(*a, *p, smem, st);
     case 128:
@@ -2942,13 +2955,18 @@ int attn_fold_dq_tf32(const FoldArgs* a, const FoldPtrs* p, int smem,
 }
 
 // Backward dq fold on KVBlocks, bf16: out0 = dq, or the split pass into
-// c0. Takes d in {64, 128, 256}, bk and bq in {64, 128}.
+// c0. Takes d a multiple of 16 up to 256, run on the instantiation at D =
+// 64, 128 or 256, the smallest that holds it (cuda_fold.tc_dim): the TMA
+// boxes' columns past d come in as zeros (they add nothing to q·kᵀ or
+// dO·vᵀ and give zero columns of ds·k), and dq or the split payload is
+// stored to d columns at stride d; bk and bq in {64, 128}.
 int attn_fold_dq_tc(const FoldArgs* a, const FoldPtrs* p, int smem,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128))
+  if ((a->bq != 64 && a->bq != 128) || (a->bk != 64 && a->bk != 128) ||
+      a->d < 16 || a->d % 16 != 0 || a->d > 256)
     return cudaErrorInvalidValue;
-  switch (a->d) {
+  switch (a->d <= 64 ? 64 : a->d <= 128 ? 128 : 256) {
     case 64:
       return run_dq<64>(*a, *p, smem, st);
     case 128:

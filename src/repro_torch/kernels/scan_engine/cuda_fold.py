@@ -79,10 +79,10 @@ MAX_SPLITS = 65535  # grid.y
 # The tensor-core forms' range: head dims that are whole 64-column
 # (128-byte) TMA boxes, KV cells of one or two 64-row wgmma tiles, and q
 # blocks of two 64-row tiles or (forward) the rows of several heads
-# packed into one tile. The bfloat16 forward also takes a head dim that
-# is a multiple of 16 between them (zamba2's 112, stablelm's 160), on the
-# instantiation of the next of these dims (``tc_dim``), the columns past
-# d read as zeros by TMA.
+# packed into one tile. The bfloat16 forms (forward, dq and dk/dv) also
+# take a head dim that is a multiple of 16 between them (zamba2's 112,
+# stablelm's 160), on the instantiation of the next of these dims
+# (``tc_dim``), the columns past d read as zeros by TMA and never stored.
 TC_DIMS = (64, 128, 256)
 TC_BK = (64, 128)
 TC_BQ = {"fold_fwd": (8, 16, 32, 64, 128), "fold_dq": (64, 128),
@@ -199,14 +199,14 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
     """The kernel that runs fold ``kernel`` ("fold_fwd", "fold_dq" or
     "fold_dkv") on ``dtype`` operands of head dim ``d`` in (``bq``,
     ``bk``) cells, by its ``LAUNCHES`` name: ``fold_fwd_tc`` /
-    ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d in ``TC_DIMS``
-    (the forward: d any multiple of 16, run at ``tc_dim(d)``), bk in
-    ``TC_BK`` and bq in ``TC_BQ``; ``fold_fwd_tf32`` /
-    ``fold_dq_tf32`` / ``fold_dkv_tf32`` for float32 with d in
-    ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32 products keep ~22
-    bits of each operand, where the float32 bars against the plain
-    versions, 1e-5 / 1e-4, rule out bf16 or single TF32 products); else
-    the SIMT kernel (a decode step's bq of 8 among them).
+    ``fold_dq_tc`` / ``fold_dkv_tc`` for bfloat16 with d any multiple of
+    16 (run at ``tc_dim(d)``), bk in ``TC_BK`` and bq in ``TC_BQ``;
+    ``fold_fwd_tf32`` / ``fold_dq_tf32`` / ``fold_dkv_tf32`` for float32
+    with d in ``TF32_DIMS`` and bk, bq in ``TC_BK`` (three TF32 products
+    keep ~22 bits of each operand, where the float32 bars against the
+    plain versions, 1e-5 / 1e-4, rule out bf16 or single TF32 products);
+    else the SIMT kernel (a decode step's bq of 8 among them, and float32
+    at a head dim between ``TF32_DIMS``).
     A choice by shape: no form gives way to another. Raises TypeError for
     a dtype no kernel takes and ValueError past the kernels' range."""
     if dtype not in DTYPE_CODES:
@@ -217,8 +217,7 @@ def fold_form(kernel: str, dtype, d: int, bq: int, bk: int) -> str:
         raise ValueError(
             f"the fold kernels take head dim <= {MAX_D} and KV blocks of "
             f"<= {MAX_BK} rows, got d={d} bk={bk}")
-    tc_d = d in TC_DIMS or (kernel == "fold_fwd" and d % 16 == 0)
-    if (dtype == torch.bfloat16 and kernel in TC_BQ and tc_d
+    if (dtype == torch.bfloat16 and kernel in TC_BQ and d % 16 == 0
             and bk in TC_BK and bq in TC_BQ[kernel]):
         return kernel + "_tc"
     if (dtype == torch.float32 and d in TF32_DIMS and bk in TC_BK

@@ -1830,8 +1830,8 @@ def test_cuda_tc_fully_masked_rows(cuda_device):
             assert bool(torch.isfinite(t).all()) and not bool(t.any())
 
 
-# head dims that are not whole 64-column panels: the bf16 forward runs at
-# the next of 64, 128 and 256 (cuda_fold.tc_dim), dq and dk/dv stay SIMT
+# head dims that are not whole 64-column panels: the bf16 forward, dq and
+# dk/dv run at the next of 64, 128 and 256 (cuda_fold.tc_dim)
 NONPANEL_CASES = [
     # (name, Hkv, group, Tq, Tk, D, causal, window, kv_len, softcap, bq, bk)
     ("d112_causal", 2, 1, 256, 256, 112, True, None, None, None, 128, 128),
@@ -1848,6 +1848,9 @@ NONPANEL_CASES = [
      128),
     ("d160_bq64_bk64_causal", 2, 1, 128, 256, 160, True, None, None, None,
      64, 64),
+    # at D 64: dq's second warpgroup owns no columns
+    ("d32_gqa2_causal_kv_tail", 1, 2, 256, 256, 32, True, None, 250, None,
+     128, 128),
     # decode: a GQA group's q rows packed into one 64-row tile
     ("decode_d112_gqa4", 2, 4, 8, 1024, 112, False, None, 1000, None, 8,
      128),
@@ -1889,15 +1892,16 @@ def _canaries_intact(made):
 @pytest.mark.parametrize("schedule", ("carry", "decoupled"))
 @pytest.mark.parametrize("case", NONPANEL_CASES,
                          ids=[c[0] for c in NONPANEL_CASES])
-def test_cuda_tc_fwd_non_panel_dims_vs_plain(cuda_device, monkeypatch, case,
-                                             schedule):
-    """The bf16 forward at head dims 112, 96 and 160 runs ``fold_fwd_tc``
-    (at D 128, 128 and 256; the columns past d read as zeros) and meets
-    the bf16 bar against the plain fold, the split pass against the plain
-    split pass and through the chain; nothing is stored past column d
-    and every output element is stored (canaries after each output, NaN
-    before the launch); dq and dk/dv at these dims run the SIMT kernels,
-    counted under ``fold_dq`` and ``fold_dkv``, within the same bar."""
+def test_cuda_tc_non_panel_dims_vs_plain(cuda_device, monkeypatch, case,
+                                         schedule):
+    """The bf16 forward, dq and dk/dv at head dims 112, 96, 160 and 32 run
+    ``fold_fwd_tc``, ``fold_dq_tc`` and ``fold_dkv_tc`` (at D 128, 128,
+    256 and 64; the columns past d read as zeros), one launch each and no
+    SIMT launch, and meet the bf16 bar against the plain folds, the split
+    pass against the plain split pass (its payloads at stride d) and
+    through the chain; nothing is stored past column d and every output
+    element is stored (canaries after each output, NaN before the
+    launch)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         backward_folds, forward_fold)
     from repro_torch.kernels.scan_engine import schedules
@@ -1932,14 +1936,16 @@ def test_cuda_tc_fwd_non_panel_dims_vs_plain(cuda_device, monkeypatch, case,
     for kernel, (sp, ly) in zip(("fold_dq", "fold_dkv"),
                                 backward_folds(q.shape, k.shape, **kw)):
         assert cuda_fold.fold_form(kernel, torch.bfloat16, d, bq, bk) == \
-            kernel
+            kernel + "_tc"
         cuda_fold.reset_launches()
         got = _tc_fold(sp, tuple(t.to(cuda_device) for t in ops_b), ly,
                        schedule, (torch.bfloat16,) * len(ly.out_dims))
         torch.cuda.synchronize()
-        assert cuda_fold.LAUNCHES[kernel] == 1
-        assert cuda_fold.LAUNCHES[kernel + "_tc"] == 0
+        assert cuda_fold.LAUNCHES[kernel + "_tc"] == 1
+        assert cuda_fold.LAUNCHES[kernel] == 0
         for a, b in zip(got, schedules.fold_carry_plain(ops_b, sp, ly)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert not bool(torch.isnan(a).any())
             assert _allclose(a, b, BF16_TOL)
     assert _canaries_intact(made)
 
@@ -1950,9 +1956,9 @@ def test_cuda_tc_fwd_d112_ragged_through_flash_attention(cuda_device,
     """zamba2's shared attention at a small width: 4 heads of 112, a
     ragged 300 tokens (padded to the blocks by the wrapper), causal,
     through ``flash_attention`` and autograd against the plain route on
-    CPU copies: the forward launches ``fold_fwd_tc``, the backward the
-    SIMT dq and dk/dv; the outputs within the bf16 bar, bitwise equal to
-    themselves on a repeat."""
+    CPU copies: the forward launches ``fold_fwd_tc``, the backward
+    ``fold_dq_tc`` and ``fold_dkv_tc`` (all at D 128); the outputs within
+    the bf16 bar, bitwise equal to themselves on a repeat."""
     rng = np.random.default_rng(112)
     q, k, v, go = (torch.from_numpy(rng.standard_normal(
         (1, 4, 300, 112)).astype(np.float32)).to(torch.bfloat16)
@@ -1968,10 +1974,10 @@ def test_cuda_tc_fwd_d112_ragged_through_flash_attention(cuda_device,
     torch.cuda.synchronize()
     assert cuda_fold.LAUNCHES["fold_fwd_tc"] == 1
     assert cuda_fold.LAUNCHES["fold_fwd"] == 0
-    assert cuda_fold.LAUNCHES["fold_dq"] == 1
-    assert cuda_fold.LAUNCHES["fold_dkv"] == 1
-    assert cuda_fold.LAUNCHES["fold_dq_tc"] == 0
-    assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 0
+    assert cuda_fold.LAUNCHES["fold_dq_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_dkv_tc"] == 1
+    assert cuda_fold.LAUNCHES["fold_dq"] == 0
+    assert cuda_fold.LAUNCHES["fold_dkv"] == 0
     for a, b in zip(res[1], res[0]):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert _allclose(a, b, BF16_TOL)
@@ -2699,8 +2705,8 @@ def test_cuda_train_step_f32_matches_cpu_plain(cuda_device):
 
 
 def test_cuda_train_step_bf16_launches_and_trains(cuda_device):
-    """The same step in bf16 launches the tensor-core forward at D 128 and
-    the SIMT dq and dk/dv at d 112, counted by name, gives a finite loss
+    """The same step in bf16 launches the tensor-core forward, dq and dk/dv
+    at D 128 for d 112, counted by name, gives a finite loss
     within 1e-2 of the CPU plain step's (both round the same activations
     to bf16; the float32 association inside the matmuls and kernels moves
     a rounding, about 2^-9 of a logit, and the mean over 512 tokens), and
@@ -2710,7 +2716,7 @@ def test_cuda_train_step_bf16_launches_and_trains(cuda_device):
     cfg, tcfg, (cpu, gpu), (b_cpu, b_gpu) = _train_setup("bfloat16",
                                                          cuda_device)
     want_folds, want_scans = _train_launches(cfg, tcfg, torch.bfloat16)
-    assert set(want_folds) == {"fold_fwd_tc", "fold_dq", "fold_dkv"}
+    assert set(want_folds) == {"fold_fwd_tc", "fold_dq_tc", "fold_dkv_tc"}
     fn = step.make_train_step(cfg, tcfg)
     s0 = adamw.adamw_init(gpu)
     cuda.reset_launches()

@@ -6,7 +6,7 @@ folds (dq over ``KVBlocks``, dk/dv over the transposed ``QBlocks``). The
 same numpy inputs and cotangents go through ``jax.grad`` of the
 reference (Pallas in interpret mode) and ``torch.autograd.grad`` of the
 port (the plain fold versions on CPU tensors), over the reference's
-8-config grid under both fold schedules.
+8-config grid and zamba2-7b's head dim of 112 under both fold schedules.
 
 Tolerances are the reference tests' own: 1e-4 for float32 gradients
 (tests/test_flash_backward.py:102), 1e-5 between the two schedules
@@ -48,6 +48,8 @@ CONFIGS = [
     ("ragged_kv", 1, 2, 1, 300, 300, 32, True, None, None, 128, 128),
     ("ragged_kv_noncausal", 1, 1, 1, 200, 300, 16, False, None, None,
      128, 128),
+    # zamba2-7b's head dim, which the bf16 tensor-core forms run at D 128
+    ("d112", 1, 1, 2, 256, 256, 112, True, None, None, 128, 128),
 ]
 
 
@@ -186,6 +188,16 @@ def test_reference_oracles_fully_masked_guarded(oracle):
         assert float(g.abs().max()) == 0.0
 
 
+def _hold_bf16_grads(got, *wants, d):
+    """The port's bf16 gradients: bf16, d columns, finite, and each within
+    the bf16 bar of its counterpart in every one of ``wants``."""
+    for a, *bs in zip(got, *wants):
+        assert a.dtype == torch.bfloat16 and a.shape[-1] == d
+        assert bool(torch.isfinite(a.float()).all())
+        for b in bs:
+            _close(a, b, BF16_GRAD_TOL)
+
+
 @pytest.mark.parametrize("schedule", SCHEDULES)
 def test_grads_bf16(schedule):
     """bf16 operands: gradients come back in bf16, finite, and track the
@@ -201,11 +213,19 @@ def test_grads_bf16(schedule):
                             ts[2].reshape(2, 128, 32), group=2,
                             scale=32 ** -0.5, block_k=64)
     oracle = torch.autograd.grad((blk ** 2).sum(), ts)
-    for a, b, c in zip(got, want, oracle):
-        assert a.dtype == torch.bfloat16
-        assert bool(torch.isfinite(a.float()).all())
-        _close(a, b, BF16_GRAD_TOL)
-        _close(a, c, BF16_GRAD_TOL)
+    _hold_bf16_grads(got, want, oracle, d=32)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_grads_bf16_d112(schedule):
+    """bf16 gradients at zamba2-7b's head dim (not whole 64-column
+    panels) track the reference's bf16 gradients."""
+    q, k, v = _qkv(112, 1, 2, 1, 256, 256, 112)
+    kw = dict(scale=112 ** -0.5, schedule=schedule, block_q=128,
+              block_k=128)
+    got = _port_grads(q, k, v, dtype=torch.bfloat16, **kw)
+    want = _ref_grads(q, k, v, dtype=jnp.bfloat16, **kw)
+    _hold_bf16_grads(got, want, d=112)
 
 
 def test_autograd_function_paths():

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import forward_fold
+from repro_torch.kernels.flash_attention.flash_attention import (
+    backward_folds, forward_fold)
 from repro_torch.kernels.scan_engine import cuda_fold, schedules
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -63,18 +64,18 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_dq", F32, 256, 32, 64, "fold_dq"),           # bq 32
     ("fold_dq", BF16, 128, 8, 128, "fold_dq"),          # dq: bq 64/128
     ("fold_fwd", BF16, 32, 128, 128, "fold_fwd_tc"),    # at D 64
-    # head dims that are not whole panels: the bf16 forward at the next
-    # tensor-core dim, dq, dk/dv and float32 SIMT
+    # head dims that are not whole panels: bf16 forward, dq and dk/dv at
+    # the next tensor-core dim, float32 SIMT
     ("fold_fwd", BF16, 112, 128, 128, "fold_fwd_tc"),   # zamba2-7b
     ("fold_fwd", BF16, 112, 8, 128, "fold_fwd_tc"),     # its decode step
     ("fold_fwd", BF16, 96, 128, 128, "fold_fwd_tc"),
     ("fold_fwd", BF16, 160, 128, 128, "fold_fwd_tc"),   # stablelm-12b
     ("fold_fwd", BF16, 160, 16, 64, "fold_fwd_tc"),
     ("fold_fwd", BF16, 120, 128, 128, "fold_fwd"),      # not a multiple of 16
-    ("fold_dq", BF16, 112, 128, 128, "fold_dq"),
-    ("fold_dkv", BF16, 112, 128, 128, "fold_dkv"),
-    ("fold_dq", BF16, 160, 64, 64, "fold_dq"),
-    ("fold_dkv", BF16, 96, 128, 128, "fold_dkv"),
+    ("fold_dq", BF16, 112, 128, 128, "fold_dq_tc"),     # zamba2-7b training
+    ("fold_dkv", BF16, 112, 128, 128, "fold_dkv_tc"),
+    ("fold_dq", BF16, 160, 64, 64, "fold_dq_tc"),
+    ("fold_dkv", BF16, 96, 128, 128, "fold_dkv_tc"),
     ("fold_fwd", F32, 112, 128, 128, "fold_fwd"),
     ("fold_dq", F32, 112, 128, 128, "fold_dq"),
     ("fold_dkv", F32, 112, 128, 128, "fold_dkv"),
@@ -82,6 +83,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("fold_fwd", BF16, 128, 104, 128, "fold_fwd"),      # bq 104
     ("fold_dkv", BF16, 128, 8, 128, "fold_dkv"),        # dk/dv: bq 64/128
     ("fold_dkv", BF16, 128, 128, 256, "fold_dkv"),      # dk/dv takes bk 256
+    ("fold_dq", BF16, 32, 128, 128, "fold_dq_tc"),      # at D 64
+    ("fold_dq", BF16, 120, 128, 128, "fold_dq"),        # not a multiple of 16
+    ("fold_dkv", BF16, 120, 128, 128, "fold_dkv"),
+    ("fold_dq", BF16, 112, 8, 128, "fold_dq"),          # dq: bq 64/128
 ])
 def test_fold_form(kernel, dtype, d, bq, bk, form):
     assert cuda_fold.fold_form(kernel, dtype, d, bq, bk) == form
@@ -222,16 +227,26 @@ def test_tf32_tiling_refuses_other_dims(form):
         cuda_fold.tc_tiling(form, 32, 128)
 
 
+def _non_panel():
+    """(form, bq) of each bf16 form; the forward's cases by bq alone."""
+    for kernel in ("fold_fwd", "fold_dq", "fold_dkv"):
+        for bq in cuda_fold.TC_BQ[kernel]:
+            yield pytest.param(
+                kernel + "_tc", bq,
+                id=str(bq) if kernel == "fold_fwd" else f"{kernel}_tc-{bq}")
+
+
 @pytest.mark.parametrize("d,at", [(112, 128), (96, 128), (80, 128),
                                   (160, 256), (192, 256), (32, 64)])
-@pytest.mark.parametrize("bq", cuda_fold.TC_BQ["fold_fwd"])
-def test_tc_tiling_non_panel_dims(d, at, bq):
-    """The bf16 forward at a head dim between the panel dims is laid out
-    as the instantiation it runs on (the C side refuses any other shared
-    memory size)."""
+@pytest.mark.parametrize("form,bq", list(_non_panel()))
+def test_tc_tiling_non_panel_dims(d, at, form, bq):
+    """A bf16 form (forward, dq, dk/dv) at a head dim between the panel
+    dims is chosen and laid out as the instantiation it runs on (the C
+    side refuses any other shared memory size)."""
     assert cuda_fold.tc_dim(d) == at
-    assert cuda_fold.tc_tiling("fold_fwd_tc", d, bq) == \
-        cuda_fold.tc_tiling("fold_fwd_tc", at, bq)
+    assert cuda_fold.fold_form(form[:-3], BF16, d, bq, 128) == form
+    assert cuda_fold.tc_tiling(form, d, bq) == \
+        cuda_fold.tc_tiling(form, at, bq)
 
 
 @pytest.mark.parametrize("causal,window,kv_len,softcap", [
@@ -262,6 +277,42 @@ def test_zero_columns_give_the_fold_at_d(causal, window, kv_len, softcap):
                                rtol=1e-5)
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,kv_len,softcap", [
+    (True, None, None, None), (True, 96, None, 30.0),
+    (False, None, 200, None)])
+def test_zero_columns_give_the_backward_at_d(causal, window, kv_len,
+                                              softcap):
+    """What ``fold_dq_tc`` and ``fold_dkv_tc`` rely on at a head dim d
+    that is not whole panels, in plain PyTorch: q, k, v and dO padded
+    with zero columns to ``tc_dim(d)`` (the rows' m, l and delta as at
+    d), folded with d's scale through ``backward_folds``, give dq, dk and
+    dv at d back in the first d columns, zeros past them, within the
+    float32 bar (1e-5): the zero columns add nothing to q·kᵀ or dO·vᵀ and
+    give zero columns of ds·k, dsᵀ·q and pᵀ·dO."""
+    d, at = 112, cuda_fold.tc_dim(112)
+    rng = np.random.default_rng(113)
+    q, k, v, do = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((4, 256, d), (2, 256, d), (2, 256, d), (4, 256, d)))
+    kw = dict(group=2, scale=d ** -0.5, causal=causal, window=window,
+              kv_len=kv_len, softcap=softcap, block_q=128, block_k=128)
+    spec, lay = forward_fold(q.shape, k.shape, return_stats=True, **kw)
+    out, m, l = schedules.fold_carry_plain((q, k, v), spec, lay)
+    stats = (m, l, (do * out).sum(-1, keepdim=True))
+    pad = tuple(torch.nn.functional.pad(t, (0, at - d))
+                for t in (q, k, v, do))
+    want, got = [], []
+    for ops_, res in (((q, k, v, do), want), (pad, got)):
+        for spec_b, lay_b in backward_folds(ops_[0].shape, ops_[1].shape,
+                                            **kw):
+            assert spec_b.attn.scale == d ** -0.5
+            res += schedules.fold_carry_plain(ops_ + stats, spec_b, lay_b)
+    assert len(got) == len(want) == 3   # dq, dk, dv
+    for a, b in zip(got, want):
+        assert not bool(a[..., d:].any())
+        torch.testing.assert_close(a[..., :d], b, atol=1e-5, rtol=1e-5)
 
 
 def test_tc_tiling_refuses_other_kernels():
